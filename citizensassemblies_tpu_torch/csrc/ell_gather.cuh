@@ -1,0 +1,51 @@
+// Device helpers shared by the ELL gather kernel (ell_gather.cu) and the
+// two-sided PDHG block kernel (two_sided_block.cu).
+//
+// The packed gather z[c] = sum_s val[c,s] * y[idx[c,s]] is the one matvec
+// both kernels share: the gather kernel runs it one warp per column over the
+// row-major pack, the block kernel one thread per column over its slot-major
+// copy of the pack. ell_dot is that inner product for either layout (a start
+// slot, a step and a slot stride). Padding slots carry value 0 and index 0,
+// so they add 0 * y[0]: a NaN in y[0] reaches every padded column, exactly
+// as in the reference.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+__device__ __forceinline__ float warp_sum(float v) {
+  // xor butterfly: every lane ends with the same value, since each step
+  // adds the same two operands on both partner lanes
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// sum over slots s = begin, begin + step, ... < kp of val[s*stride] * y[idx[s*stride]]
+__device__ __forceinline__ float ell_dot(const int* __restrict__ idx,
+                                         const float* __restrict__ val,
+                                         int begin, int step, int kp,
+                                         long long stride,
+                                         const float* __restrict__ y) {
+  float acc = 0.f;
+#pragma unroll 4
+  for (int s = begin; s < kp; s += step) {
+    const long long o = (long long)s * stride;
+    acc += val[o] * y[idx[o]];
+  }
+  return acc;
+}
+
+// NaN-propagating max(x, 0) / min(x, 0) / min(a, b) / clip, matching
+// jnp.maximum / jnp.minimum / jnp.clip (fmaxf and fminf drop a NaN operand)
+__device__ __forceinline__ float max0(float x) { return x < 0.f ? 0.f : x; }
+__device__ __forceinline__ float min0(float x) { return x > 0.f ? 0.f : x; }
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (isnan(a) || isnan(b)) ? NAN : fminf(a, b);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
+}
+__device__ __forceinline__ float clipf(float x, float lo, float hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}

@@ -1,0 +1,70 @@
+"""Carry the JAX package's state into this package, from plain numpy and dicts.
+
+The system has no weights: what crosses over is configurations, instances,
+ELL packs of master columns and PDHG warm starts. Every function here takes
+plain Python and numpy values (for example ``dataclasses.asdict`` of the JAX
+package's ``Config``, or the host arrays of its ``DenseInstance``) and never
+imports the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Tuple
+
+import numpy as np
+
+from citizensassemblies_tpu_torch.core.instance import DenseInstance, dense_instance
+from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
+from citizensassemblies_tpu_torch.utils.config import Config
+from citizensassemblies_tpu_torch.utils.device import DeviceLike
+
+
+def config_from_dict(values: Mapping) -> Config:
+    """This package's :class:`Config` from a field dict of the JAX package's
+    ``Config``: the fields both carry are copied, the others are dropped
+    (they belong to modules this package does not have yet)."""
+    names = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{k: v for k, v in values.items() if k in names})
+
+
+def dense_from_arrays(
+    A: np.ndarray,
+    qmin: np.ndarray,
+    qmax: np.ndarray,
+    cat_of_feature: np.ndarray,
+    k: int,
+    n_categories: int,
+    device: DeviceLike = None,
+) -> DenseInstance:
+    """A :class:`DenseInstance` on ``device`` from the host arrays of a
+    dense instance (``A`` bool [n, F]; ``qmin``/``qmax``/``cat_of_feature``
+    [F])."""
+    return dense_instance(
+        np.asarray(A), np.asarray(qmin), np.asarray(qmax), np.asarray(cat_of_feature),
+        int(k), int(n_categories), device=device,
+    )
+
+
+def ellpack_from_arrays(idx: np.ndarray, val: np.ndarray, minor: int) -> EllPack:
+    """An :class:`EllPack` holding the packed arrays ``idx`` int32 /
+    ``val`` float32 ``[J, k_pad]`` as they are (padding slots index 0 with
+    value 0)."""
+    idx = np.ascontiguousarray(idx, dtype=np.int32)
+    val = np.ascontiguousarray(val, dtype=np.float32)
+    if idx.shape != val.shape or idx.ndim != 2:
+        raise ValueError(f"idx {idx.shape} and val {val.shape} must be one [J, k_pad] shape")
+    pack = EllPack(minor=int(minor), idx=idx, val=val)
+    pack.nnz_total = int((val != 0).sum())
+    pack.pack_rows = idx.shape[0]
+    return pack
+
+
+def warm_from_arrays(x, lam, mu) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A PDHG warm triple ``(x0 [C+1], λ0 [2T], μ0 [1])`` as float64 numpy,
+    the layout ``solvers/lp_pdhg`` takes for ``warm=``."""
+    return (
+        np.asarray(x, dtype=np.float64).reshape(-1),
+        np.asarray(lam, dtype=np.float64).reshape(-1),
+        np.asarray(mu, dtype=np.float64).reshape(-1),
+    )

@@ -1,0 +1,122 @@
+"""Build, load and launch the package's hand-written CUDA kernels.
+
+Each kernel source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface and loaded with ctypes
+(no PyTorch headers, so a build takes seconds). A library is built at its
+first use, from the sources in the repository only, into the package's
+``_build/`` directory; :func:`build_all` starts every build at once, one
+``nvcc`` per source. Nothing here runs at import time, so importing the
+package needs neither ``nvcc`` nor a card.
+
+A launch failure is an error: :meth:`CudaLibrary.call` raises when the C
+entry point returns a nonzero ``cudaError_t``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import threading
+import time
+from typing import Dict, List, Sequence
+
+from citizensassemblies_tpu_torch.utils import native_build
+
+CSRC = os.path.join(native_build.PKG_ROOT, "csrc")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+def nvcc() -> str:
+    """Path of ``nvcc`` (PATH, then ``$CUDA_HOME/bin``, then the default
+    toolkit location); raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        cand = os.path.join(root, "bin", "nvcc") if root else ""
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+class CudaLibrary:
+    """One kernel source, its shared library and its launch counter.
+
+    ``functions`` maps each C entry point to ``(restype, argtypes)``;
+    every pointer and the stream are ``ctypes.c_void_p``.
+    """
+
+    def __init__(self, name: str, source: str, headers: Sequence[str], functions: Dict):
+        self.name = name
+        self.source = os.path.join(CSRC, source)
+        self.headers = [os.path.join(CSRC, h) for h in headers]
+        self.functions = functions
+        #: kernel launches since the last reset (``chip_smoke.py`` zeroes it
+        #: before driving the main path and reads it after)
+        self.launches = 0
+        #: ptxas resource report of the build in this process, if it built
+        self.build_log = ""
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def start_build(self):
+        cmd = [nvcc()] + NVCC_FLAGS + [f"-I{CSRC}"]
+        return native_build.start_build(self.name, [self.source], cmd, self.headers)
+
+    def _load(self, path: str) -> ctypes.CDLL:
+        lib = ctypes.CDLL(path)
+        for fname, (restype, argtypes) in self.functions.items():
+            fn = getattr(lib, fname)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        return lib
+
+    def lib(self) -> ctypes.CDLL:
+        """The loaded library, built on first use."""
+        with self._lock:
+            if self._lib is None:
+                path, log = native_build.finish_build(*self.start_build())
+                self.build_log = log or self.build_log
+                self._lib = self._load(path)
+            return self._lib
+
+    def call(self, fname: str, *args) -> int:
+        """Launch through C entry point ``fname`` and count the launch;
+        raises on a nonzero CUDA error code."""
+        rc = getattr(self.lib(), fname)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{self.name}.{fname} failed with cudaError_t {rc}")
+        self.launches += 1
+        return rc
+
+
+def build_all(libs: List[CudaLibrary]) -> float:
+    """Build every library not yet built, all ``nvcc`` processes at once;
+    returns the wall seconds. Raises on the first failed build."""
+    t0 = time.perf_counter()
+    pending = []
+    for lib in libs:
+        if lib._lib is None:
+            pending.append((lib, lib.start_build()))
+    for lib, (path, proc) in pending:
+        path, log = native_build.finish_build(path, proc)
+        with lib._lock:
+            lib.build_log = log
+            lib._lib = lib._load(path)
+    return time.perf_counter() - t0
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """Device pointer of a tensor as ``c_void_p``."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``t``'s device."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,537 @@
+"""Exact LEXIMIN in type space: enumerate feasible committee *compositions*.
+
+Agents with identical feature rows are interchangeable: quota feasibility of a
+committee depends only on how many members of each *type* it contains (the
+type reduction of ``solvers/native_oracle.py``), and the leximin-optimal
+allocation — the unique leximin point of the convex allocation polytope — is
+therefore symmetric within types. So for instances with few distinct types the
+entire problem collapses:
+
+* a committee is a **composition** ``c ∈ Z^T`` with ``Σc = k``,
+  ``0 ≤ c_t ≤ m_t`` and per-feature quota constraints;
+* a distribution over committees induces the per-agent allocation
+  ``π_i = Σ_c p_c · c_t(i)/m_t(i)`` (members drawn uniformly within types);
+* leximin over n agents reduces to leximin over T type values with
+  multiplicities.
+
+The reference's headline benchmark instances are extreme cases:
+``example_large_200`` (n=2000, reference runtime 1161.8 s,
+``reference_output/example_large_200_statistics.txt:15``) has **3** distinct
+types, ``example_small_20`` (2.7 s) has **4**. Enumerating every feasible
+composition and running the leximin stage LPs over the full enumeration is
+exact, deterministic, and takes milliseconds — replacing the reference's
+column generation (``leximin.py:338-470``) outright for such instances. The
+stage fixing here is *certified*: dual weights propose the tranche
+(strict complementarity, as in ``leximin.py:431-443``) and per-type probe LPs
+confirm every remaining candidate, so no tranche is ever fixed prematurely
+(the reference trusts the ``y > EPS`` heuristic alone).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from citizensassemblies_tpu_torch.solvers.lp_util import probe_confirm_tranche
+from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
+from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+
+def enumerate_compositions(
+    reduction: TypeReduction,
+    cap: int = 200_000,
+    node_budget: int = 3_000_000,
+) -> Optional[np.ndarray]:
+    """All feasible compositions ``c`` (int32 [C, T]), or None if more than
+    ``cap`` exist / the search exceeds ``node_budget`` nodes.
+
+    Feasibility: ``Σc = k``, ``0 ≤ c_t ≤ m_t`` and for every feature f
+    ``lo_f ≤ Σ_{t: f ∈ t} c_t ≤ hi_f`` (the committee constraints of
+    ``leximin.py:201-209`` collapsed onto types).
+    """
+    T = reduction.T
+    F = reduction.F
+    k = reduction.k
+    msize = reduction.msize
+    lo = reduction.qmin.astype(np.int64)
+    hi = reduction.qmax.astype(np.int64)
+    # per-type one-hot feature incidence [T, F]
+    tf = np.zeros((T, F), dtype=np.int64)
+    for t in range(T):
+        tf[t, reduction.type_feature[t]] = 1
+    # suffix capacity per feature: how many members types >= i can still add
+    suffix = np.zeros((T + 1, F), dtype=np.int64)
+    for i in range(T - 1, -1, -1):
+        suffix[i] = suffix[i + 1] + tf[i] * int(msize[i])
+    suffix_total = np.zeros(T + 1, dtype=np.int64)
+    for i in range(T - 1, -1, -1):
+        suffix_total[i] = suffix_total[i + 1] + int(msize[i])
+
+    out: List[np.ndarray] = []
+    counts = np.zeros(F, dtype=np.int64)
+    cur = np.zeros(T, dtype=np.int32)
+    nodes = 0
+
+    def rec(i: int, total: int) -> bool:
+        nonlocal nodes
+        nodes += 1
+        if nodes > node_budget:
+            return False
+        if i == T:
+            if total == k and np.all(counts >= lo) and np.all(counts <= hi):
+                out.append(cur.copy())
+                if len(out) > cap:
+                    return False
+            return True
+        # prune: total members still reachable
+        if total + suffix_total[i] < k or total > k:
+            return True
+        # prune: every feature must stay satisfiable
+        if np.any(counts > hi) or np.any(counts + suffix[i] < lo):
+            return True
+        row = reduction.type_feature[i]
+        for c in range(min(int(msize[i]), k - total), -1, -1):
+            cur[i] = c
+            counts[row] += c
+            ok = rec(i + 1, total + c)
+            counts[row] -= c
+            cur[i] = 0
+            if not ok:
+                return False
+        return True
+
+    if not rec(0, 0) or len(out) > cap:
+        return None
+    if not out:
+        return np.zeros((0, T), dtype=np.int32)
+    return np.stack(out, axis=0)
+
+
+@dataclasses.dataclass
+class StageCert:
+    """Dual certificate of one leximin stage, captured for graftdelta
+    (``solvers/delta.py``): enough to decide, after a registry edit, whether
+    the stage's optimal face can have changed — and to resume the ladder
+    from exactly this point when it has."""
+
+    z: float  # stage value (the min the stage maximized)
+    y: np.ndarray  # float64 [T] dual weights scattered over ALL types
+    mu: float  # max column price max_c Σ_t y_t·c_t/m_t (the support price)
+    fixed_after: np.ndarray  # float64 [T] fixed vector AFTER the stage (-1 ⇒ open)
+
+
+@dataclasses.dataclass
+class TypeLeximin:
+    """Result of the enumerated type-space leximin solve."""
+
+    compositions: np.ndarray  # int32 [C, T], the full feasible enumeration
+    probabilities: np.ndarray  # float64 [C] final distribution over compositions
+    type_values: np.ndarray  # float64 [T] leximin value per type
+    eps_dev: float  # max downward deviation of the final distribution
+    stages: int
+    lp_solves: int
+    #: per-stage dual certificates, present only when the caller asked for
+    #: them (``capture_certs=True``) — the delta solver's re-pricing basis
+    stage_certs: Optional[List[StageCert]] = None
+
+
+_SLACK = 1e-9  # constraint slack absorbing LP solver round-off
+
+
+def _linprog(c, A_ub, b_ub, A_eq, b_eq, bounds):
+    from citizensassemblies_tpu_torch.solvers.lp_util import robust_linprog
+
+    return robust_linprog(c, A_ub=A_ub, b_ub=b_ub, A_eq=A_eq, b_eq=b_eq, bounds=bounds)
+
+
+def leximin_over_compositions(
+    comps: np.ndarray,
+    msize: np.ndarray,
+    probe_tol: float = 1e-7,
+    log: Optional[RunLog] = None,
+    fixed_init: Optional[np.ndarray] = None,
+    capture_certs: bool = False,
+) -> TypeLeximin:
+    """Exact leximin over the full composition enumeration.
+
+    Runs the reference's outer fixing loop (``leximin.py:383-449``) with the
+    portfolio replaced by *every* feasible composition, so no pricing is ever
+    needed: each stage is one LP (max the min unfixed type value), and the
+    final stage recovers composition probabilities minimizing the max downward
+    deviation ε (``leximin.py:453-464``).
+
+    Every fixed tranche is **probe-certified** against the stage's optimal
+    face: the dual-proposed candidates (``y > 0`` at a vertex optimum proves
+    tightness only at that one optimum) are confirmed by one group LP — if
+    ``max Σ_cand M_t·p`` over the face equals ``|cand|·z``, no candidate can
+    exceed ``z`` at any optimum — with per-candidate probes on disagreement;
+    the remaining near-zero-dual types are probed individually to catch
+    degenerately tight ones. The reference trusts the ``y > EPS`` heuristic
+    alone (``leximin.py:431-443``); here no tranche is ever fixed prematurely.
+
+    ``fixed_init`` warm-starts the fixing ladder: entries ≥ 0 are taken as
+    already-fixed type values (a prefix of a previous solve's trajectory,
+    graftdelta's resume point), ``-1`` entries stay open — ``None`` is
+    identical to the all-open default. ``capture_certs=True`` additionally
+    records a :class:`StageCert` per stage on the result.
+    """
+    log = log or RunLog(echo=False)
+    C, T = comps.shape
+    M = comps.astype(np.float64) / np.asarray(msize, dtype=np.float64)[None, :]
+    MT = np.ascontiguousarray(M.T)  # [T, C]
+    if fixed_init is not None:
+        fixed = np.asarray(fixed_init, dtype=np.float64).copy()
+        if fixed.shape != (T,):
+            raise ValueError(f"fixed_init must be float [{T}]")
+    else:
+        fixed = np.full(T, -1.0)
+    coverable = comps.max(axis=0) > 0 if C else np.zeros(T, dtype=bool)
+    fixed[~coverable & (fixed < 0)] = 0.0
+    certs: List[StageCert] = [] if capture_certs else None
+    if (~coverable).any():
+        log.emit(
+            f"{int((~coverable).sum())} type(s) appear in no feasible committee; "
+            f"their probability is 0."
+        )
+    stages = 0
+    lp_solves = 0
+
+    while (fixed < 0).any():
+        stages += 1
+        unfixed = np.nonzero(fixed < 0)[0]
+        done = np.nonzero(fixed >= 0)[0]
+        # stage LP over x = [p (C), z]: max z
+        #   s.t. -M_t·p + z ≤ 0        (t unfixed)
+        #        -M_t·p     ≤ -f_t + slack  (t fixed)
+        #        Σp = 1, p ≥ 0
+        nu, nd = len(unfixed), len(done)
+        A_ub = np.zeros((nu + nd, C + 1))
+        A_ub[:nu, :C] = -MT[unfixed]
+        A_ub[:nu, C] = 1.0
+        b_ub = np.zeros(nu + nd)
+        if nd:
+            A_ub[nu:, :C] = -MT[done]
+            b_ub[nu:] = -(fixed[done] - _SLACK)
+        A_eq = np.ones((1, C + 1))
+        A_eq[0, C] = 0.0
+        c_obj = np.zeros(C + 1)
+        c_obj[C] = -1.0
+        bounds = [(0, None)] * C + [(None, None)]
+        res = _linprog(c_obj, A_ub, b_ub, A_eq, [1.0], bounds)
+        lp_solves += 1
+        if res.status != 0:
+            raise RuntimeError(f"type-space stage LP failed: {res.message}")
+        z = float(res.x[C])
+        y = -np.asarray(res.ineqlin.marginals[:nu])  # dual weights, ≥ 0
+
+        # optimal-face constraints, hoisted: every unfixed type ≥ z, fixed ≥ f
+        # (only the probe objective row changes per candidate)
+        A_p = np.concatenate([-MT[unfixed], -MT[done]], axis=0) if nd else -MT[unfixed]
+        b_p = np.concatenate(
+            [np.full(nu, -(z - _SLACK)), -(fixed[done] - _SLACK)]
+        ) if nd else np.full(nu, -(z - _SLACK))
+        A_eq_p = np.ones((1, C))
+        bounds_p = [(0, None)] * C
+
+        def _face_max_over(rhs):
+            def fm(obj_rows: np.ndarray):
+                nonlocal lp_solves
+                r = _linprog(-obj_rows, A_p, rhs, A_eq_p, [1.0], bounds_p)
+                lp_solves += 1
+                if r.status == 0:
+                    return float(-r.fun), np.asarray(r.x)
+                # infeasible vs failed — no optimizer either way
+                return (-np.inf, None) if r.status == 2 else (None, None)
+            return fm
+
+        face_max = _face_max_over(b_p)
+        # retry probe for objective-specific infeasible reports: floors 10×
+        # looser — a superset face, so its optimum is a valid upper bound
+        face_max_relaxed = _face_max_over(b_p + 9.0 * _SLACK)
+
+        # tranche candidates from the duals, probe-certified via the shared
+        # group-then-individual scheme (lp_util.probe_confirm_tranche). The
+        # face floors are each relaxed by _SLACK in normalized units — i.e.
+        # _SLACK·m_u raw members — and at most that freed mass can be
+        # re-routed into a candidate, so tightness is judged up to
+        # _SLACK·Σm/m_t or genuinely tight types probe "loose" on large pools
+        msz = np.asarray(msize, dtype=np.float64)
+        slack_gain = _SLACK * float(msz.sum())
+        tranche = np.zeros(nu, dtype=bool)
+        cand = np.nonzero(y > 1e-9)[0]
+        # near-zero dual weight can still be degenerately tight everywhere —
+        # but a type already above z at *this* optimum provably is not, so
+        # only the ones sitting at z need a probe
+        vals = MT[unfixed] @ np.maximum(res.x[:C], 0.0)
+        singles = np.nonzero((y <= 1e-9) & (vals <= z + probe_tol))[0]
+        if len(cand):
+            conf = probe_confirm_tranche(
+                face_max, MT[unfixed[cand]], z, probe_tol,
+                slack_gain / msz[unfixed[cand]],
+                term_deficit=_SLACK, log=log.emit,
+                face_max_relaxed=face_max_relaxed,
+            )
+            tranche[cand[conf]] = True
+        for j in singles:
+            if probe_confirm_tranche(
+                face_max, MT[unfixed[j]][None, :], z, probe_tol,
+                np.array([slack_gain / float(msz[unfixed[j]])]),
+                term_deficit=_SLACK, log=log.emit,
+                face_max_relaxed=face_max_relaxed,
+            )[0]:
+                tranche[j] = True
+        if not tranche.any():
+            tranche[np.argmax(y)] = True  # progress guard
+        fixed[unfixed[tranche]] = max(0.0, z)
+        if capture_certs:
+            marg = -np.asarray(res.ineqlin.marginals, dtype=np.float64)
+            y_full = np.zeros(T)
+            y_full[unfixed] = marg[:nu]
+            if nd:
+                y_full[done] = marg[nu:]
+            prices = M @ y_full
+            certs.append(
+                StageCert(
+                    z=z,
+                    y=y_full,
+                    mu=float(prices.max()) if C else 0.0,
+                    fixed_after=fixed.copy(),
+                )
+            )
+        log.emit(
+            f"Stage {stages}: value {z:.6f}, fixed {int(tranche.sum())} type(s), "
+            f"{int((fixed >= 0).sum())}/{T} done."
+        )
+
+    # final LP: min ε s.t. M_t·p ≥ f_t − ε ∀t, Σp = 1 (leximin.py:453-464)
+    A_ub = np.concatenate([-MT, -np.ones((T, 1))], axis=1)
+    b_ub = -(fixed - _SLACK)
+    A_eq = np.ones((1, C + 1))
+    A_eq[0, C] = 0.0
+    c_obj = np.zeros(C + 1)
+    c_obj[C] = 1.0
+    res = _linprog(c_obj, A_ub, b_ub, A_eq, [1.0], [(0, None)] * C + [(0, None)])
+    lp_solves += 1
+    if res.status != 0:
+        raise RuntimeError(f"type-space final LP failed: {res.message}")
+    probs = np.maximum(res.x[:C], 0.0)
+    probs = probs / probs.sum()
+    return TypeLeximin(
+        compositions=comps,
+        probabilities=probs,
+        type_values=fixed,
+        eps_dev=float(res.x[C]),
+        stages=stages,
+        lp_solves=lp_solves,
+        stage_certs=certs,
+    )
+
+
+def greedy_decompose(
+    comps: np.ndarray,
+    probs: np.ndarray,
+    reduction: TypeReduction,
+    targets: np.ndarray,
+    support_eps: float = 1e-11,
+    max_panels: int = 16_384,
+    delta_cap: float = 0.0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Water-filling decomposition of a composition distribution into panels.
+
+    Serves each composition's probability mass in slices; every slice's panel
+    takes, per type, the ``c_t`` members with the largest remaining need
+    (need = target probability not yet realized), ties rotated by a per-type
+    cursor so equal-need members are cycled fairly. The slice probability is
+    the largest step that overshoots no member. Exact up to float rounding on
+    most instances (the caller verifies and LP-polishes any residual);
+    portfolio size is typically O(Σ_t m_t/c_t) per support composition.
+
+    ``delta_cap`` (> 0) bounds each slice's probability mass: when the
+    mixture is a *basic* LP solution (sparse support, e.g. from an exact
+    host master), the natural need-driven steps are too coarse to mix
+    members — on a nexus-shaped instance (k/n ≈ 0.5) the uncapped greedy
+    leaves a 7e-3 residual that costs ~18 host-LP pricing rounds to polish,
+    while capping at ~tol yields residual ≈ 0.4·cap with no LP at all.
+    """
+    sel = probs > support_eps
+    comps = comps[sel]
+    p = probs[sel].astype(np.float64)
+    p = p / p.sum()
+    n = reduction.n
+    T = reduction.T
+    msize = reduction.msize
+    members = reduction.members
+
+    # serve compositions largest-first so late slices retain mixing freedom
+    order = np.argsort(-p)
+
+    # the slice loop is the host hot path (~90k per-type partial sorts on a
+    # nexus_170-shaped instance); the native slicer runs the identical
+    # algorithm ~100× faster, with the Python loop below as the reference
+    # implementation and fallback
+    from citizensassemblies_tpu_torch.solvers.native_oracle import (
+        greedy_decompose_native,
+    )
+
+    per_type_need = np.array(
+        [targets[members[t][0]] if len(members[t]) else 0.0 for t in range(T)]
+    )
+    got = greedy_decompose_native(
+        reduction, comps[order], p[order], per_type_need,
+        max_panels, delta_cap=delta_cap,
+    )
+    if got is not None:
+        return got
+
+    needs = [np.full(int(msize[t]), 0.0) for t in range(T)]
+    for t in range(T):
+        needs[t][:] = targets[members[t][0]] if len(members[t]) else 0.0
+    cursors = np.zeros(T, dtype=np.int64)
+    panels: List[np.ndarray] = []
+    pprobs: List[float] = []
+    for s in order:
+        c = comps[s]
+        rho = float(p[s])
+        while rho > 1e-12 and len(panels) < max_panels:
+            row = np.zeros(n, dtype=bool)
+            delta = min(rho, delta_cap) if delta_cap > 0 else rho
+            chosen: List[Tuple[int, np.ndarray]] = []
+            for t in range(T):
+                ct, mt = int(c[t]), int(msize[t])
+                if not ct:
+                    continue
+                rot = (np.arange(mt) - cursors[t]) % mt
+                idx = np.lexsort((rot, -needs[t]))[:ct]
+                chosen.append((t, idx))
+                m = float(needs[t][idx].min())
+                if m > 1e-15:
+                    delta = min(delta, m)
+            if delta <= 1e-15:
+                # forced overshoot; the LP polish absorbs it
+                delta = min(rho, delta_cap) if delta_cap > 0 else rho
+            for t, idx in chosen:
+                row[members[t][idx]] = True
+                needs[t][idx] -= delta
+                cursors[t] = (cursors[t] + int(c[t])) % max(int(msize[t]), 1)
+            panels.append(row)
+            pprobs.append(delta)
+            rho -= delta
+    return np.stack(panels, axis=0), np.asarray(pprobs, dtype=np.float64)
+
+
+def decompose_with_pricing(
+    comps: np.ndarray,
+    probs: np.ndarray,
+    reduction: TypeReduction,
+    targets: np.ndarray,
+    budget: int = 16_384,
+    support_eps: float = 1e-11,
+    max_rounds: int = 200,
+    log: Optional[RunLog] = None,
+    tol: float = 1e-9,
+) -> Tuple[np.ndarray, np.ndarray, float]:
+    """Exact panel decomposition of a composition distribution.
+
+    ``budget`` bounds the panel portfolio the greedy water-filling seed may
+    emit; any mass it could not serve within the budget is recovered by the
+    pricing LP loop below.
+
+    Finds concrete panels and probabilities whose per-agent allocation matches
+    ``targets`` up to LP tolerance, via column generation on the final LP
+    (min ε s.t. ``Pᵀp ≥ targets − ε``, ``Σp = 1``) with **closed-form
+    pricing**: the best panel for dual weights ``y`` within a feasible
+    composition ``c`` simply takes each type's ``c_t`` highest-weight members,
+    so pricing over the full enumeration is one prefix-sum lookup per
+    composition — no ILP, unlike the reference's committee pricing
+    (``leximin.py:420-424``). An exact decomposition always exists (uniform
+    within-type selection is a finite convex combination of concrete panels),
+    so ε converges to ~0. Returns ``(panels bool [R, n], probs, ε)``.
+    """
+    log = log or RunLog(echo=False)
+    n = reduction.n
+    T = reduction.T
+    members = reduction.members
+    maxm = reduction.maxm
+
+    # seed: greedy water-filling decomposition — usually already within
+    # tolerance, in which case no LP runs at all
+    tol = max(tol, 1e-9)
+    P0, q0 = greedy_decompose(
+        comps, probs, reduction, targets, support_eps=support_eps,
+        max_panels=budget,
+    )
+    total = q0.sum()
+    if abs(total - 1.0) < tol:
+        # two-sided: overshoot counts too — mass conservation means a small
+        # one-sided deficit can fund a concentrated overshoot elsewhere
+        dev = float(np.max(np.abs(targets - P0.T.astype(np.float64) @ q0)))
+        if dev <= tol:
+            return P0, q0 / total, max(dev, 0.0)
+        if tol >= 4e-5:
+            # coarse-slice failure mode (sparse basic mixtures at high k/n):
+            # retry once with capped slices — the cap equidistributes
+            # members (measured residual ≈ 0.4·cap), trading a larger
+            # portfolio for skipping the LP pricing loop entirely
+            P1, q1 = greedy_decompose(
+                comps, probs, reduction, targets, support_eps=support_eps,
+                max_panels=budget, delta_cap=1.5 * tol,
+            )
+            t1 = q1.sum()
+            if abs(t1 - 1.0) < tol:
+                dev1 = float(
+                    np.max(np.abs(targets - P1.T.astype(np.float64) @ q1))
+                )
+                if dev1 <= tol:
+                    return P1, q1 / t1, max(dev1, 0.0)
+                if dev1 < dev:
+                    P0, q0, dev = P1, q1, dev1
+    rows: List[np.ndarray] = [r for r in P0]
+    seen = {r.tobytes() for r in rows}
+
+    from citizensassemblies_tpu_torch.solvers.highs_backend import solve_final_primal_lp_duals
+
+    add_per_round = 256  # closed-form pricing is ~free; bigger rounds cut
+    # the number of host LP solves, which are the loop's whole cost (64 made
+    # a nexus-class polish pay ~18 LP rounds for ~1150 columns)
+    p = None
+    eps_dev = 1.0
+    for _ in range(max_rounds):
+        P = np.stack(rows, axis=0)
+        p, eps_dev, y, mu = solve_final_primal_lp_duals(P, targets)
+        if eps_dev <= tol:
+            break
+        # price: value(c) = Σ_t (sum of the c_t largest y within type t)
+        prefix = np.zeros((T, maxm + 1))
+        tops: List[np.ndarray] = []
+        for t in range(T):
+            order = members[t][np.argsort(-y[members[t]], kind="stable")]
+            tops.append(order)
+            prefix[t, 1 : len(order) + 1] = np.cumsum(y[order])
+        values = prefix[np.arange(T)[None, :], comps].sum(axis=1)  # [C]
+        cand = np.argsort(-values)[: add_per_round]
+        cand = cand[values[cand] > -mu + 1e-10]
+        if len(cand) == 0:
+            break  # no improving panel exists anywhere: ε is optimal
+        added = 0
+        for ci in cand:
+            row = np.zeros(n, dtype=bool)
+            for t in range(T):
+                ct = int(comps[ci, t])
+                if ct:
+                    row[tops[t][:ct]] = True
+            kb = row.tobytes()
+            if kb not in seen:
+                seen.add(kb)
+                rows.append(row)
+                added += 1
+        if added == 0:
+            break  # numerically stalled
+        p = None
+    if p is None or len(p) != len(rows):
+        P = np.stack(rows, axis=0)
+        p, eps_dev, _, _ = solve_final_primal_lp_duals(P, targets)
+    else:
+        P = np.stack(rows, axis=0)
+    return P, p, float(eps_dev)

@@ -1,0 +1,860 @@
+"""Realize a leximin profile as a mixture of feasible compositions, fast.
+
+Phase 1 of the type-space solver (``cg_typespace.py``) must express the
+probe-certified profile ``v`` as ``M p = v`` over feasible compositions.
+Three ingredients do it:
+
+* **Aimed slices** (``cg_typespace._slice_relaxation``) seed the hull around
+  the target marginal ``x* = v·m``.
+* **Face-neighbour expansion** generates columns combinatorially: for the
+  support columns of the current master, every feasible single-unit move
+  ``t → t'`` that shifts mass from over-served to under-served types (or
+  along the near-optimal face) is itself a feasible composition. Quota
+  feasibility of all (composition, move) pairs is checked with per-feature
+  bitmasks packed into machine words.
+* **An approximate master on the device**: each round's two-sided ε-LP is
+  the warm-started PDHG of ``lp_pdhg.py`` over an incrementally maintained
+  ELL pack (the hand-written block kernel on CUDA). Its duals aim the
+  expansion, and acceptance needs no trusted solver: the certificate is the
+  float64 identity ``ε = ‖M p − v‖∞`` on the returned mixture. A host
+  interior-point solve runs only in the end-game, when the device polish
+  misses the bar.
+
+The loop is pipelined: the anchor MILPs run on a worker thread one round
+behind the master (``_AnchorPricer``; the column schedule is identical
+threaded or inline), the master's iterate carries across rounds, prunes and
+bucket growths with a stall-triggered cold restart (``_WarmStall``), and the
+per-round move screen runs as one batch of torch ops on the device
+(``_batched_move_screen``). The steady-state round synchronises with the
+device twice: the master's readback and the screen's index readback.
+
+Not in this package yet, each raising ``NotImplementedError`` where a
+configuration asks for it (``utils/config.check_slice_config``): device
+anchor pricing and the fused screen, the B-lane polish screen, face-loop
+checkpointing, and the multi-device sharded master.
+"""
+
+from __future__ import annotations
+
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
+from citizensassemblies_tpu_torch.utils.config import check_slice_config, default_config
+from citizensassemblies_tpu_torch.utils import device as _device
+from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
+from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+#: compositions per screening batch: ``realize_profile`` expands at most the
+#: top 512 support columns
+_SCREEN_ROWS = 512
+
+
+def _feature_bitmasks(reduction: TypeReduction):
+    """Per-type feature masks for the move-feasibility screen.
+
+    The quota conditions of a unit move collapse to bit tests: moving a unit
+    *out* of type ``t`` decrements each of ``t``'s features, which is safe
+    iff the composition's count stays ≥ lo there; moving *in* increments,
+    safe iff ≤ hi. One 64-bit word covers every category whose features all
+    index below 64; the other categories are screened by direct gathers.
+    Returns ``(feat_mask[T] uint64, leftover_cats)``, or ``None`` when no
+    category fits a word.
+    """
+    feat_of = np.asarray(reduction.type_feature)
+    ncat = feat_of.shape[1]
+    word_cats = [ci for ci in range(ncat) if int(feat_of[:, ci].max()) < 64]
+    if not word_cats:
+        return None
+    masks = np.zeros(reduction.T, dtype=np.uint64)
+    for ci in word_cats:
+        masks |= np.uint64(1) << feat_of[:, ci].astype(np.uint64)
+    leftover = [ci for ci in range(ncat) if ci not in word_cats]
+    return masks, leftover
+
+
+def _move_pairs(
+    reduction: TypeReduction,
+    r_norm: np.ndarray,
+    pool_cap: int,
+    face_pairs: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The expansion's candidate (donor, receiver) pairs: the improving
+    extremes of the residual direction plus the smallest-|Δ| face pairs.
+    Returns ``(ti, tj)``."""
+    T = reduction.T
+    order = np.argsort(-r_norm)
+    # improving pairs: extremes of the residual direction
+    donors = order[:pool_cap]
+    receivers = order[::-1][:pool_cap]
+    ti_a, tj_a = np.meshgrid(donors, receivers, indexing="ij")
+    pairs = [np.stack([ti_a.ravel(), tj_a.ravel()], axis=1)]
+    # face pairs: smallest |Δ| over a broad random pool (full T² only for
+    # small T)
+    if T * T <= 1 << 18:
+        di = np.repeat(np.arange(T), T)
+        dj = np.tile(np.arange(T), T)
+    else:
+        rng = np.random.default_rng(T)
+        di = rng.integers(0, T, size=face_pairs * 8)
+        dj = rng.integers(0, T, size=face_pairs * 8)
+    delta = np.abs(r_norm[di] - r_norm[dj])
+    sel = np.argsort(delta)[:face_pairs]
+    pairs.append(np.stack([di[sel], dj[sel]], axis=1))
+    tp = np.concatenate(pairs, axis=0)
+    tp = tp[tp[:, 0] != tp[:, 1]]
+    tp = np.unique(tp, axis=0)
+    return tp[:, 0], tp[:, 1]
+
+
+def _comp_feature_counts(comps: np.ndarray, reduction: TypeReduction) -> np.ndarray:
+    """Per-composition feature counts [S, F] (float32 BLAS, then cast: the
+    counts are ≤ k, far inside float32's exact-integer range)."""
+    T = reduction.T
+    feat_of = np.asarray(reduction.type_feature)
+    ncat = feat_of.shape[1]
+    tf = np.zeros((T, reduction.F), dtype=np.float32)
+    tf[np.repeat(np.arange(T), ncat), feat_of.ravel()] = 1.0
+    return (comps.astype(np.float32) @ tf).astype(np.int64)
+
+
+def _batched_move_screen(
+    comps: np.ndarray,
+    counts: np.ndarray,
+    reduction: TypeReduction,
+    m: np.ndarray,
+    ti: np.ndarray,
+    tj: np.ndarray,
+    packed,
+    per_round_cap: int,
+    device: torch.device,
+) -> Tuple[np.ndarray, np.ndarray, int]:
+    """The whole [S, P] (composition, move) feasibility check as one batch
+    of torch ops on ``device``: base bounds by two gathers, the per-feature
+    quota conditions by the packed 64-bit words (int64 lanes; the bit
+    patterns are those of the numpy uint64 masks), the leftover categories
+    by direct gathers. Feasible (composition, pair) indices come back in
+    row-major order, the first ``per_round_cap`` of them — below the cap the
+    same index set as the numpy screen. One readback. Returns ``(si, pi,
+    total_feasible)``."""
+    masks, leftover = packed
+    F = reduction.F
+    nb = min(F, 64)
+    P = len(ti)
+    lo = reduction.qmin.astype(np.int64)
+    hi = reduction.qmax.astype(np.int64)
+    i64 = dict(dtype=torch.int64, device=device)
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), **i64)
+
+    comps_t = dev(comps.astype(np.int64))
+    counts_t = dev(counts)
+    ti_t, tj_t = dev(ti), dev(tj)
+    m_t = dev(np.asarray(m, np.int64))
+    diff = masks[ti] ^ masks[tj]
+    need_sub = dev((masks[ti] & diff).view(np.int64))
+    need_add = dev((masks[tj] & diff).view(np.int64))
+    fbit = torch.ones(nb, **i64) << torch.arange(nb, **i64)
+    can_sub = ((counts_t[:, :nb] - 1 >= dev(lo[:nb])).long() * fbit).sum(1)
+    can_add = ((counts_t[:, :nb] + 1 <= dev(hi[:nb])).long() * fbit).sum(1)
+    ok = (comps_t[:, ti_t] > 0) & (comps_t[:, tj_t] < m_t[tj_t][None, :])
+    ok &= (need_sub[None, :] & ~can_sub[:, None]) == 0
+    ok &= (need_add[None, :] & ~can_add[:, None]) == 0
+    feat_of = np.asarray(reduction.type_feature)
+    lo_t, hi_t = dev(lo), dev(hi)
+    for ci in leftover:
+        a_i, a_j = dev(feat_of[ti, ci]), dev(feat_of[tj, ci])
+        same = a_i == a_j
+        add_ok = counts_t[:, a_j] + 1 <= hi_t[a_j][None, :]
+        if (lo[feat_of[:, ci]] > 0).any():
+            add_ok &= counts_t[:, a_i] - 1 >= lo_t[a_i][None, :]
+        ok &= same[None, :] | add_ok
+    flat = torch.nonzero(ok.reshape(-1)).reshape(-1)
+    total = int(flat.shape[0])
+    idx = flat[: int(per_round_cap)].cpu().numpy()
+    return idx // P, idx % P, total
+
+
+def neighbor_columns(
+    comps: np.ndarray,
+    reduction: TypeReduction,
+    r_norm: np.ndarray,
+    pool_cap: int = 128,
+    face_pairs: int = 12_288,
+    per_round_cap: int = 16_384,
+    batched: bool = False,
+    device: DeviceLike = "cpu",
+) -> np.ndarray:
+    """Feasible single-unit moves from ``comps`` along and across the face.
+
+    Two pair classes feed the expansion: **improving** pairs move a unit
+    from an over-served type (``r_norm > 0``) to an under-served one;
+    **face-preserving** pairs (``|Δ(w/m)| ≈ 0``) enumerate the near-optimal
+    face. A move ``t → t'`` from composition ``c`` is feasible iff
+    ``c_t > 0``, ``c_{t'} < m_{t'}`` and, in every category where the two
+    types' features differ, the donor's feature stays ≥ its lower quota and
+    the receiver's ≤ its upper. With ``batched=True`` the screen runs as one
+    batch of torch ops on ``device`` (``_batched_move_screen``): identical
+    index set below ``per_round_cap``; above it the first (mass-ordered,
+    since callers pass support-ordered compositions) feasible moves are kept
+    where the numpy path subsamples randomly. Returns the new compositions
+    (int16 [N, T]).
+    """
+    comps = comps.astype(np.int16, copy=False)
+    S, T = comps.shape
+    feat_of = np.asarray(reduction.type_feature)
+    ncat = feat_of.shape[1]
+    F = reduction.F
+    # no composition holds more than k of a type: the receiver check only
+    # needs min(m, k + 1), which also keeps the int16 cast in range
+    m = np.minimum(reduction.msize, reduction.k + 1).astype(np.int16)
+    lo = reduction.qmin.astype(np.int64)
+    hi = reduction.qmax.astype(np.int64)
+
+    ti, tj = _move_pairs(reduction, r_norm, pool_cap, face_pairs)
+    P = len(ti)
+    if P == 0:
+        return np.zeros((0, T), dtype=np.int16)
+
+    counts = _comp_feature_counts(comps, reduction)  # [S, F]
+
+    packed = _feature_bitmasks(reduction)
+    if batched and packed is not None and S <= _SCREEN_ROWS:
+        si, pi, _total = _batched_move_screen(
+            comps, counts, reduction, m, ti, tj, packed, per_round_cap,
+            torch.device(device),
+        )
+        if len(si) == 0:
+            return np.zeros((0, T), dtype=np.int16)
+        out = comps[si].astype(np.int16)
+        idx = np.arange(len(si))
+        out[idx, ti[pi]] -= 1
+        out[idx, tj[pi]] += 1
+        return out
+
+    ok = (comps[:, ti] > 0) & (comps[:, tj] < m[tj][None, :])  # [S, P]
+    if packed is not None:
+        masks, leftover = packed
+        # bit f set ⇔ this composition may donate (resp. receive) a unit of
+        # feature f without breaking its quota
+        nb = min(F, 64)
+        fbit = np.uint64(1) << np.arange(nb, dtype=np.uint64)
+        can_sub = ((counts[:, :nb] - 1 >= lo[None, :nb]).astype(np.uint64) * fbit).sum(
+            axis=1, dtype=np.uint64
+        )
+        can_add = ((counts[:, :nb] + 1 <= hi[None, :nb]).astype(np.uint64) * fbit).sum(
+            axis=1, dtype=np.uint64
+        )
+        # features touched by the move: symmetric difference of the two
+        # types' feature sets (shared features cancel)
+        diff = masks[ti] ^ masks[tj]
+        need_sub = masks[ti] & diff
+        need_add = masks[tj] & diff
+        ok &= (need_sub[None, :] & ~can_sub[:, None]) == 0
+        ok &= (need_add[None, :] & ~can_add[:, None]) == 0
+        for ci in leftover:
+            a_i = feat_of[ti, ci]
+            a_j = feat_of[tj, ci]
+            same = a_i == a_j
+            add_ok = counts[:, a_j] + 1 <= hi[a_j][None, :]
+            if (lo[feat_of[:, ci]] > 0).any():
+                add_ok &= counts[:, a_i] - 1 >= lo[a_i][None, :]
+            ok &= same[None, :] | add_ok
+    else:  # pragma: no cover - every instance has some ≤64-feature category
+        for ci in range(ncat):
+            a_i = feat_of[ti, ci]
+            a_j = feat_of[tj, ci]
+            same = a_i == a_j
+            sub_ok = counts[:, a_i] - 1 >= lo[a_i][None, :]
+            add_ok = counts[:, a_j] + 1 <= hi[a_j][None, :]
+            ok &= same[None, :] | (sub_ok & add_ok)
+
+    si, pi = np.nonzero(ok)
+    if len(si) == 0:
+        return np.zeros((0, T), dtype=np.int16)
+    if len(si) > per_round_cap:
+        sel = np.random.default_rng(len(si)).choice(len(si), per_round_cap, replace=False)
+        si, pi = si[sel], pi[sel]
+    out = comps[si].astype(np.int16)
+    idx = np.arange(len(si))
+    out[idx, ti[pi]] -= 1
+    out[idx, tj[pi]] += 1
+    return out
+
+
+def _master_pdhg(
+    MT: np.ndarray,
+    v: np.ndarray,
+    cfg,
+    warm,
+    max_iters: int,
+    tol: float,
+    ell=None,
+    device: DeviceLike = None,
+    log: Optional[RunLog] = None,
+) -> Tuple[float, np.ndarray, np.ndarray, float, Optional[tuple], bool]:
+    """One approximate master solve on ``device``: the two-sided ε-LP
+    through ``lp_pdhg.solve_two_sided_master[_ell]_async`` (over the ELL
+    pack ``ell`` when given). The readback in ``finish_two_sided_master`` is
+    the solve's one blocking synchronisation.
+
+    Returns ``(eps_realized, w, p_norm, eps_obj, warm', ok)`` where
+    ``eps_realized = ‖M p_norm − v‖∞`` is the float64 certificate of the
+    normalized primal iterate (valid whether or not the solver converged),
+    ``w = y_lo − y_up`` the aiming duals, ``eps_obj`` the iterate's
+    objective value (a stall indicator, not a bound) and ``ok`` the
+    solver's own convergence flag.
+    """
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import (
+        finish_two_sided_master,
+        solve_two_sided_master_async,
+        solve_two_sided_master_ell_async,
+    )
+
+    T, C = MT.shape
+    kw = dict(cfg=cfg, warm=warm, tol=tol, max_iters=max_iters, device=device, log=log)
+    if ell is not None:
+        handle = solve_two_sided_master_ell_async(ell, v, **kw)
+    else:
+        handle = solve_two_sided_master_async(MT, v, **kw)
+    sol = finish_two_sided_master(handle)
+    p = np.maximum(sol.x[:C], 0.0)
+    total = p.sum()
+    if not np.isfinite(total) or total <= 0.0:
+        return float("inf"), np.zeros(T), np.full(C, 1.0 / max(C, 1)), float("inf"), None, False
+    p_norm = p / total
+    eps_real = float(np.abs(MT @ p_norm - v).max())
+    lam = np.maximum(sol.lam, 0.0)
+    w = lam[:T] - lam[T:]
+    return eps_real, w, p_norm, float(sol.objective), (sol.x, sol.lam, sol.mu), sol.ok
+
+
+class _AnchorPricer:
+    """Double-buffered host pricing for the face loop's anchor MILPs.
+
+    The anchors (one dual-direction optimum, alternate-round noisy variants,
+    up to three forced-inclusion columns for persistent deficits) are
+    heuristic columns — acceptance is the master iterate's arithmetic
+    residual — so their aim may lag the duals by one round. Round r's MILPs
+    are submitted the moment round r's duals exist and harvested at round
+    r+1's expansion; with ``overlap=True`` they run on a worker thread while
+    the main thread runs the expansion and the next device master (HiGHS
+    releases the GIL inside its solve, and the main thread releases it while
+    it waits on the device). ``overlap=False`` runs the same schedule inline:
+    the column stream is identical in both modes. The noisy perturbations
+    are drawn on the caller's thread at submit time.
+    """
+
+    def __init__(
+        self,
+        oracle,
+        rng: np.random.Generator,
+        reduction: TypeReduction,
+        overlap: bool,
+        log: Optional[RunLog] = None,
+    ):
+        self.oracle = oracle
+        self.rng = rng
+        self.red = reduction
+        self.log = log
+        self._pool = (
+            ThreadPoolExecutor(max_workers=1, thread_name_prefix="anchor-pricer")
+            if overlap
+            else None
+        )
+        self._pending: Optional[Union[Future, List[np.ndarray]]] = None
+
+    def _run(self, tasks) -> List[np.ndarray]:
+        out = []
+        for weights, forced in tasks:
+            # an oracle failure retries once, then skips the task: a missing
+            # anchor costs convergence speed, never exactness
+            for attempt in (0, 1):
+                try:
+                    # a 1 % MILP gap: anchor optimality buys nothing
+                    got = self.oracle.maximize(weights, forced_type=forced, rel_gap=1e-2)
+                    if got is not None:
+                        out.append(got[0][None, :].astype(np.int16))
+                    break
+                except Exception:
+                    if self.log is not None:
+                        self.log.count("robust_oracle_skip" if attempt else "robust_oracle_retry")
+        return out
+
+    def submit(
+        self,
+        rnd: int,
+        r_norm: np.ndarray,
+        eps: float,
+        realized: Optional[np.ndarray],
+        v: np.ndarray,
+    ) -> None:
+        """Queue round ``rnd``'s anchor MILPs (noise drawn here, on the
+        caller's thread)."""
+        tasks: List[Tuple[np.ndarray, Optional[int]]] = [(-r_norm, None)]
+        if rnd % 2 == 0:
+            # noisy variants only diversify, so they run on alternate rounds
+            scale = float(np.mean(np.abs(r_norm))) + 1e-12
+            for _ in range(2):
+                tasks.append((-r_norm + self.rng.normal(0.0, 0.5 * scale, len(r_norm)), None))
+        if realized is not None:
+            # forced-inclusion anchors on the worst under-served types: a
+            # persistent deficit needs columns that contain the type
+            deficit = v - realized
+            worst = np.argsort(-deficit)[:3]
+            for t in worst:
+                if deficit[t] > 0.25 * eps and self.red.msize[t] > 0:
+                    tasks.append((-r_norm, int(t)))
+        if self._pool is not None:
+            self._pending = self._pool.submit(self._run, tasks)
+        else:
+            self._pending = self._run(tasks)
+
+    def harvest(self) -> List[np.ndarray]:
+        """Collect the previously submitted round's columns (blocks only
+        when the worker has not finished; the overlap counters say which)."""
+        pending, self._pending = self._pending, None
+        if pending is None:
+            return []
+        if isinstance(pending, list):
+            if self.log is not None:
+                self.log.count("decomp_oracle_inline")
+            return pending
+        if self.log is not None:
+            self.log.count(
+                "decomp_oracle_overlap_hit" if pending.done() else "decomp_oracle_overlap_wait"
+            )
+        return pending.result()
+
+    def close(self) -> None:
+        """Drop any un-harvested job and stop the worker."""
+        pending, self._pending = self._pending, None
+        if isinstance(pending, Future):
+            pending.cancel()
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+
+class _WarmStall:
+    """Cold-restart policy for the warm-started PDHG master: a warm-started
+    round that fails to beat the running-best ε by ≥ ``(1 − improve)``
+    extends a streak; ``patience`` consecutive such rounds drop the warm
+    iterate once. Cold rounds never extend the streak."""
+
+    def __init__(self, patience: int, improve: float = 0.98):
+        self.patience = max(int(patience), 1)
+        self.improve = improve
+        self.best = float("inf")
+        self.streak = 0
+
+    def update(self, eps: float, warm_used: bool) -> bool:
+        improved = eps < self.best * self.improve
+        self.best = min(self.best, eps)
+        if improved or not warm_used:
+            if improved:
+                self.streak = 0
+            return False
+        self.streak += 1
+        if self.streak >= self.patience:
+            self.streak = 0
+            return True
+        return False
+
+
+def realize_profile(
+    reduction: TypeReduction,
+    v: np.ndarray,
+    seed_comps: List[np.ndarray],
+    oracle,
+    accept: float,
+    log: Optional[RunLog] = None,
+    max_rounds: int = 60,
+    master_cap: int = 6_000,
+    use_pdhg: Optional[bool] = None,
+    cfg=None,
+    device: DeviceLike = None,
+) -> Tuple[np.ndarray, Optional[np.ndarray], float, int]:
+    """Find compositions + probabilities with ``‖Mp − v‖∞ ≤ accept``.
+
+    The per-round master is the warm-started PDHG on ``device`` when
+    ``use_pdhg`` (default: ``device`` is an accelerator), else the host
+    interior point. Its duals aim the neighbour expansion and the float64
+    residual of its normalized iterate is the acceptance certificate. When
+    the approximate master's objective dips near ``accept`` but its iterate
+    lags, an end-game polish on the mass-bearing support (a deep device
+    solve, then the host IPM) extracts the optimum. Aggressive pruning keeps
+    every master at ≤ ``master_cap`` columns.
+
+    Returns ``(compositions int32 [C, T], probabilities float64 [C], eps,
+    lp_solves)``.
+    """
+    from citizensassemblies_tpu_torch.solvers.cg_typespace import _decomp_lp
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack, sparse_enabled
+
+    cfg = cfg or default_config()
+    check_slice_config(cfg)
+    log = log or RunLog(echo=False)
+    dev = resolve_device(device)
+    T = reduction.T
+    m = reduction.msize.astype(np.float64)
+    if use_pdhg is None:
+        use_pdhg = _device.on_accelerator(dev)
+    accel = bool(use_pdhg)
+    if T <= cfg.decomp_host_master_max_types:
+        # small-T instances stay on host masters end to end: cap the column
+        # set so the expansion cannot push the master past the host's sweet
+        # spot
+        master_cap = min(master_cap, cfg.decomp_host_master_max_cols)
+
+    seen: Dict[bytes, int] = {}
+    cols: List[np.ndarray] = []
+
+    def add(c: np.ndarray) -> bool:
+        kb = c.astype(np.int16).tobytes()
+        if kb in seen:
+            return False
+        seen[kb] = len(cols)
+        cols.append(c.astype(np.int16))
+        return True
+
+    for c in seed_comps:
+        add(c)
+
+    # --- structured-sparse master state (solvers/sparse_ops) ----------------
+    # master columns are compositions (≤ k nonzeros of T types); the ELL pack
+    # is maintained incrementally in lockstep with ``cols``: appends pack only
+    # the new columns, a prune subsets, a column-set replacement resets it
+    sparse_try = accel and cfg.sparse_ops is not False
+    ell_pack: Optional[EllPack] = EllPack(minor=T) if sparse_try else None
+
+    def ell_synced() -> Optional[EllPack]:
+        """Append any columns added since the last sync; returns the pack,
+        or None when the sparse path is off."""
+        nonlocal ell_pack
+        if ell_pack is None:
+            return None
+        if len(ell_pack) > len(cols):  # pragma: no cover - defensive
+            ell_pack = EllPack(minor=T)
+        if len(ell_pack) < len(cols):
+            with log.timer("sparse_pack"):
+                new = np.stack(cols[len(ell_pack):]).astype(np.float64) / m[None, :]
+                ell_pack.append(new)
+        return ell_pack
+
+    def top_mass(p: np.ndarray, cap: int = 2048, frac: float = 1.0 - 1e-10):
+        """Indices of the smallest column set carrying ``frac`` of the mass."""
+        order = np.argsort(-p)
+        cum = np.cumsum(p[order])
+        cut = int(np.searchsorted(cum, frac * cum[-1])) + 1
+        return order[: min(max(cut, 1), cap)]
+
+    if not cols:
+        return np.zeros((0, T), np.int32), np.zeros(0), float("inf"), 0
+
+    def polish_support(
+        p_now: Optional[np.ndarray],
+        bar: Optional[float] = None,
+        master_warm: Optional[tuple] = None,
+    ):
+        """End-game solve on the mass-bearing support: a deep device PDHG
+        (warm-started from the master's iterate restricted to the support
+        and its row duals) accepted when its float64 residual reaches the
+        bar; the host IPM otherwise."""
+        nonlocal lp_solves
+        if p_now is not None and len(p_now) == len(cols):
+            sup = top_mass(p_now, cap=2048)
+        else:
+            sup = np.arange(len(cols))[:4096]
+        C_sup = np.stack([cols[i] for i in sup]).astype(np.int32)
+        MTs = np.ascontiguousarray((C_sup.astype(np.float64) / m[None, :]).T)
+        the_bar = bar if bar is not None else stalled_band
+        ell_sup = None
+        if sparse_try:
+            if (
+                ell_pack is not None
+                and p_now is not None
+                and len(p_now) == len(cols)
+                and len(ell_pack) == len(cols)
+            ):
+                cand_pack = ell_pack.take(sup)
+            else:
+                with log.timer("sparse_pack"):
+                    cand_pack = EllPack.from_rows(MTs.T, minor=T)
+            if sparse_enabled(cfg, cand_pack.fill):
+                ell_sup = cand_pack
+        if accel:
+            from citizensassemblies_tpu_torch.solvers.lp_pdhg import (
+                solve_two_sided_master,
+                solve_two_sided_master_ell,
+            )
+
+            warm_s = None
+            if (
+                cfg.decomp_warm_start
+                and master_warm is not None
+                and p_now is not None
+                and len(p_now) == len(cols)
+            ):
+                # x: the master iterate's mass on the support columns, ε from
+                # the master's own ε; λ/μ transfer verbatim (same T rows)
+                x0 = np.concatenate([p_now[sup], [max(float(master_warm[0][-1]), 0.0)]])
+                warm_s = (x0, master_warm[1], master_warm[2])
+                log.count("decomp_polish_warm")
+            kw = dict(cfg=cfg, warm=warm_s, tol=0.25 * master_tol, max_iters=98_304,
+                      device=dev, log=log)
+            if ell_sup is not None:
+                sol = solve_two_sided_master_ell(ell_sup, v, **kw)
+            else:
+                sol = solve_two_sided_master(MTs, v, **kw)
+            lp_solves += 1
+            log.count("decomp_host_syncs")  # deep device polish round trip
+            log.count("decomp_polish_syncs")  # end-game, not steady-state
+            p_s = np.maximum(sol.x[: MTs.shape[1]], 0.0)
+            tot = p_s.sum()
+            if np.isfinite(tot) and tot > 0:
+                p_s = p_s / tot
+                eps_s = float(np.abs(MTs @ p_s - v).max())
+                if eps_s <= the_bar:
+                    return C_sup, p_s, eps_s
+        eps_s, _w, _mu, p_s = _decomp_lp(MTs, v)
+        lp_solves += 1
+        return C_sup, p_s, float(eps_s)
+
+    lp_solves = 0
+    eps = np.inf
+    p = np.zeros(0)
+    rng = np.random.default_rng(0)
+    eps_hist: List[float] = []
+    pdhg_warm = None
+    best: Optional[Tuple[np.ndarray, np.ndarray, float]] = None
+    t_start = time.time()
+    # the stalled-acceptance band the caller still accepts outright
+    stalled_band = max(accept, cfg.decomp_accept_stalled)
+    # f32 KKT tolerance of the approximate master: two orders below the
+    # acceptance bar
+    master_tol = max(0.02 * accept, cfg.pdhg_tol)
+    # cooldown after a failed polish: without it a near-accept optimum would
+    # trigger a polish every remaining round
+    polish_after = 0
+    pricer = _AnchorPricer(oracle, rng, reduction, overlap=bool(cfg.decomp_oracle_overlap), log=log)
+    warm_enabled = bool(cfg.decomp_warm_start)
+    warm_stall = _WarmStall(int(cfg.decomp_warm_stall_rounds))
+    batched_expand = bool(cfg.decomp_batched_expand) and accel
+
+    def rank_add(cand: List[np.ndarray], r_norm: np.ndarray) -> int:
+        """Grow the master where it helps: most negative <r, c/m> first."""
+        if not cand:
+            return 0
+        added = 0
+        with log.timer("decomp_expand"):
+            batch = np.concatenate([np.atleast_2d(c) for c in cand], axis=0)
+            vals = batch.astype(np.float64) @ r_norm
+            order = np.argsort(vals)
+            cap = max(256, master_cap - len(cols))
+            for i in order[:cap]:
+                added += add(batch[i])
+        return added
+
+    try:
+        for rnd in range(max_rounds):
+            t_round = time.time()
+            # stall detection on the running best: the best of the last 4
+            # rounds failed to beat the best of all earlier rounds by ≥ 2 %
+            if len(eps_hist) >= 7 and min(eps_hist[-4:]) > min(eps_hist[:-4]) * 0.98:
+                log.emit(f"  face rounds stalling at eps={eps_hist[-1]:.2e}; stopping early.")
+                break
+            log.count("decomp_rounds")
+            C = np.stack(cols, axis=0)
+            MT = np.ascontiguousarray((C.astype(np.float64) / m[None, :]).T)
+            # per-round master selection: small problems solve exactly on the
+            # host faster than one device round trip
+            use_pdhg = accel and (
+                T > cfg.decomp_host_master_max_types
+                or len(cols) > cfg.decomp_host_master_max_cols
+            )
+            polish_warm = None
+            if use_pdhg:
+                # adaptive budget: far from acceptance the duals only need to
+                # be roughly right to aim the expansion
+                far = not eps_hist or eps_hist[-1] > 6 * accept
+                warm_arg = pdhg_warm if warm_enabled else None
+                log.count("decomp_master_warm" if warm_arg is not None else "decomp_master_cold")
+                # sparse routing: sync the incremental pack, gate on its fill
+                ell_now = ell_synced()
+                use_sparse = False
+                if ell_now is not None:
+                    use_sparse = sparse_enabled(cfg, ell_now.fill)
+                    log.gauge("sparse_fill_pct", int(round(100 * ell_now.fill)))
+                    log.count("sparse_hit" if use_sparse else "sparse_miss")
+                with log.timer("decomp_master"):
+                    eps, w, p, eps_obj, pdhg_warm, _ok = _master_pdhg(
+                        MT, v, cfg, warm_arg,
+                        max_iters=4_096 if far else 12_288, tol=master_tol,
+                        ell=ell_now if use_sparse else None, device=dev, log=log,
+                    )
+                lp_solves += 1
+                log.count("decomp_host_syncs")  # the master's readback
+                if not np.isfinite(eps):
+                    # quarantined master (the sentinel froze the lane, or its
+                    # mixture went non-finite): re-solve this round on the
+                    # float64 host path and cold-start the next master
+                    log.count("sentinel_quarantined")
+                    log.count("robust_host_resolve")
+                    with log.timer("decomp_master"):
+                        eps, w, _mu_h, p = _decomp_lp(MT, v)
+                    eps_obj = float(eps)
+                    pdhg_warm = None
+                    lp_solves += 1
+                polish_warm = pdhg_warm
+                if not warm_enabled:
+                    pdhg_warm = None
+                elif warm_stall.update(eps, warm_arg is not None):
+                    pdhg_warm = None
+                    log.count("decomp_warm_cold_restart")
+                    log.emit(
+                        f"  warm-started master stalling at eps={eps:.2e}; "
+                        "cold-restarting the iterate."
+                    )
+                # end-game: the objective says the support should realize v
+                # but the first-order iterate lags — polish once on the
+                # support (wider trigger deep into the time budget)
+                deep = time.time() - t_start > 0.6 * cfg.decomp_time_budget_s
+                near = (
+                    eps <= accept * 1.25
+                    or eps_obj <= accept * 1.05
+                    or (deep and eps_obj <= 1.2 * accept)
+                )
+                if eps > accept and near and rnd >= polish_after:
+                    with log.timer("decomp_polish"):
+                        C_sup, p_sup, eps_sup = polish_support(
+                            p, bar=(stalled_band if deep else accept), master_warm=polish_warm,
+                        )
+                    log.emit(
+                        f"  polish: {len(C_sup)} support cols -> eps={eps_sup:.2e} "
+                        f"(iterate eps={eps:.2e}, obj~{eps_obj:.2e})."
+                    )
+                    if eps_sup <= (stalled_band if deep else accept):
+                        log.emit(
+                            f"Face decomposition: eps = {eps_sup:.2e} certified on "
+                            f"{len(C_sup)} support columns ({lp_solves} master solves, "
+                            f"end-game polish)."
+                        )
+                        return C_sup, p_sup, eps_sup, lp_solves
+                    # a failed polish value is the optimum of a support
+                    # subset: keep it out of eps/eps_hist/best
+                    polish_after = rnd + 2
+            else:
+                with log.timer("decomp_master"):
+                    eps, w, _mu, p = _decomp_lp(MT, v)
+                lp_solves += 1
+            eps_hist.append(eps)
+            if best is None or eps < best[2]:
+                best = (C, p, eps)
+            if (
+                time.time() - t_start > cfg.decomp_time_budget_s
+                and best[2] <= stalled_band
+                and eps > accept
+            ):
+                # budget exhausted with a residual the caller accepts anyway
+                log.emit(
+                    f"  face rounds over time budget ({cfg.decomp_time_budget_s:.0f}s) "
+                    f"with best eps={best[2]:.2e} inside the stalled band; stopping."
+                )
+                break
+            if eps <= accept:
+                log.emit(
+                    f"Face decomposition: eps = {eps:.2e} certified on {len(cols)} "
+                    f"columns ({lp_solves} master solves)."
+                )
+                return C.astype(np.int32), p, float(eps), lp_solves
+            # the duals w (= y_lo − y_up) mark over-served (w < 0) vs
+            # under-served (w > 0) types; move units down the gradient
+            r_norm = -w / m
+            sup_idx = top_mass(p)  # mass-ordered, largest first
+            # prune before expanding: the next master sees only the
+            # mass-bearing support plus this round's additions
+            n_before = len(cols)
+            kept = [cols[i] for i in sup_idx]
+            kept_p = p[sup_idx]
+            cols.clear()
+            seen.clear()
+            for c in kept:
+                add(c)
+            if ell_pack is not None:
+                # the prune is a pure subset/reorder; a pack out of sync
+                # (host-master rounds) restarts empty
+                ell_pack = ell_pack.take(sup_idx) if len(ell_pack) == n_before else EllPack(minor=T)
+            # re-align the warm start with the pruned column order
+            if pdhg_warm is not None:
+                x_w = np.zeros(len(kept) + 1)
+                x_w[: len(kept)] = kept_p
+                x_w[-1] = max(eps, 0.0)
+                pdhg_warm = (x_w, pdhg_warm[1], pdhg_warm[2])
+            base = len(cols)
+            cand: List[np.ndarray] = []
+            # pipeline: harvest round r-1's anchors, submit round r's
+            with log.timer("decomp_oracle"):
+                cand.extend(pricer.harvest())
+                realized = MT @ p if len(p) == MT.shape[1] else None
+                pricer.submit(rnd, r_norm, eps, realized, v)
+            if kept:
+                with log.timer("decomp_expand"):
+                    cand.append(
+                        neighbor_columns(
+                            np.stack(kept[:_SCREEN_ROWS]), reduction, r_norm,
+                            batched=batched_expand, device=dev,
+                        )
+                    )
+                if batched_expand:
+                    # the screen's index readback
+                    log.count("decomp_host_syncs")
+            if T <= cfg.decomp_host_master_max_types and rnd == 0 and eps <= 6 * accept:
+                # small-T near-miss after the first master: a deeper aimed-
+                # slice pass (phase-shifted so it does not repeat the
+                # injected slices) closes the hull in one host round
+                from citizensassemblies_tpu_torch.solvers.cg_typespace import _slice_relaxation
+
+                deep_slices = _slice_relaxation(v * m, reduction, R=2048, j0=1 << 20, chunks=4)
+                if deep_slices:
+                    cand.append(np.stack(deep_slices).astype(np.int16))
+            added = rank_add(cand, r_norm)
+            if added == 0:
+                # this round's anchor job is still pending: wait for it
+                # rather than conclude exhaustion with columns in flight
+                with log.timer("decomp_oracle"):
+                    late = pricer.harvest()
+                added = rank_add(late, r_norm)
+            obj_note = f" obj~{eps_obj:.2e}" if use_pdhg else ""
+            log.emit(
+                f"  face round {rnd + 1}: eps={eps:.2e}{obj_note} added {added} "
+                f"(master {base}+{added}, {time.time() - t_round:.1f}s)."
+            )
+            if added == 0:
+                break
+
+        # out of rounds / stalled: one end-game solve on the best support
+        if best is not None and (len(p) != len(cols) or eps > accept):
+            C_best, p_best, _ = best
+            cols = [c for c in C_best]
+            p = p_best
+            if ell_pack is not None:
+                # the column set was replaced: re-pack from scratch
+                ell_pack = EllPack(minor=T)
+        with log.timer("decomp_polish"):
+            # final polish at the tight bar
+            C_sup, p_sup, eps = polish_support(
+                p if len(p) == len(cols) else None, bar=accept, master_warm=pdhg_warm,
+            )
+        log.emit(
+            f"Face decomposition: eps = {eps:.2e} on {len(C_sup)} support columns "
+            f"({lp_solves} master solves)."
+        )
+        return C_sup, p_sup, float(eps), lp_solves
+    finally:
+        pricer.close()

@@ -1,0 +1,456 @@
+"""Two-sided decomposition master: restarted, preconditioned PDHG in torch.
+
+The face decomposition's master LP
+
+    min ε  s.t.  v − ε ≤ M p ≤ v + ε,  Σp = 1,  p ≥ 0, ε ≥ 0
+
+is solved by primal-dual hybrid gradient (Chambolle–Pock) with Ruiz
+equilibration, iterate averaging, restarts to the averaged iterate whenever
+its KKT residual beats the current one, and a PDLP-style primal weight ω.
+Termination is checked every ``cfg.pdhg_check_every`` iterations (a
+*block*). Everything runs in float32.
+
+Two routes compute the same solve (``Config.pdhg_megakernel``), both over
+the master's columns packed as an ELL pack (a dense ``MT`` is packed first):
+
+* **fused** — the hand-written CUDA block kernel
+  (``kernels/pdhg_megakernel.py``): the whole block loop in one launch; its
+  plain version on CPU tensors;
+* **chained, ELL** — :func:`_pdhg_two_sided_body_ell`: the same prelude and
+  :func:`_two_sided_iterate` over the packed operator (the gather kernel of
+  ``kernels/ell_matvec.py`` on CUDA, ``index_add_`` for the scatter).
+
+The chained route reads every lane's residual on the host after each
+block; the fused route never does. Both freeze a lane exactly as the
+JAX package's ``while_loop`` does, and share the ``(x, lam, mu)`` layout:
+``x = [p (Cp), ε]``, ``lam = [λ_lo (T), λ_up (T)]``, ``mu = [μ]``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from citizensassemblies_tpu_torch.utils.config import Config, default_config
+from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass
+class LPSolution:
+    """Result of a PDHG solve."""
+
+    ok: bool
+    x: np.ndarray
+    lam: np.ndarray
+    mu: np.ndarray
+    objective: float
+    iters: int
+    kkt: float
+
+
+# --- numerical sentinels -----------------------------------------------------
+# With ``Config.robust_sentinels`` on, a block whose KKT residual goes
+# non-finite is REJECTED (the carry freezes at the last finite iterate), the
+# lane exits with bit 1 set and the caller re-solves it on the float64 host
+# path. Bit 2 is the report-only stall flag: _STALL_BLOCKS consecutive checks
+# without a new best residual. Zero-fault runs are identical with the
+# sentinel on or off.
+
+#: consecutive convergence checks without a new best residual before the
+#: stall bit is reported
+_STALL_BLOCKS = 64
+
+FLAG_POISONED = 1
+FLAG_STALLED = 2
+
+
+def sentinels_enabled(cfg: Optional[Config]) -> bool:
+    cfg = cfg or default_config()
+    return bool(cfg.robust_sentinels)
+
+
+Apply = Callable[..., Tuple[torch.Tensor, ...]]
+
+
+def _two_sided_iterate(
+    K_apply: Apply, KT_apply: Apply, cs_eps, hs_lo, hs_up, bs,
+    p, eps, l_lo, l_up, mu, norm, scale, tol,
+    max_iters: int, check_every: int, sentinel: bool = False,
+):
+    """The restart-to-average PDHG block loop of the two-sided master,
+    batched over lanes (leading axis B on every vector, ``[B]`` scalars),
+    generic over the scaled operator pair ``K_apply(p, eps) -> (r_lo, r_up,
+    r_eq)`` and ``KT_apply(l_lo, l_up, mu) -> (g_p, g_e)``.
+
+    A lane runs blocks while ``res > tol & it < max_iters`` and (with the
+    sentinel) it is not poisoned; a lane whose mask is clear keeps its state
+    unchanged. The loop stops when no lane is active, which reads the masks
+    on the host once per block. Returns the scaled ``(p, eps, l_lo, l_up,
+    mu, it, res, flags)``.
+    """
+    B = p.shape[0]
+    dev = p.device
+
+    def kkt(p, eps, l_lo, l_up, mu):
+        r_lo, r_up, r_eq = K_apply(p, eps)
+        pri = torch.sqrt(
+            torch.sum(torch.clamp_min(r_lo - hs_lo, 0.0) ** 2, dim=1)
+            + torch.sum(torch.clamp_min(r_up - hs_up, 0.0) ** 2, dim=1)
+            + (r_eq - bs) ** 2
+        )
+        g_p, g_e = KT_apply(l_lo, l_up, mu)
+        dua = torch.sqrt(
+            torch.sum(torch.clamp_max(g_p, 0.0) ** 2, dim=1)
+            + torch.clamp_max(g_e + cs_eps, 0.0) ** 2
+        )
+        pobj = cs_eps * eps
+        dobj = -(l_lo * hs_lo).sum(1) - (l_up * hs_up).sum(1) - mu * bs
+        gap = torch.abs(pobj - dobj)
+        return (pri + dua) / scale + gap / (1.0 + torch.abs(pobj) + torch.abs(dobj))
+
+    p_av, e_av, ll_av, lu_av, m_av = p, eps, l_lo, l_up, mu
+    it = torch.zeros(B, dtype=torch.int32, device=dev)
+    res = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
+    omega = torch.ones(B, dtype=torch.float32, device=dev)
+    pois = torch.zeros(B, dtype=torch.bool, device=dev)
+    stall = torch.zeros(B, dtype=torch.bool, device=dev)
+    best = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
+    since = torch.zeros(B, dtype=torch.int32, device=dev)
+    inv = 1.0 / check_every
+
+    def sel(mask, new, old):
+        return torch.where(mask.reshape((B,) + (1,) * (new.dim() - 1)), new, old)
+
+    while True:
+        active = (res > tol) & (it < max_iters) & ~pois
+        if not bool(active.any()):
+            break
+        tau = 0.9 * omega / norm
+        sigma = 0.9 / (omega * norm)
+        p_in, e_in, ll_in, lu_in, mu_in = p, eps, l_lo, l_up, mu
+        q, e, lo, up, m = p, eps, l_lo, l_up, mu
+        ps = torch.zeros_like(p)
+        es = torch.zeros_like(eps)
+        lls = torch.zeros_like(l_lo)
+        lus = torch.zeros_like(l_up)
+        ms = torch.zeros_like(mu)
+        for _ in range(check_every):
+            g_p, g_e = KT_apply(lo, up, m)
+            q_new = torch.clamp_min(q - tau[:, None] * g_p, 0.0)
+            e_new = torch.clamp_min(e - tau * (g_e + cs_eps), 0.0)
+            qb = 2.0 * q_new - q
+            eb = 2.0 * e_new - e
+            r_lo, r_up, r_eq = K_apply(qb, eb)
+            lo = torch.clamp_min(lo + sigma[:, None] * (r_lo - hs_lo), 0.0)
+            up = torch.clamp_min(up + sigma[:, None] * (r_up - hs_up), 0.0)
+            m = m + sigma * (r_eq - bs)
+            q, e = q_new, e_new
+            ps, es, lls, lus, ms = ps + q, es + e, lls + lo, lus + up, ms + m
+        pa = (p_av + ps * inv) * 0.5
+        ea = (e_av + es * inv) * 0.5
+        lla = (ll_av + lls * inv) * 0.5
+        lua = (lu_av + lus * inv) * 0.5
+        ma = (m_av + ms * inv) * 0.5
+        r_cur = kkt(q, e, lo, up, m)
+        r_avg = kkt(pa, ea, lla, lua, ma)
+        better = r_avg < r_cur
+        q, e = sel(better, pa, q), sel(better, ea, e)
+        lo, up, m = sel(better, lla, lo), sel(better, lua, up), sel(better, ma, m)
+        res_new = torch.minimum(r_cur, r_avg)
+        dx = torch.sqrt(torch.sum((q - p_in) ** 2, dim=1))
+        dy = torch.sqrt(
+            torch.sum((lo - ll_in) ** 2, dim=1)
+            + torch.sum((up - lu_in) ** 2, dim=1)
+            + (m - mu_in) ** 2
+        )
+        moved = (dx > 1e-12) & (dy > 1e-12)
+        omega_new = torch.sqrt(
+            omega * torch.clamp(dy / torch.clamp_min(dx, 1e-12), 1e-4, 1e4)
+        )
+        omega_out = torch.where(moved, torch.clamp(omega_new, 1.0 / 64.0, 64.0), omega)
+        it_out = it + check_every
+        if sentinel:
+            # a non-finite residual reverts the whole carry to the block
+            # start and quarantines the lane
+            ok = torch.isfinite(res_new)
+        else:
+            ok = torch.ones(B, dtype=torch.bool, device=dev)
+        q, e = sel(ok, q, p_in), sel(ok, e, e_in)
+        lo, up, m = sel(ok, lo, ll_in), sel(ok, up, lu_in), sel(ok, m, mu_in)
+        pa, ea = sel(ok, pa, p_av), sel(ok, ea, e_av)
+        lla, lua, ma = sel(ok, lla, ll_av), sel(ok, lua, lu_av), sel(ok, ma, m_av)
+        it_out = torch.where(ok, it_out, it)
+        res_new = torch.where(ok, res_new, res)
+        omega_out = torch.where(ok, omega_out, omega)
+        if sentinel:
+            improved = ok & (res_new < best)
+            best_new = torch.where(improved, res_new, best)
+            since_new = torch.where(improved, torch.zeros_like(since), since + 1)
+            pois_new = pois | ~ok
+            stall_new = stall | (since_new >= _STALL_BLOCKS)
+        else:
+            best_new, since_new, pois_new, stall_new = best, since, pois, stall
+        p, eps = sel(active, q, p), sel(active, e, eps)
+        l_lo, l_up, mu = sel(active, lo, l_lo), sel(active, up, l_up), sel(active, m, mu)
+        p_av, e_av = sel(active, pa, p_av), sel(active, ea, e_av)
+        ll_av, lu_av, m_av = sel(active, lla, ll_av), sel(active, lua, lu_av), sel(active, ma, m_av)
+        it = torch.where(active, it_out, it)
+        res = torch.where(active, res_new, res)
+        omega = torch.where(active, omega_out, omega)
+        best = torch.where(active, best_new, best)
+        since = torch.where(active, since_new, since)
+        pois = torch.where(active, pois_new, pois)
+        stall = torch.where(active, stall_new, stall)
+    flags = pois.to(torch.int32) * FLAG_POISONED + stall.to(torch.int32) * FLAG_STALLED
+    return p, eps, l_lo, l_up, mu, it, res, flags
+
+
+def _root(x: torch.Tensor) -> torch.Tensor:
+    """Ruiz divisor: sqrt of a positive norm, 1 where the norm is 0."""
+    return torch.where(x > 0, torch.sqrt(torch.clamp_min(x, 1e-10)), 1.0)
+
+
+@dataclasses.dataclass
+class _TwoSidedScaled:
+    """Scalings and scaled data of a batch of two-sided masters."""
+
+    d_r: torch.Tensor  # [B, T]
+    d_e: torch.Tensor  # [B]
+    d_c: torch.Tensor  # [B, C]
+    d_eps: torch.Tensor  # [B]
+    e_col: torch.Tensor  # [B, T]
+    a_row: torch.Tensor  # [B, C]
+    hs_lo: torch.Tensor  # [B, T]
+    hs_up: torch.Tensor  # [B, T]
+    bs: torch.Tensor  # [B]
+    cs_eps: torch.Tensor  # [B]
+
+
+def power_norm(K_apply: Apply, KT_apply: Apply, B: int, C: int, device) -> torch.Tensor:
+    """‖K‖₂ per lane by 40 power iterations on KᵀK."""
+    pv = torch.ones((B, C), dtype=torch.float32, device=device) / np.sqrt(np.float32(C + 1))
+    ev = torch.ones(B, dtype=torch.float32, device=device) / np.sqrt(np.float32(C + 1))
+    for _ in range(40):
+        r_lo, r_up, r_eq = K_apply(pv, ev)
+        g_p, g_e = KT_apply(r_lo, r_up, r_eq)
+        nrm = torch.sqrt(torch.sum(g_p**2, dim=1) + g_e**2) + 1e-12
+        pv, ev = g_p / nrm[:, None], g_e / nrm
+    r_lo, r_up, r_eq = K_apply(pv, ev)
+    g_p, g_e = KT_apply(r_lo, r_up, r_eq)
+    return torch.sqrt(torch.sqrt(torch.sum(g_p**2, dim=1) + g_e**2) + 1e-12)
+
+
+def warm_scaled(pre: _TwoSidedScaled, x0, lam0, mu0):
+    """Map unscaled warm starts into scaled coordinates (``x = D_c x̃``)."""
+    T = pre.d_r.shape[1]
+    C = pre.d_c.shape[1]
+    p = x0[:, :C] / torch.clamp_min(pre.d_c, 1e-12)
+    eps = x0[:, C] / torch.clamp_min(pre.d_eps, 1e-12)
+    l_lo = torch.clamp_min(lam0[:, :T] / torch.clamp_min(pre.d_r, 1e-12), 0.0)
+    l_up = torch.clamp_min(lam0[:, T:] / torch.clamp_min(pre.d_r, 1e-12), 0.0)
+    mu = mu0 / torch.clamp_min(pre.d_e, 1e-12)
+    return p, eps, l_lo, l_up, mu
+
+
+def kkt_scale(pre: _TwoSidedScaled) -> torch.Tensor:
+    return (
+        1.0
+        + torch.abs(pre.cs_eps)
+        + torch.sqrt(torch.sum(pre.hs_lo**2, dim=1) + torch.sum(pre.hs_up**2, dim=1))
+        + torch.abs(pre.bs)
+    )
+
+
+def unscale(pre: _TwoSidedScaled, p, eps, l_lo, l_up, mu):
+    """Scaled iterates → ``(x [B, C+1], lam [B, 2T], mu [B])``."""
+    x_out = torch.cat([p * pre.d_c, (eps * pre.d_eps)[:, None]], dim=1)
+    lam_out = torch.cat([l_lo * pre.d_r, l_up * pre.d_r], dim=1)
+    return x_out, lam_out, mu * pre.d_e
+
+
+def _solve_scaled(pre, K_apply, KT_apply, x0, lam0, mu0, tol, max_iters, check_every, sentinel):
+    B, C = pre.d_c.shape
+    norm = power_norm(K_apply, KT_apply, B, C, pre.d_c.device)
+    p, eps, l_lo, l_up, mu = warm_scaled(pre, x0, lam0, mu0)
+    p, eps, l_lo, l_up, mu, it, res, flags = _two_sided_iterate(
+        K_apply, KT_apply, pre.cs_eps, pre.hs_lo, pre.hs_up, pre.bs,
+        p, eps, l_lo, l_up, mu, norm, kkt_scale(pre), tol,
+        max_iters, check_every, sentinel=sentinel,
+    )
+    x_out, lam_out, mu_out = unscale(pre, p, eps, l_lo, l_up, mu)
+    return x_out, lam_out, mu_out, it, res, flags
+
+
+def _pdhg_two_sided_body_ell(
+    idx, val, v, colmask, x0, lam0, mu0, tol,
+    max_iters: int, check_every: int, sentinel: bool = False,
+):
+    """The chained ELL route: the two-sided master over the packed columns
+    ``idx``/``val`` ``[C, k_pad]`` (minor axis = the T types), batched over
+    the lanes of ``colmask``/``x0``/``lam0``/``mu0``/``tol``. Same prelude as
+    the fused route (``kernels/pdhg_megakernel.two_sided_prelude``), then
+    :func:`_two_sided_iterate` with the packed matvecs."""
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    pre, vals_s = mk.two_sided_prelude(idx, val, v, colmask)
+    K_apply, KT_apply = mk.ell_operators(idx, vals_s, pre)
+    return _solve_scaled(pre, K_apply, KT_apply, x0, lam0, mu0, tol, max_iters, check_every, sentinel)
+
+
+@dataclasses.dataclass
+class MasterHandle:
+    """An in-flight two-sided master solve: device outputs plus the decode
+    metadata; :func:`finish_two_sided_master` is the blocking readback."""
+
+    out: torch.Tensor  # [Cp+1 + 2T + 4] f32: x, lam, mu, it, res, flags
+    Cp: int
+    T: int
+    tol: float
+
+
+def _handle(x, lam, mu, it, res, flags, Cp: int, T: int, tol: float) -> MasterHandle:
+    """Pack one lane's outputs into one device vector, so the readback is
+    a single copy."""
+    tail = torch.stack([mu.reshape(()), it.to(torch.float32).reshape(()),
+                        res.reshape(()), flags.to(torch.float32).reshape(())])
+    return MasterHandle(
+        out=torch.cat([x.reshape(-1), lam.reshape(-1), tail]), Cp=Cp, T=T, tol=tol
+    )
+
+
+def finish_two_sided_master(h: MasterHandle) -> LPSolution:
+    """Blocking readback half of the async master solve. A sentinel-
+    quarantined solve comes back with ``ok=False``."""
+    host = h.out.cpu().numpy().astype(np.float64)
+    n_x = h.Cp + 1
+    x = host[:n_x]
+    lam = host[n_x : n_x + 2 * h.T]
+    mu, it, res_f, flags = host[n_x + 2 * h.T :]
+    poisoned = bool(int(flags) & FLAG_POISONED)
+    return LPSolution(
+        ok=bool(res_f <= h.tol * 4.0) and not poisoned,
+        x=x,
+        lam=lam,
+        mu=np.array([mu]),
+        objective=float(x[h.Cp]),
+        iters=int(it),
+        kkt=float(res_f),
+    )
+
+
+def _warm_arrays(warm, C: int, Cp: int, T: int):
+    """Warm triple (x, λ, μ) re-sliced into a ``Cp``-column bucket."""
+    x0 = np.zeros(Cp + 1, dtype=np.float32)
+    lam0 = np.zeros(2 * T, dtype=np.float32)
+    mu0 = np.float32(0.0)
+    if warm is not None:
+        m = min(C, len(warm[0]) - 1)
+        x0[:m] = warm[0][:m]
+        x0[Cp] = warm[0][-1]
+        lam0[: min(2 * T, len(warm[1]))] = warm[1][: 2 * T]
+        mu0 = np.float32(warm[2][0] if np.ndim(warm[2]) else warm[2])
+    return x0, lam0, mu0
+
+
+def solve_two_sided_master_async(
+    MT: np.ndarray,
+    v: np.ndarray,
+    cfg: Optional[Config] = None,
+    warm=None,
+    tol: Optional[float] = None,
+    max_iters: Optional[int] = None,
+    bucket: int = 2048,
+    device: DeviceLike = None,
+    log=None,
+) -> MasterHandle:
+    """Dispatch half of :func:`solve_two_sided_master`: the outputs stay on
+    the device until :func:`finish_two_sided_master`. The dense master is
+    packed by columns and solved by :func:`solve_two_sided_master_ell_async`
+    (the same LP), on whichever route the gate picks."""
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
+
+    T = MT.shape[0]
+    return solve_two_sided_master_ell_async(
+        EllPack.from_rows(np.asarray(MT, np.float32).T, minor=T), v, cfg=cfg, warm=warm,
+        tol=tol, max_iters=max_iters, bucket=bucket, device=device, log=log,
+    )
+
+
+def solve_two_sided_master(MT, v, cfg=None, warm=None, tol=None, max_iters=None,
+                           bucket: int = 2048, device: DeviceLike = None, log=None) -> LPSolution:
+    """Device solve of the two-sided ε master over a dense ``MT`` (blocking)."""
+    return finish_two_sided_master(
+        solve_two_sided_master_async(
+            MT, v, cfg=cfg, warm=warm, tol=tol, max_iters=max_iters,
+            bucket=bucket, device=device, log=log,
+        )
+    )
+
+
+def solve_two_sided_master_ell_async(
+    ell,
+    v: np.ndarray,
+    cfg: Optional[Config] = None,
+    warm=None,
+    tol: Optional[float] = None,
+    max_iters: Optional[int] = None,
+    bucket: int = 2048,
+    device: DeviceLike = None,
+    log=None,
+) -> MasterHandle:
+    """Dispatch half of :func:`solve_two_sided_master_ell`. ``ell`` is an
+    :class:`~citizensassemblies_tpu_torch.solvers.sparse_ops.EllPack` of the
+    master's COLUMNS (minor axis = the T types); columns pad to ``bucket``
+    (all-zero packed rows are inert)."""
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    cfg = cfg or default_config()
+    dev = resolve_device(device)
+    tol = float(tol if tol is not None else cfg.pdhg_tol)
+    T = int(ell.minor)
+    C = len(ell)
+    Cp = ((C + bucket - 1) // bucket) * bucket
+    idx_p, val_p = ell.padded(Cp)
+    x0, lam0, mu0 = _warm_arrays(warm, C, Cp, T)
+    colmask = np.zeros(Cp, dtype=np.float32)
+    colmask[:C] = 1.0
+    mi = int(max_iters if max_iters is not None else cfg.pdhg_max_iters)
+    ce = int(cfg.pdhg_check_every)
+    sent = sentinels_enabled(cfg)
+    f32 = dict(dtype=torch.float32, device=dev)
+    lanes = (
+        torch.as_tensor(np.asarray(v, np.float32), **f32),
+        torch.as_tensor(colmask, **f32)[None],
+        torch.as_tensor(x0, **f32)[None],
+        torch.as_tensor(lam0, **f32)[None],
+        torch.full((1,), float(mu0), **f32),
+        torch.full((1,), tol, **f32),
+    )
+    if mk.megakernel_mode(cfg, T, Cp, dev, log=log) != "off":
+        # fused route: one kernel launch for the whole solve
+        out = mk.dispatch_two_sided(
+            idx_p, val_p, *lanes, max_iters=mi, check_every=ce, sentinel=sent,
+            log=log,
+        )
+    else:
+        out = _pdhg_two_sided_body_ell(
+            torch.as_tensor(idx_p, dtype=torch.int32, device=dev),
+            torch.as_tensor(val_p, **f32), *lanes,
+            max_iters=mi, check_every=ce, sentinel=sent,
+        )
+    return _handle(*(o[0] for o in out), Cp=Cp, T=T, tol=tol)
+
+
+def solve_two_sided_master_ell(ell, v, cfg=None, warm=None, tol=None, max_iters=None,
+                               bucket: int = 2048, device: DeviceLike = None, log=None) -> LPSolution:
+    """Blocking wrapper of :func:`solve_two_sided_master_ell_async` (same
+    (x, lam, mu) layout and warm-start contract as the dense master)."""
+    return finish_two_sided_master(
+        solve_two_sided_master_ell_async(
+            ell, v, cfg=cfg, warm=warm, tol=tol, max_iters=max_iters,
+            bucket=bucket, device=device, log=log,
+        )
+    )

@@ -1,0 +1,135 @@
+"""Typed configuration: the knobs the LEXIMIN main path reads.
+
+Field names and defaults are those of the JAX package's ``Config``, so a
+reference configuration maps onto this one field by field
+(``interop.config_from_dict``). Only the knobs this package reads are
+carried; the rest arrive with the modules that read them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    # --- numerical tolerances -------------------------------------------------
+    #: numerical deviation accepted as equality when dealing with solvers.
+    eps: float = 5e-4
+    #: probabilities below this count as zero in a distribution's support.
+    support_eps: float = 1e-11
+
+    # --- type-space enumeration ----------------------------------------------
+    #: enumerate every feasible composition when the instance has at most
+    #: this many distinct agent types.
+    enum_max_types: int = 16
+    #: abandon enumeration beyond this many feasible compositions.
+    enum_cap: int = 200_000
+    #: abandon enumeration beyond this many search nodes.
+    enum_node_budget: int = 3_000_000
+    #: panel cap for the greedy water-filling seed of the panel decomposition.
+    decompose_budget: int = 16_384
+    #: probe-LP tolerance certifying that a type cannot exceed the stage value.
+    probe_tol: float = 1e-7
+    #: panel-decomposition polish tolerance on the enumerated path.
+    decomp_tol: float = 1e-6
+    #: face-loop acceptance bar on ‖Mp − v‖∞.
+    decomp_accept: float = 6.5e-4
+    #: acceptance after the face loop stalls or exhausts its rounds.
+    decomp_accept_stalled: float = 8e-4
+    #: face rounds before the face loop gives up.
+    decomp_max_rounds: int = 60
+    #: masters stay on the host LP while both the type count and the column
+    #: count are at most these.
+    decomp_host_master_max_types: int = 384
+    decomp_host_master_max_cols: int = 2_500
+    #: wall-clock budget (seconds) of the face-round loop.
+    decomp_time_budget_s: float = 45.0
+    #: run the anchor MILPs on a worker thread, one round behind the master.
+    decomp_oracle_overlap: bool = True
+    #: carry the master's and polish's PDHG iterates across rounds.
+    decomp_warm_start: bool = True
+    #: warm rounds without ε improvement before one cold restart.
+    decomp_warm_stall_rounds: int = 3
+    #: screen the neighbour moves as one device batch per round.
+    decomp_batched_expand: bool = True
+    #: device anchor pricing. ``None`` resolves to off in this package until
+    #: ROADMAP queue A item "device pricing + _FusedScreen" lands; ``True``
+    #: raises NotImplementedError.
+    decomp_device_pricing: Optional[bool] = None
+
+    # --- PDHG LP solver -------------------------------------------------------
+    pdhg_max_iters: int = 100_000
+    pdhg_tol: float = 1e-6
+    #: iterations per convergence check (one PDHG block).
+    pdhg_check_every: int = 128
+    #: route the two-sided master through the hand-written block kernel
+    #: (``kernels/pdhg_megakernel.py``). ``None``: the kernel on CUDA when
+    #: the lane's T-vectors fit shared memory; ``True``: the kernel on CUDA
+    #: tensors and its plain version on CPU tensors; ``False``: the chained
+    #: torch route.
+    pdhg_megakernel: Optional[bool] = None
+
+    # --- batched LP engine ----------------------------------------------------
+    #: the B-lane polish screen. ``None`` resolves to off in this package
+    #: until ROADMAP queue A item "B-lane polish screen" lands; ``True``
+    #: raises NotImplementedError.
+    lp_batch: Optional[bool] = None
+
+    # --- structured-sparse operator layer -------------------------------------
+    #: ELL routing tri-state: ``None`` engages the ELL path when the measured
+    #: fill is at most ``sparse_fill_cutoff``.
+    sparse_ops: Optional[bool] = None
+    sparse_fill_cutoff: float = 0.25
+
+    #: bf16 operand demotion. ``None`` resolves to off in this package until
+    #: ROADMAP queue A item "mixed precision" lands; ``True`` raises
+    #: NotImplementedError.
+    mixed_precision: Optional[bool] = None
+
+    # --- fault tolerance ------------------------------------------------------
+    #: freeze a PDHG lane whose KKT residual goes non-finite at its last
+    #: finite block and flag it (the caller re-solves on the host).
+    robust_sentinels: bool = True
+    #: face-loop checkpointing (ROADMAP queue A item "checkpointing"); any
+    #: value other than the defaults raises NotImplementedError.
+    robust_checkpoint_every: int = 0
+    robust_checkpoint_dir: str = ""
+
+    # --- backends -------------------------------------------------------------
+    #: bypass the type-space solvers and run the agent-space CG (ROADMAP
+    #: queue A item "agent-space path"); ``True`` raises NotImplementedError.
+    force_agent_space: bool = False
+    #: random seed of solver-internal sampling.
+    solver_seed: int = 0
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def default_config() -> Config:
+    return Config()
+
+
+def check_slice_config(cfg: Config) -> None:
+    """Raise NotImplementedError for a knob forced onto a path this package
+    does not have yet (each names its ROADMAP queue A item)."""
+    missing = {
+        "decomp_device_pricing": "device pricing + _FusedScreen",
+        "lp_batch": "B-lane polish screen (batch_lp)",
+        "mixed_precision": "mixed precision",
+    }
+    for name, item in missing.items():
+        if getattr(cfg, name) is True:
+            raise NotImplementedError(
+                f"Config.{name}=True needs ROADMAP queue A item {item!r}"
+            )
+    if cfg.robust_checkpoint_every or cfg.robust_checkpoint_dir:
+        raise NotImplementedError(
+            "face-loop checkpointing needs ROADMAP queue A item 'checkpointing'"
+        )
+    if cfg.force_agent_space:
+        raise NotImplementedError(
+            "force_agent_space needs ROADMAP queue A item 'agent-space path'"
+        )

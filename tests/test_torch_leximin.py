@@ -1,0 +1,104 @@
+"""LEXIMIN end to end: the port against the JAX package.
+
+Both packages run ``find_distribution_leximin`` on the same instances in the
+slice's configuration (device pricing, the B-lane polish screen and mixed
+precision off): ``example_small_like_instance`` takes the enumerated
+type-space path, ``skewed_instance(n=160, k=14, n_categories=4, seed=2)``
+(T = 54 > ``enum_max_types``) the column-generation path with the face
+decomposition. Each side must meet its 1e-3 L∞ contract, and the two
+allocations must agree within 1e-3 L∞. A second port run forces the device
+routing on the CPU through the port's one routing predicate, so every
+master goes through the block kernel's plain version.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import citizensassemblies_tpu.core.generator as jgen
+from citizensassemblies_tpu.core.instance import featurize as j_featurize
+from citizensassemblies_tpu.models.leximin import find_distribution_leximin as j_leximin
+from citizensassemblies_tpu.utils.config import default_config as jcfg
+
+import citizensassemblies_tpu_torch.core.generator as tgen
+from citizensassemblies_tpu_torch.core.instance import featurize as t_featurize
+from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin as t_leximin
+from citizensassemblies_tpu_torch.utils import config as tconfig
+from citizensassemblies_tpu_torch.utils import device as tdevice
+from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+# the plain kernel versions are many small ops: intra-op threads would only
+# contend with the other test workers for the cores
+torch.set_num_threads(1)
+
+SLICE = dict(decomp_device_pricing=False, lp_batch=False, mixed_precision=False)
+CONTRACT = 1e-3
+#: the leximin values are LP optima both packages compute with HiGHS on the
+#: host from identical inputs
+FIXED_TOL = 1e-6
+
+INSTANCES = {
+    "example_small_like": lambda g: g.example_small_like_instance(),
+    "skewed_160": lambda g: g.skewed_instance(n=160, k=14, n_categories=4, seed=2),
+}
+
+_ref = {}
+
+
+def _reference(name):
+    if name not in _ref:
+        jd, js = j_featurize(INSTANCES[name](jgen))
+        _ref[name] = j_leximin(jd, js, cfg=jcfg().replace(**SLICE))
+    return _ref[name]
+
+
+def _port(name, cfg=None):
+    td, ts = t_featurize(INSTANCES[name](tgen), device="cpu")
+    log = RunLog(echo=False)
+    cfg = cfg or tconfig.default_config().replace(**SLICE)
+    return t_leximin(td, ts, cfg=cfg, log=log, device="cpu"), log
+
+
+def _check(ref, dist):
+    for d in (ref, dist):
+        assert d.contract_ok
+        assert float(np.max(np.abs(d.allocation - d.fixed_probabilities))) <= CONTRACT
+        assert abs(d.probabilities.sum() - 1.0) <= 1e-9
+    np.testing.assert_allclose(dist.fixed_probabilities, ref.fixed_probabilities, rtol=0, atol=FIXED_TOL)
+    assert float(np.max(np.abs(dist.allocation - ref.allocation))) <= CONTRACT
+    np.testing.assert_array_equal(dist.covered, ref.covered)
+    # every panel is a k-subset
+    k = int(ref.committees.sum(axis=1)[0])
+    assert (dist.committees.sum(axis=1) == k).all()
+
+
+@pytest.mark.parametrize("name", list(INSTANCES))
+def test_leximin_matches_reference(name):
+    dist, log = _port(name)
+    _check(_reference(name), dist)
+    if name == "skewed_160":
+        assert "typespace_cg" in log.timers
+    else:
+        assert "typespace_lp" in log.timers
+
+
+def test_leximin_forced_device_routing(monkeypatch):
+    """Every master on the device route (the block kernel's plain version on
+    the CPU): the same bar against the reference."""
+    monkeypatch.setattr(tdevice, "on_accelerator", lambda dev: True)
+    cfg = tconfig.default_config().replace(decomp_host_master_max_types=0, **SLICE)
+    dist, log = _port("skewed_160", cfg=cfg)
+    _check(_reference("skewed_160"), dist)
+    c = log.counters
+    assert c.get("megakernel_dispatches", 0) >= 1
+    assert "megakernel_fit_miss" not in c
+
+
+def test_leximin_refuses_paths_not_ported():
+    td, ts = t_featurize(INSTANCES["example_small_like"](tgen), device="cpu")
+    with pytest.raises(NotImplementedError, match="households"):
+        t_leximin(td, ts, device="cpu", households=np.zeros(td.n, np.int64))
+    with pytest.raises(NotImplementedError, match="XMIN"):
+        t_leximin(td, ts, device="cpu", final_stage="l2")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_leximin(td, ts, device="cpu", cfg=tconfig.default_config().replace(lp_batch=True))

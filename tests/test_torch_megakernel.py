@@ -1,0 +1,268 @@
+"""The two-sided PDHG master: the port against the JAX package.
+
+The fused route is the hand-written CUDA block kernel on the card; on the
+CPU (``pdhg_megakernel=True``) its plain version runs the same block loop
+in torch ops. Here it is held against the JAX package's Pallas block kernel
+in interpret mode (``two_sided_megakernel_core(..., interpret=True)``) on the
+fixtures of ``tests/test_megakernel.py``, rebuilt from the same seeds, at
+one lane and at three lanes with prefix column masks. The bars are the
+reference's own fused-vs-chained ones: x and λ within L∞ 5e-4, the
+objective within 5e-5, and equal per-lane iteration counts.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from citizensassemblies_tpu.kernels import pdhg_megakernel as jmk
+from citizensassemblies_tpu.solvers import lp_pdhg as jlp
+from citizensassemblies_tpu.solvers.sparse_ops import EllPack as JEll
+from citizensassemblies_tpu.utils.config import default_config as jcfg
+
+from citizensassemblies_tpu_torch import interop
+from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as tmk
+from citizensassemblies_tpu_torch.solvers import lp_pdhg as tlp
+from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack as TEll
+from citizensassemblies_tpu_torch.utils import config as tconfig
+from citizensassemblies_tpu_torch.utils import device as tdevice
+from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+# the plain kernel versions are many small ops: intra-op threads would only
+# contend with the other test workers for the cores
+torch.set_num_threads(1)
+
+X_TOL, OBJ_TOL = 5e-4, 5e-5
+TOL = 1e-5
+MAX_ITERS = 4096
+CHECK_EVERY = 128
+
+
+def _flagship_master(seed=7, T=24, C=96):
+    """``tests/test_megakernel.py::_flagship_master``: composition counts
+    over T types scaled by 1/8, ``v`` realised by the uniform mix."""
+    r = np.random.default_rng(seed)
+    comps = (r.random((C, T)) < 0.2) * r.integers(1, 4, (C, T))
+    MT = (comps / 8.0).T.astype(np.float64)
+    return MT, MT @ np.full(C, 1.0 / C)
+
+
+def _household_master(seed=11, T=40, C=64):
+    """``tests/test_megakernel.py::_household_master``."""
+    r = np.random.default_rng(seed)
+    comps = (r.random((C, T)) < 0.12) * r.integers(1, 3, (C, T))
+    comps[:, 0] = 1
+    MT = (comps / 4.0).T.astype(np.float64)
+    return MT, MT @ np.full(C, 1.0 / C)
+
+
+FIXTURES = {"flagship": _flagship_master, "household": _household_master}
+
+
+def _lanes(MT, v, caps, nan_lane=None):
+    """numpy operands of a B-lane solve over the shared column pack."""
+    T, C = MT.shape
+    idx, val = TEll.from_rows(np.asarray(MT, np.float32).T, minor=T).padded(C)
+    B = len(caps)
+    colmask = np.zeros((B, C), np.float32)
+    for b, cap in enumerate(caps):
+        colmask[b, :cap] = 1.0
+    x0 = np.zeros((B, C + 1), np.float32)
+    if nan_lane is not None:
+        x0[nan_lane, 0] = np.nan
+    return dict(
+        idx=idx, val=val, v=np.asarray(v, np.float32), colmask=colmask, x0=x0,
+        lam0=np.zeros((B, 2 * T), np.float32), mu0=np.zeros(B, np.float32),
+        tol=np.full(B, TOL, np.float32),
+    )
+
+
+def _jax_fused(ops):
+    out = jmk.two_sided_megakernel_core(
+        *(jnp.asarray(ops[k]) for k in ("idx", "val", "v", "colmask", "x0", "lam0", "mu0", "tol")),
+        max_iters=MAX_ITERS, check_every=CHECK_EVERY, sentinel=True, interpret=True,
+    )
+    return [np.asarray(o) for o in out]
+
+
+def _port_fused(ops, log=None):
+    t = {k: torch.as_tensor(ops[k]) for k in ("v", "colmask", "x0", "lam0", "mu0", "tol")}
+    out = tmk.dispatch_two_sided(
+        ops["idx"], ops["val"], t["v"], t["colmask"], t["x0"], t["lam0"], t["mu0"], t["tol"],
+        max_iters=MAX_ITERS, check_every=CHECK_EVERY, sentinel=True, log=log,
+    )
+    return [o.numpy() for o in out]
+
+
+def _assert_parity(a, b, lanes):
+    """``a``/``b``: ``(x, lam, mu, it, res, flags)`` of two routes."""
+    C = a[0].shape[1] - 1
+    for lane in lanes:
+        assert np.max(np.abs(a[0][lane] - b[0][lane])) < X_TOL
+        assert np.max(np.abs(a[1][lane] - b[1][lane])) < X_TOL
+        assert abs(a[0][lane, C] - b[0][lane, C]) < OBJ_TOL
+        assert int(a[3][lane]) == int(b[3][lane])
+
+
+@pytest.mark.parametrize("caps", ["one", "prefix"])
+@pytest.mark.parametrize("name", list(FIXTURES))
+def test_fused_plain_matches_pallas_interpret(name, caps):
+    MT, v = FIXTURES[name]()
+    C = MT.shape[1]
+    caps = [C] if caps == "one" else [C // 4, C // 2, C]
+    ops = _lanes(MT, v, caps)
+    want = _jax_fused(ops)
+    log = RunLog(echo=False)
+    got = _port_fused(ops, log=log)
+    _assert_parity(want, got, range(len(caps)))
+    assert np.all(got[3] > 0) and np.all(got[5] == 0)
+    assert log.counters["megakernel_dispatches"] == 1
+    assert log.counters["megakernel_lanes"] == len(caps)
+
+
+@pytest.mark.parametrize("name", list(FIXTURES))
+def test_chained_route_matches_reference(name):
+    """``pdhg_megakernel=False``: the chained ELL route against the JAX
+    package's ``_pdhg_two_sided_core_ell`` (through the master entry point)."""
+    MT, v = FIXTURES[name]()
+    T = MT.shape[0]
+    rows = np.asarray(MT, np.float32).T
+    a = jlp.solve_two_sided_master_ell(
+        JEll.from_rows(rows, minor=T), v, cfg=jcfg().replace(pdhg_megakernel=False)
+    )
+    b = tlp.solve_two_sided_master_ell(
+        TEll.from_rows(rows, minor=T), v,
+        cfg=tconfig.default_config().replace(pdhg_megakernel=False), device="cpu",
+    )
+    assert a.ok and b.ok
+    assert np.max(np.abs(a.x - b.x)) < X_TOL
+    assert np.max(np.abs(a.lam - b.lam)) < X_TOL
+    assert abs(a.objective - b.objective) < OBJ_TOL
+    assert a.iters == b.iters
+
+
+def test_dense_master_matches_reference():
+    """The dense-``MT`` master entry point (packed by columns, chained
+    route) against the reference's dense core."""
+    MT, v = _flagship_master()
+    a = jlp.solve_two_sided_master(MT, v, cfg=jcfg().replace(pdhg_megakernel=False))
+    b = tlp.solve_two_sided_master(
+        MT, v, cfg=tconfig.default_config().replace(pdhg_megakernel=False), device="cpu"
+    )
+    assert a.ok and b.ok
+    assert np.max(np.abs(a.x - b.x)) < X_TOL
+    assert abs(a.objective - b.objective) < OBJ_TOL
+    assert a.iters == b.iters
+
+
+def test_nan_lane_quarantined_mates_bit_identical():
+    """A NaN-warmed lane freezes at iteration 0 with a non-finite KKT and the
+    poisoned flag; its mates match a clean run bit for bit, and the JAX
+    package quarantines the same lane the same way."""
+    MT, v = _flagship_master()
+    caps = [24, 48, 96]
+    clean = _port_fused(_lanes(MT, v, caps))
+    ops = _lanes(MT, v, caps, nan_lane=1)
+    mixed = _port_fused(ops)
+    ref = _jax_fused(ops)
+    for out in (mixed, ref):
+        assert int(out[3][1]) == 0 and not np.isfinite(out[4][1])
+        assert int(out[5][1]) & tlp.FLAG_POISONED
+    for lane in (0, 2):
+        np.testing.assert_array_equal(mixed[0][lane], clean[0][lane])
+        np.testing.assert_array_equal(mixed[1][lane], clean[1][lane])
+        assert mixed[3][lane] == clean[3][lane]
+    _assert_parity(ref, mixed, (0, 2))
+    # the blocking readback reports the quarantined lane as not ok
+    h = tlp._handle(*(torch.as_tensor(o[1]) for o in mixed), Cp=96, T=24, tol=TOL)
+    assert not tlp.finish_two_sided_master(h).ok
+
+
+def test_warm_start_survives_bucket_repad():
+    """A warm triple from a 128-column bucket re-sliced into a 256-column one
+    (``tests/test_megakernel.py::test_warm_slot_survives_bucket_repad``):
+    warm beats cold on the fused and the chained route, and both agree."""
+    r7 = np.random.default_rng(7)
+    comps = (r7.random((96, 24)) < 0.2) * r7.integers(1, 4, (96, 24))
+    r19 = np.random.default_rng(19)
+    extra = (r19.random((64, 24)) < 0.2) * r19.integers(1, 4, (64, 24))
+    _, v = _flagship_master()
+    small = TEll.from_rows((comps / 8.0).astype(np.float32), minor=24)
+    big = TEll.from_rows(np.concatenate([comps / 8.0, extra / 8.0]).astype(np.float32), minor=24)
+    fused = tconfig.default_config().replace(pdhg_megakernel=True)
+    chained = tconfig.default_config().replace(pdhg_megakernel=False)
+    kw = dict(bucket=128, device="cpu")
+    s = tlp.solve_two_sided_master_ell(small, v, cfg=fused, **kw)
+    warm = interop.warm_from_arrays(s.x, s.lam, s.mu)
+    cold_f = tlp.solve_two_sided_master_ell(big, v, cfg=fused, **kw)
+    warm_f = tlp.solve_two_sided_master_ell(big, v, cfg=fused, warm=warm, **kw)
+    cold_c = tlp.solve_two_sided_master_ell(big, v, cfg=chained, **kw)
+    warm_c = tlp.solve_two_sided_master_ell(big, v, cfg=chained, warm=warm, **kw)
+    assert warm_f.ok and warm_c.ok
+    assert warm_f.iters < cold_f.iters and warm_c.iters < cold_c.iters
+    assert abs(warm_f.objective - warm_c.objective) < OBJ_TOL
+
+
+def test_gate_and_fit_rule(monkeypatch):
+    cfg = tconfig.default_config()
+    cpu = torch.device("cpu")
+    # auto is off on the CPU, True engages the plain version, False is off
+    assert tmk.megakernel_mode(cfg, 24, 128, cpu) == "off"
+    assert tmk.megakernel_mode(cfg.replace(pdhg_megakernel=True), 24, 128, cpu) == "fused"
+    assert tmk.megakernel_mode(cfg.replace(pdhg_megakernel=False), 24, 128, cpu) == "off"
+    # the flagship master (T=814, Cp up to 6144) fits one thread block
+    assert tmk.two_sided_fits(814, 6144)
+    monkeypatch.setattr(tdevice, "on_accelerator", lambda dev: True)
+    log = RunLog(echo=False)
+    assert tmk.megakernel_mode(cfg, 814, 6144, cpu, log=log) == "fused"
+    assert "megakernel_fit_miss" not in log.counters
+    # a lane whose T-vectors overflow shared memory goes chained, counted
+    assert not tmk.two_sided_fits(16_000, 6144)
+    assert tmk.megakernel_mode(cfg, 16_000, 6144, cpu, log=log) == "off"
+    assert log.counters["megakernel_fit_miss"] == 1
+
+
+def test_layout_read_from_the_kernel_header():
+    """The fit rule and the scalar-row slots come from the kernel's own
+    header: the flagship lane's bytes, and distinct slots inside the row."""
+    layout = tmk.LAYOUT
+    assert tmk.two_sided_smem_bytes(814, 6144) == (14 * 814 + 6144 + 264) * 4
+    assert layout["kMaxSmem"] == 232_448
+    slots = [v for k, v in layout.items() if k.startswith("S_") and k != "S_N"]
+    assert len(slots) == 15 and len(set(slots)) == 15
+    assert all(0 <= s < layout["S_N"] for s in slots)
+
+
+def test_gate_off_bitwise_identity():
+    """Auto on the CPU and ``False`` are the same chained route, bit for bit."""
+    MT, v = _flagship_master()
+    ell = TEll.from_rows(np.asarray(MT, np.float32).T, minor=24)
+    cfg = tconfig.default_config()
+    auto = tlp.solve_two_sided_master_ell(ell, v, cfg=cfg, device="cpu")
+    off = tlp.solve_two_sided_master_ell(ell, v, cfg=cfg.replace(pdhg_megakernel=False), device="cpu")
+    np.testing.assert_array_equal(auto.x, off.x)
+    np.testing.assert_array_equal(auto.lam, off.lam)
+    assert auto.iters == off.iters and auto.kkt == off.kkt
+
+
+def test_config_maps_from_reference():
+    ref = jcfg()
+    port = interop.config_from_dict(dataclasses.asdict(ref))
+    fields = [f.name for f in dataclasses.fields(tconfig.Config)]
+    for name in fields:
+        assert getattr(port, name) == getattr(ref, name), name
+    assert port == tconfig.default_config()
+    for knob in ("decomp_device_pricing", "lp_batch", "mixed_precision", "force_agent_space"):
+        with pytest.raises(NotImplementedError):
+            tconfig.check_slice_config(port.replace(**{knob: True}))
+    tconfig.check_slice_config(port)
+
+
+def test_entry_points_need_cuda_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this check is about a machine without CUDA")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdevice.resolve_device(None)
+    assert tdevice.resolve_device("cpu").type == "cpu"
