@@ -1,28 +1,39 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port on one NVIDIA GPU: kernels, then LEXIMIN end to end.
+"""Run the PyTorch port on one NVIDIA GPU: kernels, then its paths end to end.
 
     python3 chip_smoke.py            # the whole check (one GPU)
 
 Phases, each fatal on failure:
 
 1. the card: ``nvidia-smi`` name and power limit;
-2. build: both hand-written CUDA kernels from ``citizensassemblies_tpu_torch/csrc``
-   (one ``nvcc`` per source, started together);
-3. kernels, each held against its plain PyTorch version on the card at the
-   flagship shapes (T=814 types of ``sf_e_skewed_instance(seed=1)``, a
-   6144-column pack): the ELL gather, and the two-sided PDHG solve at B=1,
-   at B=3 with prefix column masks 1536/3072/6144, and at B=3 with one
-   NaN-warmed lane;
+2. build: the three hand-written CUDA kernels from
+   ``citizensassemblies_tpu_torch/csrc`` (one ``nvcc`` per source, started
+   together);
+3. kernels, each held against its plain PyTorch version on the card:
+   the ELL gather at the flagship master's shape (T=814 types of
+   ``sf_e_skewed_instance(seed=1)``, a 6144-column pack) and at the
+   flagship dual LP's (4096 panel rows over n+1 = 1728 variables); the
+   two-sided PDHG solve at B=1, at B=3 with prefix column masks
+   1536/3072/6144, and at B=3 with one NaN-warmed lane; the generic-LP
+   PDHG solve on the flagship dual LP to a tolerance, for a fixed 65,536
+   iterations, and with a NaN warm start;
 4. a small-input reference: LEXIMIN on ``skewed_instance(n=160, k=14,
    n_categories=4, seed=2)`` on the GPU with every master forced onto the
    device route, against the same solve on the CPU;
-5. the main path: ``find_distribution_leximin`` on ``sf_e_skewed_instance(seed=1)``
-   on the GPU with the launch counters zeroed just before it.
+5. the paths, each with every launch counter zeroed just before it and read
+   just after: LEXIMIN on ``sf_e_skewed_instance(seed=1)`` (type space, the
+   two-sided kernel); LEGACY's 10,000-draw estimator on the same pool; the
+   agent-space LEXIMIN column generation with device dual LPs (the LP
+   kernel) on ``skewed_instance(n=120, k=12, n_categories=3, seed=1)``, run
+   twice (the same dual solves and allocation both times) and held against
+   the type-space result on the same pool; and on the real-size
+   ``sf_b_skewed_instance(seed=1)`` under a stated budget per stage, its
+   dual solves held against the type-space leximin values.
 
-Prints one JSON line per kernel phase, the ``{"kernels": [...]}`` summary,
-the card line, and as its last line ``{"ok": true, "device": {...}}``. It
-exits non-zero, with no result line, when CUDA is absent or the package
-cannot be imported.
+Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
+line, and as its last line ``{"ok": true, "device": {...}}``. It exits
+non-zero, with no result line, when CUDA is absent or the package cannot
+be imported.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ F32_FLOPS = 67e12
 REPLACES = {
     "ell_gather": "citizensassemblies_tpu/kernels/ell_matvec.py:42",
     "two_sided_block": "citizensassemblies_tpu/kernels/pdhg_megakernel.py:161",
+    "lp_block": "citizensassemblies_tpu/kernels/pdhg_megakernel.py:646",
 }
 
 GATHER_TOL = 1e-4
@@ -56,6 +68,46 @@ SOLVE_OBJ_TOL = 1e-7
 #: the face loop's master tolerance at the flagship, 0.02 * the 6.5e-4 bar
 MASTER_TOL = 0.02 * 6.5e-4
 SOLVE_MAX_ITERS = 8192
+
+#: kernel vs plain generic-LP solve on the same prelude output: float32 sums
+#: in another order only, so the same bars as the two-sided solve
+LP_X_TOL = 1e-6
+LP_LAM_TOL = 1e-6
+LP_OBJ_TOL = 1e-7
+#: the agent-space path's own PDHG tolerance and iteration cap (Config
+#: defaults). The flagship dual LP does not meet 1e-6 before the cap (KKT
+#: 2.7e-6 there), so kernel and plain version are compared for equal
+#: iteration counts at LP_CHECK_TOL, which it meets in the first few
+#: thousand iterations, while its residual falls fast from block to block.
+#: Later the residual moves by about a per cent a block and wavers with the
+#: restarts, and float32 sums taken in two orders stop blocks apart: on the
+#: card, 65,920 against 64,128 iterations at 5.5e-6 and 11,904 against
+#: 11,648 at 1e-4. That late regime is held at a fixed length instead:
+#: tolerance 0 and LP_FIXED_ITERS iterations in both versions, with equal
+#: flags. There the objective, which is unique, is held at LP_OBJ_TOL, and
+#: x and λ at LP_FIXED_X_TOL: each block restarts from the averaged or the
+#: current iterate, whichever has the smaller residual, and where the two
+#: nearly tie, sums in another order pick the other; the runs then go on
+#: from points a residual apart, on a degenerate LP whose optimal y is not
+#: unique. On the card both reached KKT near 5.5e-6 there, 2.4e-6 apart on x
+#: and 2.5e-6 on λ, 1.1e-8 on the objective.
+LP_TOL = 1e-6
+LP_MAX_ITERS = 100_000
+LP_CHECK_TOL = 1e-3
+LP_FIXED_ITERS = 65_536
+LP_FIXED_X_TOL = 1e-5
+#: agent-space vs type-space sorted allocation profile
+#: (tests/test_certification.py's bar)
+PROFILE_TOL = 1e-3
+#: the agent-space path on sf_b_skewed_instance(seed=1) (n=250, k=20), the
+#: smallest real-size pool whose dual LPs take the LP kernel (the sf_c and
+#: mass pools' fill is above the ELL cutoff): its column generation does not
+#: finish its first stage in six minutes on the card, as the JAX package's
+#: PDHG does not meet 1e-6 within the cap on most of its dual LPs either
+#: (tests/test_torch_sf_dual.py), so it runs under a budget per stage and in
+#: all
+STAGE_BUDGET_S = 150.0
+AGENT_BUDGET_S = 240.0
 
 E2E_CONTRACT = 1e-3
 
@@ -140,16 +192,17 @@ def flagship_pack(C: int = 6144, seed: int = 0):
     return EllPack.from_rows(rows.astype(np.float32), minor=red.T), rows.T, red.msize
 
 
-def gather_phase(pack):
+def gather_phase(pack, rows=6144, label="gather"):
     """The ELL gather kernel against its plain version and against one
-    ``torch.sparse.mm`` over a CSR of the same matrix (a yardstick only)."""
+    ``torch.sparse.mm`` over a CSR of the same matrix (a yardstick only),
+    over the pack padded to ``rows`` rows."""
     import torch
 
     from citizensassemblies_tpu_torch.kernels import ell_matvec as em
 
     dev = torch.device("cuda")
     launches0 = em.KERNEL.launches
-    idx_np, val_np = pack.padded(6144)
+    idx_np, val_np = pack.padded(rows)
     C, kp = idx_np.shape
     T = pack.minor
     idx = torch.as_tensor(idx_np, device=dev)
@@ -182,7 +235,7 @@ def gather_phase(pack):
     flops = 2 * C * kp
     bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
     rec = dict(
-        phase="gather", name="ell_gather", replaces=REPLACES["ell_gather"],
+        phase=label, name="ell_gather", replaces=REPLACES["ell_gather"],
         shape=dict(C=C, k_pad=kp, T=T, lanes=[1, 3]),
         ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_max_abs_err=lib_err,
         call_ms=call_ms, plain_call_ms=plain_call_ms, library_call_ms=library_call_ms,
@@ -339,6 +392,210 @@ def solve_phase(pack, MT, caps, label, nan_lane=None, clean=None):
     return rec, dict(x=xk_n, it=it_k, prepared=(csr, idx, vals_s, pre, state))
 
 
+def dual_lp_operands(m1: int = 4096, seed: int = 0):
+    """The dual leximin LP at the flagship's shape, built by
+    ``solvers/lp_pdhg.dual_lp_operands`` as the path builds it: ``m1``
+    random 110-member panels of the ``sf_e_skewed_instance(seed=1)`` pool
+    (drawn as :func:`flagship_pack` draws them), about 10 % of the agents
+    fixed at values in [0.02, 0.08]. Returns ``(c, EllPack of G, h, A, b)``."""
+    from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import dual_lp_operands as build
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
+
+    dense, _ = featurize(sf_e_skewed_instance(seed=1), device="cpu")
+    n, k = dense.n, dense.k
+    rng = np.random.default_rng(seed)
+    P = np.zeros((m1, n))
+    for r in range(m1):
+        P[r, rng.choice(n, size=k, replace=False)] = 1.0
+    fixed = np.full(n, -1.0)
+    chosen = rng.choice(n, size=n // 10, replace=False)
+    fixed[chosen] = rng.uniform(0.02, 0.08, size=chosen.size)
+    c, G, h, A, b = build(P, fixed)
+    return c, EllPack.from_rows(G), h, A, b
+
+
+def lp_phase(ops, host_ops):
+    """The generic-LP block kernel at the flagship dual LP: first one solve
+    at the path's own tolerance and cap, timed by CUDA events; then the
+    kernel against its plain version on the same prelude output, at that
+    tolerance when the solve met it before the cap, else at
+    ``LP_CHECK_TOL`` (printed as ``tol``), with equal iteration counts;
+    then both for a fixed ``LP_FIXED_ITERS`` iterations, with equal stall
+    and poison flags; then a NaN warm start, which the kernel must
+    quarantine and
+    ``solve_lp_ell`` must re-solve on the host. That host re-solve runs on
+    ``host_ops``, a smaller dual LP of the same pool: HiGHS took 525 s on
+    the 4096-row one, and grows steeply with the rows (0.21 s at 256, 1.5 s
+    at 512, 18 s at 1024 on one host)."""
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import solve_lp_ell
+    from citizensassemblies_tpu_torch.utils.config import default_config
+
+    dev = torch.device("cuda")
+    launches0 = mk.LP_KERNEL.launches
+    c, ell, h, A, b = ops
+    nv, (m1, kp) = len(c), ell.idx.shape
+    f32 = dict(dtype=torch.float32, device=dev)
+    csr = mk.csr_to_device(ell.idx, ell.val, nv, dev)
+    t = [torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, ell.val, h, A, b)]
+    idx = torch.as_tensor(ell.idx, device=dev)
+    zeros = (torch.zeros(nv, **f32), torch.zeros(m1, **f32), torch.zeros(1, **f32))
+    pre, state = mk.lp_setup(t[0], idx, *t[1:], *zeros, csr)
+    c64 = np.asarray(c, np.float64)
+
+    def run_path():
+        return mk.lp_blocks_cuda(csr, idx, pre, state, LP_TOL, max_iters=LP_MAX_ITERS,
+                                 check_every=128, sentinel=True)
+
+    out_path = {}
+    path_ms = cuda_ms(lambda: out_path.update(v=run_path()), reps=1, warmup=0)
+    path_iters, path_kkt = int(out_path["v"][3]), float(out_path["v"][4])
+    met = path_iters < LP_MAX_ITERS and path_kkt <= LP_TOL
+    tol = LP_TOL if met else LP_CHECK_TOL
+
+    def compare(tol, max_iters, profile=False):
+        """Kernel and plain version on the same prelude output: times, the
+        errors of x, λ and the objective, iteration counts and flags."""
+        kw = dict(max_iters=max_iters, check_every=128, sentinel=True)
+        out_k, out_p = {}, {}
+        # one launch per solve, so its CUDA-event time is its device time
+        # (the profiler's total is kept beside it: in one run it held 0.025
+        # ms for a 1436 ms launch)
+        ms = cuda_ms(lambda: out_k.update(v=mk.lp_blocks_cuda(csr, idx, pre, state, tol, **kw)),
+                     reps=1, warmup=0)
+        profiler_ms = device_ms(
+            lambda: mk.lp_blocks_cuda(csr, idx, pre, state, tol, **kw), reps=1
+        ) if profile else None
+        # the plain version is some twenty launches per iteration: one run,
+        # timed by CUDA events (a profiler trace would hold millions of events)
+        plain_ms = cuda_ms(lambda: out_p.update(v=mk.lp_blocks_plain(csr, idx, pre, state, tol, **kw)),
+                           reps=1, warmup=0)
+        k_out, p_out = out_k["v"], out_p["v"]
+        xk, lk, _ = (a.cpu().numpy() for a in pre.unscale(*k_out[:3]))
+        xp, lp, _ = (a.cpu().numpy() for a in pre.unscale(*p_out[:3]))
+        return dict(
+            ms=ms, profiler_ms=profiler_ms, plain_ms=plain_ms,
+            it_k=int(k_out[3]), it_p=int(p_out[3]), res_k=float(k_out[4]), res_p=float(p_out[4]),
+            flags_k=int(k_out[5]), flags_p=int(p_out[5]),
+            err_x=float(np.abs(xk - xp).max()), err_lam=float(np.abs(lk - lp).max()),
+            err_obj=abs(float(c64 @ xk) - float(c64 @ xp)), max_abs_x=float(np.abs(xp).max()),
+        )
+
+    def close(r, x_tol=LP_X_TOL):
+        return r["err_x"] <= x_tol and r["err_lam"] <= x_tol and r["err_obj"] <= LP_OBJ_TOL
+
+    cmp = compare(tol, LP_MAX_ITERS, profile=True)
+    ms, profiler_ms, plain_ms = cmp["ms"], cmp["profiler_ms"], cmp["plain_ms"]
+    it_k, it_p, res_k = cmp["it_k"], cmp["it_p"], cmp["res_k"]
+    err_x, err_lam, err_obj = cmp["err_x"], cmp["err_lam"], cmp["err_obj"]
+    converged = bool(res_k <= tol and it_k < LP_MAX_ITERS)
+    same_iters = it_k == it_p
+    # the late regime the path's solves run in (restarts, ω swings, the
+    # stall flag): both versions for a fixed LP_FIXED_ITERS iterations, so
+    # they run the same blocks by construction
+    fixed = compare(0.0, LP_FIXED_ITERS)
+    fixed_ok = bool(
+        close(fixed, LP_FIXED_X_TOL) and fixed["it_k"] == fixed["it_p"] == LP_FIXED_ITERS
+        and fixed["flags_k"] == fixed["flags_p"]
+    )
+    # a NaN warm start: quarantined in the kernel, re-solved on the host
+    bad = state[0].clone()
+    bad[0] = float("nan")
+    kw = dict(max_iters=LP_MAX_ITERS, check_every=128, sentinel=True)
+    nan_out = mk.lp_blocks_cuda(csr, idx, pre, (bad,) + tuple(state[1:]), tol, **kw)
+    hc, hell, hh, hA, hb = host_ops
+    warm_nan = (np.full(nv, np.nan, np.float32), np.zeros(len(hell)), np.zeros(1))
+    t0 = time.perf_counter()
+    host = solve_lp_ell(hc, hell, hh, hA, hb, cfg=default_config().replace(pdhg_megakernel=True),
+                        warm=warm_nan, device=dev)
+    host_s = time.perf_counter() - t0
+    quarantined = bool(int(nan_out[5]) & 1) and int(nan_out[3]) == 0
+    host_ok = host.iters == -1 and host.ok and bool(np.isfinite(host.x).all())
+    ok = close(cmp) and converged and same_iters and fixed_ok and quarantined and host_ok
+    nnz = int(csr[0].shape[0])
+    # the least the card could take for this solve: each input read once
+    # (the pack, c, h, A, b, the warm start) and each output written once,
+    # against the float32 operations this run's iterations need: per
+    # iteration and per KKT evaluation (two a block), both matvec
+    # directions over the nonzeros and about ten operations per entry of
+    # the nv- and m1-length vectors
+    nbytes = m1 * kp * 8 + (4 * nv + 3 * m1 + 2 * nv + 4) * 4
+    evals = it_k + 2 * (it_k // kw["check_every"])
+    flops = evals * (4 * nnz + 10 * (nv + m1))
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations"
+    # the kernel as designed reads the pack on every evaluation, both
+    # layouts (slot-major m1*kp*8 bytes, variable-major nnz*8 bytes)
+    iter_bytes_ms = 1e3 * evals * (m1 * kp * 8 + nnz * 8) / HBM_BYTES_PER_S
+    rec = dict(
+        phase="lp_block_dual", name="lp_block", replaces=REPLACES["lp_block"],
+        shape=dict(m1=m1, k_pad=kp, nv=nv, m2=1, nnz=nnz), tol=tol, tol_raised=tol != LP_TOL,
+        path_tol=LP_TOL, path_ms=path_ms, path_iters=path_iters, path_kkt=path_kkt,
+        ms=ms, profiler_ms=profiler_ms, plain_ms=plain_ms, library_ms=None,
+        bound_ms=bound_ms, bound_by=bound_by, iter_bytes_ms=iter_bytes_ms,
+        launches=mk.LP_KERNEL.launches - launches0, iters_kernel=it_k, iters_plain=it_p,
+        max_iters=LP_MAX_ITERS, kkt_kernel=res_k,
+        max_abs_err=max(err_x, err_lam, fixed["err_x"], fixed["err_lam"]),
+        max_abs_err_x=err_x, max_abs_err_lam=err_lam, obj_err=err_obj,
+        max_abs_x=cmp["max_abs_x"], converged=converged, same_iters=same_iters,
+        fixed_length=dict(iters=LP_FIXED_ITERS, x_tol=LP_FIXED_X_TOL, ok=fixed_ok, **{
+            k: fixed[k] for k in ("ms", "plain_ms", "it_k", "it_p", "res_k", "res_p", "flags_k",
+                                  "flags_p", "err_x", "err_lam", "err_obj")
+        }),
+        nan_quarantined=quarantined, nan_host_resolve_ok=host_ok, nan_host_seconds=host_s,
+        nan_host_m1=len(hell),
+        tolerance=dict(x=LP_X_TOL, lam=LP_LAM_TOL, obj=LP_OBJ_TOL, iters=0), ok=bool(ok),
+    )
+    print(json.dumps(rec), flush=True)
+    if not ok:
+        raise SystemExit("LP block kernel phase failed")
+    return rec
+
+
+def legacy_phase(inst):
+    """LEGACY's 10,000-draw estimator on the flagship pool on the card:
+    every accepted panel meets every quota, the allocation sums to k, the
+    pair matrix is symmetric with a zero diagonal and rows summing to
+    (k − 1)·allocation."""
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.models.legacy import legacy_probabilities
+
+    dense, _ = featurize(inst, device="cuda")
+    t0 = time.perf_counter()
+    res = legacy_probabilities(dense, iterations=10_000, seed=0)
+    secs = time.perf_counter() - t0
+    P = res.panels
+    k = dense.k
+    counts = np.stack([dense.A_np[row].sum(axis=0) for row in P])
+    quotas_ok = bool(
+        (counts >= dense.qmin_np).all() and (counts <= dense.qmax_np).all()
+        and all(len(set(row.tolist())) == k for row in P)
+    )
+    M = res.pair_matrix.astype(np.float64)
+    row_err = float(np.abs(M.sum(axis=1) - (k - 1) * res.allocation).max())
+    alloc_err = abs(float(res.allocation.sum()) - k)
+    rec = dict(
+        phase="legacy_flagship", n=dense.n, k=k, iterations=10_000, seconds=secs,
+        draws_attempted=res.draws_attempted, panels_per_s=len(P) / secs,
+        unique_panels=len(res.unique_panels), min_prob=float(res.allocation.min()),
+        quotas_ok=quotas_ok, alloc_sum_err=alloc_err,
+        pair_symmetric=bool(np.array_equal(M, M.T)), pair_diag_zero=bool(np.all(np.diag(M) == 0)),
+        pair_row_err=row_err,
+    )
+    rec["ok"] = bool(
+        quotas_ok and len(P) == 10_000 and alloc_err <= 1e-9 and rec["pair_symmetric"]
+        and rec["pair_diag_zero"] and row_err <= 1e-3
+    )
+    print(json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise SystemExit("LEGACY phase failed")
+    return rec
+
+
 def leximin_run(inst, device, cfg):
     from citizensassemblies_tpu_torch.core.instance import featurize
     from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin
@@ -385,6 +642,159 @@ def reference_phase(slice_cfg):
     return rec
 
 
+def agent_space_phase(inst, slice_cfg, label):
+    """The agent-space LEXIMIN column generation on the card with device
+    dual LPs (``backend="jax"``: the LP block kernel), with every launch
+    counter zeroed just before it and read just after; then the same run
+    again, which must make the same dual solves and return the same
+    allocation (no step of the path sums with atomics); then the type-space
+    path on the same pool, whose sorted allocation profile it must match."""
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    for lib in (em.KERNEL, mk.KERNEL, mk.LP_KERNEL):
+        lib.launches = 0
+    cfg = slice_cfg.replace(force_agent_space=True, backend="jax")
+    dist, alog, secs, linf = leximin_run(inst, "cuda", cfg)
+    launches = {"lp_block": mk.LP_KERNEL.launches, "ell_gather": em.KERNEL.launches,
+                "two_sided_block": mk.KERNEL.launches}
+    again, alog2, secs2, _ = leximin_run(inst, "cuda", cfg)
+    repeat = dict(
+        seconds=secs2, dual_solves=int(alog2.counters.get("agent_space_dual_solves", 0)),
+        host_fallbacks=int(alog2.counters.get("dual_lp_host_fallback", 0)),
+        same_allocation=bool(np.array_equal(again.allocation, dist.allocation)),
+    )
+    ts, _, ts_secs, ts_linf = leximin_run(inst, "cuda", slice_cfg)
+    prof = float(np.abs(np.sort(dist.allocation) - np.sort(ts.allocation)).max())
+    c, tm = alog.counters, alog.timers
+    rec = dict(
+        phase=label, n=len(inst.agents), k=inst.k, seconds=secs,
+        contract_ok=bool(dist.contract_ok), linf=linf, typespace_seconds=ts_secs,
+        typespace_contract_ok=bool(ts.contract_ok), profile_dev=prof,
+        dual_solves=int(c.get("agent_space_dual_solves", 0)),
+        host_fallbacks=int(c.get("dual_lp_host_fallback", 0)),
+        exact_oracle_calls=int(c.get("agent_space_exact_prices", 0)),
+        sentinel_poisoned=int(c.get("sentinel_poisoned", 0)),
+        portfolio=int(dist.committees.shape[0]),
+        panels=int((dist.probabilities > slice_cfg.support_eps).sum()),
+        launches=launches, megakernel_fit_miss=int(c.get("megakernel_fit_miss", 0)),
+        megakernel_dispatches=int(c.get("megakernel_dispatches", 0)),
+        timers={k: tm.get(k, 0.0) for k in (
+            "dual_lp", "stochastic_pricing", "exact_oracle", "final_stage",
+        )},
+        repeat=repeat,
+    )
+    rec["ok"] = bool(
+        dist.contract_ok and ts.contract_ok and prof <= PROFILE_TOL
+        and np.isfinite(dist.allocation).all() and launches["lp_block"] > 0
+        and launches["ell_gather"] > 0 and rec["megakernel_fit_miss"] == 0
+        and repeat["dual_solves"] == rec["dual_solves"]
+        and repeat["host_fallbacks"] == rec["host_fallbacks"] and repeat["same_allocation"]
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+class _StageBudgetSpent(Exception):
+    pass
+
+
+def agent_space_budget_phase(inst, slice_cfg, label):
+    """The agent-space column generation on ``inst`` under a budget of
+    ``STAGE_BUDGET_S`` seconds per stage and ``AGENT_BUDGET_S`` in all: the
+    run stops at the first dual solve past either. Every dual solve goes
+    through the LP kernel (``backend="jax"``) and is recorded. Checks: the
+    kernel ran with no fit miss; every solve came back finite; no ``ok``
+    solve's objective (the restricted master's maximin) exceeds the pool's
+    leximin minimum from the type-space path by more than ``PROFILE_TOL``;
+    each completed stage fixed its agents at that minimum's profile value
+    within ``PROFILE_TOL``; and a run that finishes meets the contract and
+    matches the type-space profile."""
+    from unittest import mock
+
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+    from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin
+    from citizensassemblies_tpu_torch.solvers import lp_pdhg
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    ts, _, ts_secs, _ = leximin_run(inst, "cuda", slice_cfg)
+    profile = np.sort(ts.allocation)
+    stages = []
+    solve = lp_pdhg.solve_dual_lp_pdhg
+    t0 = time.perf_counter()
+
+    def budgeted(P, fixed, **kw):
+        nfixed = int((fixed >= 0).sum())
+        now = time.perf_counter()
+        if not stages or stages[-1]["fixed_before"] != nfixed:
+            if stages:
+                stages[-1]["value"] = float(fixed[fixed >= 0].max())
+            stages.append(dict(fixed_before=nfixed, start=now, rounds=0, pdhg_ok=0,
+                               max_ok_objective=0.0, finite=True))
+        st = stages[-1]
+        if now - st["start"] > STAGE_BUDGET_S or now - t0 > AGENT_BUDGET_S:
+            raise _StageBudgetSpent
+        sol, warm = solve(P, fixed, **kw)
+        st["rounds"] += 1
+        st["finite"] = st["finite"] and bool(np.isfinite(sol.y).all() and np.isfinite(sol.yhat))
+        if sol.ok:
+            st["pdhg_ok"] += 1
+            st["max_ok_objective"] = max(st["max_ok_objective"], float(sol.objective))
+        st["seconds"] = time.perf_counter() - st["start"]
+        return sol, warm
+
+    for lib in (em.KERNEL, mk.KERNEL, mk.LP_KERNEL):
+        lib.launches = 0
+    dense, space = featurize(inst, device="cuda")
+    alog = RunLog(echo=False)
+    cfg = slice_cfg.replace(force_agent_space=True, backend="jax")
+    dist = None
+    with mock.patch.object(lp_pdhg, "solve_dual_lp_pdhg", budgeted):
+        try:
+            dist = find_distribution_leximin(dense, space, cfg=cfg, log=alog, device="cuda")
+        except _StageBudgetSpent:
+            pass
+    secs = time.perf_counter() - t0
+    launches = {"lp_block": mk.LP_KERNEL.launches, "ell_gather": em.KERNEL.launches}
+    c, tm = alog.counters, alog.timers
+    if dist is not None and stages:
+        stages[-1]["value"] = float(dist.fixed_probabilities.max())
+    done = [s for s in stages if "value" in s]
+    # stage s fixes the agents at the (fixed_before + 1)-th smallest value
+    # of the leximin profile
+    stage_err = max((abs(s["value"] - profile[s["fixed_before"]]) for s in done), default=0.0)
+    bound_excess = max(
+        (s["max_ok_objective"] - profile[s["fixed_before"]] for s in stages), default=0.0
+    )
+    rec = dict(
+        phase=label, n=dense.n, k=dense.k, stage_budget_s=STAGE_BUDGET_S, budget_s=AGENT_BUDGET_S,
+        seconds=secs, finished=dist is not None, stages_completed=len(done),
+        stages=[{k: v for k, v in s.items() if k != "start"} for s in stages],
+        leximin_min=float(profile[0]), bound_excess=float(bound_excess), stage_value_err=stage_err,
+        typespace_seconds=ts_secs, launches=launches,
+        host_fallbacks=int(c.get("dual_lp_host_fallback", 0)),
+        sentinel_stalled=int(c.get("sentinel_stalled", 0)),
+        megakernel_fit_miss=int(c.get("megakernel_fit_miss", 0)),
+        oracle_backend_native=int(c.get("oracle_backend_native", 0)),
+        oracle_backend_highs=int(c.get("oracle_backend_highs", 0)),
+        timers={k: tm.get(k, 0.0) for k in ("dual_lp", "stochastic_pricing", "exact_oracle")},
+    )
+    ok = (
+        launches["lp_block"] > 0 and rec["megakernel_fit_miss"] == 0 and stages
+        and all(s["finite"] for s in stages) and bound_excess <= PROFILE_TOL
+        and stage_err <= PROFILE_TOL
+    )
+    if dist is not None:
+        rec["contract_ok"] = bool(dist.contract_ok)
+        rec["profile_dev"] = float(np.abs(np.sort(dist.allocation) - profile).max())
+        ok = ok and dist.contract_ok and rec["profile_dev"] <= PROFILE_TOL
+    rec["ok"] = bool(ok)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -392,7 +802,11 @@ def main() -> int:
         log("chip_smoke: CUDA is not available")
         return 2
     try:
-        from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
+        from citizensassemblies_tpu_torch.core.generator import (
+            sf_b_skewed_instance,
+            sf_e_skewed_instance,
+            skewed_instance,
+        )
         from citizensassemblies_tpu_torch.kernels import cuda_lib
         from citizensassemblies_tpu_torch.kernels import ell_matvec as em
         from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
@@ -406,25 +820,29 @@ def main() -> int:
     log(f"card: {card}")
 
     t0 = time.perf_counter()
-    build_s = cuda_lib.build_all([em.KERNEL, mk.KERNEL])
-    print(json.dumps(dict(phase="build", seconds=build_s)), flush=True)
-    for lib in (em.KERNEL, mk.KERNEL):
+    libs = [em.KERNEL, mk.KERNEL, mk.LP_KERNEL]
+    build_s = cuda_lib.build_all(libs)
+    print(json.dumps(dict(phase="build", seconds=build_s, kernels=[lib.name for lib in libs])), flush=True)
+    for lib in libs:
         log(f"--- ptxas report, {lib.name} ---\n{lib.build_log.strip()}")
 
     pack, MT, _ = flagship_pack()
     gather = gather_phase(pack)
+    dual_ops = dual_lp_operands()
+    gather_dual = gather_phase(dual_ops[1], rows=len(dual_ops[1]), label="gather_dual_lp")
     b1, _ = solve_phase(pack, MT, [6144], "two_sided_b1")
     b3, clean = solve_phase(pack, MT, [1536, 3072, 6144], "two_sided_b3_prefix")
     bnan, _ = solve_phase(pack, MT, [1536, 3072, 6144], "two_sided_b3_nan", nan_lane=1, clean=clean)
+    lp = lp_phase(dual_ops, dual_lp_operands(m1=512))
 
     slice_cfg = default_config().replace(
         decomp_device_pricing=False, lp_batch=False, mixed_precision=False
     )
     reference_phase(slice_cfg)
 
-    # the main path, with every launch counter zeroed just before it
-    em.KERNEL.launches = 0
-    mk.KERNEL.launches = 0
+    # the flagship path, with every launch counter zeroed just before it
+    for lib in libs:
+        lib.launches = 0
     dist, elog, secs, linf = leximin_run(sf_e_skewed_instance(seed=1), "cuda", slice_cfg)
     launches = {"ell_gather": em.KERNEL.launches, "two_sided_block": mk.KERNEL.launches}
     c, tm = elog.counters, elog.timers
@@ -451,6 +869,13 @@ def main() -> int:
     )
     print(json.dumps(e2e), flush=True)
 
+    legacy = legacy_phase(sf_e_skewed_instance(seed=1))
+    agent = agent_space_phase(
+        skewed_instance(n=120, k=12, n_categories=3, seed=1), slice_cfg, "agent_space_skewed_120"
+    )
+    launches["lp_block"] = agent["launches"]["lp_block"]
+    agent_sf_b = agent_space_budget_phase(sf_b_skewed_instance(seed=1), slice_cfg, "agent_space_sf_b")
+
     def summary(name, rec, phase_recs):
         return dict(
             name=name, route="cuda", source=f"citizensassemblies_tpu_torch/csrc/{name}.cu",
@@ -461,14 +886,16 @@ def main() -> int:
         )
 
     kernels = [
-        summary("ell_gather", gather, [gather]),
+        summary("ell_gather", gather, [gather, gather_dual]),
         summary("two_sided_block", b1, [b1, b3, bnan]),
+        summary("lp_block", lp, [lp]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     print(card, flush=True)
-    if not e2e["ok"]:
-        log("chip_smoke: the main path failed its checks")
+    failed = [r["phase"] for r in (e2e, legacy, agent, agent_sf_b) if not r["ok"]]
+    if failed:
+        log(f"chip_smoke: these paths failed their checks: {failed}")
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -207,6 +207,64 @@ def sf_e_skewed_instance(
     )
 
 
+def sf_b_skewed_instance(seed: int = 1) -> Instance:
+    """Heterogeneous synthetic stand-in shaped like ``sf_b_20`` (n=250, k=20,
+    6 categories, LEXIMIN Gini 47.4 % / min 4.0 % / runtime 8.8 s,
+    ``reference_output/sf_b_20_statistics.txt:2-5,9,15``)."""
+    return skewed_instance(
+        n=250,
+        k=20,
+        n_categories=6,
+        features_per_category=[2, 3, 3, 2, 4, 3],
+        seed=seed,
+        skew=0.7,
+        name="sf_b_skewed_20",
+    )
+
+
+def sf_d_skewed_instance(seed: int = 1) -> Instance:
+    """Heterogeneous synthetic stand-in shaped like ``sf_d_40`` (n=404, k=40,
+    6 categories, LEXIMIN Gini 48.7 % / min 4.7 % / runtime 46.2 s,
+    ``reference_output/sf_d_40_statistics.txt:2-5,9,15``)."""
+    return skewed_instance(
+        n=404,
+        k=40,
+        n_categories=6,
+        features_per_category=[2, 3, 4, 2, 3, 3],
+        seed=seed,
+        skew=0.8,
+        name="sf_d_skewed_40",
+    )
+
+
+def mass_like_instance(seed: int = 3) -> Instance:
+    """A mass_24-shaped instance: n=70, k=24, 5 categories, with two
+    categories fully pinned (min = max on every cell), the tight-quota
+    regime (shape from ``reference_output/mass_24_statistics.txt:2-4``)."""
+    import dataclasses
+
+    base = random_instance(
+        n=70, k=24, n_categories=5, features_per_category=[2, 3, 2, 3, 2],
+        seed=seed, name="mass_like_24",
+    )
+    cats: Dict[str, Dict[str, Quota]] = {}
+    for ci, (cat, feats) in enumerate(base.categories.items()):
+        names = list(feats)
+        counts = np.array(
+            [sum(1 for a in base.agents if a[cat] == f) for f in names], float
+        )
+        if ci < 2:
+            # pin to the proportional integer composition: min = max
+            exact = np.floor(counts / 70.0 * 24.0).astype(int)
+            order = np.argsort(-(counts / 70.0 * 24.0 - exact))
+            for j in order[: 24 - exact.sum()]:
+                exact[j] += 1
+            cats[cat] = {f: (int(c), int(c)) for f, c in zip(names, exact)}
+        else:
+            cats[cat] = feats
+    return dataclasses.replace(base, categories=cats)
+
+
 def example_small_like_instance(seed: int = 0) -> Instance:
     """Synthetic stand-in shaped like ``example_small_20``: n=200, k=20, two
     binary categories with quotas [9, 20] (see

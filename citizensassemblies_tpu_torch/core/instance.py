@@ -175,6 +175,17 @@ def dense_instance(
     )
 
 
+def on_device(dense: DenseInstance, device: torch.device) -> DenseInstance:
+    """``dense`` itself when it already lives on ``device``, else the same
+    instance rebuilt there."""
+    if dense.device == torch.device(device):
+        return dense
+    return dense_instance(
+        dense.A_np, dense.qmin_np, dense.qmax_np, dense.cat_of_feature_np,
+        dense.k, dense.n_categories, device=device,
+    )
+
+
 def read_instance(
     feature_file: Union[str, Path],
     pool_file: Union[str, Path],

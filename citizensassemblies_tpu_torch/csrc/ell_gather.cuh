@@ -1,11 +1,11 @@
-// Device helpers shared by the ELL gather kernel (ell_gather.cu) and the
-// two-sided PDHG block kernel (two_sided_block.cu).
+// Device helpers shared by the ELL gather kernel (ell_gather.cu) and the two
+// PDHG block kernels (two_sided_block.cu, lp_block.cu).
 //
 // The packed gather z[c] = sum_s val[c,s] * y[idx[c,s]] is the one matvec
-// both kernels share: the gather kernel runs it one warp per column over the
-// row-major pack, the block kernel one thread per column over its slot-major
-// copy of the pack. ell_dot is that inner product for either layout (a start
-// slot, a step and a slot stride). Padding slots carry value 0 and index 0,
+// the kernels share: the gather kernel runs it one warp per column over the
+// row-major pack, the block kernels one thread per packed row over a
+// slot-major copy of the pack. ell_dot is that inner product for either
+// layout (a start slot, a step and a slot stride). Padding slots carry value 0 and index 0,
 // so they add 0 * y[0]: a NaN in y[0] reaches every padded column, exactly
 // as in the reference.
 #pragma once
@@ -48,4 +48,31 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 }
 __device__ __forceinline__ float clipf(float x, float lo, float hi) {
   return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// Sum each of v[0..N) over the thread block; every thread ends with the
+// totals. red is shared scratch of at least N * 33 floats.
+template <int N>
+__device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = warp_sum(v[i]);
+  __syncthreads();  // earlier readers of red are done
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) red[i * 32 + warp] = v[i];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      float s = lane < nw ? red[i * 32 + lane] : 0.f;
+      s = warp_sum(s);
+      if (lane == 0) red[N * 32 + i] = s;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = red[N * 32 + i];
 }

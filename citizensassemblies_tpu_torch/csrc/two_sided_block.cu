@@ -77,31 +77,6 @@ struct Params {
   int T, Cp, kp, nnz, check_every, max_iters, sentinel;
 };
 
-template <int N>
-__device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = warp_sum(v[i]);
-  __syncthreads();  // earlier readers of red are done
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) red[i * 32 + warp] = v[i];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      float s = lane < nw ? red[i * 32 + lane] : 0.f;
-      s = warp_sum(s);
-      if (lane == 0) red[N * 32 + i] = s;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = red[N * 32 + i];
-}
-
 struct Lane {
   const int* idxS;
   const float* vsS;

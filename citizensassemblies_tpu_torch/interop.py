@@ -68,3 +68,13 @@ def warm_from_arrays(x, lam, mu) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         np.asarray(lam, dtype=np.float64).reshape(-1),
         np.asarray(mu, dtype=np.float64).reshape(-1),
     )
+
+
+def portfolio_from_panels(panels, n: int) -> np.ndarray:
+    """The bool ``[C, n]`` portfolio matrix of panels given as int agent
+    indices (rows of a ``[C, k]`` array, or a sequence of tuples), as the
+    JAX package's samplers return them."""
+    P = np.zeros((len(panels), int(n)), dtype=bool)
+    for r, panel in enumerate(panels):
+        P[r, np.asarray(panel, dtype=np.int64)] = True
+    return P

@@ -1,4 +1,6 @@
-"""The two-sided PDHG master as one hand-written CUDA kernel launch.
+"""The PDHG block kernels: two hand-written CUDA kernels, one launch per solve.
+
+**Two-sided master.**
 
 The chained route (``solvers/lp_pdhg._two_sided_iterate``) runs each PDHG
 iteration as a dozen small torch ops and reads every lane's residual on the
@@ -23,11 +25,24 @@ adjoint gather, one thread per column) and as a type-major CSR transpose
 structure on the host from the numpy pack, so no step has a data-dependent
 shape and nothing synchronises before the kernel.
 
-Gate (``Config.pdhg_megakernel``): ``None`` — the kernel on CUDA when the
-lane fits shared memory (:func:`two_sided_fits`); ``True`` — the kernel on
-CUDA tensors and :func:`two_sided_blocks_plain` on CPU tensors; ``False`` —
-the chained route. A shape that does not fit goes to the chained route and
-is counted (``megakernel_fit_miss``).
+**Generic-form LP** (``min cᵀx, Gx ≤ h, Ax = b, x ≥ 0``, G as packed ELL
+rows): ``csrc/lp_block.cu`` runs the whole block loop of one solve in one
+thread block, replacing the JAX package's
+``kernels/pdhg_megakernel.py:_lp_block_kernel``. Around it, in torch ops
+shared with the chained route ``solvers/lp_pdhg._pdhg_body_ell``:
+:func:`lp_setup` (Ruiz on the stacked ``[G; A]``, the power-iteration ‖K‖,
+the scaled warm start). The kernel takes the pack slot-major (its ``G x``,
+one thread per row) and as a variable-major CSR transpose built on the host
+(its ``Gᵀλ``, one warp per variable). The torch ops take ``Gᵀλ`` over the
+same CSR (:func:`lp_operators`), so no step of an LP solve sums with
+atomics and two runs on the same inputs take the same iterations.
+
+Gate (``Config.pdhg_megakernel``), for both kernels: ``None`` — the kernel
+on CUDA when the solve fits shared memory (:func:`two_sided_fits`,
+:func:`lp_fits`); ``True`` — the kernel on CUDA tensors and its plain
+version (:func:`two_sided_blocks_plain`, :func:`lp_blocks_plain`) on CPU
+tensors; ``False`` — the chained route. A shape that does not fit goes to
+the chained route and is counted (``megakernel_fit_miss``).
 """
 
 from __future__ import annotations
@@ -55,15 +70,24 @@ KERNEL = CudaLibrary(
 )
 
 
-def _read_layout() -> Dict[str, int]:
-    """The kernel's fit-rule constants and scalar-row slots, read from
-    ``csrc/two_sided_layout.cuh`` (the one place they are defined)."""
-    with open(os.path.join(CSRC, "two_sided_layout.cuh")) as fh:
+LP_KERNEL = CudaLibrary(
+    "lp_block",
+    "lp_block.cu",
+    ["ell_gather.cuh", "lp_layout.cuh"],
+    {"lp_solve_launch": (ctypes.c_int, [_P] * 20 + [_I] * 7 + [_P])},
+)
+
+
+def _read_layout(header: str) -> Dict[str, int]:
+    """A kernel's fit-rule constants and scalar-row slots, read from its
+    layout header under ``csrc/`` (the one place they are defined)."""
+    with open(os.path.join(CSRC, header)) as fh:
         text = fh.read()
     return {m[1]: int(m[2]) for m in re.finditer(r"^constexpr int (\w+) = (\d+);", text, re.M)}
 
 
-LAYOUT = _read_layout()
+LAYOUT = _read_layout("two_sided_layout.cuh")
+LP_LAYOUT = _read_layout("lp_layout.cuh")
 
 
 def two_sided_smem_bytes(T: int, Cp: int) -> int:
@@ -77,19 +101,45 @@ def two_sided_fits(T: int, Cp: int) -> bool:
     return two_sided_smem_bytes(T, Cp) <= LAYOUT["kMaxSmem"]
 
 
-def megakernel_mode(cfg: Optional[Config], T: int, Cp: int, device, log=None) -> str:
-    """Resolve the tri-state gate for a (T, Cp) master on ``device`` to
-    ``"fused"`` or ``"off"``. A gate that would engage but does not fit is
-    counted as ``megakernel_fit_miss`` on ``log``."""
+def _gate(cfg: Optional[Config], fits: bool, device, log) -> str:
     cfg = cfg or default_config()
     gate = cfg.pdhg_megakernel
     if gate is False or (gate is None and not _device.on_accelerator(device)):
         return "off"
-    if not two_sided_fits(T, Cp):
+    if not fits:
         if log is not None:
             log.count("megakernel_fit_miss")
         return "off"
     return "fused"
+
+
+def megakernel_mode(cfg: Optional[Config], T: int, Cp: int, device, log=None) -> str:
+    """Resolve the tri-state gate for a (T, Cp) master on ``device`` to
+    ``"fused"`` or ``"off"``. A gate that would engage but does not fit is
+    counted as ``megakernel_fit_miss`` on ``log``."""
+    return _gate(cfg, two_sided_fits(T, Cp), device, log)
+
+
+def lp_smem_bytes(nv: int, m1: int, m2: int) -> int:
+    """Shared memory one generic-LP solve needs: the nv-length vectors, the
+    dense equality block, the m2-length vectors, λ and the reduction
+    scratch."""
+    L = LP_LAYOUT
+    return (
+        L["kNvVectors"] * nv + m2 * nv + L["kM2Vectors"] * m2 + L["kM1Vectors"] * m1
+        + L["kLpRedFloats"]
+    ) * 4
+
+
+def lp_fits(nv: int, m1: int, m2: int) -> bool:
+    """The LP kernel's fit rule: its shared-memory working set fits one block."""
+    return lp_smem_bytes(nv, m1, m2) <= LP_LAYOUT["kLpMaxSmem"]
+
+
+def lp_megakernel_mode(cfg: Optional[Config], nv: int, m1: int, m2: int, device, log=None) -> str:
+    """:func:`megakernel_mode` for a generic LP of nv variables, m1
+    inequality and m2 equality rows."""
+    return _gate(cfg, lp_fits(nv, m1, m2), device, log)
 
 
 def two_sided_prelude(idx: torch.Tensor, val: torch.Tensor, v: torch.Tensor, colmask: torch.Tensor):
@@ -280,3 +330,153 @@ def dispatch_two_sided(
         log.count("megakernel_dispatches")
         log.count("megakernel_lanes", colmask.shape[0])
     return unscale(pre, p, eps, l_lo, l_up, mu) + (it, res, flags)
+
+
+# --- the generic-form LP ------------------------------------------------------
+
+
+def lp_prelude(c, idx, val, h, A, b):
+    """Ruiz equilibration of the stacked ``[G; A]`` with G as packed rows
+    ``idx``/``val`` ``[m1, k_pad]`` over the nv variables (8 sweeps; the
+    column norms of G are a ``scatter_reduce`` max over the packed values).
+    Returns the :class:`~citizensassemblies_tpu_torch.solvers.lp_pdhg.LPScaled`
+    data."""
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import LPScaled, _root
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_row_absmax
+
+    m1 = idx.shape[0]
+    nv = c.shape[0]
+    dev = val.device
+    absV = val.abs()
+    absA = A.abs()
+    d_r = torch.ones(m1 + A.shape[0], dtype=torch.float32, device=dev)
+    d_c = torch.ones(nv, dtype=torch.float32, device=dev)
+    for _ in range(8):
+        Sg = absV * d_r[:m1, None] * d_c[idx]
+        Sa = d_r[m1:, None] * absA * d_c[None, :]
+        rmax = torch.cat([Sg.amax(dim=1), Sa.amax(dim=1)])
+        cmax = torch.maximum(ell_row_absmax(idx, Sg, nv), Sa.amax(dim=0))
+        d_r, d_c = d_r / _root(rmax), d_c / _root(cmax)
+    return LPScaled(
+        d_r=d_r, d_c=d_c, vals_s=(val * d_r[:m1, None] * d_c[idx]).contiguous(),
+        As=(d_r[m1:, None] * A * d_c[None, :]).contiguous(), cs=c * d_c,
+        hs=h * d_r[:m1], bs=b * d_r[m1:],
+    )
+
+
+def lp_operators(idx, vals_s, csr, gather=ell_gather_mv):
+    """``(G_mv, G_rmv)`` over the scaled packed rows: the row gather
+    (``gather``, the kernel wrapper by default) and its transpose over the
+    variable-major CSR ``csr`` (:func:`csr_to_device` of the pack), each
+    variable's products summed in row order by ``torch.segment_reduce``: a
+    fixed order with no atomics, so an iteration count depends on the
+    inputs alone, on the card as on the host."""
+    perm, rowptr, rowT = csr
+    vals_t = vals_s.reshape(-1)[perm]
+
+    def G_rmv(y):
+        return torch.segment_reduce(vals_t * y[rowT], "sum", offsets=rowptr)
+
+    return (lambda x: gather(idx, vals_s, x)), G_rmv
+
+
+def lp_setup(c, idx, val, h, A, b, x0, lam0, mu0, csr):
+    """Everything before the block loop of a generic LP (tensors on one
+    device; ``csr`` the pack's :func:`csr_to_device`): the Ruiz prelude,
+    the power-iteration ‖K‖ and the scaled warm start. Returns ``(pre, (x,
+    lam, mu, norm, scale))``."""
+    pre = lp_prelude(c, idx, val, h, A, b)
+    nv = c.shape[0]
+    G_mv, G_rmv = lp_operators(idx, pre.vals_s, csr)
+    As = pre.As
+
+    def KtK(v):
+        return G_rmv(G_mv(v)) + As.t() @ (As @ v)
+
+    v = torch.ones(nv, dtype=torch.float32, device=c.device) / np.sqrt(np.float32(nv))
+    for _ in range(40):
+        w = KtK(v)
+        v = w / (torch.linalg.norm(w) + 1e-12)
+    norm = torch.sqrt(torch.linalg.norm(KtK(v)) + 1e-12)
+    return pre, pre.warm(x0, lam0, mu0) + (norm, pre.kkt_scale())
+
+
+def lp_blocks_plain(csr, idx, pre, state, tol, *, max_iters, check_every, sentinel):
+    """The LP block kernel's plain version: the same block loop in torch ops
+    (``lp_pdhg._lp_iterate`` over the plain packed matvecs). Returns the
+    scaled ``(x, lam, mu, it, res, flags)``."""
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import _lp_iterate
+
+    G_mv, G_rmv = lp_operators(idx, pre.vals_s, csr, gather=ell_gather_mv_plain)
+    return _lp_iterate(
+        G_mv, G_rmv, pre.As, pre.cs, pre.hs, pre.bs, *state, tol,
+        max_iters, check_every, sentinel=sentinel,
+    )
+
+
+def lp_blocks_cuda(csr, idx, pre, state, tol, *, max_iters, check_every, sentinel):
+    """Launch the LP block kernel on the prelude's output; ``csr`` is
+    :func:`csr_to_device` of the same pack over the nv variables. Returns
+    the scaled ``(x, lam, mu, it, res, flags)`` like the plain version, with
+    ``it``/``res``/``flags`` as 0-d device tensors."""
+    x, lam, mu, norm, scale = state
+    nv, m1, m2 = x.shape[0], lam.shape[0], mu.shape[0]
+    kp = idx.shape[1]
+    dev = x.device
+    if not lp_fits(nv, m1, m2):
+        raise ValueError(f"an LP at nv={nv}, m1={m1}, m2={m2} does not fit the block kernel")
+    perm, rowptr, rowT = csr
+    idxS = idx.t().contiguous()
+    vsS = pre.vals_s.t().contiguous()
+    vsT = pre.vals_s.reshape(-1)[perm].contiguous()
+    xk, lamk, muk = x.contiguous().clone(), lam.contiguous().clone(), mu.contiguous().clone()
+    xav, lav, mav = xk.clone(), lamk.clone(), muk.clone()
+    scal = torch.zeros(LP_LAYOUT["L_N"], dtype=torch.float32, device=dev)
+    for slot, val in (
+        ("L_RES", float("inf")), ("L_OMEGA", 1.0), ("L_BEST", float("inf")),
+        ("L_NORM", norm), ("L_SCALE", scale), ("L_TOL", tol),
+    ):
+        scal[LP_LAYOUT[slot]] = val
+    iters = torch.zeros(1, dtype=torch.int32, device=dev)
+    scratch = torch.empty((3, m1), dtype=torch.float32, device=dev)
+    cs, hs, bs = pre.cs.contiguous(), pre.hs.contiguous(), pre.bs.contiguous()
+    LP_KERNEL.call(
+        "lp_solve_launch",
+        ptr(idxS), ptr(vsS), ptr(rowptr), ptr(rowT), ptr(vsT), ptr(pre.As), ptr(cs),
+        ptr(hs), ptr(bs), ptr(xk), ptr(xav), ptr(lamk), ptr(lav), ptr(muk), ptr(mav),
+        ptr(scal), ptr(iters), ptr(scratch[0]), ptr(scratch[1]), ptr(scratch[2]),
+        nv, m1, m2, kp, int(check_every), int(max_iters), int(bool(sentinel)),
+        stream_of(xk),
+    )
+    flags = (scal[LP_LAYOUT["L_POIS"]] > 0).to(torch.int32) + 2 * (
+        scal[LP_LAYOUT["L_STALL"]] > 0
+    ).to(torch.int32)
+    return xk, lamk, muk, iters[0], scal[LP_LAYOUT["L_RES"]], flags
+
+
+def dispatch_lp(
+    c, idx_np: np.ndarray, val_np: np.ndarray, h, A, b, x0, lam0, mu0, tol, *,
+    device, max_iters: int, check_every: int, sentinel: bool, log=None,
+):
+    """The fused generic-LP solve on ``device``: numpy operands (the pack
+    ``[m1, k_pad]`` over nv = ``len(c)`` variables, the dense ``A [m2, nv]``,
+    the unscaled warm start). Returns the unscaled ``(x, lam, mu)`` tensors
+    and ``(it, res, flags)`` as Python numbers; the block loop is the kernel
+    on a CUDA device and its plain version on the CPU."""
+    dev = torch.device(device)
+    nv = len(c)
+    csr = csr_to_device(idx_np, val_np, nv, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    t = [torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, val_np, h, A, b, x0, lam0, mu0)]
+    idx = torch.as_tensor(np.ascontiguousarray(idx_np, dtype=np.int32), device=dev)
+    pre, state = lp_setup(t[0], idx, *t[1:], csr)
+    kw = dict(max_iters=max_iters, check_every=check_every, sentinel=sentinel)
+    if dev.type == "cuda":
+        out = lp_blocks_cuda(csr, idx, pre, state, tol, **kw)
+    else:
+        out = lp_blocks_plain(csr, idx, pre, state, tol, **kw)
+    x, lam, mu, it, res, flags = out
+    if log is not None:
+        log.count("megakernel_dispatches")
+        log.count("megakernel_lanes")
+    return pre.unscale(x, lam, mu) + (int(it), float(res), int(flags))

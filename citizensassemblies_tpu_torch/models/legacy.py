@@ -1,0 +1,226 @@
+"""LEGACY: the Sortition Foundation's greedy stratified sampler, batched.
+
+One panel draw is k greedy steps: pick the (category, feature) cell with the
+highest urgency ratio ``(min − selected) / remaining`` (first maximum in
+file order wins), select a uniformly random remaining member of that cell,
+update the per-cell counts, evict every member of a cell that just reached
+its upper quota, and fail the draw when a cell can no longer reach its lower
+quota. Draws that fail the final lower-quota audit are rejected and redrawn.
+
+Here a draw is k eager steps over ``[B, n]`` tensors for B chains at once
+(the JAX package's ``lax.scan``, ``citizensassemblies_tpu/models/legacy.py``):
+one ``[B, n] @ [n, F]`` product recomputes every chain's remaining counts, a
+masked row-wise argmax picks each chain's urgent cell, a Gumbel-max argmax
+picks the member, and a second ``[B, F] @ [F, n]`` product evicts the
+members of cells that hit their upper quota. The matrix products are plain
+``torch.matmul``: the JAX package computes them outside any Pallas kernel.
+
+Randomness comes from an explicit ``torch.Generator`` on the instance's
+device. Its streams differ from JAX's keys, so the two packages agree in
+distribution, not draw by draw; :func:`_sample_step` takes its Gumbel noise
+as an argument, so a test can feed both packages the same noise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from citizensassemblies_tpu_torch.core.instance import DenseInstance, SelectionError, on_device
+from citizensassemblies_tpu_torch.ops.pairs import pair_matrix_from_panels
+from citizensassemblies_tpu_torch.utils.config import Config, default_config
+from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass
+class LegacyResult:
+    """Monte-Carlo estimate bundle."""
+
+    allocation: np.ndarray  # float64[n] selection frequencies
+    unique_panels: Set[Tuple[int, ...]]
+    pair_matrix: np.ndarray  # float32[n, n] pair co-selection probabilities
+    panels: np.ndarray  # int32[iterations, k] all sampled panels (sorted rows)
+    draws_attempted: int = 0
+
+
+def _sample_step(A_f32, A_T_f32, qmin, qmax, n, state, noise, scores, households):
+    """One greedy selection step for a batch of chains.
+
+    ``state`` is ``(alive bool[B, n], selected int32[B, F], failed bool[B])``;
+    ``noise`` is float32 Gumbel noise ``[B, n]``. The member picked is
+    ``argmax(scores + noise)`` over the urgent cell's alive members: with
+    ``scores ≡ 0`` a uniform pick (Gumbel-max), with ``scores = β·y`` a
+    softmax(β·y)-weighted one (the pricing oracle's steering).
+    ``households`` int[n] group ids: selecting an agent evicts its household.
+    Returns the new state and the picked person per chain.
+    """
+    alive, selected, failed = state
+    remaining = (alive.to(torch.float32) @ A_f32).to(torch.int32)  # [B, F]
+    deficit = qmin[None, :] - selected
+    # a cell that can no longer reach its lower quota kills the draw
+    starved = (deficit > remaining).any(dim=1)
+    # urgency over eligible cells; argmax returns the first maximum, which
+    # is the file-order tie-break of the reference
+    eligible = (remaining > 0) & (qmax[None, :] > 0)
+    ratio = torch.where(
+        eligible, deficit.to(torch.float32) / remaining.to(torch.float32), NEG_INF
+    )
+    cell = ratio.argmax(dim=1)  # [B]
+    members = alive & (A_T_f32 > 0.5)[cell]  # [B, n]
+    person = torch.where(members, scores + noise, NEG_INF).argmax(dim=1)  # [B]
+    person_feats = A_f32[person].to(torch.int32)  # [B, F]
+    selected = selected + person_feats
+    # every cell of the selected person that just hit its upper quota
+    # evicts all its members
+    purged = (selected == qmax[None, :]) & (person_feats > 0)
+    kill = (purged.to(torch.float32) @ A_T_f32) > 0.5
+    alive = alive & ~kill
+    alive = alive & (households[None, :] != households[person][:, None])
+    return (alive, selected, failed | starved), person
+
+
+def _sample_panels_kernel(
+    dense: DenseInstance,
+    B: int,
+    noise_at: Callable[[int], torch.Tensor],
+    scores=None,
+    households=None,
+):
+    """Draw B panels; ``noise_at(step)`` gives step ``step``'s ``[B, n]``
+    Gumbel noise. Returns ``(panels int64[B, k], ok bool[B])`` on the
+    instance's device."""
+    n, k = dense.n, dense.k
+    dev = dense.device
+    A_f32 = dense.A.to(torch.float32)
+    A_T_f32 = A_f32.t().contiguous()
+    qmin, qmax = dense.qmin, dense.qmax
+    if scores is None:
+        scores = torch.zeros((1, n), dtype=torch.float32, device=dev)
+    if households is None:
+        households = torch.arange(n, device=dev)
+    else:
+        households = torch.as_tensor(np.asarray(households), dtype=torch.int64, device=dev)
+    alive = torch.ones((B, n), dtype=torch.bool, device=dev)
+    selected = torch.zeros((B, dense.n_features), dtype=torch.int32, device=dev)
+    failed = torch.zeros(B, dtype=torch.bool, device=dev)
+    persons: List[torch.Tensor] = []
+    for step in range(k):
+        # running out of people before the last pick fails the draw
+        out_of_people = ~alive.any(dim=1)
+        (alive, selected, failed_s), person = _sample_step(
+            A_f32, A_T_f32, qmin, qmax, n, (alive, selected, failed),
+            noise_at(step), scores, households,
+        )
+        failed = failed_s | out_of_people
+        persons.append(person)
+    panels = torch.stack(persons, dim=1)
+    # final lower-quota audit
+    failed = failed | (selected < qmin[None, :]).any(dim=1)
+    return panels, ~failed
+
+
+def gumbel(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """Standard Gumbel noise ``−log(E)``, ``E ~ Exp(1)``, from ``generator``."""
+    e = torch.empty(shape, dtype=torch.float32, device=device)
+    return -e.exponential_(generator=generator).log_()
+
+
+def sample_panels_batch(
+    dense: DenseInstance, generator: torch.Generator, batch: int, scores=None,
+    households=None, distribute: Optional[bool] = None,
+):
+    """Public batch draw on the instance's device; returns ``(panels [B, k],
+    ok [B])`` as tensors. ``distribute`` (sharding the chains over several
+    cards) needs ROADMAP queue A item 'distribution'; only ``None``/``False``
+    are taken."""
+    if distribute:
+        raise NotImplementedError(
+            "distribute=True needs ROADMAP queue A item 'distribution' (A14)"
+        )
+    n = dense.n
+
+    def noise_at(_step):
+        return gumbel(generator, (batch, n), dense.device)
+
+    return _sample_panels_kernel(dense, batch, noise_at, scores, households)
+
+
+def sample_feasible_panels(
+    dense: DenseInstance,
+    num: int,
+    seed: int = 0,
+    cfg: Optional[Config] = None,
+    households: Optional[np.ndarray] = None,
+    distribute: Optional[bool] = None,
+) -> Tuple[np.ndarray, int]:
+    """Collect ``num`` accepted panels by batched rejection sampling; returns
+    ``(panels int32[num, k] with sorted rows, draws attempted)``."""
+    cfg = cfg or default_config()
+    if num <= 0:
+        return np.zeros((0, dense.k), dtype=np.int32), 0
+    generator = torch.Generator(device=dense.device).manual_seed(int(seed))
+    B = min(cfg.mc_batch, max(256, num))
+    collected: List[np.ndarray] = []
+    total = attempts = draws = 0
+    while total < num:
+        panels, ok = sample_panels_batch(
+            dense, generator, B, households=households, distribute=distribute
+        )
+        good = panels.cpu().numpy()[ok.cpu().numpy()]
+        draws += B
+        if good.size:
+            collected.append(good)
+            total += good.shape[0]
+        attempts += 1
+        if attempts > cfg.mc_max_resample_rounds and total == 0:
+            raise SelectionError(
+                f"no feasible panel found in {attempts * B} LEGACY draws — "
+                f"quotas are likely infeasible for greedy selection"
+            )
+    panels = np.concatenate(collected, axis=0)[:num]
+    panels.sort(axis=1)
+    return panels.astype(np.int32), draws
+
+
+def legacy_probabilities(
+    dense: DenseInstance,
+    iterations: int = 10_000,
+    seed: int = 0,
+    cfg: Optional[Config] = None,
+    households: Optional[np.ndarray] = None,
+    distribute: Optional[bool] = None,
+    device: DeviceLike = None,
+) -> LegacyResult:
+    """Estimate the LEGACY allocation from ``iterations`` accepted draws.
+
+    Runs on ``device`` (CUDA unless the caller passes another; raises when
+    CUDA is absent and no device was passed). Returns per-agent selection
+    frequencies, the set of unique panels, and the pair co-selection matrix
+    normalized by the draw count.
+    """
+    cfg = cfg or default_config()
+    dense = on_device(dense, resolve_device(device))
+    panels, draws = sample_feasible_panels(
+        dense, iterations, seed=seed, cfg=cfg, households=households,
+        distribute=distribute,
+    )
+    n = dense.n
+    denom = max(iterations, 1)
+    counts = np.bincount(panels.ravel(), minlength=n)
+    allocation = counts.astype(np.float64) / denom
+    pair_matrix = (
+        pair_matrix_from_panels(panels, n=n, chunk=cfg.mc_batch, device=dense.device)
+        .cpu().numpy() / denom
+    )
+    return LegacyResult(
+        allocation=allocation,
+        unique_panels=set(map(tuple, panels.tolist())),
+        pair_matrix=pair_matrix,
+        panels=panels,
+        draws_attempted=draws,
+    )

@@ -1,7 +1,8 @@
-"""LEXIMIN: exact lexicographic-maximin panel distributions, type space.
+"""LEXIMIN: exact lexicographic-maximin panel distributions.
 
-Agents with identical feature rows are interchangeable, so the problem
-collapses onto the T distinct agent types (``solvers/native_oracle.TypeReduction``):
+**Type space** (the default). Agents with identical feature rows are
+interchangeable, so the problem collapses onto the T distinct agent types
+(``solvers/native_oracle.TypeReduction``):
 
 * at most ``Config.enum_max_types`` types: every feasible composition is
   enumerated and the leximin stage LPs run over the whole enumeration
@@ -14,20 +15,35 @@ Either certificate is then realized as concrete panels
 (``compositions.decompose_with_pricing``) and checked against the 1e-3 L∞
 contract on the per-agent allocation.
 
-Not in this package yet, each raising ``NotImplementedError``: the
-agent-space column generation (also the fallback after a contract miss),
-households, ``final_stage="l2"``, ``initial_panels`` and checkpointing.
+**Agent space** (``Config.force_agent_space``, ``initial_panels``, and the
+fallback after a type-space contract miss): the reference's column
+generation over panels (``leximin.py:338-470``). An outer loop fixes one
+tranche of agents per round by strict complementarity; an inner loop solves
+the dual LP over the portfolio (by PDHG on ``device`` with
+``Config.backend == "jax"``, through the LP block kernel, else HiGHS) and
+prices new panels with the LEGACY sampler on ``device``, the exact oracle
+certifying termination; a final LP realizes the fixed probabilities.
+
+Not in this package yet, each raising ``NotImplementedError``: households,
+``final_stage="l2"`` and checkpointing.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+import time
+from typing import List, Optional, Set, Tuple
 
 import numpy as np
+import torch
 
-from citizensassemblies_tpu_torch.core.instance import DenseInstance, FeatureSpace
-from citizensassemblies_tpu_torch.solvers.highs_backend import check_feasible_or_suggest
+from citizensassemblies_tpu_torch.core.instance import DenseInstance, FeatureSpace, on_device
+from citizensassemblies_tpu_torch.solvers.highs_backend import (
+    HighsCommitteeOracle,
+    check_feasible_or_suggest,
+    solve_dual_lp,
+    solve_final_primal_lp,
+)
 from citizensassemblies_tpu_torch.utils.config import Config, check_slice_config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
 from citizensassemblies_tpu_torch.utils.logging import RunLog, format_counters, format_timers
@@ -170,6 +186,281 @@ def realize_typespace(
     )
 
 
+class _Portfolio:
+    """Growing committee portfolio with O(1) dedup."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.rows: List[np.ndarray] = []
+        self.seen: Set[Tuple[int, ...]] = set()
+
+    def add(self, panel: Tuple[int, ...]) -> bool:
+        if panel in self.seen:
+            return False
+        self.seen.add(panel)
+        self.append(panel)
+        return True
+
+    def append(self, panel: Tuple[int, ...]) -> None:
+        """Add a panel the caller has already entered in ``seen``."""
+        row = np.zeros(self.n, dtype=bool)
+        row[list(panel)] = True
+        self.rows.append(row)
+
+    def matrix(self) -> np.ndarray:
+        return np.stack(self.rows, axis=0)
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+
+def _seed_portfolio(
+    dense: DenseInstance,
+    oracle: HighsCommitteeOracle,
+    portfolio: _Portfolio,
+    cfg: Config,
+    generator: torch.Generator,
+    log: RunLog,
+) -> np.ndarray:
+    """Seed a diverse portfolio covering every coverable agent: one batched
+    LEGACY draw on the instance's device, then one exact solve per agent
+    the batch missed (force the agent in, maximize the coverage of the
+    other uncovered agents; ``leximin.py:279-289``). Returns the bool[n]
+    coverage mask."""
+    from citizensassemblies_tpu_torch.models.legacy import sample_panels_batch
+
+    n = dense.n
+    budget = max(256, min(cfg.mw_rounds_factor * n, cfg.seed_batch))
+    panels, ok = sample_panels_batch(dense, generator, budget)
+    panels = np.sort(panels.cpu().numpy(), axis=1)
+    for b in np.nonzero(ok.cpu().numpy())[0]:
+        portfolio.add(tuple(panels[b].tolist()))
+    covered = np.zeros(n, dtype=bool)
+    for row in portfolio.rows:
+        covered |= row
+    log.emit(
+        f"Portfolio seeding: batched sampler found {len(portfolio)} distinct feasible "
+        f"committees covering {int(covered.sum())}/{n} agents."
+    )
+    for i in range(n):
+        if covered[i]:
+            continue
+        try:
+            panel, _ = oracle.maximize((~covered).astype(np.float64), forced=(i,))
+        except Exception:
+            log.emit(f"Agent {i} not contained in any feasible committee.")
+            continue
+        portfolio.add(panel)
+        covered[list(panel)] = True
+    if covered.all():
+        log.emit("All agents are contained in some feasible committee.")
+    return covered
+
+
+def _shave(fixed: np.ndarray, step: float) -> np.ndarray:
+    """Lower every fixed probability by ``step`` (the reference's recovery
+    from a numerically infeasible dual LP, ``leximin.py:405-417``)."""
+    return np.where(fixed >= 0, np.maximum(fixed - step, 0.0), fixed)
+
+
+def _agent_space_leximin(
+    dense: DenseInstance,
+    cfg: Config,
+    log: RunLog,
+    device,
+    oracle: HighsCommitteeOracle,
+    initial_panels,
+    ts_fallback: Optional[Distribution],
+) -> Distribution:
+    """The agent-space column generation (``leximin.py:338-470``). With a
+    ``ts_fallback`` (a type-space result that missed the contract) the loop
+    runs under ``Config.agent_space_budget_s``; past it the fallback ships,
+    flagged."""
+    n = dense.n
+    generator = torch.Generator(device=dense.device).manual_seed(int(cfg.solver_seed))
+    portfolio = _Portfolio(n)
+    fixed = np.full(n, -1.0)  # < 0: not fixed yet
+    if initial_panels:
+        for panel in initial_panels:
+            portfolio.add(tuple(sorted(panel)))
+        covered = np.zeros(n, dtype=bool)
+        for row in portfolio.rows:
+            covered |= row
+    else:
+        covered = _seed_portfolio(dense, oracle, portfolio, cfg, generator, log)
+        # agents in no feasible committee get probability 0 up front, as
+        # the reference excludes them (leximin.py:286-296,364)
+        fixed[~covered] = 0.0
+    reduction_counter = dual_solves = exact_prices = 0
+    pdhg = cfg.backend == "jax"
+
+    deadline = (
+        time.monotonic() + cfg.agent_space_budget_s
+        if ts_fallback is not None and cfg.agent_space_budget_s > 0
+        else None
+    )
+
+    def budget_expired() -> Optional[Distribution]:
+        if deadline is None or time.monotonic() <= deadline:
+            return None
+        prefix = ts_fallback.output_lines
+        if log.lines[: len(prefix)] == prefix:
+            prefix.extend(log.lines[len(prefix):])
+        else:
+            ts_fallback.output_lines = list(log.lines)
+        msg = log.emit(
+            f"Agent-space CG exceeded its {cfg.agent_space_budget_s:.0f} s "
+            f"budget with {int((fixed >= 0).sum())}/{n} probabilities "
+            f"fixed; shipping the certified type-space profile realized "
+            f"to L-inf {ts_fallback.realization_dev:.2e} (above the 1e-3 "
+            f"contract — treat per-agent probabilities as exact to that "
+            f"tolerance only)."
+        )
+        ts_fallback.output_lines.append(msg)
+        return ts_fallback
+
+    def fix_tranche(sol) -> None:
+        """Fix every unfixed agent with certifying dual weight (strict
+        complementarity, ``leximin.py:431-443``); when the duals are too
+        flat to clear EPS, the largest-weight unfixed agent."""
+        nonlocal fixed
+        newly = (sol.y > cfg.eps) & (fixed < 0)
+        if not newly.any():
+            unfixed_idx = np.nonzero(fixed < 0)[0]
+            newly = np.zeros(n, dtype=bool)
+            newly[unfixed_idx[np.argmax(sol.y[unfixed_idx])]] = True
+        fixed = np.where(newly, max(0.0, sol.objective), fixed)
+
+    while (fixed < 0).any():
+        expired = budget_expired()
+        if expired is not None:
+            return expired
+        log.emit(f"Fixed {int((fixed >= 0).sum())}/{n} probabilities.")
+        dual_warm = None
+        # stochastic pricing sits out the rest of a stage after two
+        # zero-yield batches; the exact oracle then carries the tail
+        stochastic_fails = 0
+        while True:
+            expired = budget_expired()
+            if expired is not None:
+                return expired
+            P = portfolio.matrix()
+            authoritative = True  # sol comes from the exact host LP
+            with log.timer("dual_lp"):
+                if pdhg:
+                    from citizensassemblies_tpu_torch.solvers.lp_pdhg import solve_dual_lp_pdhg
+
+                    # warm-started from the previous inner round (the
+                    # portfolio only gains rows); HiGHS on non-convergence
+                    sol, dual_warm = solve_dual_lp_pdhg(
+                        P, fixed, cfg=cfg, warm=dual_warm, device=device, log=log
+                    )
+                    authoritative = not sol.ok
+                    if not sol.ok:
+                        log.count("dual_lp_host_fallback")
+                        sol = solve_dual_lp(P, fixed)
+                        dual_warm = None
+                else:
+                    sol = solve_dual_lp(P, fixed)
+            dual_solves += 1
+            if not sol.ok:
+                fixed = _shave(fixed, cfg.fixed_prob_relax_step)
+                reduction_counter += 1
+                log.emit(f"Dual LP not optimal — reduced fixed probabilities "
+                         f"(reduction {reduction_counter}).")
+                continue
+
+            # batched stochastic pricing adds several violated columns per
+            # LP solve, until the portfolio reaches cfg.max_portfolio
+            if stochastic_fails < 2 and len(portfolio) < cfg.max_portfolio:
+                from citizensassemblies_tpu_torch.solvers.pricing import (
+                    best_violating_panels,
+                    stochastic_price,
+                )
+
+                with log.timer("stochastic_pricing"):
+                    panels, values, ok = stochastic_price(dense, sol.y, generator, cfg=cfg)
+                new = best_violating_panels(
+                    panels, values, ok, sol.yhat + cfg.eps, portfolio.seen,
+                    max_new=cfg.cg_columns_per_round,
+                )
+                for panel, _val in new:
+                    portfolio.append(panel)
+                if new:
+                    stochastic_fails = 0
+                    continue
+                stochastic_fails += 1
+
+            # certification: does any committee beat ŷ + EPS?
+            with log.timer("exact_oracle"):
+                panel, value = oracle.certify(sol.y, sol.yhat + cfg.eps)
+            exact_prices += 1
+            log.emit(
+                f"Maximin is at most {sol.objective - sol.yhat + value:.2%}, can do "
+                f"{sol.objective:.2%} with {len(portfolio)} committees. "
+                f"Gap {value - sol.yhat:.2%}."
+            )
+            if value <= sol.yhat + cfg.eps:
+                if not authoritative:
+                    # the certificate priced float32 PDHG duals; the
+                    # irreversible fix below comes from the exact host solve
+                    sol_h = solve_dual_lp(P, fixed)
+                    if not sol_h.ok:
+                        fixed = _shave(fixed, cfg.fixed_prob_relax_step)
+                        reduction_counter += 1
+                        log.emit(
+                            "Authoritative dual re-solve not optimal — reduced "
+                            f"fixed probabilities (reduction {reduction_counter})."
+                        )
+                        continue
+                    sol = sol_h
+                    with log.timer("exact_oracle"):
+                        panel, value = oracle.certify(sol.y, sol.yhat + cfg.eps)
+                    exact_prices += 1
+                    if value > sol.yhat + cfg.eps and portfolio.add(panel):
+                        continue
+                fix_tranche(sol)
+                break
+            if not portfolio.add(panel):
+                # the oracle repeated a known committee despite a positive
+                # gap (LP/ILP disagreement): accept the portfolio as converged
+                log.emit("Exact oracle repeated a known committee; accepting gap.")
+                fix_tranche(sol)
+                break
+
+    P = portfolio.matrix()
+    with log.timer("final_stage"):
+        if pdhg:
+            from citizensassemblies_tpu_torch.solvers.lp_pdhg import solve_final_primal_lp_pdhg
+
+            probs, eps_dev = solve_final_primal_lp_pdhg(P, fixed, cfg=cfg, device=device, log=log)
+        else:
+            probs, eps_dev = solve_final_primal_lp(P, fixed)
+    probs = np.clip(probs, 0.0, 1.0)
+    probs = probs / probs.sum()
+    allocation = P.T.astype(np.float64) @ probs
+    log.gauge("agent_space_dual_solves", dual_solves)
+    log.gauge("agent_space_exact_prices", exact_prices)
+    log.emit(
+        f"Leximin done: {len(portfolio)} committees, {dual_solves} dual LP solves, "
+        f"{exact_prices} exact pricing calls, final ε = {eps_dev:.2e}."
+    )
+    log.emit(format_timers(log.timers))
+    if log.counters:
+        log.emit(format_counters(log.counters))
+    total_dev = float(np.max(np.abs(allocation - fixed)))
+    return Distribution(
+        committees=P,
+        probabilities=probs,
+        allocation=allocation,
+        output_lines=list(log.lines),
+        fixed_probabilities=fixed,
+        covered=covered,
+        realization_dev=total_dev,
+        contract_ok=bool(total_dev <= CONTRACT_LINF),
+    )
+
+
 def find_distribution_leximin(
     dense: DenseInstance,
     space: Optional[FeatureSpace] = None,
@@ -177,16 +468,17 @@ def find_distribution_leximin(
     log: Optional[RunLog] = None,
     device: DeviceLike = None,
     households: Optional[np.ndarray] = None,
-    initial_panels=None,
+    initial_panels: Optional[List[Tuple[int, ...]]] = None,
     final_stage: str = "lp",
     checkpoint_path: Optional[str] = None,
 ) -> Distribution:
     """Compute the exact LEXIMIN distribution over feasible committees.
 
-    ``device`` carries the decomposition masters: CUDA unless the caller
-    passes another (``device="cpu"`` runs every master on the host LP, as
-    the JAX package does on its CPU backend). Raises when CUDA is absent and
-    no device was passed.
+    ``device`` carries the decomposition masters, the LEGACY pricing draws
+    and (with ``Config.backend == "jax"``) the agent-space dual LPs: CUDA
+    unless the caller passes another (``device="cpu"`` runs them on the
+    host). Raises when CUDA is absent and no device was passed.
+    ``initial_panels`` warm-starts the agent-space portfolio.
     """
     cfg = cfg or default_config()
     check_slice_config(cfg)
@@ -196,25 +488,28 @@ def find_distribution_leximin(
         raise NotImplementedError(
             "final_stage='l2' needs the XMIN L2 stage (ROADMAP queue A item 'XMIN')"
         )
-    if initial_panels or checkpoint_path is not None:
+    if checkpoint_path is not None:
         raise NotImplementedError(
-            "initial_panels and checkpoint_path need ROADMAP queue A item 'agent-space path'"
+            "checkpoint_path needs ROADMAP queue A item 'checkpointing' (utils/checkpoint.CGState)"
         )
     dev = resolve_device(device)
+    dense = on_device(dense, dev)
     log = log if log is not None else RunLog(echo=False)
     log.emit("Using leximin algorithm.")
     if space is None:
         space = FeatureSpace(categories=(), cells=())
-    check_feasible_or_suggest(dense, space)
-    dist = _typespace_leximin(dense, cfg, log, dev)
-    if not dist.contract_ok:
-        # the JAX package falls back to its agent-space CG here
+    oracle = HighsCommitteeOracle(dense, log=log)
+    check_feasible_or_suggest(dense, space, oracle)
+    ts_fallback = None
+    if not initial_panels and not cfg.force_agent_space:
+        dist = _typespace_leximin(dense, cfg, log, dev)
+        if dist.contract_ok:
+            return dist
+        # contract miss: run the exact agent-space CG, keeping the certified
+        # type-space profile as the budget-expiry rescue
         log.emit(
             f"Type-space realization missed the 1e-3 contract "
-            f"(dev {dist.realization_dev:.2e})."
+            f"(dev {dist.realization_dev:.2e}); falling back to agent-space CG."
         )
-        raise NotImplementedError(
-            "the agent-space fallback after a contract miss needs ROADMAP queue A "
-            "item 'agent-space path'"
-        )
-    return dist
+        ts_fallback = dist
+    return _agent_space_leximin(dense, cfg, log, dev, oracle, initial_panels, ts_fallback)

@@ -454,3 +454,373 @@ def solve_two_sided_master_ell(ell, v, cfg=None, warm=None, tol=None, max_iters=
             bucket=bucket, device=device, log=log,
         )
     )
+
+
+# --- generic-form PDHG: min cᵀx  s.t.  Gx ≤ h, Ax = b, x ≥ 0 ------------------
+# The dual leximin LP of the agent-space column generation and the final
+# primal LP. Variables x = D_c x̃, duals y = D_r ỹ after Ruiz equilibration of
+# the stacked [G; A]; the same restart-to-average block loop as the two-sided
+# master, one lane. Two ELL routes (``Config.pdhg_megakernel``): the fused
+# block kernel (``kernels/pdhg_megakernel.dispatch_lp``) and the chained
+# :func:`_pdhg_body_ell`; a dense chained core :func:`_pdhg_body` serves
+# inequality blocks above the ELL fill cutoff.
+
+
+def _lp_iterate(
+    G_mv: Apply, G_rmv: Apply, As, cs, hs, bs, x, lam, mu, norm, scale, tol,
+    max_iters: int, check_every: int, sentinel: bool = False,
+):
+    """The restart-to-average PDHG block loop of the generic LP in scaled
+    coordinates, generic over ``G_mv(x) -> Gx`` and ``G_rmv(λ) -> Gᵀλ``
+    (``As`` is the dense scaled equality block). Runs blocks while ``res >
+    tol`` and ``it < max_iters`` and (with the sentinel) the solve is not
+    poisoned; reads the residual on the host once per block. Returns the
+    scaled ``(x, lam, mu, it, res, flags)`` with ``it``/``flags`` ints and
+    ``res`` a float."""
+    tol32 = float(np.float32(tol))
+
+    def kkt(x, lam, mu):
+        pri_ineq = torch.clamp_min(G_mv(x) - hs, 0.0)
+        pri_eq = As @ x - bs
+        pri = torch.sqrt(torch.sum(pri_ineq**2) + torch.sum(pri_eq**2))
+        grad = cs + G_rmv(lam) + As.t() @ mu
+        dua = torch.sqrt(torch.sum(torch.clamp_max(grad, 0.0) ** 2))
+        pobj = torch.sum(cs * x)
+        dobj = -torch.sum(lam * hs) - torch.sum(mu * bs)
+        gap = torch.abs(pobj - dobj)
+        return (pri + dua) / scale + gap / (1.0 + torch.abs(pobj) + torch.abs(dobj))
+
+    x_av, lam_av, mu_av = x, lam, mu
+    it = 0
+    res = float("inf")
+    omega = torch.ones((), dtype=torch.float32, device=x.device)
+    pois = stall = False
+    best = float("inf")
+    since = 0
+    inv = 1.0 / check_every
+    while res > tol32 and it < max_iters and not pois:
+        tau = 0.9 * omega / norm
+        sigma = 0.9 / (omega * norm)
+        x_in, lam_in, mu_in = x, lam, mu
+        q, y, m = x, lam, mu
+        xs, ls, ms = torch.zeros_like(x), torch.zeros_like(lam), torch.zeros_like(mu)
+        for _ in range(check_every):
+            grad = cs + G_rmv(y) + As.t() @ m
+            q_new = torch.clamp_min(q - tau * grad, 0.0)
+            qb = 2.0 * q_new - q
+            y = torch.clamp_min(y + sigma * (G_mv(qb) - hs), 0.0)
+            m = m + sigma * (As @ qb - bs)
+            q = q_new
+            xs, ls, ms = xs + q, ls + y, ms + m
+        xa = (x_av + xs * inv) * 0.5
+        la = (lam_av + ls * inv) * 0.5
+        ma = (mu_av + ms * inv) * 0.5
+        r_cur = kkt(q, y, m)
+        r_avg = kkt(xa, la, ma)
+        better = r_avg < r_cur
+        q, y, m = torch.where(better, xa, q), torch.where(better, la, y), torch.where(better, ma, m)
+        res_t = torch.minimum(r_cur, r_avg)
+        dx = torch.sqrt(torch.sum((q - x_in) ** 2))
+        dy = torch.sqrt(torch.sum((y - lam_in) ** 2) + torch.sum((m - mu_in) ** 2))
+        moved = (dx > 1e-12) & (dy > 1e-12)
+        omega_new = torch.sqrt(omega * torch.clamp(dy / torch.clamp_min(dx, 1e-12), 1e-4, 1e4))
+        omega_out = torch.where(moved, torch.clamp(omega_new, 1.0 / 64.0, 64.0), omega)
+        res_new = float(res_t)
+        # the sentinel rejects a block whose residual is not finite: the
+        # carry stays at the block start and the solve is quarantined
+        ok = not sentinel or bool(np.isfinite(res_new))
+        if ok:
+            x, lam, mu = q, y, m
+            x_av, lam_av, mu_av = xa, la, ma
+            it += check_every
+            res = res_new
+            omega = omega_out
+        if sentinel:
+            if ok and res < best:
+                best, since = res, 0
+            else:
+                since += 1
+            pois = pois or not ok
+            stall = stall or since >= _STALL_BLOCKS
+    flags = FLAG_POISONED * int(pois) + FLAG_STALLED * int(stall)
+    return x, lam, mu, it, res, flags
+
+
+def _pdhg_body_ell(
+    c, idx, val, h, A, b, x0, lam0, mu0, tol, csr,
+    max_iters: int, check_every: int, sentinel: bool = False,
+):
+    """The chained ELL route of the generic LP: ``G`` as packed rows
+    ``idx``/``val`` ``[m1, k_pad]`` over the nv variables (``csr`` its
+    variable-major transpose, ``kernels/pdhg_megakernel.csr_to_device``),
+    the dense equality block ``A [m2, nv]``. Same prelude as the fused route
+    (``kernels/pdhg_megakernel.lp_setup``), then :func:`_lp_iterate` with
+    the packed matvecs (the gather kernel on CUDA, a segment sum over the
+    CSR for the transpose). Returns the unscaled ``(x, lam, mu, it, res,
+    flags)``."""
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    pre, state = mk.lp_setup(c, idx, val, h, A, b, x0, lam0, mu0, csr)
+    G_mv, G_rmv = mk.lp_operators(idx, pre.vals_s, csr)
+    out = _lp_iterate(
+        G_mv, G_rmv, pre.As, pre.cs, pre.hs, pre.bs, *state, tol,
+        max_iters, check_every, sentinel=sentinel,
+    )
+    return pre.unscale(*out[:3]) + out[3:]
+
+
+def _pdhg_body(
+    c, G, h, A, b, x0, lam0, mu0, tol,
+    max_iters: int, check_every: int, sentinel: bool = False,
+):
+    """The dense chained core of the generic LP (``G`` a dense ``[m1, nv]``
+    tensor): Ruiz on the stacked ``[G; A]``, the power-iteration ‖K‖ and
+    :func:`_lp_iterate` with dense matvecs. Returns the unscaled ``(x, lam,
+    mu, it, res, flags)``."""
+    m1, nv = G.shape
+    K = torch.cat([G, A], dim=0)
+    d_r = torch.ones(K.shape[0], dtype=torch.float32, device=K.device)
+    d_c = torch.ones(nv, dtype=torch.float32, device=K.device)
+    absK = K.abs()
+    for _ in range(8):
+        S = d_r[:, None] * absK * d_c[None, :]
+        d_r, d_c = d_r / _root(S.amax(dim=1)), d_c / _root(S.amax(dim=0))
+    Ks = d_r[:, None] * K * d_c[None, :]
+    pre = LPScaled(d_r=d_r, d_c=d_c, vals_s=None, As=Ks[m1:], cs=c * d_c,
+                   hs=h * d_r[:m1], bs=b * d_r[m1:])
+    Gs = Ks[:m1]
+    v = torch.ones(nv, dtype=torch.float32, device=K.device) / np.sqrt(np.float32(nv))
+    for _ in range(40):
+        w = Ks.t() @ (Ks @ v)
+        v = w / (torch.linalg.norm(w) + 1e-12)
+    norm = torch.sqrt(torch.linalg.norm(Ks.t() @ (Ks @ v)) + 1e-12)
+    out = _lp_iterate(
+        lambda q: Gs @ q, lambda y: Gs.t() @ y, pre.As, pre.cs, pre.hs, pre.bs,
+        *pre.warm(x0, lam0, mu0), norm, pre.kkt_scale(), tol,
+        max_iters, check_every, sentinel=sentinel,
+    )
+    return pre.unscale(*out[:3]) + out[3:]
+
+
+@dataclasses.dataclass
+class LPScaled:
+    """Scalings and scaled data of one generic LP (rows of ``d_r``: the m1
+    inequality rows, then the m2 equality rows)."""
+
+    d_r: torch.Tensor  # [m1 + m2]
+    d_c: torch.Tensor  # [nv]
+    vals_s: Optional[torch.Tensor]  # [m1, k_pad] scaled pack (ELL routes)
+    As: torch.Tensor  # [m2, nv]
+    cs: torch.Tensor  # [nv]
+    hs: torch.Tensor  # [m1]
+    bs: torch.Tensor  # [m2]
+
+    @property
+    def m1(self) -> int:
+        return self.hs.shape[0]
+
+    def warm(self, x0, lam0, mu0):
+        """Unscaled warm start → scaled ``(x, lam, mu)``."""
+        m1 = self.m1
+        x = x0 / torch.clamp_min(self.d_c, 1e-12)
+        lam = torch.clamp_min(lam0 / torch.clamp_min(self.d_r[:m1], 1e-12), 0.0)
+        mu = mu0 / torch.clamp_min(self.d_r[m1:], 1e-12)
+        return x, lam, mu
+
+    def kkt_scale(self) -> torch.Tensor:
+        return 1.0 + torch.linalg.norm(self.cs) + torch.linalg.norm(self.hs) + torch.linalg.norm(self.bs)
+
+    def unscale(self, x, lam, mu):
+        m1 = self.m1
+        return x * self.d_c, lam * self.d_r[:m1], mu * self.d_r[m1:]
+
+
+def _host_resolve_lp(c, G, h, A, b) -> Optional[LPSolution]:
+    """Float64 host re-solve of a quarantined solve (HiGHS through the
+    presolve/method retry ladder); None when the host solver fails too."""
+    from citizensassemblies_tpu_torch.solvers.lp_util import robust_linprog
+
+    c64 = np.asarray(c, dtype=np.float64)
+    res = robust_linprog(
+        c64,
+        A_ub=np.asarray(G, dtype=np.float64),
+        b_ub=np.asarray(h, dtype=np.float64),
+        A_eq=np.asarray(A, dtype=np.float64),
+        b_eq=np.asarray(b, dtype=np.float64),
+        bounds=(0, None),
+    )
+    if res is None or res.status != 0:
+        return None
+    x = np.asarray(res.x, dtype=np.float64)
+    lam = np.zeros(np.shape(G)[0])
+    mu = np.zeros(np.shape(A)[0])
+    try:
+        # scipy/HiGHS marginals: ≤ 0 for the A_ub rows of a min problem
+        lam = np.maximum(-np.asarray(res.ineqlin.marginals, np.float64), 0.0)
+        mu = -np.asarray(res.eqlin.marginals, np.float64)
+    except Exception:  # marginals missing on some method fallbacks
+        pass
+    return LPSolution(ok=True, x=x, lam=lam, mu=mu, objective=float(c64 @ x), iters=-1, kkt=0.0)
+
+
+def _generic_warm(warm, nv: int, m1: int, m2: int):
+    if warm is not None:
+        return tuple(np.asarray(w, np.float32).reshape(-1) for w in warm)
+    return np.zeros(nv, np.float32), np.zeros(m1, np.float32), np.zeros(m2, np.float32)
+
+
+def _finish_lp(c, G_dense, h, A, b, out, tol: float, log) -> LPSolution:
+    """The acceptance contract shared by both generic entry points: a
+    quarantined solve is re-solved on the host (``G_dense()`` builds the
+    dense inequality block only then); ``ok`` is ``kkt ≤ 4·tol`` and not
+    poisoned."""
+    x, lam, mu, it, res, flags = out
+    if flags & FLAG_POISONED:
+        if log is not None:
+            log.count("sentinel_poisoned")
+        host = _host_resolve_lp(c, G_dense(), h, A, b)
+        if host is not None:
+            if log is not None:
+                log.count("sentinel_host_resolve")
+            return host
+    if flags & FLAG_STALLED and log is not None:
+        log.count("sentinel_stalled")
+    x = x.cpu().numpy().astype(np.float64)
+    return LPSolution(
+        ok=bool(res <= tol * 4.0) and not (flags & FLAG_POISONED),
+        x=x,
+        lam=lam.cpu().numpy().astype(np.float64),
+        mu=mu.cpu().numpy().astype(np.float64),
+        objective=float(np.asarray(c, dtype=np.float64) @ x),
+        iters=int(it),
+        kkt=float(res),
+    )
+
+
+def solve_lp(c, G, h, A, b, cfg: Optional[Config] = None, warm=None, tol: Optional[float] = None,
+             device: DeviceLike = None, log=None) -> LPSolution:
+    """Solve ``min cᵀx s.t. Gx ≤ h, Ax = b, x ≥ 0`` (dense ``G``) by the
+    chained PDHG on ``device``. ``warm`` is an optional unscaled ``(x, λ,
+    μ)`` start."""
+    cfg = cfg or default_config()
+    dev = resolve_device(device)
+    tol = float(tol if tol is not None else cfg.pdhg_tol)
+    G = np.asarray(G)
+    m1, nv = G.shape
+    m2 = np.shape(A)[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    x0, lam0, mu0 = (torch.as_tensor(w, **f32) for w in _generic_warm(warm, nv, m1, m2))
+    out = _pdhg_body(
+        *(torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, G, h, A, b)),
+        x0, lam0, mu0, tol, max_iters=int(cfg.pdhg_max_iters),
+        check_every=int(cfg.pdhg_check_every), sentinel=sentinels_enabled(cfg),
+    )
+    return _finish_lp(c, lambda: G, h, A, b, out, tol, log)
+
+
+def solve_lp_ell(c, ell, h, A, b, cfg: Optional[Config] = None, warm=None, tol: Optional[float] = None,
+                 device: DeviceLike = None, log=None) -> LPSolution:
+    """:func:`solve_lp` with the inequality block packed as ELL rows
+    (``ell`` an :class:`~citizensassemblies_tpu_torch.solvers.sparse_ops.EllPack`
+    over the nv variables), on the route ``Config.pdhg_megakernel`` picks:
+    the fused block kernel (one launch per solve) or the chained ops. Same
+    acceptance contract and warm semantics."""
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_unpack_rows
+
+    cfg = cfg or default_config()
+    dev = resolve_device(device)
+    tol = float(tol if tol is not None else cfg.pdhg_tol)
+    nv, m1, m2 = len(c), len(ell), np.shape(A)[0]
+    x0, lam0, mu0 = _generic_warm(warm, nv, m1, m2)
+    kw = dict(max_iters=int(cfg.pdhg_max_iters), check_every=int(cfg.pdhg_check_every),
+              sentinel=sentinels_enabled(cfg))
+    if mk.lp_megakernel_mode(cfg, nv, m1, m2, dev, log=log) == "fused":
+        # fused route: one kernel launch for the whole solve
+        out = mk.dispatch_lp(c, ell.idx, ell.val, h, A, b, x0, lam0, mu0, tol,
+                             device=dev, log=log, **kw)
+    else:
+        f32 = dict(dtype=torch.float32, device=dev)
+        csr = mk.csr_to_device(ell.idx, ell.val, nv, dev)
+        t = [torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, ell.val, h, A, b, x0, lam0, mu0)]
+        idx = torch.as_tensor(ell.idx, dtype=torch.int32, device=dev)
+        out = _pdhg_body_ell(t[0], idx, *t[1:], tol, csr, **kw)
+    return _finish_lp(c, lambda: ell_unpack_rows(ell.idx, ell.val, nv), h, A, b, out, tol, log)
+
+
+def dual_lp_operands(P: np.ndarray, fixed: np.ndarray, bucket: int = 256):
+    """The dual leximin LP's ``(c, G, h, A, b)`` (dense float64) for the
+    portfolio ``P [C, n]`` and the fixed probabilities (``< 0``: unfixed):
+    variables ``z = [y (n), ŷ]``, ``min ŷ − Σ fixedᵢ yᵢ`` s.t. ``P y − ŷ·1
+    ≤ 0``, ``Σ_{unfixed} y = 1``, ``z ≥ 0``. The committee rows pad to a
+    multiple of ``bucket``: a zero row is the constraint −ŷ ≤ 0, already
+    implied by ŷ ≥ 0, so the solution is unchanged."""
+    P = np.asarray(P, dtype=np.float64)
+    C, n = P.shape
+    fixed = np.asarray(fixed, dtype=np.float64)
+    unfixed = fixed < 0
+    Cp = ((C + bucket - 1) // bucket) * bucket
+    Ppad = np.zeros((Cp, n))
+    Ppad[:C] = P
+    c = np.concatenate([-np.where(unfixed, 0.0, fixed), [1.0]])
+    G = np.hstack([Ppad, -np.ones((Cp, 1))])
+    A = np.concatenate([unfixed.astype(np.float64), [0.0]])[None, :]
+    return c, G, np.zeros(Cp), A, np.array([1.0])
+
+
+def solve_dual_lp_pdhg(P: np.ndarray, fixed: np.ndarray, cfg: Optional[Config] = None, warm=None,
+                       device: DeviceLike = None, log=None):
+    """The dual leximin LP (``highs_backend.solve_dual_lp``, operands from
+    :func:`dual_lp_operands`) by PDHG on ``device``. Returns the
+    ``DualSolution`` and the raw ``(x, λ, μ)`` triple for warm starts."""
+    from citizensassemblies_tpu_torch.solvers.highs_backend import DualSolution
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack, sparse_enabled
+
+    cfg = cfg or default_config()
+    P = np.asarray(P, dtype=np.float64)
+    C, n = P.shape
+    c, G, h, A, b = dual_lp_operands(P, fixed)
+    Cp = G.shape[0]
+    if warm is not None and warm[1].shape[0] != Cp:
+        lam_w = np.zeros(Cp)
+        lam_w[: min(Cp, warm[1].shape[0])] = warm[1][:Cp]
+        warm = (warm[0], lam_w, warm[2])
+    # panel rows hold k + 1 nonzeros of n + 1 columns: the ELL routes carry
+    # the solve whenever the fill clears the cutoff
+    fill = (float(np.count_nonzero(P)) + C) / max(Cp * (n + 1), 1)
+    kw = dict(cfg=cfg, warm=warm, device=device, log=log)
+    if sparse_enabled(cfg, fill):
+        sol = solve_lp_ell(c, EllPack.from_rows(G), h, A, b, **kw)
+    else:
+        sol = solve_lp(c, G, h, A, b, **kw)
+    return (
+        DualSolution(ok=sol.ok, y=sol.x[:n], yhat=float(sol.x[n]), objective=sol.objective),
+        (sol.x, sol.lam, sol.mu),
+    )
+
+
+def solve_final_primal_lp_pdhg(
+    P: np.ndarray, target: np.ndarray, cfg: Optional[Config] = None,
+    max_iters: Optional[int] = None, tol: Optional[float] = None,
+    host_fallback: bool = True, device: DeviceLike = None, log=None,
+) -> Tuple[np.ndarray, float]:
+    """The final primal LP (``highs_backend.solve_final_primal_lp``) by PDHG
+    on ``device``: ``min ε`` s.t. ``Σp = 1``, ``(Pᵀp)ᵢ ≥ targetᵢ − ε``,
+    ``p, ε ≥ 0``. Returns ``(p, ε)``; an unconverged solve is re-solved on
+    the host unless ``host_fallback=False``."""
+    cfg = cfg or default_config()
+    if max_iters is not None:
+        cfg = cfg.replace(pdhg_max_iters=int(max_iters))
+    P = np.asarray(P, dtype=np.float64)
+    C, n = P.shape
+    target = np.asarray(target, dtype=np.float64)
+    c = np.zeros(C + 1)
+    c[-1] = 1.0
+    G = np.hstack([-P.T, -np.ones((n, 1))])
+    A = np.concatenate([np.ones(C), [0.0]])[None, :]
+    sol = solve_lp(c, G, -target, A, np.array([1.0]), cfg=cfg, tol=tol, device=device, log=log)
+    if not sol.ok and host_fallback:
+        from citizensassemblies_tpu_torch.solvers.highs_backend import solve_final_primal_lp
+
+        return solve_final_primal_lp(P, target)
+    return sol.x[:C], float(max(sol.x[C], 0.0))

@@ -92,6 +92,10 @@ def _load() -> Optional[ctypes.CDLL]:
         return _lib
 
 
+def native_available() -> bool:
+    return _load() is not None
+
+
 class TypeReduction:
     """Group agents by identical feature rows and precompute the per-type
     structure the native search consumes. Reused across pricing calls — only

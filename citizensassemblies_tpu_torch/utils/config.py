@@ -17,8 +17,33 @@ class Config:
     # --- numerical tolerances -------------------------------------------------
     #: numerical deviation accepted as equality when dealing with solvers.
     eps: float = 5e-4
+    #: amount by which all fixed probabilities are shaved when the agent-space
+    #: dual LP becomes numerically infeasible.
+    fixed_prob_relax_step: float = 1e-4
     #: probabilities below this count as zero in a distribution's support.
     support_eps: float = 1e-11
+
+    # --- LEGACY Monte-Carlo ---------------------------------------------------
+    #: chains drawn per batch by the LEGACY sampler.
+    mc_batch: int = 2_048
+    #: resampling sweeps with no accepted panel before LEGACY gives up.
+    mc_max_resample_rounds: int = 200
+
+    # --- agent-space column generation ----------------------------------------
+    #: portfolio-seeding draw as a multiple of n (capped by ``seed_batch``).
+    mw_rounds_factor: int = 3
+    #: panels sampled per stochastic pricing batch.
+    pricing_batch: int = 4_096
+    #: cap on the batched portfolio-seeding draw.
+    seed_batch: int = 1_024
+    #: violated columns added per dual LP solve.
+    cg_columns_per_round: int = 16
+    #: once the portfolio holds this many panels, stochastic pricing stops
+    #: adding columns and the exact oracle carries the tail.
+    max_portfolio: int = 8_192
+    #: wall-clock budget (seconds) of the agent-space CG after a type-space
+    #: contract miss; past it the type-space result ships flagged. 0 = none.
+    agent_space_budget_s: float = 0.0
 
     # --- type-space enumeration ----------------------------------------------
     #: enumerate every feasible composition when the instance has at most
@@ -98,8 +123,11 @@ class Config:
     robust_checkpoint_dir: str = ""
 
     # --- backends -------------------------------------------------------------
-    #: bypass the type-space solvers and run the agent-space CG (ROADMAP
-    #: queue A item "agent-space path"); ``True`` raises NotImplementedError.
+    #: LP engine of the agent-space CG: "jax" solves the dual LPs by PDHG on
+    #: the device (the name is the JAX package's, so configurations map field
+    #: by field), "highs" and "hybrid" on the host with HiGHS.
+    backend: str = "hybrid"
+    #: bypass the type-space solvers and run the agent-space CG.
     force_agent_space: bool = False
     #: random seed of solver-internal sampling.
     solver_seed: int = 0
@@ -128,8 +156,4 @@ def check_slice_config(cfg: Config) -> None:
     if cfg.robust_checkpoint_every or cfg.robust_checkpoint_dir:
         raise NotImplementedError(
             "face-loop checkpointing needs ROADMAP queue A item 'checkpointing'"
-        )
-    if cfg.force_agent_space:
-        raise NotImplementedError(
-            "force_agent_space needs ROADMAP queue A item 'agent-space path'"
         )

@@ -79,4 +79,5 @@ def test_chip_smoke_imports_no_jax():
     tree = ast.parse((REPO / "chip_smoke.py").read_text())
     mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     mods += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert "citizensassemblies_tpu_torch.models.leximin" in mods
     assert not [m for m in mods if _forbidden(m)]

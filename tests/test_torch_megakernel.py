@@ -254,10 +254,12 @@ def test_config_maps_from_reference():
     for name in fields:
         assert getattr(port, name) == getattr(ref, name), name
     assert port == tconfig.default_config()
-    for knob in ("decomp_device_pricing", "lp_batch", "mixed_precision", "force_agent_space"):
+    for knob in ("decomp_device_pricing", "lp_batch", "mixed_precision"):
         with pytest.raises(NotImplementedError):
             tconfig.check_slice_config(port.replace(**{knob: True}))
     tconfig.check_slice_config(port)
+    # the agent-space path is ported: forcing it is a valid configuration
+    tconfig.check_slice_config(port.replace(force_agent_space=True, backend="jax"))
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu():
