@@ -14,18 +14,22 @@ Phases, each fatal on failure:
    ``sf_e_skewed_instance(seed=1)``, a 6144-column pack) and at the
    flagship dual LP's (4096 panel rows over n+1 = 1728 variables); the
    two-sided PDHG solve at B=1, at B=3 with prefix column masks
-   1536/3072/6144, and at B=3 with one NaN-warmed lane; the generic-LP
-   PDHG solve on the flagship dual LP to a tolerance, for a fixed 65,536
-   iterations, and with a NaN warm start;
+   1536/3072/6144, and at B=3 with one NaN-warmed lane (the B=1 solve a
+   second time from a fresh prelude, both held bit for bit; then a bare
+   loop of the kernel's grid barrier at the grid it launched); the
+   generic-LP PDHG solve on the flagship dual LP to a tolerance, for a
+   fixed 65,536 iterations, and with a NaN warm start;
 4. a small-input reference: LEXIMIN on ``skewed_instance(n=160, k=14,
    n_categories=4, seed=2)`` on the GPU with every master forced onto the
    device route, against the same solve on the CPU;
 5. the paths, each with every launch counter zeroed just before it and read
    just after: LEXIMIN on ``sf_e_skewed_instance(seed=1)`` (type space, the
-   two-sided kernel); LEGACY's 10,000-draw estimator on the same pool; the
-   agent-space LEXIMIN column generation with device dual LPs (the LP
-   kernel) on ``skewed_instance(n=120, k=12, n_categories=3, seed=1)``, run
-   twice (the same dual solves and allocation both times) and held against
+   two-sided kernel), run twice with every master's iterations recorded,
+   which must agree launch for launch; LEGACY's 10,000-draw estimator on
+   the same pool; the agent-space LEXIMIN column generation with device
+   dual LPs (the LP kernel) on ``skewed_instance(n=120, k=12,
+   n_categories=3, seed=1)``, run twice (the same dual solves and
+   allocation both times) and held against
    the type-space result on the same pool; and on the real-size
    ``sf_b_skewed_instance(seed=1)`` under a stated budget per stage, its
    dual solves held against the type-space leximin values.
@@ -281,13 +285,14 @@ def _solve_lanes(pack, MT, caps, nan_lane=None, max_iters=SOLVE_MAX_ITERS):
     return idx_np, val_np, lanes, dict(max_iters=max_iters, check_every=128, sentinel=True)
 
 
-def solve_phase(pack, MT, caps, label, nan_lane=None, clean=None):
+def solve_phase(pack, MT, caps, label, nan_lane=None, clean=None, repeat=False):
     """One two-sided solve through the block kernel and through its plain
     version, on the same prelude output on the card. With ``nan_lane`` the
     clean run's prelude is reused and that lane's warm start is poisoned,
-    so the lane's mates must match the clean kernel run bit for bit (the
-    prelude's ``index_add_`` sums with atomics, so two preludes are not
-    bitwise equal on the card)."""
+    so the lane's mates must match the clean kernel run bit for bit. With
+    ``repeat`` a second prelude is built from the same inputs, which must
+    equal the first bit for bit, and the kernel solves again from it, which
+    must give the same x, λ and iterations bit for bit."""
     import torch
 
     from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
@@ -297,11 +302,20 @@ def solve_phase(pack, MT, caps, label, nan_lane=None, clean=None):
     idx_np, val_np, lanes, kw = _solve_lanes(pack, MT, caps)
     v, colmask, x0, lam0, mu0, tol = lanes
     T = v.shape[0]
+    B = len(caps)
+
+    def prepare():
+        csr, plan = mk.two_sided_launch_inputs(idx_np, val_np, T, B, v.device)
+        return (csr, plan) + mk.two_sided_setup(idx_np, val_np, v, colmask, x0, lam0, mu0, csr)
+
     if clean is None:
-        csr = mk.csr_to_device(idx_np, val_np, T, v.device)
-        idx, vals_s, pre, state = mk.two_sided_setup(idx_np, val_np, v, colmask, x0, lam0, mu0)
+        box = {}
+        # the prelude on the card (with the host's CSR transpose and plan)
+        prelude_ms = cuda_ms(lambda: box.update(v=prepare()), reps=1, warmup=0)
+        prepared = box["v"]
     else:
-        csr, idx, vals_s, pre, state = clean["prepared"]
+        prelude_ms, prepared = None, clean["prepared"]
+    csr, plan, idx, vals_s, pre, state = prepared
     if nan_lane is not None:
         p_bad = state[0].clone()
         p_bad[nan_lane, 0] = float("nan")
@@ -309,15 +323,17 @@ def solve_phase(pack, MT, caps, label, nan_lane=None, clean=None):
     out_k = {}
 
     def run_kernel():
-        out_k["v"] = mk.two_sided_blocks_cuda(csr, idx, vals_s, pre, state, tol, **kw)
+        out_k["v"] = mk.two_sided_blocks_cuda(csr, plan, idx, vals_s, pre, state, tol, **kw)
 
     out_p = {}
 
     def run_plain():
-        out_p["v"] = mk.two_sided_blocks_plain(idx, vals_s, pre, state, tol, **kw)
+        out_p["v"] = mk.two_sided_blocks_plain(csr, idx, vals_s, pre, state, tol, **kw)
 
-    ms, call_ms = timed(run_kernel, reps=1, warmup=1)
-    plain_ms, plain_call_ms = timed(run_plain, reps=1, warmup=0)
+    # one launch per solve: its CUDA-event time is its device time (with the
+    # wrapper's few setup ops); the profiler's total is kept beside it
+    profiler_ms, ms = timed(run_kernel, reps=1, warmup=1)
+    plain_ms = cuda_ms(run_plain, reps=1, warmup=0)
     k_out, p_out = out_k["v"], out_p["v"]
     xk, lk, _ = unscale(pre, *k_out[:5])
     xp, lp, _ = unscale(pre, *p_out[:5])
@@ -325,7 +341,7 @@ def solve_phase(pack, MT, caps, label, nan_lane=None, clean=None):
     it_p = p_out[5].cpu().numpy()
     res_k = k_out[6].cpu().numpy()
     flags_k = k_out[7].cpu().numpy()
-    live = [b for b in range(len(caps)) if b != nan_lane]
+    live = [b for b in range(B) if b != nan_lane]
     xk_n, xp_n = xk.cpu().numpy(), xp.cpu().numpy()
     lk_n, lp_n = lk.cpu().numpy(), lp.cpu().numpy()
     err_x = float(np.abs(xk_n[live] - xp_n[live]).max())
@@ -355,9 +371,26 @@ def solve_phase(pack, MT, caps, label, nan_lane=None, clean=None):
             )
             notes["mates_bit_identical"] = same
             ok = ok and same
+    if repeat:
+        csr2, plan2, idx2, vals2, pre2, state2 = prepare()
+        same_prelude = bool(
+            all(torch.equal(a, b) for a, b in zip(csr, csr2)) and torch.equal(vals_s, vals2)
+            and all(torch.equal(getattr(pre, f), getattr(pre2, f))
+                    for f in pre.__dataclass_fields__)
+            and all(torch.equal(a, b) for a, b in zip(state, state2))
+            and np.array_equal(plan.col_bounds, plan2.col_bounds)
+            and np.array_equal(plan.type_bounds, plan2.type_bounds)
+        )
+        again = mk.two_sided_blocks_cuda(csr2, plan2, idx2, vals2, pre2, state2, tol, **kw)
+        xa, la, _ = unscale(pre2, *again[:5])
+        same_solve = bool(
+            np.array_equal(xa.cpu().numpy(), xk_n) and np.array_equal(la.cpu().numpy(), lk_n)
+            and np.array_equal(again[5].cpu().numpy(), it_k)
+        )
+        notes.update(prelude_bit_identical=same_prelude, repeat_bit_identical=same_solve)
+        ok = ok and same_prelude and same_solve
     C = idx_np.shape[0]
     kp = idx_np.shape[1]
-    B = len(caps)
     nnz = int(csr[0].shape[0])
     # the least the card could take for this solve: each input read once
     # (the shared indices, every lane's values, the lane vectors) and each
@@ -370,15 +403,18 @@ def solve_phase(pack, MT, caps, label, nan_lane=None, clean=None):
     flops = evals * (4 * nnz + 10 * (C + 2 * T))
     bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
     bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations"
-    # the kernel as designed reads the pack from memory on every evaluation,
-    # both layouts (slot-major C*kp*8 bytes, type-major nnz*8 bytes)
+    # the pack read once per evaluation, both layouts (row-major C*kp*8
+    # bytes, type-major nnz*8 bytes)
     iter_bytes_ms = 1e3 * evals * (C * kp * 8 + nnz * 8) / HBM_BYTES_PER_S
+    iters_max = int(max(it_k[live]))
     rec = dict(
         phase=label, name="two_sided_block", replaces=REPLACES["two_sided_block"],
         shape=dict(C=C, k_pad=kp, T=T, nnz=nnz, caps=caps),
-        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-        iter_bytes_ms=iter_bytes_ms, launches=mk.KERNEL.launches - launches0,
-        call_ms=call_ms, plain_call_ms=plain_call_ms,
+        grid=plan.grid, blocks_per_lane=plan.blocks_per_lane, resident_tile_floats=plan.tile_floats,
+        prelude_ms=prelude_ms,
+        us_per_iter=1e3 * ms / iters_max if iters_max else None,
+        ms=ms, profiler_ms=profiler_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+        bound_by=bound_by, iter_bytes_ms=iter_bytes_ms, launches=mk.KERNEL.launches - launches0,
         iters_kernel=it_k.tolist(), iters_plain=it_p.tolist(), max_iters=kw["max_iters"],
         kkt_kernel=res_k.tolist(), lane_tol=tol_n.tolist(), max_abs_x=float(np.abs(xp_n[live]).max()),
         max_abs_err=max(err_x, err_lam), max_abs_err_x=err_x, max_abs_err_lam=err_lam,
@@ -389,7 +425,31 @@ def solve_phase(pack, MT, caps, label, nan_lane=None, clean=None):
     print(json.dumps(rec), flush=True)
     if not ok:
         raise SystemExit(f"two-sided kernel phase {label} failed")
-    return rec, dict(x=xk_n, it=it_k, prepared=(csr, idx, vals_s, pre, state))
+    return rec, dict(x=xk_n, it=it_k, prepared=prepared)
+
+
+def barrier_phase(b1, rounds=20_000):
+    """A bare loop of the kernel's group barrier at the grid the B=1 solve
+    launched, timed by CUDA events: the barrier's share of an iteration
+    (two barriers an iteration, five more per block of check_every)."""
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    nb = b1["blocks_per_lane"]
+    dev = torch.device("cuda")
+    ms = cuda_ms(lambda: mk.barrier_loop(1, nb, rounds, dev), reps=3, warmup=1)
+    us = 1e3 * ms / rounds
+    per_iter = (2 + 5 / 128) * us
+    rec = dict(
+        phase="grid_barrier", grid=nb, rounds=rounds, ms=ms, us_per_barrier=us,
+        barrier_us_per_iter=per_iter, iter_us=b1["us_per_iter"],
+        data_us_per_iter=b1["us_per_iter"] - per_iter, ok=bool(np.isfinite(us) and us > 0),
+    )
+    print(json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise SystemExit("grid barrier phase failed")
+    return rec
 
 
 def dual_lp_operands(m1: int = 4096, seed: int = 0):
@@ -795,6 +855,67 @@ def agent_space_budget_phase(inst, slice_cfg, label):
     return rec
 
 
+def flagship_phase(inst, slice_cfg, libs):
+    """LEXIMIN on the flagship pool, with every launch counter zeroed just
+    before it and read just after; each master solve's (Cp, iterations) is
+    collected by wrapping ``lp_pdhg.finish_two_sided_master`` here (the
+    package keeps no such counter). Then the same run again, whose masters
+    must take the same iterations, launch for launch; whether its
+    allocation is bit-identical is reported."""
+    from unittest import mock
+
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+    from citizensassemblies_tpu_torch.solvers import lp_pdhg
+
+    finish = lp_pdhg.finish_two_sided_master
+
+    def run():
+        masters = []
+
+        def recorded(h):
+            sol = finish(h)
+            masters.append([int(h.Cp), int(sol.iters)])
+            return sol
+
+        with mock.patch.object(lp_pdhg, "finish_two_sided_master", recorded):
+            return leximin_run(inst, "cuda", slice_cfg) + (masters,)
+
+    for lib in libs:
+        lib.launches = 0
+    dist, elog, secs, linf, masters = run()
+    launches = {"ell_gather": em.KERNEL.launches, "two_sided_block": mk.KERNEL.launches}
+    again, _, secs2, _, masters2 = run()
+    c, tm = elog.counters, elog.timers
+    alloc = dist.allocation
+    mean = alloc.mean()
+    gini = float(np.abs(alloc[:, None] - alloc[None, :]).mean() / (2 * mean)) if mean else 0.0
+    e2e = dict(
+        phase="leximin_sf_e_skewed_seed1", seconds=secs, contract_ok=bool(dist.contract_ok),
+        linf=linf, min_prob=float(alloc.min()), gini=gini,
+        panels=int(len(dist.probabilities)), launches=launches,
+        megakernel_fit_miss=int(c.get("megakernel_fit_miss", 0)),
+        decomp_rounds=int(c.get("decomp_rounds", 0)),
+        decomp_host_syncs=int(c.get("decomp_host_syncs", 0)),
+        megakernel_dispatches=int(c.get("megakernel_dispatches", 0)),
+        timers={k: tm.get(k, 0.0) for k in (
+            "relax_leximin", "inject", "decomp_master", "decomp_polish",
+            "decomp_expand", "decomp_oracle", "final_stage", "decomp",
+        )},
+        masters=masters,
+        repeat=dict(seconds=secs2, masters=masters2, same_master_iters=masters2 == masters,
+                    same_allocation=bool(np.array_equal(again.allocation, alloc))),
+    )
+    e2e["ok"] = bool(
+        dist.contract_ok and linf <= E2E_CONTRACT and np.isfinite(alloc).all()
+        and alloc.shape == (1727,) and launches["ell_gather"] > 0
+        and launches["two_sided_block"] > 0 and e2e["megakernel_fit_miss"] == 0
+        and masters2 == masters and again.contract_ok
+    )
+    print(json.dumps(e2e), flush=True)
+    return e2e, launches
+
+
 def main() -> int:
     import torch
 
@@ -830,7 +951,8 @@ def main() -> int:
     gather = gather_phase(pack)
     dual_ops = dual_lp_operands()
     gather_dual = gather_phase(dual_ops[1], rows=len(dual_ops[1]), label="gather_dual_lp")
-    b1, _ = solve_phase(pack, MT, [6144], "two_sided_b1")
+    b1, _ = solve_phase(pack, MT, [6144], "two_sided_b1", repeat=True)
+    barrier_phase(b1)
     b3, clean = solve_phase(pack, MT, [1536, 3072, 6144], "two_sided_b3_prefix")
     bnan, _ = solve_phase(pack, MT, [1536, 3072, 6144], "two_sided_b3_nan", nan_lane=1, clean=clean)
     lp = lp_phase(dual_ops, dual_lp_operands(m1=512))
@@ -840,34 +962,7 @@ def main() -> int:
     )
     reference_phase(slice_cfg)
 
-    # the flagship path, with every launch counter zeroed just before it
-    for lib in libs:
-        lib.launches = 0
-    dist, elog, secs, linf = leximin_run(sf_e_skewed_instance(seed=1), "cuda", slice_cfg)
-    launches = {"ell_gather": em.KERNEL.launches, "two_sided_block": mk.KERNEL.launches}
-    c, tm = elog.counters, elog.timers
-    alloc = dist.allocation
-    mean = alloc.mean()
-    gini = float(np.abs(alloc[:, None] - alloc[None, :]).mean() / (2 * mean)) if mean else 0.0
-    e2e = dict(
-        phase="leximin_sf_e_skewed_seed1", seconds=secs, contract_ok=bool(dist.contract_ok),
-        linf=linf, min_prob=float(alloc.min()), gini=gini,
-        panels=int(len(dist.probabilities)), launches=launches,
-        megakernel_fit_miss=int(c.get("megakernel_fit_miss", 0)),
-        decomp_rounds=int(c.get("decomp_rounds", 0)),
-        decomp_host_syncs=int(c.get("decomp_host_syncs", 0)),
-        megakernel_dispatches=int(c.get("megakernel_dispatches", 0)),
-        timers={k: tm.get(k, 0.0) for k in (
-            "relax_leximin", "inject", "decomp_master", "decomp_polish",
-            "decomp_expand", "decomp_oracle", "final_stage", "decomp",
-        )},
-    )
-    e2e["ok"] = bool(
-        dist.contract_ok and linf <= E2E_CONTRACT and np.isfinite(alloc).all()
-        and alloc.shape == (1727,) and launches["ell_gather"] > 0
-        and launches["two_sided_block"] > 0 and e2e["megakernel_fit_miss"] == 0
-    )
-    print(json.dumps(e2e), flush=True)
+    e2e, launches = flagship_phase(sf_e_skewed_instance(seed=1), slice_cfg, libs)
 
     legacy = legacy_phase(sf_e_skewed_instance(seed=1))
     agent = agent_space_phase(

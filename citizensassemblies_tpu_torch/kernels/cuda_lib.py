@@ -8,8 +8,9 @@ first use, from the sources in the repository only, into the package's
 ``nvcc`` per source. Nothing here runs at import time, so importing the
 package needs neither ``nvcc`` nor a card.
 
-A launch failure is an error: :meth:`CudaLibrary.call` raises when the C
-entry point returns a nonzero ``cudaError_t``.
+A launch failure is an error: :meth:`CudaLibrary.call` (and
+:meth:`CudaLibrary.run`, which counts no launch) raises when the C entry
+point returns a nonzero ``cudaError_t``.
 """
 
 from __future__ import annotations
@@ -87,10 +88,17 @@ class CudaLibrary:
     def call(self, fname: str, *args) -> int:
         """Launch through C entry point ``fname`` and count the launch;
         raises on a nonzero CUDA error code."""
+        rc = self.run(fname, *args)
+        self.launches += 1
+        return rc
+
+    def run(self, fname: str, *args) -> int:
+        """Call C entry point ``fname`` without counting a launch (a query,
+        or a measurement kernel that is not the library's own); raises on a
+        nonzero CUDA error code."""
         rc = getattr(self.lib(), fname)(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name}.{fname} failed with cudaError_t {rc}")
-        self.launches += 1
         return rc
 
 

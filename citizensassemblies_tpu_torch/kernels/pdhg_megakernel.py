@@ -7,9 +7,10 @@ iteration as a dozen small torch ops and reads every lane's residual on the
 host after each block. The fused route here runs the whole block loop of a
 solve — ``check_every`` iterations per block, the KKT of the current and the
 averaged iterate, the restart, the ω rebalance, the sentinel freeze and the
-per-lane active mask — inside ``csrc/two_sided_block.cu``, one thread block
-per lane, in one launch. It replaces the JAX package's
-``kernels/pdhg_megakernel.py:_two_sided_block_kernel``.
+per-lane active mask — inside ``csrc/two_sided_block.cu``, in one
+cooperative launch that spreads each lane over a group of thread blocks
+(at B=1 the one lane gets every block the card holds at once). It replaces
+the JAX package's ``kernels/pdhg_megakernel.py:_two_sided_block_kernel``.
 
 Around the kernel, in torch ops shared with the chained ELL route:
 
@@ -17,13 +18,17 @@ Around the kernel, in torch ops shared with the chained ELL route:
   the scaled data rows, per lane (the lanes of a batch share the pack and
   differ in their column masks);
 * the power-iteration ‖K‖ estimate and the warm-start scaling
-  (``solvers/lp_pdhg``), whose gathers launch the ELL gather kernel.
+  (``solvers/lp_pdhg``) over :func:`ell_operators`: the adjoint by the ELL
+  gather kernel, the forward product as a segment sum over the pack's
+  type-major CSR transpose (:func:`csr_transpose`). Neither sums with
+  atomics, so two preludes of the same inputs are bitwise equal.
 
-The kernel takes the pack twice: slot-major (``[k_pad, C]``, for its
-adjoint gather, one thread per column) and as a type-major CSR transpose
-(for its forward product, one warp per type); both are built here, the CSR
-structure on the host from the numpy pack, so no step has a data-dependent
-shape and nothing synchronises before the kernel.
+The kernel takes the pack row-major (``[C, k_pad]``, for its adjoint
+gather, one warp per column) and as the same CSR (for its forward product);
+the CSR structure and the :class:`LaunchPlan` — blocks per lane, each
+block's column and type tiles — are built on the host from the numpy pack,
+so no step has a data-dependent shape and nothing synchronises before the
+kernel.
 
 **Generic-form LP** (``min cᵀx, Gx ≤ h, Ax = b, x ≥ 0``, G as packed ELL
 rows): ``csrc/lp_block.cu`` runs the whole block loop of one solve in one
@@ -38,16 +43,18 @@ same CSR (:func:`lp_operators`), so no step of an LP solve sums with
 atomics and two runs on the same inputs take the same iterations.
 
 Gate (``Config.pdhg_megakernel``), for both kernels: ``None`` — the kernel
-on CUDA when the solve fits shared memory (:func:`two_sided_fits`,
-:func:`lp_fits`); ``True`` — the kernel on CUDA tensors and its plain
-version (:func:`two_sided_blocks_plain`, :func:`lp_blocks_plain`) on CPU
-tensors; ``False`` — the chained route. A shape that does not fit goes to
-the chained route and is counted (``megakernel_fit_miss``).
+on CUDA when the solve fits (:func:`two_sided_fits`, :func:`lp_fits`);
+``True`` — the kernel on CUDA tensors and its plain version
+(:func:`two_sided_blocks_plain`, :func:`lp_blocks_plain`) on CPU tensors;
+``False`` — the chained route. A shape that does not fit goes to the
+chained route and is counted (``megakernel_fit_miss``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import os
 import re
 from typing import Dict, Optional
@@ -65,8 +72,12 @@ _I = ctypes.c_int
 KERNEL = CudaLibrary(
     "two_sided_block",
     "two_sided_block.cu",
-    ["ell_gather.cuh", "two_sided_layout.cuh"],
-    {"two_sided_solve_launch": (ctypes.c_int, [_P] * 20 + [_I] * 8 + [_P])},
+    ["ell_gather.cuh", "grid_sync.cuh", "two_sided_layout.cuh"],
+    {
+        "two_sided_solve_launch": (ctypes.c_int, [_P] * 20 + [_I] * 10 + [_P]),
+        "two_sided_occupancy": (ctypes.c_int, [_I, _I, _P]),
+        "two_sided_barrier_loop": (ctypes.c_int, [_P, _I, _I, _I, _P]),
+    },
 )
 
 
@@ -89,35 +100,173 @@ def _read_layout(header: str) -> Dict[str, int]:
 LAYOUT = _read_layout("two_sided_layout.cuh")
 LP_LAYOUT = _read_layout("lp_layout.cuh")
 
-
-def two_sided_smem_bytes(T: int, Cp: int) -> int:
-    """Shared memory one lane of the kernel needs: the T-length vectors,
-    the C-length p-bar scratch and the reduction scratch."""
-    return (LAYOUT["kTVectors"] * int(T) + int(Cp) + LAYOUT["kRedFloats"]) * 4
+#: SM count of the H100 SXM: the card the gate assumes where it cannot ask
+#: one (a CPU device), at one block per SM
+H100_SMS = 132
 
 
-def two_sided_fits(T: int, Cp: int) -> bool:
-    """The fit rule: the lane's shared-memory working set fits one block."""
-    return two_sided_smem_bytes(T, Cp) <= LAYOUT["kMaxSmem"]
+def _round4(n: int) -> int:
+    a = LAYOUT["kAlignFloats"]
+    return (int(n) + a - 1) // a * a
 
 
-def _gate(cfg: Optional[Config], fits: bool, device, log) -> str:
+def two_sided_smem_bytes(T: int, Cp: int, tile_floats: int = 0) -> int:
+    """Shared memory one block of the kernel needs: the staged y and p-bar,
+    the reduction scratch and ``tile_floats`` of resident pack (0 when the
+    block streams its share from L2)."""
+    L = LAYOUT
+    return (
+        L["kTVectors"] * _round4(T) + L["kCVectors"] * _round4(Cp) + L["kRedFloats"]
+        + int(tile_floats)
+    ) * 4
+
+
+def two_sided_scratch_floats(T: int, Cp: int, blocks_per_lane: int) -> int:
+    """Global float scratch of one lane: the kernel's C- and T-length
+    vectors and its per-block partial sums."""
+    L = LAYOUT
+    return _round4(
+        L["kScratchCVectors"] * _round4(Cp) + L["kScratchTVectors"] * _round4(T)
+        + L["kSlots"] * int(blocks_per_lane)
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _card_occupancy(device_index: int, smem: int, resident: bool):
+    """``(blocks per SM, SM count)`` of the solve kernel with ``smem`` bytes
+    of shared memory on a card."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device_index):
+        KERNEL.run(
+            "two_sided_occupancy", int(smem), int(resident), ctypes.cast(out, ctypes.c_void_p)
+        )
+    return int(out[0]), int(out[1])
+
+
+def coresident_blocks(T: int, Cp: int, device, tile_floats: int = 0) -> int:
+    """Blocks of the solve kernel that are resident at once at (T, Cp) with
+    ``tile_floats`` of resident pack: the occupancy the C side reports times
+    the SM count on a CUDA device; the H100's SM count at one block each
+    elsewhere."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return H100_SMS
+    per_sm, sms = _card_occupancy(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        two_sided_smem_bytes(T, Cp, tile_floats), bool(tile_floats),
+    )
+    return per_sm * sms
+
+
+def two_sided_fits(T: int, Cp: int, lanes: int = 1, coresident: Optional[int] = None) -> bool:
+    """The fit rule: a block's staged vectors fit its shared memory, and
+    every lane gets at least one of the ``coresident`` blocks (the H100's
+    SM count when not given)."""
+    if two_sided_smem_bytes(T, Cp) > LAYOUT["kMaxSmem"]:
+        return False
+    return 1 <= int(lanes) <= (H100_SMS if coresident is None else int(coresident))
+
+
+@dataclasses.dataclass
+class LaunchPlan:
+    """How a solve is spread over the card: ``lanes`` groups of
+    ``blocks_per_lane`` blocks; block j of every group owns the columns
+    ``col_bounds[j]:col_bounds[j+1]`` and the types
+    ``type_bounds[j]:type_bounds[j+1]`` of its lane, and keeps its share of
+    the pack resident in ``tile_floats`` of shared memory (0: it streams
+    that share from L2)."""
+
+    lanes: int
+    blocks_per_lane: int
+    col_bounds: np.ndarray
+    type_bounds: np.ndarray
+    tile_floats: int = 0
+    #: the bounds as one int32 device vector, once :meth:`upload` ran
+    bounds: Optional[torch.Tensor] = None
+
+    @property
+    def grid(self) -> int:
+        return self.lanes * self.blocks_per_lane
+
+    def upload(self, device) -> "LaunchPlan":
+        self.bounds = torch.as_tensor(
+            np.concatenate([self.col_bounds, self.type_bounds]).astype(np.int32), device=device
+        )
+        return self
+
+
+def launch_plan(lanes: int, T: int, Cp: int, coresident, rowptr=None, kp: Optional[int] = None
+                ) -> LaunchPlan:
+    """The launch plan of a ``lanes``-lane solve at (T, Cp) on a card that
+    holds ``coresident`` blocks at once (a number, or a function of the
+    resident tile's floats, as :func:`coresident_blocks`): the blocks split
+    into equal lane groups; each block gets an equal share of the columns
+    and a contiguous run of types balanced by CSR entries (``rowptr``, the
+    type-major transpose's row pointer; by count when absent), a type
+    weighing its entries plus one warp's worth. With ``rowptr`` and ``kp``
+    the blocks keep their shares of the pack and their own column and type
+    state resident when the largest fits shared memory beside the staged
+    vectors without costing co-residency.
+    Raises ``ValueError`` when the lanes outnumber the blocks (a fit miss)."""
+    cores = coresident if callable(coresident) else (lambda tile: int(coresident))
+    nb = int(cores(0)) // int(lanes)
+    if nb < 1:
+        raise ValueError(f"{lanes} lanes do not fit {cores(0)} co-resident blocks")
+    col_bounds = (np.arange(nb + 1, dtype=np.int64) * int(Cp)) // nb
+    if rowptr is None:
+        weight = np.ones(int(T), dtype=np.int64)
+    else:
+        weight = np.diff(np.asarray(rowptr, dtype=np.int64)) + 32
+    cum = np.concatenate([[0], np.cumsum(weight)])
+    targets = (np.arange(nb + 1, dtype=np.int64) * int(cum[-1])) // nb
+    type_bounds = np.searchsorted(cum, targets, side="left")
+    tile = 0
+    if rowptr is not None and kp is not None:
+        rp = np.asarray(rowptr, dtype=np.int64)
+        need = (
+            2 * (np.diff(col_bounds) * int(kp) + np.diff(rp[type_bounds]))
+            + LAYOUT["kOwnCVectors"] * np.diff(col_bounds)
+            + LAYOUT["kOwnTVectors"] * np.diff(type_bounds)
+        )
+        cand = int(need.max())
+        if (
+            two_sided_smem_bytes(T, Cp, cand) <= LAYOUT["kMaxSmem"]
+            and int(cores(cand)) >= int(lanes) * nb
+        ):
+            tile = cand
+    return LaunchPlan(
+        lanes=int(lanes), blocks_per_lane=nb, col_bounds=col_bounds.astype(np.int32),
+        type_bounds=type_bounds.astype(np.int32), tile_floats=tile,
+    )
+
+
+def _gate(cfg: Optional[Config], fits, device, log) -> str:
+    """``fits`` is called only when the gate would engage."""
     cfg = cfg or default_config()
     gate = cfg.pdhg_megakernel
     if gate is False or (gate is None and not _device.on_accelerator(device)):
         return "off"
-    if not fits:
+    if not fits():
         if log is not None:
             log.count("megakernel_fit_miss")
         return "off"
     return "fused"
 
 
-def megakernel_mode(cfg: Optional[Config], T: int, Cp: int, device, log=None) -> str:
-    """Resolve the tri-state gate for a (T, Cp) master on ``device`` to
-    ``"fused"`` or ``"off"``. A gate that would engage but does not fit is
-    counted as ``megakernel_fit_miss`` on ``log``."""
-    return _gate(cfg, two_sided_fits(T, Cp), device, log)
+def megakernel_mode(cfg: Optional[Config], T: int, Cp: int, device, log=None, lanes: int = 1,
+                    coresident: Optional[int] = None) -> str:
+    """Resolve the tri-state gate for a ``lanes``-lane (T, Cp) master on
+    ``device`` to ``"fused"`` or ``"off"``. ``coresident`` defaults to
+    :func:`coresident_blocks` of the device. A gate that would engage but
+    does not fit is counted as ``megakernel_fit_miss`` on ``log``."""
+
+    def fits():
+        if two_sided_smem_bytes(T, Cp) > LAYOUT["kMaxSmem"]:
+            return False
+        n = coresident if coresident is not None else coresident_blocks(T, Cp, device)
+        return two_sided_fits(T, Cp, lanes, n)
+
+    return _gate(cfg, fits, device, log)
 
 
 def lp_smem_bytes(nv: int, m1: int, m2: int) -> int:
@@ -139,7 +288,7 @@ def lp_fits(nv: int, m1: int, m2: int) -> bool:
 def lp_megakernel_mode(cfg: Optional[Config], nv: int, m1: int, m2: int, device, log=None) -> str:
     """:func:`megakernel_mode` for a generic LP of nv variables, m1
     inequality and m2 equality rows."""
-    return _gate(cfg, lp_fits(nv, m1, m2), device, log)
+    return _gate(cfg, lambda: lp_fits(nv, m1, m2), device, log)
 
 
 def two_sided_prelude(idx: torch.Tensor, val: torch.Tensor, v: torch.Tensor, colmask: torch.Tensor):
@@ -177,16 +326,33 @@ def two_sided_prelude(idx: torch.Tensor, val: torch.Tensor, v: torch.Tensor, col
     return pre, vals_s
 
 
-def ell_operators(idx, vals_s, pre, gather=ell_gather_mv):
+def csr_forward(csr, vals_s: torch.Tensor):
+    """The forward product ``u[b, t] = Σ_{c,s: idx[c,s]=t} vals_s[b,c,s]·p[b,c]``
+    as a function of ``p [B, C]``, summed per type in column order over the
+    type-major CSR ``csr`` (:func:`csr_transpose` of the pack) by
+    ``torch.segment_reduce`` with the lanes on the trailing axis: a fixed
+    order with no atomics. ``vals_s`` is ``[B, C, k_pad]``."""
+    perm, rowptr, colT = csr
+    vals_t = vals_s.reshape(vals_s.shape[0], -1)[:, perm].t().contiguous()  # [nnz, B]
+
+    def forward(p):
+        return torch.segment_reduce(
+            vals_t * p.t()[colT], "sum", offsets=rowptr, axis=0, unsafe=True
+        ).t().contiguous()
+
+    return forward
+
+
+def ell_operators(idx, vals_s, pre, csr, gather=ell_gather_mv):
     """The scaled two-sided operator pair over the packed columns:
     ``K_apply(p, eps) -> (r_lo, r_up, r_eq)``, ``KT_apply(l_lo, l_up, mu)
-    -> (g_p, g_e)``. ``gather`` is the kernel wrapper (CUDA) by default."""
-    from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_scatter_mv
-
-    T = pre.d_r.shape[1]
+    -> (g_p, g_e)``. ``gather`` is the kernel wrapper (CUDA) by default; the
+    forward product is :func:`csr_forward` over ``csr`` (the pack's
+    :func:`csr_transpose` on the device)."""
+    forward = csr_forward(csr, vals_s)
 
     def K_apply(p, eps):
-        u = ell_scatter_mv(idx, vals_s, p, T)
+        u = forward(p)
         ec = pre.e_col * eps[:, None]
         return -u - ec, u - ec, (pre.a_row * p).sum(1)
 
@@ -198,12 +364,12 @@ def ell_operators(idx, vals_s, pre, gather=ell_gather_mv):
     return K_apply, KT_apply
 
 
-def two_sided_blocks_plain(idx, vals_s, pre, state, tol, *, max_iters, check_every, sentinel):
+def two_sided_blocks_plain(csr, idx, vals_s, pre, state, tol, *, max_iters, check_every, sentinel):
     """The block kernel's plain version: the same block loop in torch ops
     (``lp_pdhg._two_sided_iterate`` over the plain packed matvecs)."""
     from citizensassemblies_tpu_torch.solvers.lp_pdhg import _two_sided_iterate
 
-    K_apply, KT_apply = ell_operators(idx, vals_s, pre, gather=ell_gather_mv_plain)
+    K_apply, KT_apply = ell_operators(idx, vals_s, pre, csr, gather=ell_gather_mv_plain)
     p, eps, l_lo, l_up, mu, norm, scale = state
     return _two_sided_iterate(
         K_apply, KT_apply, pre.cs_eps, pre.hs_lo, pre.hs_up, pre.bs,
@@ -234,23 +400,50 @@ def csr_to_device(idx_np: np.ndarray, val_np: np.ndarray, T: int, device):
     return tuple(torch.as_tensor(a, device=device) for a in csr_transpose(idx_np, val_np, T))
 
 
-def two_sided_blocks_cuda(csr, idx, vals_s, pre, state, tol, *,
+def two_sided_launch_inputs(idx_np: np.ndarray, val_np: np.ndarray, T: int, lanes: int, device):
+    """``(csr, plan)``: the pack's :func:`csr_transpose` and, on a CUDA
+    device, its :class:`LaunchPlan` for ``lanes`` lanes on that card, both
+    uploaded (before the solve's other device work, as
+    :func:`csr_to_device` says). ``plan`` is None off CUDA."""
+    dev = torch.device(device)
+    perm, rowptr, colT = csr_transpose(idx_np, val_np, T)
+    plan = None
+    if dev.type == "cuda":
+        Cp, kp = idx_np.shape
+        plan = launch_plan(
+            lanes, T, Cp, lambda tile: coresident_blocks(T, Cp, dev, tile), rowptr, kp
+        ).upload(dev)
+    return tuple(torch.as_tensor(a, device=dev) for a in (perm, rowptr, colT)), plan
+
+
+def two_sided_blocks_cuda(csr, plan: LaunchPlan, idx, vals_s, pre, state, tol, *,
                           max_iters, check_every, sentinel):
-    """Launch the block kernel on the prelude's output; ``csr`` is
-    :func:`csr_to_device` of the same pack. Returns the scaled ``(p, eps,
-    l_lo, l_up, mu, it, res, flags)`` like the plain version."""
+    """Launch the block kernel on the prelude's output; ``csr`` and ``plan``
+    are :func:`two_sided_launch_inputs` of the same pack. Returns the scaled
+    ``(p, eps, l_lo, l_up, mu, it, res, flags)`` like the plain version."""
     p, eps, l_lo, l_up, mu, norm, scale = state
     B, C = p.shape
     T = l_lo.shape[1]
     kp = idx.shape[1]
     dev = p.device
-    if not two_sided_fits(T, C):
-        raise ValueError(f"a lane at T={T}, C={C} does not fit the block kernel")
+    if dev.type != "cuda" or idx.device != dev or vals_s.device != dev:
+        raise ValueError("the block kernel takes CUDA tensors on one device")
+    if (
+        idx.dtype != torch.int32 or vals_s.dtype != torch.float32
+        or tuple(vals_s.shape) != (B, C, kp)
+    ):
+        raise ValueError(
+            "the block kernel takes int32 idx [C, k_pad] and float32 vals [B, C, k_pad]"
+        )
+    if two_sided_smem_bytes(T, C) > LAYOUT["kMaxSmem"]:
+        raise ValueError(f"a block at T={T}, C={C} does not fit shared memory")
+    if plan is None or plan.lanes != B or plan.bounds is None:
+        raise ValueError("the launch plan does not match the lanes, or is not uploaded")
     perm, rowptr, colT = csr
     nnz = int(perm.shape[0])
-    idxS = idx.t().contiguous()
-    vsS = vals_s.transpose(1, 2).contiguous()
-    vsT = vals_s.reshape(B, -1)[:, perm].contiguous()
+    nb = plan.blocks_per_lane
+    vals = vals_s.contiguous()
+    vsT = vals.reshape(B, -1)[:, perm].contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
     p_k = p.contiguous().clone()
     pav = p_k.clone()
@@ -266,19 +459,19 @@ def two_sided_blocks_cuda(csr, idx, vals_s, pre, state, tol, *,
     ):
         scal[:, LAYOUT[slot]] = val
     iters = torch.zeros(B, dtype=torch.int32, device=dev)
-    p0 = torch.empty((B, C), **f32)
-    avn = torch.empty((B, C), **f32)
-    ps = torch.empty((B, C), **f32)
+    scratch = torch.empty(B * two_sided_scratch_floats(T, C, nb), **f32)
+    bar = torch.zeros(B, dtype=torch.int64, device=dev)
     ecol = pre.e_col.contiguous()
     hlo = pre.hs_lo.contiguous()
     hup = pre.hs_up.contiguous()
     arow = pre.a_row.contiguous()
     KERNEL.call(
         "two_sided_solve_launch",
-        ptr(idxS), ptr(vsS), ptr(rowptr), ptr(colT), ptr(vsT), ptr(ecol),
+        ptr(idx.contiguous()), ptr(vals), ptr(rowptr), ptr(colT), ptr(vsT), ptr(ecol),
         ptr(hlo), ptr(hup), ptr(arow), ptr(p_k), ptr(pav), ptr(llo), ptr(lup),
-        ptr(llav), ptr(luav), ptr(scal), ptr(iters), ptr(p0), ptr(avn), ptr(ps),
-        B, T, C, kp, nnz, int(check_every), int(max_iters), int(bool(sentinel)),
+        ptr(llav), ptr(luav), ptr(scal), ptr(iters), ptr(scratch), ptr(bar), ptr(plan.bounds),
+        B, T, C, kp, nnz, nb, plan.tile_floats, int(check_every), int(max_iters),
+        int(bool(sentinel)),
         stream_of(p_k),
     )
     out = {slot: scal[:, LAYOUT[slot]] for slot in ("S_EPS", "S_MU", "S_RES", "S_POIS", "S_STALL")}
@@ -286,11 +479,21 @@ def two_sided_blocks_cuda(csr, idx, vals_s, pre, state, tol, *,
     return (p_k, out["S_EPS"], llo, lup, out["S_MU"], iters, out["S_RES"], flags)
 
 
-def two_sided_setup(idx_np: np.ndarray, val_np: np.ndarray, v, colmask, x0, lam0, mu0):
+def barrier_loop(lanes: int, blocks_per_lane: int, rounds: int, device) -> None:
+    """Run ``rounds`` of the kernel's group barrier over ``lanes`` groups of
+    ``blocks_per_lane`` blocks in one cooperative launch (a measurement of
+    the barrier alone; it is not a solve and counts no launch)."""
+    bar = torch.zeros(lanes, dtype=torch.int64, device=device)
+    KERNEL.run("two_sided_barrier_loop", ptr(bar), int(lanes), int(blocks_per_lane), int(rounds),
+               stream_of(bar))
+
+
+def two_sided_setup(idx_np: np.ndarray, val_np: np.ndarray, v, colmask, x0, lam0, mu0, csr):
     """Everything before the block loop: the pack on ``v``'s device, the
-    Ruiz prelude, the power-iteration ‖K‖ and the scaled warm start.
-    Returns ``(idx, vals_s, pre, state)`` for :func:`two_sided_blocks_cuda`
-    and :func:`two_sided_blocks_plain`."""
+    Ruiz prelude, the power-iteration ‖K‖ and the scaled warm start
+    (``csr`` the pack's :func:`csr_transpose` on that device). Returns
+    ``(idx, vals_s, pre, state)`` for :func:`two_sided_blocks_cuda` and
+    :func:`two_sided_blocks_plain`."""
     from citizensassemblies_tpu_torch.solvers.lp_pdhg import kkt_scale, power_norm, warm_scaled
 
     dev = v.device
@@ -298,7 +501,7 @@ def two_sided_setup(idx_np: np.ndarray, val_np: np.ndarray, v, colmask, x0, lam0
     val = torch.as_tensor(np.ascontiguousarray(val_np, dtype=np.float32), device=dev)
     B, C = colmask.shape
     pre, vals_s = two_sided_prelude(idx, val, v, colmask)
-    K_apply, KT_apply = ell_operators(idx, vals_s, pre)
+    K_apply, KT_apply = ell_operators(idx, vals_s, pre, csr)
     norm = power_norm(K_apply, KT_apply, B, C, dev)
     state = warm_scaled(pre, x0, lam0, mu0) + (norm, kkt_scale(pre))
     return idx, vals_s, pre, state
@@ -316,15 +519,13 @@ def dispatch_two_sided(
     its plain version on the CPU."""
     from citizensassemblies_tpu_torch.solvers.lp_pdhg import unscale
 
-    on_cuda = v.device.type == "cuda"
-    if on_cuda:
-        csr = csr_to_device(idx_np, val_np, v.shape[0], v.device)
-    idx, vals_s, pre, state = two_sided_setup(idx_np, val_np, v, colmask, x0, lam0, mu0)
+    csr, plan = two_sided_launch_inputs(idx_np, val_np, v.shape[0], colmask.shape[0], v.device)
+    idx, vals_s, pre, state = two_sided_setup(idx_np, val_np, v, colmask, x0, lam0, mu0, csr)
     kw = dict(max_iters=max_iters, check_every=check_every, sentinel=sentinel)
-    if on_cuda:
-        out = two_sided_blocks_cuda(csr, idx, vals_s, pre, state, tol, **kw)
+    if plan is not None:
+        out = two_sided_blocks_cuda(csr, plan, idx, vals_s, pre, state, tol, **kw)
     else:
-        out = two_sided_blocks_plain(idx, vals_s, pre, state, tol, **kw)
+        out = two_sided_blocks_plain(csr, idx, vals_s, pre, state, tol, **kw)
     p, eps, l_lo, l_up, mu, it, res, flags = out
     if log is not None:
         log.count("megakernel_dispatches")

@@ -18,7 +18,8 @@ the master's columns packed as an ELL pack (a dense ``MT`` is packed first):
   plain version on CPU tensors;
 * **chained, ELL** — :func:`_pdhg_two_sided_body_ell`: the same prelude and
   :func:`_two_sided_iterate` over the packed operator (the gather kernel of
-  ``kernels/ell_matvec.py`` on CUDA, ``index_add_`` for the scatter).
+  ``kernels/ell_matvec.py`` on CUDA for the adjoint, a segment sum over
+  the pack's type-major CSR for the forward product).
 
 The chained route reads every lane's residual on the host after each
 block; the fused route never does. Both freeze a lane exactly as the
@@ -285,18 +286,20 @@ def _solve_scaled(pre, K_apply, KT_apply, x0, lam0, mu0, tol, max_iters, check_e
 
 
 def _pdhg_two_sided_body_ell(
-    idx, val, v, colmask, x0, lam0, mu0, tol,
+    idx, val, v, colmask, x0, lam0, mu0, tol, csr,
     max_iters: int, check_every: int, sentinel: bool = False,
 ):
     """The chained ELL route: the two-sided master over the packed columns
-    ``idx``/``val`` ``[C, k_pad]`` (minor axis = the T types), batched over
-    the lanes of ``colmask``/``x0``/``lam0``/``mu0``/``tol``. Same prelude as
-    the fused route (``kernels/pdhg_megakernel.two_sided_prelude``), then
+    ``idx``/``val`` ``[C, k_pad]`` (minor axis = the T types; ``csr`` their
+    type-major transpose, ``kernels/pdhg_megakernel.csr_to_device``),
+    batched over the lanes of ``colmask``/``x0``/``lam0``/``mu0``/``tol``.
+    Same prelude as the fused route
+    (``kernels/pdhg_megakernel.two_sided_prelude``), then
     :func:`_two_sided_iterate` with the packed matvecs."""
     from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
 
     pre, vals_s = mk.two_sided_prelude(idx, val, v, colmask)
-    K_apply, KT_apply = mk.ell_operators(idx, vals_s, pre)
+    K_apply, KT_apply = mk.ell_operators(idx, vals_s, pre, csr)
     return _solve_scaled(pre, K_apply, KT_apply, x0, lam0, mu0, tol, max_iters, check_every, sentinel)
 
 
@@ -420,6 +423,10 @@ def solve_two_sided_master_ell_async(
     mi = int(max_iters if max_iters is not None else cfg.pdhg_max_iters)
     ce = int(cfg.pdhg_check_every)
     sent = sentinels_enabled(cfg)
+    fused = mk.megakernel_mode(cfg, T, Cp, dev, log=log) != "off"
+    if not fused:
+        # uploaded before the lane vectors, so the copy does not wait
+        csr = mk.csr_to_device(idx_p, val_p, T, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     lanes = (
         torch.as_tensor(np.asarray(v, np.float32), **f32),
@@ -429,7 +436,7 @@ def solve_two_sided_master_ell_async(
         torch.full((1,), float(mu0), **f32),
         torch.full((1,), tol, **f32),
     )
-    if mk.megakernel_mode(cfg, T, Cp, dev, log=log) != "off":
+    if fused:
         # fused route: one kernel launch for the whole solve
         out = mk.dispatch_two_sided(
             idx_p, val_p, *lanes, max_iters=mi, check_every=ce, sentinel=sent,
@@ -438,7 +445,7 @@ def solve_two_sided_master_ell_async(
     else:
         out = _pdhg_two_sided_body_ell(
             torch.as_tensor(idx_p, dtype=torch.int32, device=dev),
-            torch.as_tensor(val_p, **f32), *lanes,
+            torch.as_tensor(val_p, **f32), *lanes, csr,
             max_iters=mi, check_every=ce, sentinel=sent,
         )
     return _handle(*(o[0] for o in out), Cp=Cp, T=T, tol=tol)

@@ -212,27 +212,121 @@ def test_gate_and_fit_rule(monkeypatch):
     assert tmk.megakernel_mode(cfg, 24, 128, cpu) == "off"
     assert tmk.megakernel_mode(cfg.replace(pdhg_megakernel=True), 24, 128, cpu) == "fused"
     assert tmk.megakernel_mode(cfg.replace(pdhg_megakernel=False), 24, 128, cpu) == "off"
-    # the flagship master (T=814, Cp up to 6144) fits one thread block
+    # the flagship master (T=814, Cp up to 6144) fits, at up to a lane per SM
     assert tmk.two_sided_fits(814, 6144)
+    assert tmk.two_sided_fits(814, 6144, lanes=tmk.H100_SMS)
     monkeypatch.setattr(tdevice, "on_accelerator", lambda dev: True)
     log = RunLog(echo=False)
     assert tmk.megakernel_mode(cfg, 814, 6144, cpu, log=log) == "fused"
     assert "megakernel_fit_miss" not in log.counters
-    # a lane whose T-vectors overflow shared memory goes chained, counted
-    assert not tmk.two_sided_fits(16_000, 6144)
-    assert tmk.megakernel_mode(cfg, 16_000, 6144, cpu, log=log) == "off"
+    # a block whose staged y and p-bar overflow shared memory goes chained,
+    # counted
+    assert not tmk.two_sided_fits(814, 60_000)
+    assert tmk.megakernel_mode(cfg, 814, 60_000, cpu, log=log) == "off"
     assert log.counters["megakernel_fit_miss"] == 1
+    # so do more lanes than co-resident blocks
+    assert not tmk.two_sided_fits(814, 6144, lanes=tmk.H100_SMS + 1)
+    assert tmk.megakernel_mode(cfg, 814, 6144, cpu, log=log, lanes=tmk.H100_SMS + 1) == "off"
+    assert log.counters["megakernel_fit_miss"] == 2
 
 
 def test_layout_read_from_the_kernel_header():
-    """The fit rule and the scalar-row slots come from the kernel's own
-    header: the flagship lane's bytes, and distinct slots inside the row."""
+    """The fit rule, the scratch layout and the scalar-row slots come from
+    the kernel's own header: a flagship block's bytes, a lane's scratch, and
+    distinct slots inside the row."""
     layout = tmk.LAYOUT
-    assert tmk.two_sided_smem_bytes(814, 6144) == (14 * 814 + 6144 + 264) * 4
-    assert layout["kMaxSmem"] == 232_448
+    # T and Cp rounded up to whole 16-byte vectors
+    assert tmk.two_sided_smem_bytes(814, 6144) == (816 + 6144 + 312) * 4
+    assert tmk.two_sided_smem_bytes(814, 6144, 1000) == (816 + 6144 + 312 + 1000) * 4
+    assert tmk.two_sided_scratch_floats(814, 6144, 133) == 5 * 6144 + 8 * 816 + 9 * 133 + 3
+    assert layout["kMaxSmem"] == 232_448 and layout["kThreads"] == 512
     slots = [v for k, v in layout.items() if k.startswith("S_") and k != "S_N"]
     assert len(slots) == 15 and len(set(slots)) == 15
     assert all(0 <= s < layout["S_N"] for s in slots)
+
+
+def _skewed_rowptr(T=814, C=6144, k=110, seed=3):
+    """The type-major row pointer of C random k-member panels over T types
+    drawn with Zipf-like weights, as skewed as the flagship pool's."""
+    r = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, T + 1)
+    counts = np.zeros(T, np.int64)
+    for _ in range(C):
+        counts[np.unique(r.choice(T, size=k, p=w / w.sum()))] += 1
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("lanes", [1, 2, 3, 7])
+def test_launch_plan_owns_every_column_and_type(lanes, sms, monkeypatch):
+    """Every column and every type of each lane is owned by exactly one
+    block of that lane's group, the groups are disjoint and co-resident, the
+    type tiles are balanced by CSR entries, and one lane more than the card
+    holds blocks is a counted fit miss."""
+    T, Cp = 814, 6144
+    coresident = 2 * sms
+    rowptr = _skewed_rowptr(T, Cp)
+    plan = tmk.launch_plan(lanes, T, Cp, coresident, rowptr, kp=112)
+    nb = plan.blocks_per_lane
+    assert nb == coresident // lanes and plan.grid <= coresident
+    for bounds, n in ((plan.col_bounds, Cp), (plan.type_bounds, T)):
+        assert len(bounds) == nb + 1 and bounds[0] == 0 and bounds[-1] == n
+        assert np.all(np.diff(bounds) >= 0)
+        owner = np.repeat(np.arange(nb), np.diff(bounds))
+        assert len(owner) == n  # each index in exactly one tile
+    groups = [set(range(g * nb, (g + 1) * nb)) for g in range(lanes)]
+    assert sum(len(g) for g in groups) == len(set().union(*groups)) == plan.grid
+    # no type tile carries more than an even share plus its heaviest type
+    weight = np.diff(rowptr.astype(np.int64)) + 32
+    tiles = [weight[a:b].sum() for a, b in zip(plan.type_bounds[:-1], plan.type_bounds[1:])]
+    assert max(tiles) <= weight.sum() / nb + weight.max()
+    assert np.all(np.diff(plan.col_bounds) <= -(-Cp // nb))
+    # a resident plan holds every block's share of both pack layouts and
+    # its column and type state
+    need = (
+        2 * (np.diff(plan.col_bounds) * 112 + np.diff(rowptr[plan.type_bounds]))
+        + 6 * np.diff(plan.col_bounds) + 13 * np.diff(plan.type_bounds)
+    )
+    if plan.tile_floats:
+        assert plan.tile_floats == need.max()
+        assert tmk.two_sided_smem_bytes(T, Cp, plan.tile_floats) <= tmk.LAYOUT["kMaxSmem"]
+    else:
+        assert tmk.two_sided_smem_bytes(T, Cp, need.max()) > tmk.LAYOUT["kMaxSmem"]
+    with pytest.raises(ValueError):
+        tmk.launch_plan(coresident + 1, T, Cp, coresident, rowptr)
+    monkeypatch.setattr(tdevice, "on_accelerator", lambda dev: True)
+    log = RunLog(echo=False)
+    cfg = tconfig.default_config()
+    cpu = torch.device("cpu")
+    mode = tmk.megakernel_mode(cfg, T, Cp, cpu, log=log, lanes=lanes, coresident=coresident)
+    assert mode == "fused"
+    assert tmk.megakernel_mode(
+        cfg, T, Cp, cpu, log=log, lanes=coresident + 1, coresident=coresident
+    ) == "off"
+    assert log.counters["megakernel_fit_miss"] == 1
+
+
+def test_csr_forward_matches_scatter():
+    """The forward product as a segment sum over the type-major CSR (the
+    prelude's, the plain version's and the chained route's) equals the
+    ``index_add_`` scatter on a 3-lane prefix-masked pack."""
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_scatter_mv
+
+    MT, v = _flagship_master()
+    ops = _lanes(MT, v, [24, 48, 96])
+    T = MT.shape[0]
+    idx = torch.as_tensor(ops["idx"])
+    _, vals_s = tmk.two_sided_prelude(
+        idx, torch.as_tensor(ops["val"]), torch.as_tensor(ops["v"]), torch.as_tensor(ops["colmask"])
+    )
+    csr = tmk.csr_to_device(ops["idx"], ops["val"], T, "cpu")
+    p = torch.as_tensor(np.random.default_rng(5).random((3, 96)).astype(np.float32))
+    got = tmk.csr_forward(csr, vals_s)(p).numpy()
+    want = ell_scatter_mv(idx, vals_s, p, T).numpy()
+    assert got.shape == (3, T)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+    # and it is a fixed order: the same bits on a second call
+    np.testing.assert_array_equal(tmk.csr_forward(csr, vals_s)(p).numpy(), got)
 
 
 def test_gate_off_bitwise_identity():
