@@ -12,13 +12,17 @@ Phases, each fatal on failure:
 3. kernels, each held against its plain PyTorch version on the card:
    the ELL gather at the flagship master's shape (T=814 types of
    ``sf_e_skewed_instance(seed=1)``, a 6144-column pack) and at the
-   flagship dual LP's (4096 panel rows over n+1 = 1728 variables); the
+   flagship dual LP's (4096 panel rows over n+1 = 1728 variables), also
+   timed with the L2 flushed before each call; the
    two-sided PDHG solve at B=1, at B=3 with prefix column masks
    1536/3072/6144, and at B=3 with one NaN-warmed lane (the B=1 solve a
    second time from a fresh prelude, both held bit for bit; then a bare
-   loop of the kernel's grid barrier at the grid it launched); the
-   generic-LP PDHG solve on the flagship dual LP to a tolerance, for a
-   fixed 65,536 iterations, and with a NaN warm start;
+   loop of the kernels' grid barrier at the grid it launched); the
+   generic-LP PDHG solve on the flagship dual LP to a tolerance (a second
+   time from a fresh prelude, held bit for bit), for a fixed 65,536
+   iterations, and with a NaN warm start, then the barrier loop at its
+   grid; and on a dual LP of ``sf_b_skewed_instance(seed=1)``'s shape
+   (1024 panel rows over n+1 = 251 variables);
 4. a small-input reference: LEXIMIN on ``skewed_instance(n=160, k=14,
    n_categories=4, seed=2)`` on the GPU with every master forced onto the
    device route, against the same solve on the CPU;
@@ -32,7 +36,8 @@ Phases, each fatal on failure:
    allocation both times) and held against
    the type-space result on the same pool; and on the real-size
    ``sf_b_skewed_instance(seed=1)`` under a stated budget per stage, its
-   dual solves held against the type-space leximin values.
+   dual solves held against the type-space leximin values, with each
+   round's PDHG iterations and seconds and each HiGHS solve's seconds.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
 line, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -145,20 +150,27 @@ def cuda_ms(fn, reps: int = 1, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, name: str = None, flush_l2: bool = False) -> float:
     """Device milliseconds per ``fn()`` call: the summed self time of every
-    GPU kernel the profiler saw over ``reps`` calls, divided by ``reps``;
-    NaN when the profiler recorded no device time."""
+    GPU kernel the profiler saw over ``reps`` calls (only those whose name
+    holds ``name``, when given), divided by ``reps``; NaN when the profiler
+    recorded no device time. ``flush_l2``: before each call, write a 64 MiB
+    buffer, more than the 50 MB L2, so the call finds its inputs in HBM."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    flush = torch.empty(16 << 20, dtype=torch.float32, device="cuda") if flush_l2 else None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush is not None:
+                flush.fill_(1.0)
             fn()
         torch.cuda.synchronize()
     total_us = 0.0
     for evt in prof.key_averages():
+        if name is not None and name not in evt.key:
+            continue
         t = getattr(evt, "self_device_time_total", None)
         if t is None:
             t = getattr(evt, "self_cuda_time_total", 0.0)
@@ -223,7 +235,13 @@ def gather_phase(pack, rows=6144, label="gather"):
         float((z - em.ell_gather_mv_plain(idx, val, y)).abs().max()),
         float((zb - em.ell_gather_mv_plain(idx, valb, yb)).abs().max()),
     )
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    G, threads, blocks = em.launch_shape(C, kp, 1, sms)
     ms, call_ms = timed(lambda: em.ell_gather_mv(idx, val, y), reps=200, warmup=10)
+    # the pack as a caller finds it when the L2 holds other data (the
+    # timing above reads it from L2, where it stays across the 200 calls)
+    flushed_ms = device_ms(lambda: em.ell_gather_mv(idx, val, y), 50, "ell_gather", flush_l2=True)
+    b3_ms = device_ms(lambda: em.ell_gather_mv(idx, valb, yb), 200, "ell_gather")
     plain_ms, plain_call_ms = timed(lambda: em.ell_gather_mv_plain(idx, val, y), reps=200, warmup=10)
     rows = torch.as_tensor(np.repeat(np.arange(C), kp), device=dev)
     keep = val.reshape(-1) != 0
@@ -241,7 +259,9 @@ def gather_phase(pack, rows=6144, label="gather"):
     rec = dict(
         phase=label, name="ell_gather", replaces=REPLACES["ell_gather"],
         shape=dict(C=C, k_pad=kp, T=T, lanes=[1, 3]),
-        ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_max_abs_err=lib_err,
+        grid=blocks, threads=threads, lanes_per_column=G, grid_b3=em.launch_shape(C, kp, 3, sms)[2],
+        ms=ms, l2_flushed_ms=flushed_ms, b3_ms=b3_ms, plain_ms=plain_ms, library_ms=library_ms,
+        library_max_abs_err=lib_err,
         call_ms=call_ms, plain_call_ms=plain_call_ms, library_call_ms=library_call_ms,
         bound_ms=bound_ms, bound_by="bytes", max_abs_err=err, tolerance=GATHER_TOL,
         launches=em.KERNEL.launches - launches0, ok=err <= GATHER_TOL,
@@ -428,42 +448,45 @@ def solve_phase(pack, MT, caps, label, nan_lane=None, clean=None, repeat=False):
     return rec, dict(x=xk_n, it=it_k, prepared=prepared)
 
 
-def barrier_phase(b1, rounds=20_000):
-    """A bare loop of the kernel's group barrier at the grid the B=1 solve
-    launched, timed by CUDA events: the barrier's share of an iteration
-    (two barriers an iteration, five more per block of check_every)."""
+def barrier_phase(solve, per_block, label="grid_barrier", rounds=20_000):
+    """A bare loop of the kernels' group barrier (both have 512 threads a
+    block) at the grid a one-lane solve launched, timed by CUDA events: the
+    barrier's share of an iteration (two barriers an iteration, and
+    ``per_block`` more per block of 128 iterations: five in the two-sided
+    kernel, five in the LP kernel)."""
     import torch
 
     from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
 
-    nb = b1["blocks_per_lane"]
+    nb = solve["blocks_per_lane"]
     dev = torch.device("cuda")
     ms = cuda_ms(lambda: mk.barrier_loop(1, nb, rounds, dev), reps=3, warmup=1)
     us = 1e3 * ms / rounds
-    per_iter = (2 + 5 / 128) * us
+    per_iter = (2 + per_block / 128) * us
     rec = dict(
-        phase="grid_barrier", grid=nb, rounds=rounds, ms=ms, us_per_barrier=us,
-        barrier_us_per_iter=per_iter, iter_us=b1["us_per_iter"],
-        data_us_per_iter=b1["us_per_iter"] - per_iter, ok=bool(np.isfinite(us) and us > 0),
+        phase=label, grid=nb, rounds=rounds, ms=ms, us_per_barrier=us,
+        barrier_us_per_iter=per_iter, iter_us=solve["us_per_iter"],
+        data_us_per_iter=solve["us_per_iter"] - per_iter, ok=bool(np.isfinite(us) and us > 0),
     )
     print(json.dumps(rec), flush=True)
     if not rec["ok"]:
-        raise SystemExit("grid barrier phase failed")
+        raise SystemExit(f"{label} phase failed")
     return rec
 
 
-def dual_lp_operands(m1: int = 4096, seed: int = 0):
+def dual_lp_operands(m1: int = 4096, seed: int = 0, pool=None):
     """The dual leximin LP at the flagship's shape, built by
     ``solvers/lp_pdhg.dual_lp_operands`` as the path builds it: ``m1``
-    random 110-member panels of the ``sf_e_skewed_instance(seed=1)`` pool
-    (drawn as :func:`flagship_pack` draws them), about 10 % of the agents
-    fixed at values in [0.02, 0.08]. Returns ``(c, EllPack of G, h, A, b)``."""
+    random k-member panels of the ``sf_e_skewed_instance(seed=1)`` pool
+    (``pool`` when given; drawn as :func:`flagship_pack` draws them), about
+    10 % of the agents fixed at values in [0.02, 0.08]. Returns ``(c,
+    EllPack of G, h, A, b)``."""
     from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
     from citizensassemblies_tpu_torch.core.instance import featurize
     from citizensassemblies_tpu_torch.solvers.lp_pdhg import dual_lp_operands as build
     from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
 
-    dense, _ = featurize(sf_e_skewed_instance(seed=1), device="cpu")
+    dense, _ = featurize(pool if pool is not None else sf_e_skewed_instance(seed=1), device="cpu")
     n, k = dense.n, dense.k
     rng = np.random.default_rng(seed)
     P = np.zeros((m1, n))
@@ -476,15 +499,106 @@ def dual_lp_operands(m1: int = 4096, seed: int = 0):
     return c, EllPack.from_rows(G), h, A, b
 
 
+def lp_inputs(ops, blocks=None):
+    """Everything an LP kernel solve of ``ops`` (:func:`dual_lp_operands`)
+    takes on the card, from scratch: the CSR and the launch plan (``blocks``
+    overrides the plan's block count), the pack, the prelude and the scaled
+    warm start (zeros). Returns ``(csr, plan, idx, pre, state)``."""
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    dev = torch.device("cuda")
+    c, ell, h, A, b = ops
+    nv, m1 = len(c), len(ell)
+    f32 = dict(dtype=torch.float32, device=dev)
+    csr, plan = mk.lp_launch_inputs(ell.idx, ell.val, nv, 1, dev, blocks)
+    t = [torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, ell.val, h, A, b)]
+    idx = torch.as_tensor(ell.idx, device=dev)
+    zeros = (torch.zeros(nv, **f32), torch.zeros(m1, **f32), torch.zeros(1, **f32))
+    pre, state = mk.lp_setup(t[0], idx, *t[1:], *zeros, csr)
+    return csr, plan, idx, pre, state
+
+
+def lp_compare(inputs, c64, tol, max_iters, profile=False):
+    """The LP kernel and its plain version on the same prelude output: times,
+    the errors of x, λ and the objective, iteration counts, flags, and the
+    kernel's raw output (``out_k``)."""
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    csr, plan, idx, pre, state = inputs
+    kw = dict(max_iters=max_iters, check_every=128, sentinel=True)
+    out_k, out_p = {}, {}
+    # one launch per solve, so its CUDA-event time is its device time
+    # (the profiler's total is kept beside it: in one run it held 0.025
+    # ms for a 1436 ms launch)
+    ms = cuda_ms(lambda: out_k.update(v=mk.lp_blocks_cuda(csr, plan, idx, pre, state, tol, **kw)),
+                 reps=1, warmup=0)
+    profiler_ms = device_ms(
+        lambda: mk.lp_blocks_cuda(csr, plan, idx, pre, state, tol, **kw), reps=1
+    ) if profile else None
+    # the plain version is some twenty launches per iteration: one run,
+    # timed by CUDA events (a profiler trace would hold millions of events)
+    plain_ms = cuda_ms(lambda: out_p.update(v=mk.lp_blocks_plain(csr, idx, pre, state, tol, **kw)),
+                       reps=1, warmup=0)
+    k_out, p_out = out_k["v"], out_p["v"]
+    xk, lk, _ = (a.cpu().numpy() for a in pre.unscale(*k_out[:3]))
+    xp, lp, _ = (a.cpu().numpy() for a in pre.unscale(*p_out[:3]))
+    return dict(
+        ms=ms, profiler_ms=profiler_ms, plain_ms=plain_ms,
+        it_k=int(k_out[3]), it_p=int(p_out[3]), res_k=float(k_out[4]), res_p=float(p_out[4]),
+        flags_k=int(k_out[5]), flags_p=int(p_out[5]),
+        err_x=float(np.abs(xk - xp).max()), err_lam=float(np.abs(lk - lp).max()),
+        err_obj=abs(float(c64 @ xk) - float(c64 @ xp)), max_abs_x=float(np.abs(xp).max()),
+        out_k=k_out,
+    )
+
+
+def lp_close(r, x_tol=LP_X_TOL):
+    return r["err_x"] <= x_tol and r["err_lam"] <= x_tol and r["err_obj"] <= LP_OBJ_TOL
+
+
+def lp_bound(m1, kp, nv, nnz, iters):
+    """``(bound_ms, bound_by, iter_bytes_ms)`` of an LP solve of ``iters``
+    iterations: each input read once (the pack, c, h, A, b, the warm start)
+    and each output written once, against the float32 operations the
+    iterations need (per iteration and per KKT evaluation, two a block of
+    128, both matvec directions over the nonzeros and about ten operations
+    per entry of the nv- and m1-length vectors); and the time to read the
+    pack from HBM once an evaluation, both layouts (row-major m1*kp*8
+    bytes, variable-major nnz*8 bytes)."""
+    nbytes = m1 * kp * 8 + (4 * nv + 3 * m1 + 2 * nv + 4) * 4
+    evals = iters + 2 * (iters // 128)
+    flops = evals * (4 * nnz + 10 * (nv + m1))
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations"
+    return bound_ms, bound_by, 1e3 * evals * (m1 * kp * 8 + nnz * 8) / HBM_BYTES_PER_S
+
+
+def lp_path_solve(inputs):
+    """One kernel solve at the path's own tolerance and cap, timed by CUDA
+    events: ``(ms, iterations, kkt)``."""
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    csr, plan, idx, pre, state = inputs
+    out = {}
+    ms = cuda_ms(lambda: out.update(v=mk.lp_blocks_cuda(
+        csr, plan, idx, pre, state, LP_TOL, max_iters=LP_MAX_ITERS, check_every=128,
+        sentinel=True,
+    )), reps=1, warmup=0)
+    return ms, int(out["v"][3]), float(out["v"][4])
+
+
 def lp_phase(ops, host_ops):
     """The generic-LP block kernel at the flagship dual LP: first one solve
     at the path's own tolerance and cap, timed by CUDA events; then the
     kernel against its plain version on the same prelude output, at that
     tolerance when the solve met it before the cap, else at
-    ``LP_CHECK_TOL`` (printed as ``tol``), with equal iteration counts;
-    then both for a fixed ``LP_FIXED_ITERS`` iterations, with equal stall
-    and poison flags; then a NaN warm start, which the kernel must
-    quarantine and
+    ``LP_CHECK_TOL`` (printed as ``tol``), with equal iteration counts; then
+    the kernel again from a fresh prelude, which must give the same x, λ, μ
+    and iterations bit for bit; then both for a fixed ``LP_FIXED_ITERS``
+    iterations, with equal stall and poison flags; then a NaN warm start,
+    which the kernel must quarantine and
     ``solve_lp_ell`` must re-solve on the host. That host re-solve runs on
     ``host_ops``, a smaller dual LP of the same pool: HiGHS took 525 s on
     the 4096-row one, and grows steeply with the rows (0.21 s at 256, 1.5 s
@@ -499,74 +613,39 @@ def lp_phase(ops, host_ops):
     launches0 = mk.LP_KERNEL.launches
     c, ell, h, A, b = ops
     nv, (m1, kp) = len(c), ell.idx.shape
-    f32 = dict(dtype=torch.float32, device=dev)
-    csr = mk.csr_to_device(ell.idx, ell.val, nv, dev)
-    t = [torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, ell.val, h, A, b)]
-    idx = torch.as_tensor(ell.idx, device=dev)
-    zeros = (torch.zeros(nv, **f32), torch.zeros(m1, **f32), torch.zeros(1, **f32))
-    pre, state = mk.lp_setup(t[0], idx, *t[1:], *zeros, csr)
+    inputs = lp_inputs(ops)
+    csr, plan, idx, pre, state = inputs
     c64 = np.asarray(c, np.float64)
-
-    def run_path():
-        return mk.lp_blocks_cuda(csr, idx, pre, state, LP_TOL, max_iters=LP_MAX_ITERS,
-                                 check_every=128, sentinel=True)
-
-    out_path = {}
-    path_ms = cuda_ms(lambda: out_path.update(v=run_path()), reps=1, warmup=0)
-    path_iters, path_kkt = int(out_path["v"][3]), float(out_path["v"][4])
+    path_ms, path_iters, path_kkt = lp_path_solve(inputs)
     met = path_iters < LP_MAX_ITERS and path_kkt <= LP_TOL
     tol = LP_TOL if met else LP_CHECK_TOL
 
-    def compare(tol, max_iters, profile=False):
-        """Kernel and plain version on the same prelude output: times, the
-        errors of x, λ and the objective, iteration counts and flags."""
-        kw = dict(max_iters=max_iters, check_every=128, sentinel=True)
-        out_k, out_p = {}, {}
-        # one launch per solve, so its CUDA-event time is its device time
-        # (the profiler's total is kept beside it: in one run it held 0.025
-        # ms for a 1436 ms launch)
-        ms = cuda_ms(lambda: out_k.update(v=mk.lp_blocks_cuda(csr, idx, pre, state, tol, **kw)),
-                     reps=1, warmup=0)
-        profiler_ms = device_ms(
-            lambda: mk.lp_blocks_cuda(csr, idx, pre, state, tol, **kw), reps=1
-        ) if profile else None
-        # the plain version is some twenty launches per iteration: one run,
-        # timed by CUDA events (a profiler trace would hold millions of events)
-        plain_ms = cuda_ms(lambda: out_p.update(v=mk.lp_blocks_plain(csr, idx, pre, state, tol, **kw)),
-                           reps=1, warmup=0)
-        k_out, p_out = out_k["v"], out_p["v"]
-        xk, lk, _ = (a.cpu().numpy() for a in pre.unscale(*k_out[:3]))
-        xp, lp, _ = (a.cpu().numpy() for a in pre.unscale(*p_out[:3]))
-        return dict(
-            ms=ms, profiler_ms=profiler_ms, plain_ms=plain_ms,
-            it_k=int(k_out[3]), it_p=int(p_out[3]), res_k=float(k_out[4]), res_p=float(p_out[4]),
-            flags_k=int(k_out[5]), flags_p=int(p_out[5]),
-            err_x=float(np.abs(xk - xp).max()), err_lam=float(np.abs(lk - lp).max()),
-            err_obj=abs(float(c64 @ xk) - float(c64 @ xp)), max_abs_x=float(np.abs(xp).max()),
-        )
-
-    def close(r, x_tol=LP_X_TOL):
-        return r["err_x"] <= x_tol and r["err_lam"] <= x_tol and r["err_obj"] <= LP_OBJ_TOL
-
-    cmp = compare(tol, LP_MAX_ITERS, profile=True)
+    cmp = lp_compare(inputs, c64, tol, LP_MAX_ITERS, profile=True)
     ms, profiler_ms, plain_ms = cmp["ms"], cmp["profiler_ms"], cmp["plain_ms"]
     it_k, it_p, res_k = cmp["it_k"], cmp["it_p"], cmp["res_k"]
     err_x, err_lam, err_obj = cmp["err_x"], cmp["err_lam"], cmp["err_obj"]
     converged = bool(res_k <= tol and it_k < LP_MAX_ITERS)
     same_iters = it_k == it_p
+    # a second kernel solve from a fresh prelude: the same bits
+    kw = dict(max_iters=LP_MAX_ITERS, check_every=128, sentinel=True)
+    csr2, plan2, idx2, pre2, state2 = lp_inputs(ops)
+    again = mk.lp_blocks_cuda(csr2, plan2, idx2, pre2, state2, tol, **kw)
+    first = cmp["out_k"]
+    repeat_same = bool(
+        all(torch.equal(a, b2) for a, b2 in zip(first[:3], again[:3])) and int(first[3]) == int(again[3])
+    )
     # the late regime the path's solves run in (restarts, ω swings, the
     # stall flag): both versions for a fixed LP_FIXED_ITERS iterations, so
     # they run the same blocks by construction
-    fixed = compare(0.0, LP_FIXED_ITERS)
+    fixed = lp_compare(inputs, c64, 0.0, LP_FIXED_ITERS)
     fixed_ok = bool(
-        close(fixed, LP_FIXED_X_TOL) and fixed["it_k"] == fixed["it_p"] == LP_FIXED_ITERS
+        lp_close(fixed, LP_FIXED_X_TOL) and fixed["it_k"] == fixed["it_p"] == LP_FIXED_ITERS
         and fixed["flags_k"] == fixed["flags_p"]
     )
     # a NaN warm start: quarantined in the kernel, re-solved on the host
     bad = state[0].clone()
     bad[0] = float("nan")
-    kw = dict(max_iters=LP_MAX_ITERS, check_every=128, sentinel=True)
-    nan_out = mk.lp_blocks_cuda(csr, idx, pre, (bad,) + tuple(state[1:]), tol, **kw)
+    nan_out = mk.lp_blocks_cuda(csr, plan, idx, pre, (bad,) + tuple(state[1:]), tol, **kw)
     hc, hell, hh, hA, hb = host_ops
     warm_nan = (np.full(nv, np.nan, np.float32), np.zeros(len(hell)), np.zeros(1))
     t0 = time.perf_counter()
@@ -575,33 +654,28 @@ def lp_phase(ops, host_ops):
     host_s = time.perf_counter() - t0
     quarantined = bool(int(nan_out[5]) & 1) and int(nan_out[3]) == 0
     host_ok = host.iters == -1 and host.ok and bool(np.isfinite(host.x).all())
-    ok = close(cmp) and converged and same_iters and fixed_ok and quarantined and host_ok
+    ok = (
+        lp_close(cmp) and converged and same_iters and repeat_same and fixed_ok and quarantined
+        and host_ok and plan.grid > 1
+    )
     nnz = int(csr[0].shape[0])
-    # the least the card could take for this solve: each input read once
-    # (the pack, c, h, A, b, the warm start) and each output written once,
-    # against the float32 operations this run's iterations need: per
-    # iteration and per KKT evaluation (two a block), both matvec
-    # directions over the nonzeros and about ten operations per entry of
-    # the nv- and m1-length vectors
-    nbytes = m1 * kp * 8 + (4 * nv + 3 * m1 + 2 * nv + 4) * 4
-    evals = it_k + 2 * (it_k // kw["check_every"])
-    flops = evals * (4 * nnz + 10 * (nv + m1))
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations"
-    # the kernel as designed reads the pack on every evaluation, both
-    # layouts (slot-major m1*kp*8 bytes, variable-major nnz*8 bytes)
-    iter_bytes_ms = 1e3 * evals * (m1 * kp * 8 + nnz * 8) / HBM_BYTES_PER_S
+    bound_ms, bound_by, iter_bytes_ms = lp_bound(m1, kp, nv, nnz, it_k)
     rec = dict(
         phase="lp_block_dual", name="lp_block", replaces=REPLACES["lp_block"],
         shape=dict(m1=m1, k_pad=kp, nv=nv, m2=1, nnz=nnz), tol=tol, tol_raised=tol != LP_TOL,
+        grid=plan.grid, blocks_per_lane=plan.blocks_per_lane, resident=plan.tile_floats > 0,
+        resident_tile_floats=plan.tile_floats,
         path_tol=LP_TOL, path_ms=path_ms, path_iters=path_iters, path_kkt=path_kkt,
-        ms=ms, profiler_ms=profiler_ms, plain_ms=plain_ms, library_ms=None,
+        path_us_per_iter=1e3 * path_ms / path_iters if path_iters else None,
+        ms=ms, us_per_iter=1e3 * ms / it_k if it_k else None,
+        profiler_ms=profiler_ms, plain_ms=plain_ms, library_ms=None,
         bound_ms=bound_ms, bound_by=bound_by, iter_bytes_ms=iter_bytes_ms,
         launches=mk.LP_KERNEL.launches - launches0, iters_kernel=it_k, iters_plain=it_p,
         max_iters=LP_MAX_ITERS, kkt_kernel=res_k,
         max_abs_err=max(err_x, err_lam, fixed["err_x"], fixed["err_lam"]),
         max_abs_err_x=err_x, max_abs_err_lam=err_lam, obj_err=err_obj,
         max_abs_x=cmp["max_abs_x"], converged=converged, same_iters=same_iters,
+        repeat_bit_identical=repeat_same,
         fixed_length=dict(iters=LP_FIXED_ITERS, x_tol=LP_FIXED_X_TOL, ok=fixed_ok, **{
             k: fixed[k] for k in ("ms", "plain_ms", "it_k", "it_p", "res_k", "res_p", "flags_k",
                                   "flags_p", "err_x", "err_lam", "err_obj")
@@ -613,6 +687,48 @@ def lp_phase(ops, host_ops):
     print(json.dumps(rec), flush=True)
     if not ok:
         raise SystemExit("LP block kernel phase failed")
+    return rec
+
+
+def lp_sf_b_phase(ops):
+    """The LP kernel at a dual LP of the sf_b pool's shape
+    (:func:`dual_lp_operands` on ``sf_b_skewed_instance(seed=1)``, 1024
+    panel rows): one solve at the path's tolerance and cap, timed by CUDA
+    events (these duals mostly run to the cap, so this is the µs per
+    iteration the sf_b path pays); then the kernel against its plain
+    version at the path's tolerance when met, else at ``LP_CHECK_TOL``,
+    with equal iterations."""
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    launches0 = mk.LP_KERNEL.launches
+    c, ell, h, A, b = ops
+    nv, (m1, kp) = len(c), ell.idx.shape
+    inputs = lp_inputs(ops)
+    plan = inputs[1]
+    path_ms, path_iters, path_kkt = lp_path_solve(inputs)
+    met = path_iters < LP_MAX_ITERS and path_kkt <= LP_TOL
+    tol = LP_TOL if met else LP_CHECK_TOL
+    cmp = lp_compare(inputs, np.asarray(c, np.float64), tol, LP_MAX_ITERS)
+    same_iters = cmp["it_k"] == cmp["it_p"]
+    converged = bool(cmp["res_k"] <= tol and cmp["it_k"] < LP_MAX_ITERS)
+    nnz = int(inputs[0][0].shape[0])
+    bound_ms, bound_by, iter_bytes_ms = lp_bound(m1, kp, nv, nnz, path_iters)
+    rec = dict(
+        phase="lp_block_sf_b", name="lp_block", shape=dict(m1=m1, k_pad=kp, nv=nv, m2=1, nnz=nnz),
+        grid=plan.grid, blocks_per_lane=plan.blocks_per_lane, resident=plan.tile_floats > 0,
+        path_tol=LP_TOL, ms=path_ms, iters=path_iters, kkt=path_kkt,
+        us_per_iter=1e3 * path_ms / path_iters if path_iters else None,
+        bound_ms=bound_ms, bound_by=bound_by, iter_bytes_ms=iter_bytes_ms, tol=tol,
+        check_ms=cmp["ms"], plain_ms=cmp["plain_ms"], iters_kernel=cmp["it_k"],
+        iters_plain=cmp["it_p"], max_abs_err=max(cmp["err_x"], cmp["err_lam"]),
+        max_abs_err_x=cmp["err_x"], max_abs_err_lam=cmp["err_lam"], obj_err=cmp["err_obj"],
+        same_iters=same_iters, converged=converged, launches=mk.LP_KERNEL.launches - launches0,
+        tolerance=dict(x=LP_X_TOL, lam=LP_LAM_TOL, obj=LP_OBJ_TOL, iters=0),
+    )
+    rec["ok"] = bool(lp_close(cmp) and same_iters and converged)
+    print(json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise SystemExit("LP block kernel sf_b phase failed")
     return rec
 
 
@@ -708,19 +824,35 @@ def agent_space_phase(inst, slice_cfg, label):
     counter zeroed just before it and read just after; then the same run
     again, which must make the same dual solves and return the same
     allocation (no step of the path sums with atomics); then the type-space
-    path on the same pool, whose sorted allocation profile it must match."""
+    path on the same pool, whose sorted allocation profile it must match.
+    Each device dual solve's rows, PDHG iterations and seconds (prelude,
+    kernel and readback) are recorded by wrapping ``lp_pdhg.solve_lp_ell``."""
+    from unittest import mock
+
     from citizensassemblies_tpu_torch.kernels import ell_matvec as em
     from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+    from citizensassemblies_tpu_torch.solvers import lp_pdhg
+
+    solve_ell = lp_pdhg.solve_lp_ell
+    solves = []
+
+    def recorded_ell(c, ell, *args, **kw):
+        t = time.perf_counter()
+        sol = solve_ell(c, ell, *args, **kw)
+        solves.append([len(ell), int(sol.iters), time.perf_counter() - t])
+        return sol
 
     for lib in (em.KERNEL, mk.KERNEL, mk.LP_KERNEL):
         lib.launches = 0
     cfg = slice_cfg.replace(force_agent_space=True, backend="jax")
-    dist, alog, secs, linf = leximin_run(inst, "cuda", cfg)
+    with mock.patch.object(lp_pdhg, "solve_lp_ell", recorded_ell):
+        dist, alog, secs, linf = leximin_run(inst, "cuda", cfg)
     launches = {"lp_block": mk.LP_KERNEL.launches, "ell_gather": em.KERNEL.launches,
                 "two_sided_block": mk.KERNEL.launches}
     again, alog2, secs2, _ = leximin_run(inst, "cuda", cfg)
     repeat = dict(
-        seconds=secs2, dual_solves=int(alog2.counters.get("agent_space_dual_solves", 0)),
+        seconds=secs2, dual_lp=alog2.timers.get("dual_lp", 0.0),
+        dual_solves=int(alog2.counters.get("agent_space_dual_solves", 0)),
         host_fallbacks=int(alog2.counters.get("dual_lp_host_fallback", 0)),
         same_allocation=bool(np.array_equal(again.allocation, dist.allocation)),
     )
@@ -742,6 +874,7 @@ def agent_space_phase(inst, slice_cfg, label):
         timers={k: tm.get(k, 0.0) for k in (
             "dual_lp", "stochastic_pricing", "exact_oracle", "final_stage",
         )},
+        device_solves=solves, device_solve_s=sum(x[2] for x in solves),
         repeat=repeat,
     )
     rec["ok"] = bool(
@@ -769,13 +902,18 @@ def agent_space_budget_phase(inst, slice_cfg, label):
     leximin minimum from the type-space path by more than ``PROFILE_TOL``;
     each completed stage fixed its agents at that minimum's profile value
     within ``PROFILE_TOL``; and a run that finishes meets the contract and
-    matches the type-space profile."""
+    matches the type-space profile. Each round's rows, PDHG iterations and
+    seconds are recorded (by wrapping ``lp_pdhg.solve_lp_ell``), and each
+    HiGHS solve's seconds (by wrapping ``models.leximin.solve_dual_lp``):
+    the fallbacks after a PDHG solve that missed its tolerance, which
+    ``dual_lp`` times, and the authoritative re-solves before a stage
+    fixes its agents, which it does not."""
     from unittest import mock
 
     from citizensassemblies_tpu_torch.core.instance import featurize
     from citizensassemblies_tpu_torch.kernels import ell_matvec as em
     from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
-    from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin
+    from citizensassemblies_tpu_torch.models import leximin
     from citizensassemblies_tpu_torch.solvers import lp_pdhg
     from citizensassemblies_tpu_torch.utils.logging import RunLog
 
@@ -783,6 +921,9 @@ def agent_space_budget_phase(inst, slice_cfg, label):
     profile = np.sort(ts.allocation)
     stages = []
     solve = lp_pdhg.solve_dual_lp_pdhg
+    solve_ell = lp_pdhg.solve_lp_ell
+    highs = leximin.solve_dual_lp
+    last = {}
     t0 = time.perf_counter()
 
     def budgeted(P, fixed, **kw):
@@ -792,12 +933,21 @@ def agent_space_budget_phase(inst, slice_cfg, label):
             if stages:
                 stages[-1]["value"] = float(fixed[fixed >= 0].max())
             stages.append(dict(fixed_before=nfixed, start=now, rounds=0, pdhg_ok=0,
-                               max_ok_objective=0.0, finite=True))
+                               max_ok_objective=0.0, finite=True, pdhg_s=0.0,
+                               highs_fallback_s=0.0, highs_authoritative_s=0.0,
+                               round_log=[], highs_log=[]))
         st = stages[-1]
         if now - st["start"] > STAGE_BUDGET_S or now - t0 > AGENT_BUDGET_S:
             raise _StageBudgetSpent
+        last.clear()
         sol, warm = solve(P, fixed, **kw)
+        secs = time.perf_counter() - now
         st["rounds"] += 1
+        st["pdhg_s"] += secs
+        # [rows, PDHG iterations (-1: re-solved on the host after a
+        # poisoned solve), seconds] of each round
+        st["round_log"].append([last.get("m1"), last.get("iters"), secs])
+        last["fallback_due"] = not sol.ok
         st["finite"] = st["finite"] and bool(np.isfinite(sol.y).all() and np.isfinite(sol.yhat))
         if sol.ok:
             st["pdhg_ok"] += 1
@@ -805,15 +955,32 @@ def agent_space_budget_phase(inst, slice_cfg, label):
         st["seconds"] = time.perf_counter() - st["start"]
         return sol, warm
 
+    def recorded_ell(c, ell, *args, **kw):
+        sol = solve_ell(c, ell, *args, **kw)
+        last.update(m1=len(ell), iters=int(sol.iters), kkt=float(sol.kkt))
+        return sol
+
+    def timed_highs(P, fixed):
+        t = time.perf_counter()
+        sol = highs(P, fixed)
+        secs = time.perf_counter() - t
+        kind = "fallback" if last.pop("fallback_due", False) else "authoritative"
+        if stages:
+            stages[-1][f"highs_{kind}_s"] += secs
+            stages[-1]["highs_log"].append([kind[0], int(np.shape(P)[0]), secs])
+        return sol
+
     for lib in (em.KERNEL, mk.KERNEL, mk.LP_KERNEL):
         lib.launches = 0
     dense, space = featurize(inst, device="cuda")
     alog = RunLog(echo=False)
     cfg = slice_cfg.replace(force_agent_space=True, backend="jax")
     dist = None
-    with mock.patch.object(lp_pdhg, "solve_dual_lp_pdhg", budgeted):
+    with mock.patch.object(lp_pdhg, "solve_dual_lp_pdhg", budgeted), \
+            mock.patch.object(lp_pdhg, "solve_lp_ell", recorded_ell), \
+            mock.patch.object(leximin, "solve_dual_lp", timed_highs):
         try:
-            dist = find_distribution_leximin(dense, space, cfg=cfg, log=alog, device="cuda")
+            dist = leximin.find_distribution_leximin(dense, space, cfg=cfg, log=alog, device="cuda")
         except _StageBudgetSpent:
             pass
     secs = time.perf_counter() - t0
@@ -840,6 +1007,9 @@ def agent_space_budget_phase(inst, slice_cfg, label):
         oracle_backend_native=int(c.get("oracle_backend_native", 0)),
         oracle_backend_highs=int(c.get("oracle_backend_highs", 0)),
         timers={k: tm.get(k, 0.0) for k in ("dual_lp", "stochastic_pricing", "exact_oracle")},
+        dual_lp_split={k: sum(s[k] for s in stages) for k in (
+            "pdhg_s", "highs_fallback_s", "highs_authoritative_s")},
+        rounds=sum(s["rounds"] for s in stages),
     )
     ok = (
         launches["lp_block"] > 0 and rec["megakernel_fit_miss"] == 0 and stages
@@ -952,10 +1122,12 @@ def main() -> int:
     dual_ops = dual_lp_operands()
     gather_dual = gather_phase(dual_ops[1], rows=len(dual_ops[1]), label="gather_dual_lp")
     b1, _ = solve_phase(pack, MT, [6144], "two_sided_b1", repeat=True)
-    barrier_phase(b1)
+    barrier_phase(b1, 5)
     b3, clean = solve_phase(pack, MT, [1536, 3072, 6144], "two_sided_b3_prefix")
     bnan, _ = solve_phase(pack, MT, [1536, 3072, 6144], "two_sided_b3_nan", nan_lane=1, clean=clean)
     lp = lp_phase(dual_ops, dual_lp_operands(m1=512))
+    barrier_phase(lp, 5, "grid_barrier_lp")
+    lp_sf_b = lp_sf_b_phase(dual_lp_operands(m1=1024, pool=sf_b_skewed_instance(seed=1)))
 
     slice_cfg = default_config().replace(
         decomp_device_pricing=False, lp_batch=False, mixed_precision=False
@@ -983,7 +1155,7 @@ def main() -> int:
     kernels = [
         summary("ell_gather", gather, [gather, gather_dual]),
         summary("two_sided_block", b1, [b1, b3, bnan]),
-        summary("lp_block", lp, [lp]),
+        summary("lp_block", lp, [lp, lp_sf_b]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")

@@ -2,10 +2,10 @@
 // PDHG block kernels (two_sided_block.cu, lp_block.cu).
 //
 // The packed gather z[c] = sum_s val[c,s] * y[idx[c,s]] is the one matvec
-// the kernels share: the gather kernel runs it one warp per column over the
-// row-major pack, the block kernels one thread per packed row over a
-// slot-major copy of the pack. ell_dot is that inner product for either
-// layout (a start slot, a step and a slot stride). Padding slots carry value 0 and index 0,
+// the kernels share: the two block kernels run it one group of lanes per
+// packed column or row over the row-major pack (ell_dot, the inner product
+// over a start slot, a step and a slot stride); the gather kernel has its
+// own inner loop of 16-byte vectors. Padding slots carry value 0 and index 0,
 // so they add 0 * y[0]: a NaN in y[0] reaches every padded column, exactly
 // as in the reference.
 #pragma once

@@ -46,8 +46,13 @@ struct GroupBarrier {
 // Every global write a block of the group made before the barrier is
 // visible to every block of the group after it. `synced`: the caller's
 // threads have just passed a __syncthreads after their last global write,
-// so the leading one is skipped.
+// so the leading one is skipped. A group of one block needs no more than
+// one __syncthreads.
 __device__ __forceinline__ void group_sync(GroupBarrier& g, bool synced = false) {
+  if (g.nblocks == 1) {
+    __syncthreads();
+    return;
+  }
   if (!synced) __syncthreads();
   if (threadIdx.x == 0) {
     g.target += g.nblocks;
@@ -83,32 +88,37 @@ __device__ __forceinline__ void stage_floats(float* dst, const float* src, int n
   }
 }
 
-// Sum each of N partial rows part[i * nb + j] (i < N) over the group's nb
-// blocks, j in order: lane l of warp 0 adds j = l, l + 32, ... in turn, then
-// the xor butterfly adds the 32 lane sums. Every block of the group runs the
-// same sums on the same bits, so every block ends with bitwise the same
-// totals (returned in v to every thread). Meanwhile the block's other
+// Sum each of the first `rows` (all N by default) partial rows
+// part[i * nb + j] over the group's nb blocks, j in order: lane l of warp 0
+// adds j = l, l + 32, ... in turn, then the xor butterfly adds the 32 lane
+// sums. Every block of the group runs the same sums on the same bits, so
+// every block ends with bitwise the same totals (returned in v to every
+// thread; v[rows..N) stay as they were). Meanwhile the block's other
 // threads stage n floats src -> dst (n = 0: nothing), so the two L2 reads
 // overlap. red is shared scratch of N floats; the caller syncs before it
 // is written again.
 template <int N, int kThreadsPerBlock>
 __device__ __forceinline__ void group_sum(const float* part, int nb, float (&v)[N], float* red,
                                           float* dst = nullptr, const float* src = nullptr,
-                                          int n = 0) {
+                                          int n = 0, int rows = N) {
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      float s = 0.f;
+      if (i < rows) {
+        float s = 0.f;
 #pragma unroll 4
-      for (int j = lane; j < nb; j += 32) s += __ldcg(part + i * nb + j);
-      s = warp_sum(s);
-      if (lane == 0) red[i] = s;
+        for (int j = lane; j < nb; j += 32) s += __ldcg(part + i * nb + j);
+        s = warp_sum(s);
+        if (lane == 0) red[i] = s;
+      }
     }
   } else if (n > 0) {
     stage_floats(dst, src, n, 32, kThreadsPerBlock - 32);
   }
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = red[i];
+  for (int i = 0; i < N; ++i) {
+    if (i < rows) v[i] = red[i];
+  }
 }

@@ -14,6 +14,7 @@ or raises; on a CPU tensor it runs :func:`ell_gather_mv_plain`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,10 +29,35 @@ KERNEL = CudaLibrary(
     {
         "ell_gather_launch": (
             ctypes.c_int,
-            [_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _P],
+            [_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         ),
     },
 )
+
+
+#: warps a block of the kernel has at most (``kMaxWarps`` in the source)
+MAX_WARPS = 4
+
+
+def launch_shape(C: int, kp: int, B: int, sms: int):
+    """``(G, threads, blocks)`` of the kernel for ``B`` lanes of ``C``
+    columns of ``kp`` slots on a card of ``sms`` SMs: ``G`` lanes per column
+    (the largest of 8, 4, 2, 1 that divides ``kp / 4``, so each lane reads
+    whole 16-byte vectors and none idles), and the most warps a block may
+    have, up to :data:`MAX_WARPS`, while the grid still covers every SM."""
+    kv = int(kp) // 4
+    G = next(g for g in (8, 4, 2, 1) if kv % g == 0)
+    lanes = int(C) * G
+    warps = MAX_WARPS
+    while warps > 1 and int(B) * -(-lanes // (32 * warps)) < int(sms):
+        warps -= 1
+    threads = 32 * warps
+    return G, threads, int(B) * -(-lanes // threads)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def ell_gather_mv_plain(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -60,10 +86,15 @@ def ell_gather_mv_cuda(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor) ->
     for name, t, dt in (("idx", idx, torch.int32), ("val", val, torch.float32), ("y", Y, torch.float32)):
         if t.device != Y.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dt} tensor on {Y.device}")
+    # the kernel reads idx and val as 16-byte vectors
+    if kp % 4 or idx.data_ptr() % 16 or val.data_ptr() % 16:
+        raise ValueError(f"the gather kernel takes k_pad % 4 == 0 (got {kp}) and 16-byte aligned packs")
+    dev = Y.device.index if Y.device.index is not None else torch.cuda.current_device()
+    G, threads, _ = launch_shape(C, kp, B, _sm_count(dev))
     out = torch.empty((B, C), dtype=torch.float32, device=Y.device)
     KERNEL.call(
         "ell_gather_launch",
         ptr(idx), ptr(val), ctypes.c_longlong(C * kp if val.dim() == 3 else 0),
-        ptr(Y), ptr(out), B, T, C, kp, stream_of(Y),
+        ptr(Y), ptr(out), B, T, C, kp, G, threads, stream_of(Y),
     )
     return out if batched else out[0]

@@ -32,15 +32,19 @@ kernel.
 
 **Generic-form LP** (``min cᵀx, Gx ≤ h, Ax = b, x ≥ 0``, G as packed ELL
 rows): ``csrc/lp_block.cu`` runs the whole block loop of one solve in one
-thread block, replacing the JAX package's
-``kernels/pdhg_megakernel.py:_lp_block_kernel``. Around it, in torch ops
-shared with the chained route ``solvers/lp_pdhg._pdhg_body_ell``:
-:func:`lp_setup` (Ruiz on the stacked ``[G; A]``, the power-iteration ‖K‖,
-the scaled warm start). The kernel takes the pack slot-major (its ``G x``,
-one thread per row) and as a variable-major CSR transpose built on the host
-(its ``Gᵀλ``, one warp per variable). The torch ops take ``Gᵀλ`` over the
-same CSR (:func:`lp_operators`), so no step of an LP solve sums with
-atomics and two runs on the same inputs take the same iterations.
+cooperative launch over a group of thread blocks, replacing the JAX
+package's ``kernels/pdhg_megakernel.py:_lp_block_kernel``. Each block owns
+a tile of rows and a tile of variables; the plan comes from the same
+:func:`launch_plan` as the two-sided kernel's (rows in the place of its
+columns, variables in the place of its types), and a small LP takes fewer
+blocks (:func:`lp_block_count`). Around it, in torch ops shared with the
+chained route ``solvers/lp_pdhg._pdhg_body_ell``: :func:`lp_setup` (Ruiz on
+the stacked ``[G; A]``, the power-iteration ‖K‖, the scaled warm start).
+The kernel takes the pack row-major (its ``G x``, one warp per row) and as
+a variable-major CSR transpose built on the host (its ``Gᵀλ``, one or more
+warps per variable). The torch ops take ``Gᵀλ`` over the same CSR
+(:func:`lp_operators`), so no step of an LP solve sums with atomics and two
+runs on the same inputs take the same iterations.
 
 Gate (``Config.pdhg_megakernel``), for both kernels: ``None`` — the kernel
 on CUDA when the solve fits (:func:`two_sided_fits`, :func:`lp_fits`);
@@ -52,12 +56,13 @@ chained route and is counted (``megakernel_fit_miss``).
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import dataclasses
 import functools
 import os
 import re
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -84,8 +89,11 @@ KERNEL = CudaLibrary(
 LP_KERNEL = CudaLibrary(
     "lp_block",
     "lp_block.cu",
-    ["ell_gather.cuh", "lp_layout.cuh"],
-    {"lp_solve_launch": (ctypes.c_int, [_P] * 20 + [_I] * 7 + [_P])},
+    ["ell_gather.cuh", "grid_sync.cuh", "lp_layout.cuh"],
+    {
+        "lp_solve_launch": (ctypes.c_int, [_P] * 20 + [_I] * 9 + [_P]),
+        "lp_occupancy": (ctypes.c_int, [_I, _I, _P]),
+    },
 )
 
 
@@ -131,31 +139,39 @@ def two_sided_scratch_floats(T: int, Cp: int, blocks_per_lane: int) -> int:
     )
 
 
+#: each kernel's occupancy query: its library and C entry point
+_OCCUPANCY = {"two_sided": (KERNEL, "two_sided_occupancy"), "lp": (LP_KERNEL, "lp_occupancy")}
+
+
 @functools.lru_cache(maxsize=None)
-def _card_occupancy(device_index: int, smem: int, resident: bool):
-    """``(blocks per SM, SM count)`` of the solve kernel with ``smem`` bytes
-    of shared memory on a card."""
+def _card_occupancy(kernel: str, device_index: int, smem: int, resident: bool):
+    """``(blocks per SM, SM count)`` of a solve kernel (``"two_sided"`` or
+    ``"lp"``) with ``smem`` bytes of shared memory on a card."""
+    lib, entry = _OCCUPANCY[kernel]
     out = (ctypes.c_int * 2)()
     with torch.cuda.device(device_index):
-        KERNEL.run(
-            "two_sided_occupancy", int(smem), int(resident), ctypes.cast(out, ctypes.c_void_p)
-        )
+        lib.run(entry, int(smem), int(resident), ctypes.cast(out, ctypes.c_void_p))
     return int(out[0]), int(out[1])
 
 
-def coresident_blocks(T: int, Cp: int, device, tile_floats: int = 0) -> int:
-    """Blocks of the solve kernel that are resident at once at (T, Cp) with
-    ``tile_floats`` of resident pack: the occupancy the C side reports times
-    the SM count on a CUDA device; the H100's SM count at one block each
-    elsewhere."""
+def _coresident(kernel: str, smem: int, resident: bool, device) -> int:
+    """Blocks of a solve kernel resident at once with ``smem`` bytes each:
+    the occupancy the C side reports times the SM count on a CUDA device;
+    the H100's SM count at one block each elsewhere."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return H100_SMS
     per_sm, sms = _card_occupancy(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        two_sided_smem_bytes(T, Cp, tile_floats), bool(tile_floats),
+        kernel, dev.index if dev.index is not None else torch.cuda.current_device(),
+        int(smem), bool(resident),
     )
     return per_sm * sms
+
+
+def coresident_blocks(T: int, Cp: int, device, tile_floats: int = 0) -> int:
+    """Blocks of the two-sided solve kernel that are resident at once at
+    (T, Cp) with ``tile_floats`` of resident pack (:func:`_coresident`)."""
+    return _coresident("two_sided", two_sided_smem_bytes(T, Cp, tile_floats), tile_floats, device)
 
 
 def two_sided_fits(T: int, Cp: int, lanes: int = 1, coresident: Optional[int] = None) -> bool:
@@ -172,9 +188,9 @@ class LaunchPlan:
     """How a solve is spread over the card: ``lanes`` groups of
     ``blocks_per_lane`` blocks; block j of every group owns the columns
     ``col_bounds[j]:col_bounds[j+1]`` and the types
-    ``type_bounds[j]:type_bounds[j+1]`` of its lane, and keeps its share of
-    the pack resident in ``tile_floats`` of shared memory (0: it streams
-    that share from L2)."""
+    ``type_bounds[j]:type_bounds[j+1]`` of its lane (for the LP kernel: its
+    rows and its variables), and keeps its share of the pack resident in
+    ``tile_floats`` of shared memory (0: it streams that share from L2)."""
 
     lanes: int
     blocks_per_lane: int
@@ -195,45 +211,116 @@ class LaunchPlan:
         return self
 
 
-def launch_plan(lanes: int, T: int, Cp: int, coresident, rowptr=None, kp: Optional[int] = None
-                ) -> LaunchPlan:
-    """The launch plan of a ``lanes``-lane solve at (T, Cp) on a card that
-    holds ``coresident`` blocks at once (a number, or a function of the
+@dataclasses.dataclass(frozen=True)
+class TileRule:
+    """What a block of a solve kernel keeps beside its share of the pack
+    when it keeps that share resident: ``col_floats`` of state per owned
+    column (LP: row), ``type_floats`` per owned type (LP: variable); and
+    the shared memory a block takes with ``tile`` resident floats
+    (``smem_bytes``) against the most it may take (``max_smem``)."""
+
+    col_floats: int
+    type_floats: int
+    smem_bytes: Callable[[int], int]
+    max_smem: int
+
+
+def two_sided_tile_rule(T: int, Cp: int) -> TileRule:
+    """The two-sided kernel's :class:`TileRule` at (T, Cp)."""
+    return TileRule(
+        LAYOUT["kOwnCVectors"], LAYOUT["kOwnTVectors"],
+        lambda tile: two_sided_smem_bytes(T, Cp, tile), LAYOUT["kMaxSmem"],
+    )
+
+
+def balanced_bounds(weight, tiles: int) -> np.ndarray:
+    """Bounds of ``tiles`` contiguous tiles over items of integer
+    ``weight`` whose heaviest tile is as light as it can be: the least cap
+    under which filling the tiles in order, each as far as the cap allows,
+    covers every item (a bisection between the even share and the even
+    share plus the heaviest item). Tiles at the end may be empty. An item
+    heavier than the even share so ends in a tile of its own, or beside
+    light ones only."""
+    w = np.asarray(weight, dtype=np.int64)
+    n = len(w)
+    if n == 0:
+        return np.zeros(int(tiles) + 1, dtype=np.int64)
+    cum = np.concatenate([[0], np.cumsum(w)]).tolist()
+
+    def fill(cap):
+        bounds = [0]
+        for _ in range(int(tiles)):
+            b = bounds[-1]
+            bounds.append(bisect.bisect_right(cum, cum[b] + cap) - 1)
+        return bounds if bounds[-1] == n else None
+
+    lo = max(int(w.max()), -(-int(cum[-1]) // int(tiles)))
+    hi = lo + int(w.max())
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if fill(mid) is None:
+            lo = mid + 1
+        else:
+            hi = mid
+    return np.asarray(fill(lo), dtype=np.int64)
+
+
+def launch_plan(lanes: int, T: int, Cp: int, coresident, rowptr=None, kp: Optional[int] = None,
+                rule: Optional[TileRule] = None, blocks: Optional[int] = None) -> LaunchPlan:
+    """The launch plan of a ``lanes``-lane solve over ``Cp`` columns and
+    ``T`` types (the LP kernel: ``m1`` rows and ``nv`` variables) on a card
+    that holds ``coresident`` blocks at once (a number, or a function of the
     resident tile's floats, as :func:`coresident_blocks`): the blocks split
-    into equal lane groups; each block gets an equal share of the columns
-    and a contiguous run of types balanced by CSR entries (``rowptr``, the
-    type-major transpose's row pointer; by count when absent), a type
-    weighing its entries plus one warp's worth. With ``rowptr`` and ``kp``
-    the blocks keep their shares of the pack and their own column and type
-    state resident when the largest fits shared memory beside the staged
-    vectors without costing co-residency.
+    into equal lane groups of at most ``blocks`` each; each block gets an
+    equal share of the columns and a contiguous run of types balanced by
+    CSR entries (``rowptr``, the type-major transpose's row pointer; by
+    count when absent), a type weighing its entries plus one warp's worth
+    (:func:`balanced_bounds`). With ``rowptr`` and ``kp`` the blocks keep
+    their shares of the pack and their own column and type state resident
+    when the largest fits shared memory beside the staged vectors (``rule``:
+    the two-sided kernel's by default); where the card holds fewer blocks
+    with resident shares than streaming ones, the plan takes as many as
+    hold theirs resident, when those still fit.
     Raises ``ValueError`` when the lanes outnumber the blocks (a fit miss)."""
     cores = coresident if callable(coresident) else (lambda tile: int(coresident))
     nb = int(cores(0)) // int(lanes)
+    if blocks is not None:
+        nb = min(nb, int(blocks))
     if nb < 1:
         raise ValueError(f"{lanes} lanes do not fit {cores(0)} co-resident blocks")
-    col_bounds = (np.arange(nb + 1, dtype=np.int64) * int(Cp)) // nb
+    rule = rule or two_sided_tile_rule(T, Cp)
     if rowptr is None:
         weight = np.ones(int(T), dtype=np.int64)
     else:
         weight = np.diff(np.asarray(rowptr, dtype=np.int64)) + 32
-    cum = np.concatenate([[0], np.cumsum(weight)])
-    targets = (np.arange(nb + 1, dtype=np.int64) * int(cum[-1])) // nb
-    type_bounds = np.searchsorted(cum, targets, side="left")
-    tile = 0
-    if rowptr is not None and kp is not None:
-        rp = np.asarray(rowptr, dtype=np.int64)
-        need = (
-            2 * (np.diff(col_bounds) * int(kp) + np.diff(rp[type_bounds]))
-            + LAYOUT["kOwnCVectors"] * np.diff(col_bounds)
-            + LAYOUT["kOwnTVectors"] * np.diff(type_bounds)
-        )
-        cand = int(need.max())
-        if (
-            two_sided_smem_bytes(T, Cp, cand) <= LAYOUT["kMaxSmem"]
-            and int(cores(cand)) >= int(lanes) * nb
-        ):
-            tile = cand
+
+    def tiles(nb):
+        col_bounds = (np.arange(nb + 1, dtype=np.int64) * int(Cp)) // nb
+        type_bounds = balanced_bounds(weight, nb)
+        tile = 0
+        if rowptr is not None and kp is not None:
+            rp = np.asarray(rowptr, dtype=np.int64)
+            need = (
+                2 * (np.diff(col_bounds) * int(kp) + np.diff(rp[type_bounds]))
+                + rule.col_floats * np.diff(col_bounds) + rule.type_floats * np.diff(type_bounds)
+            )
+            tile = int(need.max())
+        return col_bounds, type_bounds, tile
+
+    def fits(tile):
+        return bool(tile) and rule.smem_bytes(tile) <= rule.max_smem
+
+    col_bounds, type_bounds, tile = tiles(nb)
+    if fits(tile) and int(cores(tile)) < int(lanes) * nb:
+        # the shares fit but the card holds fewer resident blocks than
+        # streaming ones: as many blocks as hold their shares resident
+        fewer = min(nb, int(cores(tile)) // int(lanes))
+        if fewer >= 1:
+            cb, tb, t = tiles(fewer)
+            if fits(t) and int(cores(t)) >= int(lanes) * fewer:
+                nb, col_bounds, type_bounds, tile = fewer, cb, tb, t
+    if not (fits(tile) and int(cores(tile)) >= int(lanes) * nb):
+        tile = 0
     return LaunchPlan(
         lanes=int(lanes), blocks_per_lane=nb, col_bounds=col_bounds.astype(np.int32),
         type_bounds=type_bounds.astype(np.int32), tile_floats=tile,
@@ -269,20 +356,83 @@ def megakernel_mode(cfg: Optional[Config], T: int, Cp: int, device, log=None, la
     return _gate(cfg, fits, device, log)
 
 
-def lp_smem_bytes(nv: int, m1: int, m2: int) -> int:
-    """Shared memory one generic-LP solve needs: the nv-length vectors, the
-    dense equality block, the m2-length vectors, λ and the reduction
-    scratch."""
+#: The LP kernel's block count, from the pack entries an iteration reads
+#: (both layouts). A solve of up to LP_ONE_BLOCK_ENTRIES runs on one block,
+#: which exchanges nothing through global memory; a larger one takes a
+#: block per LP_ENTRIES_PER_BLOCK, up to what the card holds. Set from the
+#: card's µs an iteration across block counts (chip_lp_probe.py --sweep;
+#: PERF.md §6): a 256-row n=120 dual (7.4k entries) is fastest on one
+#: block, a 768-row one (22k) at 11-32 blocks, a sf_b dual (46k) at 20-32,
+#: the flagship's (913k) at 132.
+LP_ONE_BLOCK_ENTRIES = 16384
+LP_ENTRIES_PER_BLOCK = 2048
+
+
+def lp_smem_bytes(nv: int, m1: int, tile_floats: int = 0) -> int:
+    """Shared memory one block of the LP kernel needs: the staged λ and
+    x̄, its CSR row pointer, the reduction scratch, μ and its companions,
+    and ``tile_floats`` of resident pack and state (0 when the block
+    streams them)."""
     L = LP_LAYOUT
     return (
-        L["kNvVectors"] * nv + m2 * nv + L["kM2Vectors"] * m2 + L["kM1Vectors"] * m1
-        + L["kLpRedFloats"]
+        L["kLpM1Vectors"] * _round4(m1) + L["kLpNvVectors"] * _round4(int(nv) + 1)
+        + L["kLpRedFloats"] + L["kLpM2Vectors"] * L["kLpMaxM2"] + int(tile_floats)
     ) * 4
 
 
+def lp_scratch_floats(nv: int, m1: int, blocks: int) -> int:
+    """Global float scratch of one LP solve: the kernel's nv- and m1-length
+    vectors and its per-block partial sums."""
+    L = LP_LAYOUT
+    return _round4(
+        L["kLpScratchNvVectors"] * _round4(nv) + L["kLpScratchM1Vectors"] * _round4(m1)
+        + L["kLpSlots"] * int(blocks)
+    )
+
+
 def lp_fits(nv: int, m1: int, m2: int) -> bool:
-    """The LP kernel's fit rule: its shared-memory working set fits one block."""
-    return lp_smem_bytes(nv, m1, m2) <= LP_LAYOUT["kLpMaxSmem"]
+    """The LP kernel's fit rule: at most ``kLpMaxM2`` equality rows, and a
+    block's staged λ and x̄ fit its shared memory (one block, which the
+    card always holds, is a legal plan)."""
+    return (
+        0 <= int(m2) <= LP_LAYOUT["kLpMaxM2"]
+        and lp_smem_bytes(nv, m1) <= LP_LAYOUT["kLpMaxSmem"]
+    )
+
+
+def lp_coresident_blocks(nv: int, m1: int, device, tile_floats: int = 0) -> int:
+    """Blocks of the LP solve kernel that are resident at once at (nv, m1)
+    with ``tile_floats`` of resident pack (:func:`_coresident`)."""
+    return _coresident("lp", lp_smem_bytes(nv, m1, tile_floats), tile_floats, device)
+
+
+def lp_block_count(m1: int, kp: int, nnz: int, coresident: int) -> int:
+    """Blocks an LP solve takes, from the pack entries an iteration reads
+    (``m1 · kp`` row slots and ``nnz`` CSR entries): one up to
+    ``LP_ONE_BLOCK_ENTRIES``, else one per ``LP_ENTRIES_PER_BLOCK``, at
+    most ``coresident``."""
+    work = int(m1) * int(kp) + int(nnz)
+    if work <= LP_ONE_BLOCK_ENTRIES:
+        return 1
+    return max(1, min(int(coresident), -(-work // LP_ENTRIES_PER_BLOCK)))
+
+
+def lp_launch_plan(nv: int, m1: int, m2: int, kp: int, rowptr, coresident,
+                   blocks: Optional[int] = None) -> LaunchPlan:
+    """:func:`launch_plan` for one LP solve: ``m1`` rows split evenly, the
+    ``nv`` variables balanced by their CSR entries (``rowptr``), over
+    ``blocks`` blocks (:func:`lp_block_count` when not given) of the
+    ``coresident`` the card holds (a number or a function of the resident
+    tile's floats, as :func:`lp_coresident_blocks`)."""
+    cores = coresident if callable(coresident) else (lambda tile: int(coresident))
+    if blocks is None:
+        nnz = int(np.asarray(rowptr)[-1])
+        blocks = lp_block_count(m1, kp, nnz, cores(0))
+    rule = TileRule(
+        LP_LAYOUT["kLpOwnRowVectors"], LP_LAYOUT["kLpOwnVarVectors"] + int(m2),
+        lambda tile: lp_smem_bytes(nv, m1, tile), LP_LAYOUT["kLpMaxSmem"],
+    )
+    return launch_plan(1, nv, m1, cores, rowptr, kp, rule=rule, blocks=blocks)
 
 
 def lp_megakernel_mode(cfg: Optional[Config], nv: int, m1: int, m2: int, device, log=None) -> str:
@@ -615,21 +765,47 @@ def lp_blocks_plain(csr, idx, pre, state, tol, *, max_iters, check_every, sentin
     )
 
 
-def lp_blocks_cuda(csr, idx, pre, state, tol, *, max_iters, check_every, sentinel):
-    """Launch the LP block kernel on the prelude's output; ``csr`` is
-    :func:`csr_to_device` of the same pack over the nv variables. Returns
-    the scaled ``(x, lam, mu, it, res, flags)`` like the plain version, with
-    ``it``/``res``/``flags`` as 0-d device tensors."""
+def lp_launch_inputs(idx_np: np.ndarray, val_np: np.ndarray, nv: int, m2: int, device,
+                     blocks: Optional[int] = None):
+    """``(csr, plan)``: the pack's variable-major :func:`csr_transpose` and,
+    on a CUDA device, its :class:`LaunchPlan` (:func:`lp_launch_plan`;
+    ``blocks`` overrides the block count, for measurements), both uploaded
+    (before the solve's other device work, as :func:`csr_to_device` says).
+    ``plan`` is None off CUDA."""
+    dev = torch.device(device)
+    perm, rowptr, rowT = csr_transpose(idx_np, val_np, nv)
+    plan = None
+    if dev.type == "cuda":
+        m1, kp = idx_np.shape
+        plan = lp_launch_plan(
+            nv, m1, m2, kp, rowptr, lambda tile: lp_coresident_blocks(nv, m1, dev, tile), blocks
+        ).upload(dev)
+    return tuple(torch.as_tensor(a, device=dev) for a in (perm, rowptr, rowT)), plan
+
+
+def lp_blocks_cuda(csr, plan: LaunchPlan, idx, pre, state, tol, *, max_iters, check_every,
+                   sentinel):
+    """Launch the LP block kernel on the prelude's output; ``csr`` and
+    ``plan`` are :func:`lp_launch_inputs` of the same pack over the nv
+    variables. Returns the scaled ``(x, lam, mu, it, res, flags)`` like the
+    plain version, with ``it``/``res``/``flags`` as 0-d device tensors."""
     x, lam, mu, norm, scale = state
     nv, m1, m2 = x.shape[0], lam.shape[0], mu.shape[0]
     kp = idx.shape[1]
     dev = x.device
+    vals = pre.vals_s
+    if dev.type != "cuda" or idx.device != dev or vals.device != dev:
+        raise ValueError("the LP kernel takes CUDA tensors on one device")
+    if idx.dtype != torch.int32 or vals.dtype != torch.float32 or tuple(vals.shape) != (m1, kp):
+        raise ValueError("the LP kernel takes int32 idx and float32 vals, both [m1, k_pad]")
     if not lp_fits(nv, m1, m2):
         raise ValueError(f"an LP at nv={nv}, m1={m1}, m2={m2} does not fit the block kernel")
+    if plan is None or plan.lanes != 1 or plan.bounds is None:
+        raise ValueError("the launch plan is not one lane's, or is not uploaded")
     perm, rowptr, rowT = csr
-    idxS = idx.t().contiguous()
-    vsS = pre.vals_s.t().contiguous()
-    vsT = pre.vals_s.reshape(-1)[perm].contiguous()
+    nb = plan.blocks_per_lane
+    vals = vals.contiguous()
+    vsT = vals.reshape(-1)[perm].contiguous()
     xk, lamk, muk = x.contiguous().clone(), lam.contiguous().clone(), mu.contiguous().clone()
     xav, lav, mav = xk.clone(), lamk.clone(), muk.clone()
     scal = torch.zeros(LP_LAYOUT["L_N"], dtype=torch.float32, device=dev)
@@ -639,14 +815,17 @@ def lp_blocks_cuda(csr, idx, pre, state, tol, *, max_iters, check_every, sentine
     ):
         scal[LP_LAYOUT[slot]] = val
     iters = torch.zeros(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty((3, m1), dtype=torch.float32, device=dev)
+    scratch = torch.empty(lp_scratch_floats(nv, m1, nb), dtype=torch.float32, device=dev)
+    bar = torch.zeros(1, dtype=torch.int64, device=dev)
     cs, hs, bs = pre.cs.contiguous(), pre.hs.contiguous(), pre.bs.contiguous()
+    As = pre.As.contiguous()
     LP_KERNEL.call(
         "lp_solve_launch",
-        ptr(idxS), ptr(vsS), ptr(rowptr), ptr(rowT), ptr(vsT), ptr(pre.As), ptr(cs),
+        ptr(idx.contiguous()), ptr(vals), ptr(rowptr), ptr(rowT), ptr(vsT), ptr(As), ptr(cs),
         ptr(hs), ptr(bs), ptr(xk), ptr(xav), ptr(lamk), ptr(lav), ptr(muk), ptr(mav),
-        ptr(scal), ptr(iters), ptr(scratch[0]), ptr(scratch[1]), ptr(scratch[2]),
-        nv, m1, m2, kp, int(check_every), int(max_iters), int(bool(sentinel)),
+        ptr(scal), ptr(iters), ptr(scratch), ptr(bar), ptr(plan.bounds),
+        nv, m1, m2, kp, nb, plan.tile_floats, int(check_every), int(max_iters),
+        int(bool(sentinel)),
         stream_of(xk),
     )
     flags = (scal[LP_LAYOUT["L_POIS"]] > 0).to(torch.int32) + 2 * (
@@ -666,14 +845,14 @@ def dispatch_lp(
     on a CUDA device and its plain version on the CPU."""
     dev = torch.device(device)
     nv = len(c)
-    csr = csr_to_device(idx_np, val_np, nv, dev)
+    csr, plan = lp_launch_inputs(idx_np, val_np, nv, np.shape(A)[0], dev)
     f32 = dict(dtype=torch.float32, device=dev)
     t = [torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, val_np, h, A, b, x0, lam0, mu0)]
     idx = torch.as_tensor(np.ascontiguousarray(idx_np, dtype=np.int32), device=dev)
     pre, state = lp_setup(t[0], idx, *t[1:], csr)
     kw = dict(max_iters=max_iters, check_every=check_every, sentinel=sentinel)
-    if dev.type == "cuda":
-        out = lp_blocks_cuda(csr, idx, pre, state, tol, **kw)
+    if plan is not None:
+        out = lp_blocks_cuda(csr, plan, idx, pre, state, tol, **kw)
     else:
         out = lp_blocks_plain(csr, idx, pre, state, tol, **kw)
     x, lam, mu, it, res, flags = out

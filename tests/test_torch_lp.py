@@ -224,17 +224,107 @@ def test_lp_gate_and_fit_rule(monkeypatch):
     log = RunLog(echo=False)
     assert tmk.lp_megakernel_mode(cfg, 1728, 4096, 1, cpu, log=log) == "fused"
     assert "megakernel_fit_miss" not in log.counters
-    # an LP whose vectors overflow shared memory goes chained, counted
-    assert not tmk.lp_fits(10_000, 256, 1) and not tmk.lp_fits(1728, 60_000, 1)
-    assert tmk.lp_megakernel_mode(cfg, 10_000, 256, 1, cpu, log=log) == "off"
-    assert log.counters["megakernel_fit_miss"] == 1
+    # an LP whose staged vectors overflow shared memory, or with more
+    # equality rows than the kernel holds, goes chained, counted
+    max_m2 = tmk.LP_LAYOUT["kLpMaxM2"]
+    assert tmk.lp_fits(1728, 4096, max_m2) and not tmk.lp_fits(1728, 4096, max_m2 + 1)
+    assert not tmk.lp_fits(1728, 60_000, 1) and not tmk.lp_fits(60_000, 256, 1)
+    assert tmk.lp_megakernel_mode(cfg, 1728, 60_000, 1, cpu, log=log) == "off"
+    assert tmk.lp_megakernel_mode(cfg, 1728, 4096, max_m2 + 1, cpu, log=log) == "off"
+    assert log.counters["megakernel_fit_miss"] == 2
 
 
 def test_lp_layout_read_from_the_kernel_header():
-    """The fit rule and the scalar-row slots come from ``csrc/lp_layout.cuh``."""
+    """The fit rule, the scratch layout and the scalar-row slots come from
+    ``csrc/lp_layout.cuh``: a flagship block's bytes (m1 and nv + 1 rounded
+    up to whole 16-byte vectors), the scratch, distinct slots inside the
+    row."""
     layout = tmk.LP_LAYOUT
-    assert layout["kLpMaxSmem"] == 232_448
-    assert tmk.lp_smem_bytes(1728, 4096, 1) == (7 * 1728 + 1728 + 6 + 4096 + 264) * 4
+    assert layout["kLpMaxSmem"] == 232_448 and layout["kLpThreads"] == 512
+    assert layout["kLpMaxM2"] >= 8
+    assert tmk.lp_smem_bytes(1728, 4096) == (4096 + 2 * 1732 + 344 + 6 * 8) * 4
+    assert tmk.lp_smem_bytes(251, 1023, 1000) == (1024 + 2 * 252 + 344 + 6 * 8 + 1000) * 4
+    assert tmk.lp_scratch_floats(251, 1023, 9) == 5 * 252 + 5 * 1024 + 22 * 9 + 2
     slots = [v for k, v in layout.items() if k.startswith("L_") and k != "L_N"]
     assert len(slots) == 9 and len(set(slots)) == 9
     assert all(0 <= s < layout["L_N"] for s in slots)
+
+
+def _dual_pack(nv, m1, kp, seed=0):
+    """The packed rows of a dual leximin LP as the path builds them: m1
+    random panels of k = kp - (1 to 8) members over n = nv - 1 agents, each
+    row the panel's ones and -1 on the last variable, ŷ, which is thus in
+    every row."""
+    r = np.random.default_rng(seed)
+    n = nv - 1
+    k = {16: 12, 24: 20, 112: 110}[kp]
+    idx = np.zeros((m1, kp), np.int32)
+    val = np.zeros((m1, kp), np.float32)
+    for row in range(m1):
+        idx[row, :k] = np.sort(r.choice(n, size=k, replace=False))
+        idx[row, k] = n
+        val[row, :k] = 1.0
+        val[row, k] = -1.0
+    return idx, val
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("shape", [(121, 256, 16), (251, 1024, 24), (1728, 4096, 112)])
+def test_lp_launch_plan_owns_every_row_and_variable(shape, sms):
+    """The LP kernel's plan, from the planner the two-sided kernel uses:
+    every row and every variable owned by exactly one block (a variable a
+    tile holds with fewer mates than the block has warps gets consecutive
+    warps of that block), ŷ's block no heavier than twice the mean, the
+    block count by the small-LP rule, and the resident/streaming choice by
+    the layout header's rule. One block is a legal plan too."""
+    nv, m1, kp = shape
+    idx, val = _dual_pack(nv, m1, kp)
+    _, rowptr, _ = tmk.csr_transpose(idx, val, nv)
+    nnz = int(rowptr[-1])
+    plan = tmk.lp_launch_plan(nv, m1, 1, kp, rowptr, sms)
+    nb = plan.blocks_per_lane
+    # the small-LP rule: one block up to LP_ONE_BLOCK_ENTRIES pack entries,
+    # else one per LP_ENTRIES_PER_BLOCK
+    work = m1 * kp + nnz
+    assert nb == tmk.lp_block_count(m1, kp, nnz, sms)
+    assert nb == (1 if work <= tmk.LP_ONE_BLOCK_ENTRIES
+                  else max(1, min(sms, -(-work // tmk.LP_ENTRIES_PER_BLOCK))))
+    assert plan.lanes == 1 and plan.grid == nb
+    assert nb == {121: 1, 251: 23, 1728: sms}[nv]
+    for bounds, n in ((plan.col_bounds, m1), (plan.type_bounds, nv)):
+        assert len(bounds) == nb + 1 and bounds[0] == 0 and bounds[-1] == n
+        assert np.all(np.diff(bounds) >= 0)
+        assert len(np.repeat(np.arange(nb), np.diff(bounds))) == n
+    assert np.all(np.diff(plan.col_bounds) <= -(-m1 // nb))
+    # ŷ's block: no more than twice the mean share, and ŷ's CSR run split
+    # over consecutive warps when its tile leaves warps spare
+    weight = np.diff(rowptr.astype(np.int64)) + 32
+    tiles = [int(weight[a:b].sum()) for a, b in zip(plan.type_bounds[:-1], plan.type_bounds[1:])]
+    home = int(np.searchsorted(plan.type_bounds, nv - 1, side="right")) - 1
+    assert plan.type_bounds[home] <= nv - 1 < plan.type_bounds[home + 1]
+    assert tiles[home] <= 2 * weight.sum() / nb
+    warps = tmk.LP_LAYOUT["kLpThreads"] // 32
+    nt = int(plan.type_bounds[home + 1] - plan.type_bounds[home])
+    parts = warps // nt if nt < warps else 1
+    local = nv - 1 - int(plan.type_bounds[home])
+    assert list(range(local * parts, (local + 1) * parts)) == [
+        job for job in range(nt * parts) if job // parts == local
+    ]
+    if nv == 1728:
+        assert parts > 1
+    # resident when the largest share and its state fit beside the staged
+    # vectors, by the header's constants
+    L = tmk.LP_LAYOUT
+    need = (
+        2 * (np.diff(plan.col_bounds) * kp + np.diff(rowptr[plan.type_bounds].astype(np.int64)))
+        + L["kLpOwnRowVectors"] * np.diff(plan.col_bounds)
+        + (L["kLpOwnVarVectors"] + 1) * np.diff(plan.type_bounds)
+    )
+    fits = tmk.lp_smem_bytes(nv, m1, int(need.max())) <= L["kLpMaxSmem"]
+    assert plan.tile_floats == (int(need.max()) if fits else 0)
+    # a card that holds two streaming blocks an SM but one resident one:
+    # the plan keeps the shares resident on one block an SM
+    two = tmk.lp_launch_plan(nv, m1, 1, kp, rowptr, lambda tile: sms if tile else 2 * sms)
+    assert (two.grid, two.tile_floats > 0) == ((sms, True) if nb == sms else (nb, bool(plan.tile_floats)))
+    one = tmk.lp_launch_plan(nv, m1, 1, kp, rowptr, sms, blocks=1)
+    assert one.grid == 1 and list(one.col_bounds) == [0, m1] and list(one.type_bounds) == [0, nv]

@@ -154,6 +154,34 @@ def test_plain_gather_matches_pallas_interpret(shape):
     assert tem.KERNEL.launches == before
 
 
+def test_batched_plain_gather_matches_pallas_interpret():
+    """The batched shape the two-sided prelude gathers at: a per-lane
+    ``[3, C, k_pad]`` value pack with ``y [3, T]``, through the kernel's
+    plain version, against the Pallas kernel (which takes one lane) run in
+    interpret mode lane by lane, within 1e-6 of the lane's largest entry.
+    The kernel's launch shape at the path's shapes covers every SM with
+    16-byte loads and no idle lane."""
+    C, minor, B = 6144 // 8, 814, 3
+    M = _rows(17, C, minor, 0.03)
+    idx, val, _ = jso.ell_pack_rows(M)
+    r = np.random.default_rng(18)
+    vb = (val[None] * r.random((B, 1, 1))).astype(np.float32)
+    Y = r.normal(size=(B, minor)).astype(np.float32)
+    got = tem.ell_gather_mv_plain(_t(idx), _t(vb), _t(Y)).numpy()
+    assert got.shape == (B, C)
+    for b in range(B):
+        want = np.asarray(ell_gather_mv_pallas(idx, vb[b], Y[b], interpret=True))
+        np.testing.assert_allclose(got[b], want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+    # the wrapper takes the plain version for CPU tensors, bit for bit
+    np.testing.assert_array_equal(tem.ell_gather_mv(_t(idx), _t(vb), _t(Y)).numpy(), got)
+    for cols, lanes in ((6144, 1), (4096, 1), (6144, 3)):
+        for sms in (132, 114):
+            G, threads, blocks = tem.launch_shape(cols, 112, lanes, sms)
+            assert G == 4 and (112 // 4) % G == 0
+            assert threads % 32 == 0 and threads <= 32 * tem.MAX_WARPS
+            assert blocks >= sms and blocks * threads >= cols * G * lanes
+
+
 def test_padding_slots_carry_nan_from_row_zero():
     """Padding slots index row 0 with value 0: a NaN at ``y[0]`` reaches
     every column with a padding slot, in the port as in the reference."""
