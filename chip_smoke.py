@@ -22,14 +22,23 @@ Phases, each fatal on failure:
    time from a fresh prelude, held bit for bit), for a fixed 65,536
    iterations, and with a NaN warm start, then the barrier loop at its
    grid; and on a dual LP of ``sf_b_skewed_instance(seed=1)``'s shape
-   (1024 panel rows over n+1 = 251 variables);
+   (1024 panel rows over n+1 = 251 variables); the two-sided solve at the
+   polish screen's shape (prefix lanes 512/1024/2048 of a 2048-column
+   support, warm from a master solve); device anchor pricing on one round's
+   task batch at the flagship reduction and the fused move screen on 512
+   flagship compositions and a master's device duals, each dispatched under
+   ``torch.cuda.set_sync_debug_mode("error")`` and held to its CPU run;
 4. a small-input reference: LEXIMIN on ``skewed_instance(n=160, k=14,
    n_categories=4, seed=2)`` on the GPU with every master forced onto the
    device route, against the same solve on the CPU;
 5. the paths, each with every launch counter zeroed just before it and read
    just after: LEXIMIN on ``sf_e_skewed_instance(seed=1)`` (type space, the
    two-sided kernel), run twice with every master's iterations recorded,
-   which must agree launch for launch; LEGACY's 10,000-draw estimator on
+   which must agree launch for launch, in the slice configuration of the
+   earlier slices and at the package's defaults (the main path: device
+   pricing, the fused screen, the batched polish screen; one host sync per
+   steady round); the defaults on ``mass_like_instance(seed=3)`` and
+   ``example_small_like_instance()`` against the batched engine off; LEGACY's 10,000-draw estimator on
    the same pool; the agent-space LEXIMIN column generation with device
    dual LPs (the LP kernel) on ``skewed_instance(n=120, k=12,
    n_categories=3, seed=1)``, run twice (the same dual solves and
@@ -37,7 +46,14 @@ Phases, each fatal on failure:
    the type-space result on the same pool; and on the real-size
    ``sf_b_skewed_instance(seed=1)`` under a stated budget per stage, its
    dual solves held against the type-space leximin values, with each
-   round's PDHG iterations and seconds and each HiGHS solve's seconds.
+   round's PDHG iterations and seconds and each HiGHS solve's seconds; the
+   dense chained PDHG (the stage LP's core) replayed as a CUDA graph
+   against its eager blocks on a stage LP of that pool, bit for bit; and
+   the stage-CG fallback on the same pool with the face loop made to
+   stall, under a budget, and on the pool of
+   ``tests/test_torch_stage_cg.py``, where its stages price (stochastic
+   draws on the card and the exact MILP), to its end and held to the same
+   run on the CPU.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
 line, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -115,8 +131,39 @@ PROFILE_TOL = 1e-3
 #: PDHG does not meet 1e-6 within the cap on most of its dual LPs either
 #: (tests/test_torch_sf_dual.py), so it runs under a budget per stage and in
 #: all
-STAGE_BUDGET_S = 150.0
-AGENT_BUDGET_S = 240.0
+STAGE_BUDGET_S = 90.0
+AGENT_BUDGET_S = 120.0
+#: the polish screen's lanes at the flagship: nested prefixes of a
+#: 2048-column support (face_decompose.polish_support), each to a quarter of
+#: the master tolerance within 24,576 iterations, warm from a master solve;
+#: held to the plain version at the bars of the other two-sided phases
+#: (SOLVE_X_TOL, SOLVE_LAM_TOL, each lane's ε at SOLVE_OBJ_TOL), iterations
+#: equal. The two narrower lanes run to the cap, so their x, λ and ε, not
+#: their iteration counts, are what holds them.
+SCREEN_CAPS = [512, 1024, 2048]
+SCREEN_MAX_ITERS = 24_576
+#: the stage-CG fallback on sf_b_skewed_instance(seed=1), forced by an
+#: acceptance bar the face loop cannot meet: its budget in all
+STAGE_CG_BUDGET_S = 120.0
+#: the face loop's bar there, and its rounds: the loop realizes the sf_b
+#: profile exactly (at a bar of 1e-7 on the card in 9 rounds; ε = 0 from
+#: the host LP on the CPU), so only a bar no residual meets makes it stall;
+#: four rounds bound the loop before the fallback
+STAGE_CG_ACCEPT = -1.0
+STAGE_CG_ROUNDS = 4
+#: the fallback's pricing half: on sf_b every stage meets its relaxation
+#: bound from the carried-in support and injected columns, so no stage
+#: prices. On skewed_instance(n=80, k=8, n_categories=3, seed=3), the pool
+#: of tests/test_torch_stage_cg.py, a bar of 1e-7 stalls the face loop and
+#: later stages price (stochastic draws and the exact MILP); its fixed
+#: probabilities are held to the same run on the CPU at that test's bar
+STAGE_CG_PRICING_ACCEPT = 1e-7
+STAGE_CG_FIXED_TOL = 1e-6
+
+#: the dense chained PDHG's graph replay against its eager blocks: a stage
+#: LP of sf_b (its leximin relaxation sliced into 384 columns, nothing
+#: fixed), which does not converge before this cap
+DENSE_GRAPH_MAX_ITERS = 10_240
 
 E2E_CONTRACT = 1e-3
 
@@ -305,6 +352,25 @@ def _solve_lanes(pack, MT, caps, nan_lane=None, max_iters=SOLVE_MAX_ITERS):
     return idx_np, val_np, lanes, dict(max_iters=max_iters, check_every=128, sentinel=True)
 
 
+def two_sided_bound(C, kp, T, nnz, B, iters, check_every):
+    """``(bound_ms, bound_by, iter_bytes_ms)`` of a B-lane two-sided solve
+    that took ``iters`` per lane: the least the card could take, each input
+    read once (the shared indices, every lane's values, the lane vectors)
+    and each output written once, against the float32 operations the
+    iterations need (per iteration and per KKT evaluation, two a block,
+    both matvec directions over the nonzeros, a multiply and an add each,
+    and about ten operations per entry of the C- and T-length vectors); and
+    the pack read once per evaluation in both layouts (row-major C*kp*8
+    bytes, type-major nnz*8 bytes)."""
+    nbytes = C * kp * 4 * (1 + B) + B * (4 * C + 6 * T) * 4
+    evals = sum(int(i) + 2 * (int(i) // check_every) for i in iters)
+    flops = evals * (4 * nnz + 10 * (C + 2 * T))
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations"
+    iter_bytes_ms = 1e3 * evals * (C * kp * 8 + nnz * 8) / HBM_BYTES_PER_S
+    return bound_ms, bound_by, iter_bytes_ms
+
+
 def solve_phase(pack, MT, caps, label, nan_lane=None, clean=None, repeat=False):
     """One two-sided solve through the block kernel and through its plain
     version, on the same prelude output on the card. With ``nan_lane`` the
@@ -412,20 +478,7 @@ def solve_phase(pack, MT, caps, label, nan_lane=None, clean=None, repeat=False):
     C = idx_np.shape[0]
     kp = idx_np.shape[1]
     nnz = int(csr[0].shape[0])
-    # the least the card could take for this solve: each input read once
-    # (the shared indices, every lane's values, the lane vectors) and each
-    # output written once, against the float32 operations this run's
-    # iterations need: per iteration and per KKT evaluation (two a block),
-    # both matvec directions over the nonzeros (a multiply and an add each)
-    # and about ten operations per entry of the C- and T-length vectors
-    nbytes = C * kp * 4 * (1 + B) + B * (4 * C + 6 * T) * 4
-    evals = sum(int(i) + 2 * (int(i) // kw["check_every"]) for i in it_k)
-    flops = evals * (4 * nnz + 10 * (C + 2 * T))
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations"
-    # the pack read once per evaluation, both layouts (row-major C*kp*8
-    # bytes, type-major nnz*8 bytes)
-    iter_bytes_ms = 1e3 * evals * (C * kp * 8 + nnz * 8) / HBM_BYTES_PER_S
+    bound_ms, bound_by, iter_bytes_ms = two_sided_bound(C, kp, T, nnz, B, it_k, kw["check_every"])
     iters_max = int(max(it_k[live]))
     rec = dict(
         phase=label, name="two_sided_block", replaces=REPLACES["two_sided_block"],
@@ -1086,6 +1139,507 @@ def flagship_phase(inst, slice_cfg, libs):
     return e2e, launches
 
 
+class _SyncDebugError:
+    """``torch.cuda.set_sync_debug_mode("error")`` for the body: any
+    operation that synchronises the host with the card raises."""
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode(0)
+        return False
+
+
+def _event_ms(fn):
+    """``(result, device_ms, host_ms)``: CUDA-event milliseconds from just
+    before ``fn()`` is queued until the card has run everything it queued,
+    and the host's milliseconds inside ``fn()``."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    out = fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop), host_ms
+
+
+def flagship_reduction():
+    from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
+
+    return TypeReduction(featurize(sf_e_skewed_instance(seed=1), device="cpu")[0])
+
+
+def device_pricing_phase(red):
+    """``DevicePricer`` on the flagship reduction (T=814, k=110) with one
+    round's task batch, as ``face_decompose._AnchorPricer.submit`` builds it
+    (the dual direction, two noisy variants, three forced-inclusion tasks):
+    the dispatch queued under sync-debug "error", timed by CUDA events from
+    dispatch to ready; the lanes equal to the same code's CPU run; every
+    lane's device feasibility flag equal to the exact host re-check
+    (``_validate``)."""
+    import torch
+
+    from citizensassemblies_tpu_torch.solvers.device_pricing import DevicePricer
+
+    rng = np.random.default_rng(5)
+    T = red.T
+    r_norm = rng.normal(0.0, 1.0, T) / red.msize
+    scale = float(np.mean(np.abs(r_norm)))
+    tasks = [(-r_norm, None)] + [
+        (-r_norm + rng.normal(0.0, 0.5 * scale, T), None) for _ in range(2)
+    ] + [(-r_norm, int(t)) for t in np.argsort(r_norm)[:3]]
+    gpu = DevicePricer(red, device="cuda")
+    cpu = DevicePricer(red, device="cpu")
+    gpu.harvest(gpu.dispatch(tasks))  # warm-up: allocator and pinned pool
+
+    def dispatch():
+        with _SyncDebugError():
+            return gpu.dispatch(tasks)
+
+    handle, ms, host_ms = _event_ms(dispatch)
+    hits, missed = gpu.harvest(handle)
+    ref = cpu.dispatch(tasks)
+    comps, ok = handle.comps.cpu().numpy(), handle.ok.cpu().numpy()
+    equal = bool(np.array_equal(comps, ref.comps.numpy()) and np.array_equal(ok, ref.ok.numpy()))
+    flags_exact = bool(np.array_equal(gpu._validate(comps, ok), ok))
+    rec = dict(
+        phase="device_pricing_sf_e", T=T, k=red.k, tasks=len(tasks), lanes=int(comps.shape[0]),
+        ms=ms, host_ms=host_ms, hits=len(hits), missed=len(missed),
+        feasible_lanes=int(ok.sum()), equal_to_cpu=equal, flags_exact=flags_exact,
+        no_sync_in_dispatch=True,
+    )
+    rec["ok"] = bool(equal and flags_exact and len(hits) > 0)
+    print(json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise SystemExit("device pricing phase failed")
+    return rec
+
+
+def fused_screen_phase(red, pack, MT):
+    """``_FusedScreen`` on 512 flagship compositions and the device duals
+    of a master solve over them (queued behind the solve): the dispatch
+    under sync-debug "error", timed by CUDA events from dispatch to ready;
+    its pairs, indices and new compositions equal to the same code's CPU
+    run on the same duals."""
+    import torch
+
+    from citizensassemblies_tpu_torch.solvers import lp_pdhg
+    from citizensassemblies_tpu_torch.solvers.face_decompose import _FusedScreen
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
+    from citizensassemblies_tpu_torch.utils.config import default_config
+
+    comps = np.rint(MT[:, :512].T * red.msize[None, :]).astype(np.int16)
+    sub = EllPack.from_rows(MT[:, :512].T.astype(np.float32), minor=red.T)
+    v = MT[:, :512] @ np.random.default_rng(3).dirichlet(np.ones(512))
+    handle = lp_pdhg.solve_two_sided_master_ell_async(
+        sub, v, cfg=default_config(), tol=MASTER_TOL, max_iters=4096, device="cuda"
+    )
+    gpu = _FusedScreen(red, per_round_cap=16_384, device="cuda")
+    cpu = _FusedScreen(red, per_round_cap=16_384, device="cpu")
+    gpu.dispatch(comps, handle.lam)
+    gpu.harvest()  # warm-up
+
+    def dispatch():
+        with _SyncDebugError():
+            return gpu.dispatch(comps, handle.lam)
+
+    _, ms, host_ms = _event_ms(dispatch)
+    idx, ti, tj, _ = gpu._pending
+    got = [a.cpu().numpy() for a in (idx, ti, tj)]
+    moved = gpu.harvest()
+    cpu.dispatch(comps, handle.lam.cpu())
+    want = [a.numpy() for a in cpu._pending[:3]]
+    moved_cpu = cpu.harvest()
+    equal = bool(all(np.array_equal(a, b) for a, b in zip(got, want)) and np.array_equal(moved, moved_cpu))
+    rec = dict(
+        phase="fused_screen_sf_e", rows=512, T=red.T, pairs=int(len(got[1])),
+        feasible_moves=int((got[0] >= 0).sum()), ms=ms, host_ms=host_ms,
+        equal_to_cpu=equal, no_sync_in_dispatch=True,
+    )
+    rec["ok"] = bool(equal and len(moved) > 0)
+    print(json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise SystemExit("fused screen phase failed")
+    return rec
+
+
+def polish_screen_phase(MT):
+    """The two-sided kernel at the polish screen's shape: a 2048-column
+    support pack of flagship panels over T=814, lanes the prefixes
+    ``SCREEN_CAPS``, tolerance a quarter of the master's, at most
+    ``SCREEN_MAX_ITERS`` iterations, warm from a master solve on the support
+    (as ``face_decompose.polish_support`` warms its lanes). Kernel against
+    the plain version on the same prelude output: equal per-lane
+    iterations, x within ``SOLVE_X_TOL``, λ within ``SOLVE_LAM_TOL`` and
+    each lane's ε within ``SOLVE_OBJ_TOL``."""
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+    from citizensassemblies_tpu_torch.solvers import lp_pdhg
+    from citizensassemblies_tpu_torch.solvers.batch_lp import _bucket_dim
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import unscale
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
+    from citizensassemblies_tpu_torch.utils.config import default_config
+
+    dev = torch.device("cuda")
+    launches0 = mk.KERNEL.launches
+    T = MT.shape[0]
+    C = SCREEN_CAPS[-1]
+    sub = EllPack.from_rows(MT[:, :C].T.astype(np.float32), minor=T)
+    rng = np.random.default_rng(2)
+    p_true = np.zeros(C)
+    p_true[:1536] = rng.dirichlet(np.ones(1536))
+    v = MT[:, :C] @ p_true
+    cfg = default_config().replace(mixed_precision=False)
+    master = lp_pdhg.solve_two_sided_master_ell(
+        sub, v, cfg=cfg, tol=MASTER_TOL, max_iters=4096, device="cuda"
+    )
+    Cp = _bucket_dim(C, cfg.lp_batch_bucket_max)
+    mode = mk.megakernel_mode(cfg, T, Cp, dev, lanes=len(SCREEN_CAPS))
+    idx_np, val_np = sub.padded(Cp)
+    B = len(SCREEN_CAPS)
+    colmask = np.zeros((B, Cp), np.float32)
+    x0 = np.zeros((B, Cp + 1), np.float32)
+    for b, cap in enumerate(SCREEN_CAPS):
+        colmask[b, :cap] = 1.0
+        x0[b, :cap] = master.x[:cap]
+        x0[b, Cp] = max(float(master.x[-1]), 0.0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    v_t = torch.as_tensor(v.astype(np.float32), **f32)
+    cm = torch.as_tensor(colmask, **f32)
+    x0_t = torch.as_tensor(x0, **f32)
+    lam0 = torch.as_tensor(np.tile(master.lam, (B, 1)).astype(np.float32), **f32)
+    mu0 = torch.full((B,), float(master.mu[0]), **f32)
+    tol = torch.full((B,), 0.25 * MASTER_TOL, **f32)
+    kw = dict(max_iters=SCREEN_MAX_ITERS, check_every=128, sentinel=True)
+    csr, plan = mk.two_sided_launch_inputs(idx_np, val_np, T, B, dev)
+    idx, vals_s, pre, state = mk.two_sided_setup(idx_np, val_np, v_t, cm, x0_t, lam0, mu0, csr)
+    out = {}
+    ms = cuda_ms(lambda: out.update(k=mk.two_sided_blocks_cuda(csr, plan, idx, vals_s, pre, state, tol, **kw)),
+                 reps=1, warmup=1)
+    plain_ms = cuda_ms(lambda: out.update(p=mk.two_sided_blocks_plain(csr, idx, vals_s, pre, state, tol, **kw)),
+                       reps=1, warmup=0)
+    xk, lk, _ = (a.cpu().numpy() for a in unscale(pre, *out["k"][:5]))
+    xp, lp, _ = (a.cpu().numpy() for a in unscale(pre, *out["p"][:5]))
+    it_k, it_p = out["k"][5].cpu().numpy(), out["p"][5].cpu().numpy()
+    res_k = out["k"][6].cpu().numpy()
+    err_x = float(np.abs(xk - xp).max())
+    err_lam = float(np.abs(lk - lp).max())
+    err_obj = float(np.abs(xk[:, -1] - xp[:, -1]).max())
+    same_iters = bool(np.array_equal(it_k, it_p))
+    # each lane's float64 residual ‖M p − v‖∞, as the screen judges it
+    eps = []
+    for b, cap in enumerate(SCREEN_CAPS):
+        p_s = np.maximum(xk[b, :cap].astype(np.float64), 0.0)
+        eps.append(float(np.abs(MT[:, :cap] @ (p_s / p_s.sum()) - v).max()) if p_s.sum() > 0 else None)
+    nnz = int(csr[0].shape[0])
+    bound_ms, bound_by, iter_bytes_ms = two_sided_bound(Cp, idx_np.shape[1], T, nnz, B, it_k, 128)
+    iters_max = int(it_k.max())
+    rec = dict(
+        phase="polish_screen_sf_e", name="two_sided_block", replaces=REPLACES["two_sided_block"],
+        shape=dict(C=Cp, k_pad=int(idx_np.shape[1]), T=T, nnz=nnz, caps=SCREEN_CAPS),
+        gate=mode, grid=plan.grid, blocks_per_lane=plan.blocks_per_lane,
+        resident=bool(plan.tile_floats), resident_tile_floats=plan.tile_floats,
+        master_iters=int(master.iters), ms=ms, plain_ms=plain_ms,
+        us_per_iter=1e3 * ms / iters_max if iters_max else None, library_ms=None,
+        bound_ms=bound_ms, bound_by=bound_by, iter_bytes_ms=iter_bytes_ms,
+        launches=mk.KERNEL.launches - launches0, iters_kernel=it_k.tolist(),
+        iters_plain=it_p.tolist(), kkt_kernel=res_k.tolist(), lane_eps=eps,
+        obj_kernel=xk[:, -1].tolist(), obj_plain=xp[:, -1].tolist(),
+        max_abs_err=max(err_x, err_lam), max_abs_err_x=err_x, max_abs_err_lam=err_lam,
+        obj_err=err_obj,
+        tolerance=dict(x=SOLVE_X_TOL, lam=SOLVE_LAM_TOL, obj=SOLVE_OBJ_TOL, iters=0),
+        same_iters=same_iters,
+    )
+    rec["ok"] = bool(
+        mode == "fused" and same_iters and err_x <= SOLVE_X_TOL and err_lam <= SOLVE_LAM_TOL
+        and err_obj <= SOLVE_OBJ_TOL and np.isfinite(xk).all()
+    )
+    print(json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise SystemExit("polish screen phase failed")
+    return rec
+
+
+def defaults_flagship_phase(inst, cfg, libs):
+    """The flagship at the package's defaults (``default_config()`` with
+    ``mixed_precision=False``): device anchor pricing, the fused move
+    screen and the batched polish screen engage. Every launch counter is
+    zeroed just before the run and read just after. Each master's and each
+    polish-screen lane's (Cp, iterations) is recorded by wrapping
+    ``lp_pdhg.finish_two_sided_master`` and
+    ``batch_lp.solve_polish_screen_ell``; the run is made twice and must
+    take the same iterations solve for solve. Fails unless the contract
+    holds, no solve missed the kernel's fit rule, device pricing served
+    anchors and the steady rounds kept to one synchronisation each
+    (``decomp_host_syncs − decomp_polish_syncs ≤ decomp_rounds``)."""
+    from unittest import mock
+
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+    from citizensassemblies_tpu_torch.solvers import batch_lp, lp_pdhg
+
+    finish = lp_pdhg.finish_two_sided_master
+    screen = batch_lp.solve_polish_screen_ell
+
+    def run():
+        solves = []
+
+        def recorded(h):
+            sol = finish(h)
+            solves.append(["master", int(h.Cp), int(sol.iters)])
+            return sol
+
+        def recorded_screen(ell, *a, **kw):
+            sols = screen(ell, *a, **kw)
+            solves.append(["screen", len(ell), [int(s.iters) for s in sols]])
+            return sols
+
+        with mock.patch.object(lp_pdhg, "finish_two_sided_master", recorded), \
+                mock.patch.object(batch_lp, "solve_polish_screen_ell", recorded_screen):
+            return leximin_run(inst, "cuda", cfg) + (solves,)
+
+    for lib in libs:
+        lib.launches = 0
+    dist, dlog, secs, linf, solves = run()
+    launches = {"ell_gather": em.KERNEL.launches, "two_sided_block": mk.KERNEL.launches}
+    again, alog, secs2, _, solves2 = run()
+    c, tm = dlog.counters, dlog.timers
+    alloc = dist.allocation
+    mean = alloc.mean()
+    gini = float(np.abs(alloc[:, None] - alloc[None, :]).mean() / (2 * mean)) if mean else 0.0
+    keys = (
+        "decomp_rounds", "decomp_host_syncs", "decomp_polish_syncs", "decomp_oracle_device_hit",
+        "decomp_oracle_device_miss", "device_pricing_dispatches", "lp_batch_dispatches",
+        "lp_batch_polish_hit", "lp_batch_polish_miss", "megakernel_lanes",
+        "megakernel_dispatches", "megakernel_fit_miss",
+    )
+    counters = {k: int(c.get(k, 0)) for k in keys}
+    steady = counters["decomp_host_syncs"] - counters["decomp_polish_syncs"]
+    rec = dict(
+        phase="leximin_sf_e_defaults", seconds=secs, contract_ok=bool(dist.contract_ok),
+        linf=linf, min_prob=float(alloc.min()), gini=gini,
+        panels=int(len(dist.probabilities)), launches=launches, counters=counters,
+        steady_syncs=steady, sync_rule=bool(steady <= counters["decomp_rounds"]),
+        timers={k: tm.get(k, 0.0) for k in (
+            "relax_leximin", "inject", "decomp_master", "decomp_polish", "decomp_polish_screen",
+            "decomp_expand", "decomp_oracle", "final_stage", "decomp",
+        )},
+        solves=solves,
+        repeat=dict(seconds=secs2, solves=solves2, same_iters=solves2 == solves,
+                    counters={k: int(alog.counters.get(k, 0)) for k in keys},
+                    same_allocation=bool(np.array_equal(again.allocation, alloc))),
+    )
+    rec["ok"] = bool(
+        dist.contract_ok and linf <= E2E_CONTRACT and np.isfinite(alloc).all()
+        and alloc.shape == (1727,) and launches["ell_gather"] > 0
+        and launches["two_sided_block"] > 0 and counters["megakernel_fit_miss"] == 0
+        and counters["decomp_oracle_device_hit"] > 0 and rec["sync_rule"]
+        and solves2 == solves and again.contract_ok
+    )
+    print(json.dumps(rec), flush=True)
+    return rec, launches
+
+
+def mass_like_phase(cfg):
+    """LEXIMIN at the defaults on ``mass_like_instance(seed=3)`` against the
+    same run with the batched engine off: both meet the contract and the
+    fixed probabilities agree within 1e-6. The pool has T=28 types, over
+    ``enum_max_types``, so it takes the column-generation path in both
+    packages; the enumerated path, where the probe prescreen runs, is
+    driven the same way on ``example_small_like_instance()`` (4 types),
+    whose prescreen must run."""
+    from citizensassemblies_tpu_torch.core.generator import (
+        example_small_like_instance,
+        mass_like_instance,
+    )
+
+    rec = dict(phase="leximin_mass_like_defaults")
+    ok = True
+    for key, inst in (("mass_like", mass_like_instance(seed=3)),
+                      ("example_small_like", example_small_like_instance())):
+        on, log_on, s_on, l_on = leximin_run(inst, "cuda", cfg)
+        off, log_off, s_off, l_off = leximin_run(inst, "cuda", cfg.replace(lp_batch=False))
+        gap = float(np.max(np.abs(on.fixed_probabilities - off.fixed_probabilities)))
+        c = log_on.counters
+        sub = dict(
+            path="enumerated" if "typespace_lp" in log_on.timers else "column generation",
+            seconds=s_on, seconds_engine_off=s_off, contract_ok=bool(on.contract_ok),
+            contract_ok_engine_off=bool(off.contract_ok), linf=l_on, fixed_gap=gap,
+            lp_batch_probe_screened=int(c.get("lp_batch_probe_screened", 0)),
+            lp_batch_probe_pruned=int(c.get("lp_batch_probe_pruned", 0)),
+            lp_batch_dispatches=int(c.get("lp_batch_dispatches", 0)),
+            typespace_lp_s=log_on.timers.get("typespace_lp"),
+            typespace_lp_s_engine_off=log_off.timers.get("typespace_lp"),
+        )
+        rec[key] = sub
+        ok = ok and on.contract_ok and off.contract_ok and gap <= 1e-6
+    rec["ok"] = bool(ok and rec["example_small_like"]["lp_batch_probe_screened"] > 0)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def dense_graph_phase(inst):
+    """The dense chained PDHG (``lp_pdhg._pdhg_body``: the core of the
+    stage LP, the final primal LP and the probe prescreen) with its blocks
+    replayed as a CUDA graph, against the same solve launched op by op, on
+    a stage LP of ``inst`` (``lp_pdhg.stage_lp_operands`` over its leximin
+    relaxation sliced into 384 columns, nothing fixed) capped at
+    ``DENSE_GRAPH_MAX_ITERS``: x, λ, μ, iterations and residual must be
+    bit-identical, and the graph must have replaced the eager blocks. Both
+    are timed on the host clock around a synchronised call."""
+    import torch
+
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.solvers import cg_typespace as tcg
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import _pdhg_body, stage_lp_operands
+    from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
+    from citizensassemblies_tpu_torch.utils.config import default_config
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    dense, _ = featurize(inst, device="cpu")
+    red = TypeReduction(dense)
+    v, _ = tcg._leximin_relaxation(red, RunLog(echo=False))
+    comps = np.stack(tcg._slice_relaxation(v * red.msize.astype(np.float64), red, R=384))
+    MT = np.ascontiguousarray((comps / red.msize[None, :].astype(np.float64)).T)
+    cfg = default_config()
+    f32 = dict(dtype=torch.float32, device="cuda")
+    ops = [torch.as_tensor(np.asarray(a, np.float32), **f32)
+           for a in stage_lp_operands(MT, np.full(red.T, -1.0))]
+    m1, nv = ops[1].shape
+    out, secs = {}, {}
+    for graph in (False, True):
+        warm = [torch.zeros(n, **f32) for n in (nv, m1, 1)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out[graph] = _pdhg_body(
+            *ops, *warm, float(cfg.pdhg_tol), max_iters=DENSE_GRAPH_MAX_ITERS,
+            check_every=int(cfg.pdhg_check_every), graph=graph,
+        )
+        torch.cuda.synchronize()
+        secs[graph] = time.perf_counter() - t
+    eager, replay = out[False], out[True]
+    iters = int(replay[3])
+    same = bool(all(torch.equal(a, b) for a, b in zip(eager[:3], replay[:3]))
+                and tuple(eager[3:]) == tuple(replay[3:]))
+    rec = dict(
+        phase="dense_pdhg_graph", shape=dict(T=int(red.T), C=int(MT.shape[1]), m1=int(m1), nv=int(nv)),
+        iters=iters, eager_s=secs[False], graph_s=secs[True],
+        eager_us_per_iter=1e6 * secs[False] / iters, graph_us_per_iter=1e6 * secs[True] / iters,
+        bit_identical=same, ok=same and iters > int(cfg.pdhg_check_every),
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+class _StageCGBudgetSpent(Exception):
+    pass
+
+
+def stage_cg_phase(inst, cfg, label, accept, rounds=None, reference=False):
+    """The type-space path on ``inst`` with the face loop made to stall
+    (``decomp_accept = decomp_accept_stalled = accept``, at most ``rounds``
+    rounds when given), so the stage-CG fallback carries it, under
+    ``STAGE_CG_BUDGET_S`` in all unless ``reference``: the run stops before
+    the first stage LP that would end past it at the last one's pace. Each stage-LP PDHG
+    solve's columns, types fixed before it, convergence and seconds are
+    recorded (by wrapping ``lp_pdhg.solve_stage_lp_pdhg``); the host
+    re-solves are the ``stage_lp_host`` counter, the pricing iterations the
+    log's ``stage s iter i`` lines. A run that finishes must meet the
+    contract. With ``reference`` the run has no budget (its stage LPs are
+    host-bound, so a budget would tie the check to the host's speed) and
+    must finish, price (stochastic
+    draws on the card's generator and the exact MILP) at least once, and
+    match the same run on the CPU (host stage LPs): the same stage count and
+    the fixed probabilities within ``STAGE_CG_FIXED_TOL``."""
+    from unittest import mock
+
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin
+    from citizensassemblies_tpu_torch.solvers import lp_pdhg
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    solve = lp_pdhg.solve_stage_lp_pdhg
+    pdhg_log = []
+    t0 = time.perf_counter()
+
+    def budgeted(MT, fixed, **kw):
+        # stop before a stage LP that would end past the budget at the
+        # last one's pace
+        last = pdhg_log[-1][-1] if pdhg_log else 0.0
+        if not reference and time.perf_counter() - t0 + last > STAGE_CG_BUDGET_S:
+            raise _StageCGBudgetSpent
+        t = time.perf_counter()
+        out = solve(MT, fixed, **kw)
+        pdhg_log.append([int(MT.shape[1]), int((fixed >= 0).sum()), bool(out[4]),
+                         time.perf_counter() - t])
+        return out
+
+    def stages(log):
+        return sum(1 for ln in log.lines if ln.startswith("Fixed ") or "meets relaxation bound" in ln)
+
+    dense, space = featurize(inst, device="cuda")
+    slog = RunLog(echo=False)
+    cfg = cfg.replace(decomp_accept=accept, decomp_accept_stalled=accept)
+    if rounds is not None:
+        cfg = cfg.replace(decomp_max_rounds=rounds)
+    dist = None
+    with mock.patch.object(lp_pdhg, "solve_stage_lp_pdhg", budgeted):
+        try:
+            dist = find_distribution_leximin(dense, space, cfg=cfg, log=slog, device="cuda")
+        except _StageCGBudgetSpent:
+            pass
+    secs = time.perf_counter() - t0
+    c, tm = slog.counters, slog.timers
+    stages_done = stages(slog)
+    rec = dict(
+        phase=label, n=dense.n, k=dense.k, accept=accept,
+        budget_s=None if reference else STAGE_CG_BUDGET_S,
+        seconds=secs, finished=dist is not None,
+        fell_back=any("falling back to stage CG" in ln for ln in slog.lines),
+        stages_completed=stages_done, decomp_rounds=int(c.get("decomp_rounds", 0)),
+        stage_lp_pdhg=int(c.get("stage_lp_pdhg", 0)), stage_lp_host=int(c.get("stage_lp_host", 0)),
+        pricing_iters=sum(1 for ln in slog.lines if ln.lstrip().startswith("stage ") and " iter " in ln),
+        pdhg_solves=pdhg_log,
+        timers={k: tm.get(k, 0.0) for k in (
+            "decomp", "relaxation", "stage_lp", "stochastic_pricing", "exact_oracle", "typespace_cg",
+        )},
+    )
+    ok = rec["fell_back"] and stages_done >= 1
+    if dist is not None:
+        rec["contract_ok"] = bool(dist.contract_ok)
+        rec["linf"] = float(np.max(np.abs(dist.allocation - dist.fixed_probabilities)))
+        ok = ok and dist.contract_ok
+    if reference:
+        cd, cs = featurize(inst, device="cpu")
+        clog = RunLog(echo=False)
+        ref = find_distribution_leximin(cd, cs, cfg=cfg, log=clog, device="cpu")
+        gap = (float(np.max(np.abs(dist.fixed_probabilities - ref.fixed_probabilities)))
+               if dist is not None else None)
+        rec.update(cpu_stages=stages(clog), cpu_contract_ok=bool(ref.contract_ok), fixed_gap=gap,
+                   fixed_tol=STAGE_CG_FIXED_TOL)
+        ok = (
+            ok and dist is not None and rec["pricing_iters"] >= 1
+            and rec["timers"]["stochastic_pricing"] > 0 and rec["timers"]["exact_oracle"] > 0
+            and stages_done == rec["cpu_stages"] and ref.contract_ok and gap <= STAGE_CG_FIXED_TOL
+        )
+    rec["ok"] = bool(ok)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1125,16 +1679,25 @@ def main() -> int:
     barrier_phase(b1, 5)
     b3, clean = solve_phase(pack, MT, [1536, 3072, 6144], "two_sided_b3_prefix")
     bnan, _ = solve_phase(pack, MT, [1536, 3072, 6144], "two_sided_b3_nan", nan_lane=1, clean=clean)
+    screen = polish_screen_phase(MT)
     lp = lp_phase(dual_ops, dual_lp_operands(m1=512))
     barrier_phase(lp, 5, "grid_barrier_lp")
     lp_sf_b = lp_sf_b_phase(dual_lp_operands(m1=1024, pool=sf_b_skewed_instance(seed=1)))
+
+    red = flagship_reduction()
+    device_pricing_phase(red)
+    fused_screen_phase(red, pack, MT)
 
     slice_cfg = default_config().replace(
         decomp_device_pricing=False, lp_batch=False, mixed_precision=False
     )
     reference_phase(slice_cfg)
 
-    e2e, launches = flagship_phase(sf_e_skewed_instance(seed=1), slice_cfg, libs)
+    e2e, _ = flagship_phase(sf_e_skewed_instance(seed=1), slice_cfg, libs)
+    # the main path: the flagship at the package's defaults
+    defaults_cfg = default_config().replace(mixed_precision=False)
+    e2e_defaults, launches = defaults_flagship_phase(sf_e_skewed_instance(seed=1), defaults_cfg, libs)
+    mass = mass_like_phase(defaults_cfg)
 
     legacy = legacy_phase(sf_e_skewed_instance(seed=1))
     agent = agent_space_phase(
@@ -1142,6 +1705,13 @@ def main() -> int:
     )
     launches["lp_block"] = agent["launches"]["lp_block"]
     agent_sf_b = agent_space_budget_phase(sf_b_skewed_instance(seed=1), slice_cfg, "agent_space_sf_b")
+    dense_graph = dense_graph_phase(sf_b_skewed_instance(seed=1))
+    stage_cg = stage_cg_phase(sf_b_skewed_instance(seed=1), defaults_cfg, "stage_cg_sf_b",
+                              STAGE_CG_ACCEPT, rounds=STAGE_CG_ROUNDS)
+    stage_cg_pricing = stage_cg_phase(
+        skewed_instance(n=80, k=8, n_categories=3, seed=3), defaults_cfg, "stage_cg_pricing_skewed_80",
+        STAGE_CG_PRICING_ACCEPT, reference=True,
+    )
 
     def summary(name, rec, phase_recs):
         return dict(
@@ -1154,15 +1724,22 @@ def main() -> int:
 
     kernels = [
         summary("ell_gather", gather, [gather, gather_dual]),
-        summary("two_sided_block", b1, [b1, b3, bnan]),
+        summary("two_sided_block", b1, [b1, b3, bnan, screen]),
         summary("lp_block", lp, [lp, lp_sf_b]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     print(card, flush=True)
-    failed = [r["phase"] for r in (e2e, legacy, agent, agent_sf_b) if not r["ok"]]
+    failed = [
+        r for r in (e2e, e2e_defaults, mass, legacy, agent, agent_sf_b, dense_graph, stage_cg,
+                    stage_cg_pricing)
+        if not r["ok"]
+    ]
     if failed:
-        log(f"chip_smoke: these paths failed their checks: {failed}")
+        # the records again on stderr, whose end is what a caller sees
+        for r in failed:
+            log(json.dumps(r))
+        log(f"chip_smoke: these paths failed their checks: {[r['phase'] for r in failed]}")
         return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

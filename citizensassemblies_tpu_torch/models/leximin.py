@@ -104,7 +104,10 @@ def _typespace_leximin(
             f"{len(comps)} feasible compositions."
         )
         with log.timer("typespace_lp"):
-            ts = leximin_over_compositions(comps, reduction.msize, probe_tol=cfg.probe_tol, log=log)
+            # cfg and the device carry the batched probe prescreen
+            ts = leximin_over_compositions(
+                comps, reduction.msize, probe_tol=cfg.probe_tol, log=log, cfg=cfg, device=device,
+            )
     else:
         from citizensassemblies_tpu_torch.solvers.cg_typespace import leximin_cg_typespace
 

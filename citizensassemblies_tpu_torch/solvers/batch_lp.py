@@ -1,0 +1,402 @@
+"""Batched, shape-bucketed LP engine: many small independent solves at once.
+
+The face loop's end-game polish attempts and the enumerated path's
+per-candidate probe LPs are many small independent LPs. This engine takes N
+instances of ``min cᵀx s.t. Gx ≤ h, Ax = b, x ≥ 0``, pads them into
+power-of-two shape buckets ``(rows_G, rows_A, cols)`` and solves each
+padded instance with the serial dense chained PDHG (``lp_pdhg._pdhg_body``):
+
+* **shape buckets** — dims round up to a power of two below
+  ``Config.lp_batch_bucket_max`` and to a multiple of it above;
+* **padding is inert** — padded rows and columns are all-zero with zero
+  objective and offsets (0 ≤ 0 constraints, variables with zero gradient);
+* **one solve per lane** — each lane runs alone until it converges, so it
+  takes the iterations the serial ``lp_pdhg.solve_lp`` takes on the same
+  padded instance, bit for bit, and a lane that has converged costs
+  nothing while its bucket-mates run on (the JAX package vmaps the same
+  core and freezes converged lanes);
+* **warm-start slots keyed per caller** — ``warm_key`` stores each
+  instance's (x, λ, μ) at its real size and re-pads it into whatever bucket
+  the next call lands in, trailing structural variables (an ε slot) kept at
+  the end.
+
+The polish screen (:func:`solve_polish_screen_ell`) is the engine's sparse
+variant: nested support prefixes of one ELL pack as lanes of one two-sided
+solve (``kernels/pdhg_megakernel.dispatch_two_sided``, the hand-written
+block kernel on the card), the lanes differing only in their column masks.
+Only the real lanes launch (the JAX package pads the batch to a power of
+two with inert lanes; lanes are independent, so the results are the same).
+
+The engine is a wall-clock mechanism only: callers keep their own
+acceptance checks (float64 residuals, host confirms), and with
+``Config.lp_batch`` off every call site runs its serial path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from citizensassemblies_tpu_torch.utils import device as _device
+from citizensassemblies_tpu_torch.utils.config import Config, default_config
+from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass
+class BatchLP:
+    """One instance of ``min cᵀx s.t. Gx ≤ h, Ax = b, x ≥ 0``.
+
+    ``tol`` overrides the engine-level tolerance per instance. ``tail_vars``
+    marks how many trailing variables are structural (the ε slot of an
+    ε-LP): a warm-slot re-pad keeps them at the end of the variable vector.
+    ``warm`` supplies an explicit (x, λ_G, μ_A) warm start at the instance's
+    real sizes; when absent and ``warm_key`` is given, the engine's slot for
+    (key, position) is used.
+    """
+
+    c: np.ndarray
+    G: np.ndarray
+    h: np.ndarray
+    A: np.ndarray
+    b: np.ndarray
+    tol: Optional[float] = None
+    tail_vars: int = 0
+    warm: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
+
+
+#: smallest padded dimension
+_BUCKET_FLOOR = 8
+
+
+def _bucket_dim(size: int, cap: int) -> int:
+    """Power-of-two bucket below ``cap``, multiple-of-``cap`` above it."""
+    size = max(int(size), 1)
+    if size >= cap:
+        return -(-size // cap) * cap
+    b = _BUCKET_FLOOR
+    while b < size:
+        b *= 2
+    return min(b, cap)
+
+
+def lp_batch_enabled(cfg: Optional[Config], device) -> bool:
+    """Resolve ``Config.lp_batch``: forced on/off, or (``None``) on when
+    ``device`` takes the accelerator routes (``utils.device.on_accelerator``)."""
+    cfg = cfg or default_config()
+    if cfg.lp_batch is not None:
+        return bool(cfg.lp_batch)
+    return _device.on_accelerator(device)
+
+
+#: warm-start slots: (warm_key, position) → (x, λ, μ, tail_vars) at the
+#: instance's real sizes (host float64, so slots survive bucket changes)
+_WARM_SLOTS: Dict[Tuple[str, int], Tuple[np.ndarray, np.ndarray, np.ndarray, int]] = {}
+
+
+def _bucket_key(insts: Sequence[BatchLP], cap: int) -> Tuple[int, int, int]:
+    m1 = max(i.G.shape[0] for i in insts)
+    m2 = max(i.A.shape[0] for i in insts)
+    nv = max(i.c.shape[0] for i in insts)
+    return (_bucket_dim(m1, cap), _bucket_dim(m2, cap), _bucket_dim(nv, cap))
+
+
+def _repad_warm(
+    warm: Tuple[np.ndarray, np.ndarray, np.ndarray],
+    tail_vars: int,
+    nv: int,
+    m1: int,
+    m2: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Re-pad a real-sized warm triple into (nv, m1, m2) slots, keeping the
+    last ``tail_vars`` variables at the END of the variable vector (an ε
+    slot must survive a column growth at its structural position)."""
+    x_w, lam_w, mu_w = (np.asarray(a, dtype=np.float64).ravel() for a in warm)
+    x = np.zeros(nv)
+    tv = min(int(tail_vars), len(x_w), nv)
+    head_old = len(x_w) - tv
+    head = min(head_old, nv - tv)
+    x[:head] = x_w[:head]
+    if tv:
+        x[nv - tv :] = x_w[head_old:]
+    lam = np.zeros(m1)
+    lam[: min(m1, len(lam_w))] = lam_w[:m1]
+    mu = np.zeros(m2)
+    mu[: min(m2, len(mu_w))] = mu_w[:m2]
+    return x, lam, mu
+
+
+def clear_warm_slots(warm_key: Optional[str] = None) -> None:
+    """Drop the engine's warm-start slots (all of them, or one caller's)."""
+    if warm_key is None:
+        _WARM_SLOTS.clear()
+        return
+    for k in [k for k in _WARM_SLOTS if k[0] == warm_key]:
+        del _WARM_SLOTS[k]
+
+
+def _book(lanes: int, log) -> None:
+    if log is not None:
+        log.count("lp_batch_dispatches")
+        log.count("lp_batch_solves", lanes)
+
+
+def _readback(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """Device outputs to float64 host arrays of the same shapes, in one copy."""
+    flat = [t.reshape(-1).to(torch.float32) for t in tensors]
+    host = torch.cat(flat).cpu().numpy().astype(np.float64)
+    out, o = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.shape[0]
+        out.append(host[o : o + n].reshape(tuple(t.shape)))
+        o += n
+    return out
+
+
+def solve_lp_batch(
+    problems: Sequence[BatchLP],
+    cfg: Optional[Config] = None,
+    log=None,
+    warm_key: Optional[str] = None,
+    tol: Optional[float] = None,
+    max_iters: Optional[int] = None,
+    common_bucket: bool = False,
+    device: DeviceLike = None,
+):
+    """Solve N independent LPs, each padded into its shape bucket, on ``device``.
+
+    Instances are grouped into shape buckets (one dispatch per bucket) and
+    each padded instance is solved by the dense chained PDHG. Returns a list
+    of :class:`~citizensassemblies_tpu_torch.solvers.lp_pdhg.LPSolution` in
+    input order, each sliced back to its instance's real sizes. A lane the
+    sentinel quarantined is re-solved on the float64 host path.
+    ``warm_key`` engages the warm-start slots. ``common_bucket`` pads every
+    instance into one shared bucket (the max of each dim).
+
+    Counters on ``log``: ``lp_batch_dispatches`` (buckets),
+    ``lp_batch_solves`` (instances), ``lp_batch_warm_hits``.
+    """
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import (
+        FLAG_POISONED,
+        LPSolution,
+        _host_resolve_lp,
+        _pdhg_body,
+        sentinels_enabled,
+    )
+
+    cfg = cfg or default_config()
+    if not problems:
+        return []
+    dev = resolve_device(device)
+    cap = max(int(cfg.lp_batch_bucket_max), _BUCKET_FLOOR)
+    base_tol = float(tol if tol is not None else cfg.pdhg_tol)
+    kw = dict(
+        max_iters=int(max_iters if max_iters is not None else cfg.pdhg_max_iters),
+        check_every=int(cfg.pdhg_check_every), sentinel=sentinels_enabled(cfg),
+    )
+
+    # group instance positions by bucket (insertion-ordered, deterministic)
+    groups: Dict[Tuple[int, int, int], List[int]] = {}
+    if common_bucket:
+        groups[_bucket_key(problems, cap)] = list(range(len(problems)))
+    else:
+        for i, inst in enumerate(problems):
+            groups.setdefault(_bucket_key([inst], cap), []).append(i)
+
+    out: List[Optional[LPSolution]] = [None] * len(problems)
+    t32 = dict(dtype=torch.float32, device=dev)
+    for (m1, m2, nv), idxs in groups.items():
+        _book(len(idxs), log)
+        for i in idxs:
+            inst = problems[i]
+            nvi, m1i, m2i = inst.c.shape[0], inst.G.shape[0], inst.A.shape[0]
+            c = np.zeros(nv, np.float32)
+            G = np.zeros((m1, nv), np.float32)
+            h = np.zeros(m1, np.float32)
+            A = np.zeros((m2, nv), np.float32)
+            b = np.zeros(m2, np.float32)
+            c[:nvi], G[:m1i, :nvi], h[:m1i] = inst.c, inst.G, inst.h
+            A[:m2i, :nvi], b[:m2i] = inst.A, inst.b
+            x0, lam0, mu0 = np.zeros(nv, np.float32), np.zeros(m1, np.float32), np.zeros(m2, np.float32)
+            warm = inst.warm
+            if warm is None and warm_key is not None:
+                slot = _WARM_SLOTS.get((warm_key, i))
+                if slot is not None:
+                    warm = slot[:3]
+                    if log is not None:
+                        log.count("lp_batch_warm_hits")
+            if warm is not None:
+                # re-pad at the instance's REAL sizes: the bucket padding
+                # beyond them is all-zero columns the iterate never touches
+                x0[:nvi], lam0[:m1i], mu0[:m2i] = _repad_warm(warm, inst.tail_vars, nvi, m1i, m2i)
+            tol_i = float(inst.tol if inst.tol is not None else base_tol)
+            x, lam, mu, it, res, flags = _pdhg_body(
+                *(torch.as_tensor(a, **t32) for a in (c, G, h, A, b, x0, lam0, mu0)), tol_i, **kw
+            )
+            poisoned = bool(flags & FLAG_POISONED)
+            if poisoned:
+                # per-lane quarantine: re-solve THIS instance on the float64
+                # host path and do not write its warm slot
+                if log is not None:
+                    log.count("sentinel_quarantined")
+                host = _host_resolve_lp(inst.c, inst.G, inst.h, inst.A, inst.b)
+                if host is not None:
+                    if log is not None:
+                        log.count("sentinel_host_resolve")
+                    out[i] = host
+                    continue
+            x, lam, mu = _readback(x, lam, mu)
+            xi, li, mi = x[:nvi], lam[:m1i], mu[:m2i]
+            out[i] = LPSolution(
+                ok=bool(res <= tol_i * 4.0) and not poisoned,
+                x=xi,
+                lam=li,
+                mu=mi,
+                objective=float(np.asarray(inst.c, dtype=np.float64) @ xi),
+                iters=int(it),
+                kkt=float(res),
+            )
+            if warm_key is not None and not poisoned:
+                _WARM_SLOTS[(warm_key, i)] = (xi, li, mi, int(inst.tail_vars))
+    return out
+
+
+def solve_polish_screen_ell(
+    ell,
+    v: np.ndarray,
+    caps: Sequence[int],
+    warms: Sequence[Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]],
+    tol: float,
+    max_iters: int,
+    cfg: Optional[Config] = None,
+    log=None,
+    device: DeviceLike = None,
+):
+    """Solve nested polish-face prefixes as lanes of ONE two-sided solve.
+
+    ``ell`` packs the support columns
+    (:class:`~citizensassemblies_tpu_torch.solvers.sparse_ops.EllPack`,
+    minor = the T types), padded to ``_bucket_dim`` columns; ``caps`` are the
+    prefix column counts (one lane each, as per-lane column masks over the
+    shared pack); ``warms`` gives each lane's (x, λ, μ) warm triple at its
+    real size, or None. The route is ``Config.pdhg_megakernel``'s for
+    ``len(caps)`` lanes: the block kernel on the card (its plain version on
+    CPU tensors with the gate forced), else the chained ELL ops. Returns a
+    list of :class:`~citizensassemblies_tpu_torch.solvers.lp_pdhg.LPSolution`
+    in cap order, ``x = [p (Cp), ε]`` as the serial ELL master's.
+    """
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import (
+        FLAG_POISONED,
+        LPSolution,
+        _pdhg_two_sided_body_ell,
+        sentinels_enabled,
+    )
+
+    cfg = cfg or default_config()
+    dev = resolve_device(device)
+    T = int(ell.minor)
+    cap_dim = max(int(cfg.lp_batch_bucket_max), _BUCKET_FLOOR)
+    Cp = _bucket_dim(len(ell), cap_dim)
+    idx_p, val_p = ell.padded(Cp)
+    B = len(caps)
+    f32 = np.float32
+    colmask = np.zeros((B, Cp), f32)
+    x0 = np.zeros((B, Cp + 1), f32)
+    lam0 = np.zeros((B, 2 * T), f32)
+    mu0 = np.zeros(B, f32)
+    for lane, c_ in enumerate(caps):
+        colmask[lane, : int(c_)] = 1.0
+        warm = warms[lane] if lane < len(warms) else None
+        if warm is not None:
+            x_w, l_w, m_w = warm
+            m = min(int(c_), len(x_w) - 1)
+            x0[lane, :m] = x_w[:m]
+            x0[lane, Cp] = max(float(x_w[-1]), 0.0)
+            lam0[lane, : min(2 * T, len(l_w))] = l_w[: 2 * T]
+            mu0[lane] = float(m_w[0] if np.ndim(m_w) else m_w)
+    sent = sentinels_enabled(cfg)
+    kw = dict(max_iters=int(max_iters), check_every=int(cfg.pdhg_check_every), sentinel=sent)
+    fused = mk.megakernel_mode(cfg, T, Cp, dev, log=log, lanes=B) != "off"
+    if not fused:
+        csr = mk.csr_to_device(idx_p, val_p, T, dev)
+    t32 = dict(dtype=torch.float32, device=dev)
+    lanes = (
+        torch.as_tensor(np.asarray(v, f32), **t32), torch.as_tensor(colmask, **t32),
+        torch.as_tensor(x0, **t32), torch.as_tensor(lam0, **t32),
+        torch.as_tensor(mu0, **t32), torch.full((B,), float(tol), **t32),
+    )
+    if fused:
+        core_out = mk.dispatch_two_sided(idx_p, val_p, *lanes, log=log, **kw)
+    else:
+        core_out = _pdhg_two_sided_body_ell(
+            torch.as_tensor(idx_p, dtype=torch.int32, device=dev),
+            torch.as_tensor(val_p, **t32), *lanes, csr, **kw,
+        )
+    x, lam, mu, it, res, flags = _readback(*core_out)
+    _book(B, log)
+    out = []
+    for lane in range(B):
+        res_l = float(res[lane])
+        poisoned = bool(int(flags[lane]) & FLAG_POISONED)
+        if poisoned and log is not None:
+            # the screen is advisory: a quarantined prefix lane is not a
+            # candidate (its frozen iterate fails the caller's own float64
+            # accept check), and the deep polish covers the miss
+            log.count("sentinel_quarantined")
+        out.append(
+            LPSolution(
+                ok=bool(res_l <= float(tol) * 4.0) and not poisoned,
+                x=x[lane],
+                lam=lam[lane],
+                mu=np.atleast_1d(mu[lane]),
+                objective=float(x[lane][Cp]),
+                iters=int(it[lane]),
+                kkt=res_l,
+            )
+        )
+    return out
+
+
+def two_sided_master_batch_lp(
+    MT: np.ndarray, v: np.ndarray, tol: Optional[float] = None
+) -> BatchLP:
+    """Pack one two-sided ε master ``min ε s.t. v − ε ≤ MT p ≤ v + ε,
+    Σp = 1, p ≥ 0, ε ≥ 0`` into the engine's generic form (variables
+    ``[p (C), ε]``, ``tail_vars=1`` so warm slots survive column growth).
+    Row order matches ``solve_two_sided_master``: ``lam = [λ_lo (T),
+    λ_up (T)]``, so pricing duals are ``lam[:T] − lam[T:]``."""
+    T, C = MT.shape
+    G = np.zeros((2 * T, C + 1))
+    G[:T, :C] = -MT
+    G[T:, :C] = MT
+    G[:, C] = -1.0
+    h = np.concatenate([-np.asarray(v, dtype=np.float64), np.asarray(v, dtype=np.float64)])
+    A = np.zeros((1, C + 1))
+    A[0, :C] = 1.0
+    b = np.ones(1)
+    c = np.zeros(C + 1)
+    c[C] = 1.0
+    return BatchLP(c=c, G=G, h=h, A=A, b=b, tol=tol, tail_vars=1)
+
+
+def face_probe_batch_lp(
+    objective: np.ndarray,
+    A_face: np.ndarray,
+    b_face: np.ndarray,
+    tol: Optional[float] = None,
+) -> BatchLP:
+    """Pack one optimal-face probe ``max objective·x s.t. A_face x ≤ b_face,
+    Σx = 1, x ≥ 0`` (the certification probe of ``compositions.py``) into
+    the engine's MIN form (negated objective)."""
+    C = objective.shape[0]
+    return BatchLP(
+        c=-np.asarray(objective, dtype=np.float64),
+        G=np.asarray(A_face, dtype=np.float64),
+        h=np.asarray(b_face, dtype=np.float64),
+        A=np.ones((1, C)),
+        b=np.ones(1),
+        tol=tol,
+    )

@@ -8,9 +8,11 @@ stages of millisecond host LPs), seeds aimed integer compositions around the
 target with the native slicer, certifies coverage with forced-inclusion
 MILPs, and realizes the profile as one mixture of compositions with the
 face decomposition (``solvers/face_decompose.py``), whose masters run on
-the device. The stage-wise column-generation fallback after a stalled face
-loop is ROADMAP queue A item "stage-CG fallback" and raises
-NotImplementedError here.
+the device. When the face loop stalls above the acceptance band, phase 2
+falls back to certified stage-wise column generation over compositions:
+per stage the stage LP (by PDHG on the device, re-solved on the host before
+any irreversible fixing), stochastic pricing with the LEGACY sampler and one
+exact pricing MILP per iteration, and tranche fixing by marginal probes.
 """
 
 from __future__ import annotations
@@ -95,6 +97,55 @@ class CompositionOracle:
             return None
         comp = np.round(res.x).astype(np.int32)
         return comp, float(-res.fun)
+
+
+def _relaxation_bound(
+    reduction: TypeReduction, fixed: np.ndarray
+) -> Tuple[float, np.ndarray]:
+    """Stage upper bound from the LP relaxation over expected type counts.
+
+    ``max z`` over fractional ``x ∈ [0, m]`` with ``Σx = k``, feature quota
+    rows, ``x_t ≥ z·m_t`` (unfixed) and ``x_t ≥ f_t·m_t`` (fixed). Any
+    distribution over feasible compositions has its expectation in this
+    polytope, so no stage can exceed ``z_UB``; when the master LP reaches it,
+    the stage is certified optimal without an exact pricing call. The
+    optimizer ``x*`` is a vertex with at most #rows fractional coordinates —
+    its randomized roundings are injected as master columns so the portfolio
+    spans near-optimal mixtures immediately instead of discovering them one
+    pricing round at a time.
+    """
+    T, F = reduction.T, reduction.F
+    tf = np.zeros((T, F))
+    for t in range(T):
+        tf[t, reduction.type_feature[t]] = 1.0
+    m = reduction.msize.astype(np.float64)
+    unfixed = fixed < 0
+    # variables [x (T), z]
+    c = np.zeros(T + 1)
+    c[T] = -1.0
+    rows = []
+    b = []
+    # quota rows: lo ≤ tfᵀ x ≤ hi  →  two inequality blocks
+    rows.append(np.concatenate([-tf.T, np.zeros((F, 1))], axis=1))
+    b.append(-reduction.qmin.astype(np.float64))
+    rows.append(np.concatenate([tf.T, np.zeros((F, 1))], axis=1))
+    b.append(reduction.qmax.astype(np.float64))
+    # floor rows: z·m_t − x_t ≤ 0 (unfixed), f_t·m_t − x_t ≤ 0 (fixed)
+    floor = np.zeros((T, T + 1))
+    floor[np.arange(T), np.arange(T)] = -1.0
+    floor[unfixed, T] = m[unfixed]
+    rows.append(floor)
+    b.append(np.where(unfixed, 0.0, -(np.maximum(fixed, 0.0) * m - _SLACK)))
+    A_ub = np.concatenate(rows, axis=0)
+    b_ub = np.concatenate(b)
+    A_eq = np.concatenate([np.ones(T), [0.0]])[None, :]
+    res = robust_linprog(
+        c, A_ub=A_ub, b_ub=b_ub, A_eq=A_eq, b_eq=[float(reduction.k)],
+        bounds=[(0, mm) for mm in m] + [(0, None)],
+    )
+    if res.status != 0:
+        return float("inf"), np.zeros(T)
+    return float(res.x[T]), res.x[:T]
 
 
 def _round_relaxation(
@@ -696,6 +747,53 @@ class TypeCGResult:
     eps_dev: float = 0.0  # accepted downward deviation of the distribution
 
 
+def _stage_lp(
+    MT: np.ndarray,
+    fixed: np.ndarray,
+) -> Tuple[float, np.ndarray, float, np.ndarray]:
+    """Maximize the minimum unfixed type value over the portfolio.
+
+    Returns ``(z*, y, mu, p)`` where ``y ≥ 0`` are per-unfixed-type duals
+    (Σy = 1), ``mu`` the normalization dual — a candidate composition ``c``
+    improves the stage iff ``Σ_t ŷ_t c_t/m_t > −mu`` with ``ŷ`` the full dual
+    vector (fixed types included).
+    """
+    T, C = MT.shape
+    unfixed = np.nonzero(fixed < 0)[0]
+    done = np.nonzero(fixed >= 0)[0]
+    nu, nd = len(unfixed), len(done)
+    A_ub = np.zeros((nu + nd, C + 1))
+    A_ub[:nu, :C] = -MT[unfixed]
+    A_ub[:nu, C] = 1.0
+    b_ub = np.zeros(nu + nd)
+    if nd:
+        A_ub[nu:, :C] = -MT[done]
+        b_ub[nu:] = -(fixed[done] - _SLACK)
+    A_eq = np.ones((1, C + 1))
+    A_eq[0, C] = 0.0
+    c_obj = np.zeros(C + 1)
+    c_obj[C] = -1.0
+    # interior point, sparse: the master is maximally degenerate (hundreds of
+    # near-active rows), where simplex crawls — the same reason the reference
+    # forces Gurobi's barrier (leximin.py:325-327); interior duals also fix
+    # larger tranches via strict complementarity
+    A_ub_s = scipy.sparse.csr_matrix(A_ub)
+    A_eq_s = scipy.sparse.csr_matrix(A_eq)
+    res = robust_linprog(
+        c_obj, A_ub=A_ub_s, b_ub=b_ub, A_eq=A_eq_s, b_eq=[1.0],
+        bounds=[(0, None)] * C + [(None, None)], methods=("highs-ipm", "highs"),
+    )
+    if res.status != 0:
+        raise RuntimeError(f"type-space stage LP failed: {res.message}")
+    marg = -np.asarray(res.ineqlin.marginals)  # ≥ 0
+    y_full = np.zeros(T)
+    y_full[unfixed] = marg[:nu]
+    if nd:
+        y_full[done] = marg[nu:]
+    mu = float(res.eqlin.marginals[0])
+    return float(res.x[C]), y_full, mu, np.maximum(res.x[:C], 0.0)
+
+
 def leximin_cg_typespace(
     dense,
     reduction: TypeReduction,
@@ -867,30 +965,271 @@ def leximin_cg_typespace(
             cfg=cfg,
             device=device,
         )
-    if eps_dev > max(cfg.decomp_accept, cfg.decomp_accept_stalled):
+    if eps_dev <= max(cfg.decomp_accept, cfg.decomp_accept_stalled):
+        # the face loop targets decomp_accept; a stalled residual inside the
+        # graded band is still accepted — the panel stage's tolerance is
+        # coupled to eps_dev so the end-to-end contract holds
+        # (models/leximin.py)
+        band = " (stalled-band)" if eps_dev > cfg.decomp_accept else ""
         log.emit(
-            f"Face decomposition stalled at ε = {eps_dev:.2e} "
-            f"(integrality residual)."
+            f"Decomposition: profile realized, ε = {eps_dev:.2e} "
+            f"(two-sided){band}, portfolio {len(C_sup)}."
         )
-        raise NotImplementedError(
-            "the stage-CG fallback after a stalled face loop needs ROADMAP "
-            "queue A item 'stage-CG fallback'"
+        return TypeCGResult(
+            compositions=np.asarray(C_sup, dtype=np.int32),
+            probabilities=probs / probs.sum(),
+            type_values=v_relax,
+            coverable=coverable,
+            stages=0,
+            lp_solves=lp_solves,
+            exact_prices=0,
+            eps_dev=eps_dev,
         )
-    # the face loop targets decomp_accept; a stalled residual inside the
-    # graded band is still accepted — the panel stage's tolerance is coupled
-    # to eps_dev so the end-to-end contract holds (models/leximin.py)
-    band = " (stalled-band)" if eps_dev > cfg.decomp_accept else ""
     log.emit(
-        f"Decomposition: profile realized, ε = {eps_dev:.2e} "
-        f"(two-sided){band}, portfolio {len(C_sup)}."
+        f"Face decomposition stalled at ε = {eps_dev:.2e} "
+        f"(integrality residual); falling back to stage CG."
     )
+    # carry the certified support into the stage-CG portfolio
+    for c in C_sup:
+        add_comp(c)
+    return _stage_cg(
+        dense, reduction, cfg, log, oracle, comps, seen, add_comp, coverable, lp_solves, device,
+    )
+
+
+def _stage_cg(
+    dense, reduction: TypeReduction, cfg: Config, log: RunLog, oracle, comps, seen, add_comp,
+    coverable: np.ndarray, lp_solves: int, device,
+) -> TypeCGResult:
+    """Phase 2, the fallback after a stalled face loop: certified stage-wise
+    column generation over compositions. Each stage maximizes the least
+    unfixed type value over the portfolio (``lp_pdhg.solve_stage_lp_pdhg``
+    on ``device`` when the backend routes there; the host IPM re-solves
+    before any tranche is fixed), prices new compositions with the LEGACY
+    sampler steered by the stage duals (a ``torch.Generator`` seeded with
+    ``cfg.solver_seed``) and one exact MILP every iteration, and fixes a
+    tranche by marginal probes once no composition beats the cap (or the
+    stage reaches its relaxation bound)."""
+    import torch
+
+    from citizensassemblies_tpu_torch.models.legacy import sample_panels_batch
+    from citizensassemblies_tpu_torch.solvers.pricing import _pricing_scores
+    from citizensassemblies_tpu_torch.utils import device as _device
+
+    T = reduction.T
+    msize = reduction.msize.astype(np.float64)
+    type_id = reduction.type_id
+    fixed = np.full(T, -1.0)
+    fixed[~coverable] = 0.0
+    stages = 0
+    exact_prices = 0
+    # device PDHG for the recurring stage LP on the accelerator (or forced
+    # by backend="jax"); host HiGHS otherwise and as the fallback
+    use_pdhg = cfg.backend == "jax" or (
+        cfg.backend == "hybrid" and _device.on_accelerator(device)
+    )
+    generator = torch.Generator(device=dense.device).manual_seed(int(cfg.solver_seed))
+    rng = np.random.default_rng(cfg.solver_seed)
+
+    def panels_to_comps(panels: np.ndarray) -> np.ndarray:
+        tids = type_id[panels]  # [B, k]
+        B = panels.shape[0]
+        out = np.zeros((B, T), dtype=np.int32)
+        rows = np.repeat(np.arange(B), panels.shape[1])
+        np.add.at(out, (rows, tids.ravel()), 1)
+        return out
+
+    def prune_columns(p_now: np.ndarray, keep_last: int = 4000) -> bool:
+        """Column management: keep the LP support plus the freshest columns,
+        only as a memory backstop (the threshold sits well above the
+        portfolio a normal stage loop reaches). Returns True when columns
+        were dropped (the caller must then discard any PDHG warm start)."""
+        if len(comps) <= 12000:
+            return False
+        keep = set(np.nonzero(p_now > 1e-12)[0].tolist())
+        keep.update(range(max(0, len(comps) - keep_last), len(comps)))
+        kept = [comps[i] for i in sorted(keep)]
+        comps.clear()
+        seen.clear()
+        for c in kept:
+            add_comp(c)
+        return True
+
+    def fix_tranche(z: float, y: np.ndarray) -> int:
+        """Fix a tranche at value ``z`` from authoritative stage duals:
+        probe-certify the dual-proposed candidates on the marginal face
+        (:func:`_marginal_probe_confirm`), keeping the reference's dual
+        heuristic only as the progress guard. Mutates ``fixed``; returns
+        the tranche size."""
+        nonlocal fixed
+        unfixed_idx = np.nonzero(fixed < 0)[0]
+        cand = unfixed_idx[y[unfixed_idx] > cfg.eps]
+        if len(cand) == 0:
+            cand = unfixed_idx[[int(np.argmax(y[unfixed_idx]))]]
+        conf = _marginal_probe_confirm(reduction, fixed, z, cand, cfg.probe_tol, log=log)
+        newly = np.zeros(T, dtype=bool)
+        newly[cand[conf]] = True
+        if not newly.any():
+            # nothing marginal-certifiable: the reference dual heuristic
+            newly[unfixed_idx[np.argmax(y[unfixed_idx])]] = True
+        fixed = np.where(newly, max(0.0, z - _FIX_MARGIN), fixed)
+        return int(newly.sum())
+
+    pdhg_warm = None
+    while (fixed < 0).any():
+        stages += 1
+        # stage upper bound + targeted columns from the marginal LP relaxation
+        with log.timer("relaxation"):
+            z_ub, x_star = _relaxation_bound(reduction, fixed)
+            injected = 0
+            for c in _slice_relaxation(x_star, reduction, R=384):
+                injected += add_comp(c)
+            for c in _round_relaxation(x_star, reduction, rng):
+                injected += add_comp(c)
+        log.emit(
+            f"Stage {stages}: relaxation bound {z_ub:.6f}, injected {injected} "
+            f"aimed columns (portfolio {len(comps)})."
+        )
+        while True:
+            M = np.stack(comps, axis=0).astype(np.float64) / msize[None, :]
+            MT = np.ascontiguousarray(M.T)
+            with log.timer("stage_lp"):
+                # loose-tolerance device PDHG guides pricing; any fixing
+                # decision below re-solves on the host IPM first
+                authoritative = not use_pdhg
+                if use_pdhg:
+                    from citizensassemblies_tpu_torch.solvers.lp_pdhg import solve_stage_lp_pdhg
+
+                    z, y, mu, probs, ok, pdhg_warm = solve_stage_lp_pdhg(
+                        MT, fixed, cfg=cfg, warm=pdhg_warm, device=device, log=log
+                    )
+                    log.count("stage_lp_pdhg")
+                    if not ok:
+                        z, y, mu, probs = _stage_lp(MT, fixed)
+                        log.count("stage_lp_host")
+                        pdhg_warm = None
+                        authoritative = True
+                else:
+                    z, y, mu, probs = _stage_lp(MT, fixed)
+                    log.count("stage_lp_host")
+            lp_solves += 1
+            if prune_columns(probs):
+                pdhg_warm = None
+            bound_tol = max(1e-7, 10 * _SLACK)
+            if z >= z_ub - bound_tol:
+                if not authoritative:
+                    # the PDHG estimate may overshoot the bound: re-check
+                    # with the authoritative solve
+                    with log.timer("stage_lp"):
+                        z, y, mu, probs = _stage_lp(MT, fixed)
+                    log.count("stage_lp_host")
+                    lp_solves += 1
+                    authoritative = True
+                if z >= z_ub - bound_tol:
+                    # the master reached the relaxation bound: certified
+                    # stage optimum, no exact pricing needed
+                    count = fix_tranche(z, y)
+                    log.emit(
+                        f"Stage {stages}: z={z:.6f} meets relaxation bound — fixed "
+                        f"{count} type(s) ({int((fixed >= 0).sum())}/{T} done)."
+                    )
+                    break
+            w_type = y / msize  # pricing weights per type
+            # stochastic pricing: weight-steered batched panel draw
+            with log.timer("stochastic_pricing"):
+                w_agents = torch.as_tensor(w_type[type_id], dtype=torch.float32, device=dense.device)
+                scores = _pricing_scores(w_agents, cfg.pricing_batch)
+                panels, ok_t = sample_panels_batch(dense, generator, cfg.pricing_batch, scores=scores)
+                panels_np = panels.cpu().numpy()
+                cand = panels_to_comps(panels_np[ok_t.cpu().numpy()])
+            values = cand.astype(np.float64) @ w_type
+            order = np.argsort(-values)
+            added = 0
+            for i in order:
+                if values[i] <= -mu + cfg.eps:
+                    break
+                if add_comp(cand[i]):
+                    added += 1
+                    if added >= cfg.cg_columns_typespace:
+                        break
+            # exact pricing every iteration (the reference's loop shape): its
+            # column is the single most violated constraint
+            with log.timer("exact_oracle"):
+                got = oracle.maximize(w_type)
+            exact_prices += 1
+            if got is None:
+                raise RuntimeError("the stage-CG pricing MILP must stay feasible")
+            best_comp, value = got
+            if value > -mu + cfg.eps and add_comp(best_comp):
+                added += 1
+            log.emit(
+                f"  stage {stages} iter {lp_solves}: z={z:.6f} cap={-mu:.6f} "
+                f"exact_best={value:.6f} "
+                f"best_sampled={values[order[0]] if len(values) else float('nan'):.6f} "
+                f"added {added} (portfolio {len(comps)})."
+            )
+            if added:
+                continue
+            log.emit(
+                f"Stage {stages}: maximin ≤ {z + max(0.0, value + mu):.4%}, can do "
+                f"{z:.4%} with {len(comps)} compositions (gap {value + mu:.2e})."
+            )
+            if value <= -mu + cfg.eps or not add_comp(best_comp):
+                # converged (no composition beats the cap — or the exact
+                # oracle repeated a known column)
+                if not authoritative:
+                    with log.timer("stage_lp"):
+                        z, y, mu, probs = _stage_lp(MT, fixed)
+                    log.count("stage_lp_host")
+                    lp_solves += 1
+                    pdhg_warm = None
+                    # the certificate above priced against PDHG duals:
+                    # re-price once against the authoritative optimum
+                    with log.timer("exact_oracle"):
+                        got = oracle.maximize(y / msize)
+                    exact_prices += 1
+                    if got is not None:
+                        best_comp, value = got
+                        if value > -mu + cfg.eps and add_comp(best_comp):
+                            log.emit(
+                                f"  stage {stages}: authoritative duals still "
+                                f"price an improving column (gap "
+                                f"{value + mu:.2e}); continuing."
+                            )
+                            continue
+                count = fix_tranche(z, y)
+                log.emit(
+                    f"Fixed {count} type(s) "
+                    f"({int((fixed >= 0).sum())}/{T} done)."
+                )
+                break
+
+    C = np.stack(comps, axis=0)
+    # final probabilities over the generated portfolio realizing the fixed
+    # values (the caller decomposes into concrete panels)
+    MT = np.ascontiguousarray((C.astype(np.float64) / msize[None, :]).T)
+    A_ub = np.concatenate([-MT, -np.ones((T, 1))], axis=1)
+    b_ub = -(fixed - _SLACK)
+    A_eq = np.ones((1, C.shape[0] + 1))
+    A_eq[0, -1] = 0.0
+    c_obj = np.zeros(C.shape[0] + 1)
+    c_obj[-1] = 1.0
+    res = robust_linprog(
+        c_obj, A_ub=A_ub, b_ub=b_ub, A_eq=A_eq, b_eq=[1.0],
+        bounds=[(0, None)] * C.shape[0] + [(0, None)],
+    )
+    lp_solves += 1
+    if res.status != 0:
+        raise RuntimeError(f"type-space final LP failed: {res.message}")
+    probs = np.maximum(res.x[: C.shape[0]], 0.0)
+    probs = probs / probs.sum()
+    log.gauge("stage_cg_stages", stages)
     return TypeCGResult(
-        compositions=np.asarray(C_sup, dtype=np.int32),
-        probabilities=probs / probs.sum(),
-        type_values=v_relax,
+        compositions=C,
+        probabilities=probs,
+        type_values=fixed,
         coverable=coverable,
-        stages=0,
+        stages=stages,
         lp_solves=lp_solves,
-        exact_prices=0,
-        eps_dev=eps_dev,
+        exact_prices=exact_prices,
     )

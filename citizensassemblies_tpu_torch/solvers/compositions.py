@@ -34,8 +34,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from citizensassemblies_tpu_torch.solvers.lp_util import probe_confirm_tranche
+from citizensassemblies_tpu_torch.solvers.lp_util import ALLOWANCE_CAP, probe_confirm_tranche
 from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
+from citizensassemblies_tpu_torch.utils.device import resolve_device
 from citizensassemblies_tpu_torch.utils.logging import RunLog
 
 
@@ -146,13 +147,87 @@ def _linprog(c, A_ub, b_ub, A_eq, b_eq, bounds):
     return robust_linprog(c, A_ub=A_ub, b_ub=b_ub, A_eq=A_eq, b_eq=b_eq, bounds=bounds)
 
 
+#: prescreen size guard: beyond this many columns a probe-fleet bucket
+#: holds tens of MB per lane, and the host LPs win
+_SCREEN_MAX_COLS = 32_768
+
+
+def _batched_probe_prescreen(
+    objectives: np.ndarray,
+    A_face: np.ndarray,
+    b_face: np.ndarray,
+    z: float,
+    probe_tol: float,
+    allowances: np.ndarray,
+    cfg,
+    log: Optional[RunLog] = None,
+    device=None,
+) -> Optional[np.ndarray]:
+    """Device prescreen of a probe-candidate fleet: witness clearly-loose
+    candidates in one call of the batched LP engine (``solvers/batch_lp.py``).
+
+    Every candidate's face LP (``max objectives[i]·x`` over the stage's
+    optimal face) is solved approximately on ``device``; a candidate is
+    marked loose only when its approximate optimizer, clipped, renormalized
+    and re-validated **in float64 against the exact face constraints**,
+    attains a value strictly above the certificate bound ``z + probe_tol +
+    allowance`` — the same witness-elimination evidence the host scheme
+    trusts (``lp_util.probe_confirm_tranche``): a feasible face point above
+    the bound proves the host probe could never confirm the candidate.
+    Candidates the screen cannot witness keep their float64 host confirm —
+    the screen only ever REDUCES the host-LP count, never certifies.
+    Returns the bool mask, or ``None`` when the screen is disabled or out
+    of its size envelope.
+    """
+    from citizensassemblies_tpu_torch.solvers.batch_lp import (
+        face_probe_batch_lp,
+        lp_batch_enabled,
+        solve_lp_batch,
+    )
+
+    if cfg is None or not cfg.lp_batch_screen:
+        return None
+    device = resolve_device(device)
+    if not lp_batch_enabled(cfg, device):
+        return None
+    n_cand = len(objectives)
+    if n_cand < 2 or A_face.shape[1] > _SCREEN_MAX_COLS:
+        return None
+    insts = [
+        face_probe_batch_lp(objectives[i], A_face, b_face, tol=1e-6)
+        for i in range(n_cand)
+    ]
+    sols = solve_lp_batch(insts, cfg=cfg, log=log, max_iters=8_192, device=device)
+    loose = np.zeros(n_cand, dtype=bool)
+    for i, sol in enumerate(sols):
+        x = np.maximum(np.asarray(sol.x, dtype=np.float64), 0.0)
+        total = x.sum()
+        if not np.isfinite(total) or total <= 0.0:
+            continue
+        x = x / total
+        # strict float64 feasibility on the SAME face the host probes use
+        # (b_face already carries the probe scheme's slack): only a genuine
+        # face point may witness looseness
+        if not (A_face @ x <= b_face).all():
+            continue
+        if float(objectives[i] @ x) > z + probe_tol + float(allowances[i]) + 1e-9:
+            loose[i] = True
+    if log is not None:
+        log.count("lp_batch_probe_screened", n_cand)
+        if loose.any():
+            log.count("lp_batch_probe_pruned", int(loose.sum()))
+    return loose
+
+
 def leximin_over_compositions(
     comps: np.ndarray,
     msize: np.ndarray,
     probe_tol: float = 1e-7,
     log: Optional[RunLog] = None,
+    cfg=None,
     fixed_init: Optional[np.ndarray] = None,
     capture_certs: bool = False,
+    device=None,
 ) -> TypeLeximin:
     """Exact leximin over the full composition enumeration.
 
@@ -170,6 +245,13 @@ def leximin_over_compositions(
     the remaining near-zero-dual types are probed individually to catch
     degenerately tight ones. The reference trusts the ``y > EPS`` heuristic
     alone (``leximin.py:431-443``); here no tranche is ever fixed prematurely.
+
+    With the batched LP engine on (``cfg.lp_batch`` resolved for
+    ``device``, and ``cfg.lp_batch_screen``) the probe-candidate fleet is
+    first prescreened in one call of the batched LP engine on the device
+    (:func:`_batched_probe_prescreen`): candidates witnessed loose at a
+    float64-validated face point skip their host LPs. The screen never
+    certifies, so the certification contract is unchanged.
 
     ``fixed_init`` warm-starts the fixing ladder: entries ≥ 0 are taken as
     already-fixed type values (a prefix of a previous solve's trajectory,
@@ -266,15 +348,32 @@ def leximin_over_compositions(
         # only the ones sitting at z need a probe
         vals = MT[unfixed] @ np.maximum(res.x[:C], 0.0)
         singles = np.nonzero((y <= 1e-9) & (vals <= z + probe_tol))[0]
+        # device prescreen of the whole candidate fleet (dual-proposed and
+        # near-zero-dual) as one batched solve: witnessed-loose members skip
+        # their host LPs; everyone else keeps the float64 confirm
+        pre_cand = pre_singles = None
+        if len(cand) + len(singles) >= 2:
+            fleet = np.concatenate([cand, singles]).astype(np.int64)
+            allow_fleet = np.minimum(slack_gain / msz[unfixed[fleet]], ALLOWANCE_CAP)
+            loose_mask = _batched_probe_prescreen(
+                MT[unfixed[fleet]], A_p, b_p, z, probe_tol, allow_fleet,
+                cfg, log=log, device=device,
+            )
+            if loose_mask is not None:
+                pre_cand = loose_mask[: len(cand)]
+                pre_singles = loose_mask[len(cand) :]
         if len(cand):
             conf = probe_confirm_tranche(
                 face_max, MT[unfixed[cand]], z, probe_tol,
                 slack_gain / msz[unfixed[cand]],
                 term_deficit=_SLACK, log=log.emit,
                 face_max_relaxed=face_max_relaxed,
+                presumed_loose=pre_cand,
             )
             tranche[cand[conf]] = True
-        for j in singles:
+        for jj, j in enumerate(singles):
+            if pre_singles is not None and pre_singles[jj]:
+                continue  # witnessed loose on the device: the host LP is waste
             if probe_confirm_tranche(
                 face_max, MT[unfixed[j]][None, :], z, probe_tol,
                 np.array([slack_gain / float(msz[unfixed[j]])]),

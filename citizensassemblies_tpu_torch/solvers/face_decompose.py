@@ -25,13 +25,19 @@ behind the master (``_AnchorPricer``; the column schedule is identical
 threaded or inline), the master's iterate carries across rounds, prunes and
 bucket growths with a stall-triggered cold restart (``_WarmStall``), and the
 per-round move screen runs as one batch of torch ops on the device
-(``_batched_move_screen``). The steady-state round synchronises with the
-device twice: the master's readback and the screen's index readback.
+(``_batched_move_screen``), with two synchronisations a round: the master's
+readback and the screen's.
 
-Not in this package yet, each raising ``NotImplementedError`` where a
-configuration asks for it (``utils/config.check_slice_config``): device
-anchor pricing and the fused screen, the B-lane polish screen, face-loop
-checkpointing, and the multi-device sharded master.
+In device-pricing mode (``Config.decomp_device_pricing``, on by default on
+CUDA) the anchors are priced on the card (``solvers/device_pricing``; a
+miss still goes to the host MILP) and the move screen chains onto the
+master's device duals (``_FusedScreen``), so a steady round synchronises
+once. With the batched LP engine (``Config.lp_batch``) the end-game screens
+nested polish faces as lanes of one two-sided solve
+(``batch_lp.solve_polish_screen_ell``) before the deep polish.
+
+Not in this package yet: face-loop checkpointing and the multi-device
+sharded master.
 """
 
 from __future__ import annotations
@@ -46,12 +52,17 @@ import torch
 from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
 from citizensassemblies_tpu_torch.utils.config import check_slice_config, default_config
 from citizensassemblies_tpu_torch.utils import device as _device
-from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
+from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device, upload
 from citizensassemblies_tpu_torch.utils.logging import RunLog
 
 #: compositions per screening batch: ``realize_profile`` expands at most the
 #: top 512 support columns
 _SCREEN_ROWS = 512
+
+#: minimum mass-bearing support before the batched polish-face screen pays:
+#: below it the candidate prefixes would all be small and the deep polish is
+#: already one small solve
+_POLISH_SCREEN_MIN_SUP = 256
 
 
 def _feature_bitmasks(reduction: TypeReduction):
@@ -122,6 +133,105 @@ def _comp_feature_counts(comps: np.ndarray, reduction: TypeReduction) -> np.ndar
     return (comps.astype(np.float32) @ tf).astype(np.int64)
 
 
+def _screen_feasible(
+    comps_i, counts_nb, lo_nb, hi_nb, counts_full, lo_f, hi_f,
+    m_t, ti, tj, valid, need_sub, need_add, lf_ai, lf_aj, lf_donor,
+):
+    """The [S, P] (composition, move) feasibility check shared by the two
+    device screens: base bounds by two gathers, the per-feature quota
+    conditions by packed 64-bit words (int64 lanes; the bit patterns are
+    those of the numpy uint64 masks), the leftover categories by direct
+    gathers (``lf_donor`` host booleans: whether a category's donor side
+    needs a check at all)."""
+    dev = comps_i.device
+    nb = counts_nb.shape[1]
+    ok = (comps_i[:, ti] > 0) & (comps_i[:, tj] < m_t[tj][None, :]) & valid[None, :]
+    fbit = torch.ones(nb, dtype=torch.int64, device=dev) << torch.arange(nb, dtype=torch.int64, device=dev)
+    can_sub = ((counts_nb - 1 >= lo_nb[None, :]).long() * fbit).sum(1)
+    can_add = ((counts_nb + 1 <= hi_nb[None, :]).long() * fbit).sum(1)
+    ok &= (need_sub[None, :] & ~can_sub[:, None]) == 0
+    ok &= (need_add[None, :] & ~can_add[:, None]) == 0
+    for a_i, a_j, donor in zip(lf_ai, lf_aj, lf_donor):
+        same = a_i == a_j
+        add_ok = counts_full[:, a_j] + 1 <= hi_f[a_j][None, :]
+        if donor:
+            add_ok &= counts_full[:, a_i] - 1 >= lo_f[a_i][None, :]
+        ok &= same[None, :] | add_ok
+    return ok
+
+
+def _first_true(flat: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fixed-size nonzero of a flat bool tensor: the indices of its
+    first ``cap`` true entries in order, padded with −1, and the true count
+    — both on the device, by a cumulative sum and one scatter, so nothing
+    waits on the host. Returns ``(idx [cap] int32, total)``."""
+    n = flat.shape[0]
+    pos = torch.cumsum(flat, dim=0, dtype=torch.int64) - 1
+    slot = torch.where(flat & (pos < cap), pos, torch.full_like(pos, cap))
+    out = torch.full((cap + 1,), -1, dtype=torch.int64, device=flat.device)
+    out.scatter_(0, slot, torch.arange(n, dtype=torch.int64, device=flat.device))
+    return out[:cap].to(torch.int32), flat.sum(dtype=torch.int32)
+
+
+def _screen_statics(reduction: TypeReduction, leftover, device):
+    """The per-instance screen operands: feature quotas (``nb`` word bits,
+    full), the leftover categories' feature columns and donor flags."""
+    F = reduction.F
+    nb = min(F, 64)
+    lo = reduction.qmin.astype(np.int64)
+    hi = reduction.qmax.astype(np.int64)
+    feat_of = np.asarray(reduction.type_feature)
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int64, device=device)
+
+    lf_donor = [bool((lo[feat_of[:, ci]] > 0).any()) for ci in leftover]
+    return dict(
+        lo_nb=dev(lo[:nb]), hi_nb=dev(hi[:nb]), lo_f=dev(lo), hi_f=dev(hi),
+        lf_feat=[dev(feat_of[:, ci]) for ci in leftover], lf_donor=lf_donor,
+    )
+
+
+def _move_screen_dispatch(
+    comps: np.ndarray,
+    counts: np.ndarray,
+    reduction: TypeReduction,
+    m: np.ndarray,
+    ti: np.ndarray,
+    tj: np.ndarray,
+    packed,
+    per_round_cap: int,
+    device: torch.device,
+):
+    """The upload and device half of the move screen, up to but not
+    including the readback: the operands go up without blocking the host
+    (``utils.device.upload``) and the feasible (composition, pair) indices
+    come back as a fixed-size device vector (:func:`_first_true`, row-major,
+    so below the cap the index set is the numpy screen's). Returns
+    ``(idx device [cap], total device, P)``."""
+    masks, leftover = packed
+    nb = min(reduction.F, 64)
+    st = _screen_statics(reduction, leftover, device)
+    i64 = torch.int64
+
+    def up(a):
+        return upload(np.asarray(a), device, i64)
+
+    diff = masks[ti] ^ masks[tj]
+    feat_of = np.asarray(reduction.type_feature)
+    ti_t, tj_t = up(ti), up(tj)
+    ok = _screen_feasible(
+        up(comps.astype(np.int64)), up(counts[:, :nb]), st["lo_nb"], st["hi_nb"], up(counts),
+        st["lo_f"], st["hi_f"], up(np.asarray(m, np.int64)), ti_t, tj_t,
+        torch.ones(len(ti), dtype=torch.bool, device=device),
+        up((masks[ti] & diff).view(np.int64)), up((masks[tj] & diff).view(np.int64)),
+        [up(feat_of[ti, ci]) for ci in leftover], [up(feat_of[tj, ci]) for ci in leftover],
+        st["lf_donor"],
+    )
+    idx, total = _first_true(ok.reshape(-1), int(per_round_cap))
+    return idx, total, len(ti)
+
+
 def _batched_move_screen(
     comps: np.ndarray,
     counts: np.ndarray,
@@ -134,50 +244,15 @@ def _batched_move_screen(
     device: torch.device,
 ) -> Tuple[np.ndarray, np.ndarray, int]:
     """The whole [S, P] (composition, move) feasibility check as one batch
-    of torch ops on ``device``: base bounds by two gathers, the per-feature
-    quota conditions by the packed 64-bit words (int64 lanes; the bit
-    patterns are those of the numpy uint64 masks), the leftover categories
-    by direct gathers. Feasible (composition, pair) indices come back in
-    row-major order, the first ``per_round_cap`` of them — below the cap the
-    same index set as the numpy screen. One readback. Returns ``(si, pi,
-    total_feasible)``."""
-    masks, leftover = packed
-    F = reduction.F
-    nb = min(F, 64)
-    P = len(ti)
-    lo = reduction.qmin.astype(np.int64)
-    hi = reduction.qmax.astype(np.int64)
-    i64 = dict(dtype=torch.int64, device=device)
-
-    def dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a), **i64)
-
-    comps_t = dev(comps.astype(np.int64))
-    counts_t = dev(counts)
-    ti_t, tj_t = dev(ti), dev(tj)
-    m_t = dev(np.asarray(m, np.int64))
-    diff = masks[ti] ^ masks[tj]
-    need_sub = dev((masks[ti] & diff).view(np.int64))
-    need_add = dev((masks[tj] & diff).view(np.int64))
-    fbit = torch.ones(nb, **i64) << torch.arange(nb, **i64)
-    can_sub = ((counts_t[:, :nb] - 1 >= dev(lo[:nb])).long() * fbit).sum(1)
-    can_add = ((counts_t[:, :nb] + 1 <= dev(hi[:nb])).long() * fbit).sum(1)
-    ok = (comps_t[:, ti_t] > 0) & (comps_t[:, tj_t] < m_t[tj_t][None, :])
-    ok &= (need_sub[None, :] & ~can_sub[:, None]) == 0
-    ok &= (need_add[None, :] & ~can_add[:, None]) == 0
-    feat_of = np.asarray(reduction.type_feature)
-    lo_t, hi_t = dev(lo), dev(hi)
-    for ci in leftover:
-        a_i, a_j = dev(feat_of[ti, ci]), dev(feat_of[tj, ci])
-        same = a_i == a_j
-        add_ok = counts_t[:, a_j] + 1 <= hi_t[a_j][None, :]
-        if (lo[feat_of[:, ci]] > 0).any():
-            add_ok &= counts_t[:, a_i] - 1 >= lo_t[a_i][None, :]
-        ok &= same[None, :] | add_ok
-    flat = torch.nonzero(ok.reshape(-1)).reshape(-1)
-    total = int(flat.shape[0])
-    idx = flat[: int(per_round_cap)].cpu().numpy()
-    return idx // P, idx % P, total
+    of torch ops on ``device`` (:func:`_move_screen_dispatch`), then its one
+    readback: the first ``per_round_cap`` feasible (composition, pair)
+    indices in row-major order. Returns ``(si, pi, total_feasible)``."""
+    idx_dev, total_dev, P = _move_screen_dispatch(
+        comps, counts, reduction, m, ti, tj, packed, per_round_cap, device
+    )
+    idx = idx_dev.cpu().numpy()
+    idx = idx[idx >= 0]
+    return idx // P, idx % P, int(total_dev)
 
 
 def neighbor_columns(
@@ -287,6 +362,139 @@ def neighbor_columns(
     return out
 
 
+def _stable_top(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest entries of ``x``, ties to the lower
+    index (the order of ``jax.lax.top_k``; ``torch.topk`` leaves it open)."""
+    return torch.sort(x, descending=True, stable=True).indices[:k]
+
+
+def fused_screen_core(
+    lam, m_f, comps_i, counts_nb, lo_nb, hi_nb, counts_full, lo_f, hi_f, m_t,
+    mask, cand_di, cand_dj, lf_feat, lf_donor, cap: int, pool_cap: int, face_pairs: int,
+):
+    """The fused move screen on the master's device duals ``lam [2T]``: the
+    pair selection of :func:`_move_pairs` on the device (improving pairs as
+    the meshgrid of the residual's ``pool_cap`` extremes, face pairs as the
+    ``face_pairs`` smallest |Δ| over the static candidate pool ``cand_di``/
+    ``cand_dj``), the need-masks from the per-type feature words ``mask``
+    (int64), then :func:`_screen_feasible`. Returns ``(idx [cap] int32,
+    total, ti, tj)`` on the device; nothing synchronises with the host."""
+    T = m_f.shape[0]
+    w = lam[:T] - lam[T:]
+    r = -w / m_f
+    donors = _stable_top(r, pool_cap)
+    receivers = _stable_top(-r, pool_cap)
+    delta = torch.abs(r[cand_di] - r[cand_dj])
+    sel = _stable_top(-delta, face_pairs)
+    ti = torch.cat([donors[:, None].expand(pool_cap, pool_cap).reshape(-1), cand_di[sel]])
+    tj = torch.cat([receivers.repeat(pool_cap), cand_dj[sel]])
+    diff = mask[ti] ^ mask[tj]
+    ok = _screen_feasible(
+        comps_i, counts_nb, lo_nb, hi_nb, counts_full, lo_f, hi_f, m_t, ti, tj, ti != tj,
+        mask[ti] & diff, mask[tj] & diff,
+        [f[ti] for f in lf_feat], [f[tj] for f in lf_feat], lf_donor,
+    )
+    idx, total = _first_true(ok.reshape(-1), cap)
+    return idx, total, ti.to(torch.int32), tj.to(torch.int32)
+
+
+class _FusedScreen:
+    """Same-round device move screen chained onto the master's device duals.
+
+    The classic round reads the master's duals back to pick the move pairs
+    on the host, then reads the screen's result back: two synchronisations a
+    round. Here the pair selection runs on the device
+    (:func:`fused_screen_core`): ``dispatch`` is called with the master's
+    duals still on the device and queues the screen behind the solve, and
+    the round's one blocking readback (the master's) leaves the screen
+    complete, so ``harvest`` decodes it without waiting on compute. The
+    screened block is the round's master columns (mass-ordered prefix from
+    the previous prune), known before the master returns; the pairs come
+    from the current duals.
+    """
+
+    def __init__(self, reduction: TypeReduction, per_round_cap: int, cfg=None,
+                 device: DeviceLike = None):
+        self.red = reduction
+        self.cap = int(per_round_cap)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        packed = _feature_bitmasks(reduction)
+        self.ok = packed is not None
+        self._pending = None  # (idx, ti, tj, comps) or None
+        if not self.ok:  # pragma: no cover - every instance has a word category
+            return
+        masks, leftover = packed
+        T = reduction.T
+        dev = self.device
+        # device-resident static operands: uploaded once per instance
+        self._mask = torch.as_tensor(masks.view(np.int64), device=dev)
+        self._st = _screen_statics(reduction, leftover, dev)
+        # static face-pair candidate pool (the construction of _move_pairs:
+        # full T² when small, a T-seeded random pool otherwise)
+        if T * T <= 1 << 18:
+            di = np.repeat(np.arange(T), T)
+            dj = np.tile(np.arange(T), T)
+        else:
+            rng = np.random.default_rng(T)
+            di = rng.integers(0, T, size=12_288 * 8)
+            dj = rng.integers(0, T, size=12_288 * 8)
+        self._cand_di = torch.as_tensor(di.astype(np.int64), device=dev)
+        self._cand_dj = torch.as_tensor(dj.astype(np.int64), device=dev)
+        self.pool_cap = min(128, T)
+        self.face_pairs = min(12_288, len(di))
+        self._m_t = torch.as_tensor(
+            np.minimum(reduction.msize, reduction.k + 1).astype(np.int64), device=dev
+        )
+        self._m_f = torch.as_tensor(reduction.msize.astype(np.float32), device=dev)
+
+    @property
+    def pending(self) -> bool:
+        return self._pending is not None
+
+    def dispatch(self, comps: np.ndarray, lam_dev: torch.Tensor) -> bool:
+        """Queue the screen behind the in-flight master whose device duals
+        are ``lam_dev`` (async: the operands go up through pinned memory and
+        nothing is read back here)."""
+        if not self.ok or len(comps) > _SCREEN_ROWS:  # pragma: no cover
+            self._pending = None
+            return False
+        comps = comps.astype(np.int16, copy=False)
+        counts = _comp_feature_counts(comps, self.red)
+        nb = min(self.red.F, 64)
+        dev = self.device
+        st = self._st
+        idx, _total, ti, tj = fused_screen_core(
+            lam_dev, self._m_f, upload(comps, dev, torch.int64),
+            upload(counts[:, :nb], dev), st["lo_nb"], st["hi_nb"], upload(counts, dev),
+            st["lo_f"], st["hi_f"], self._m_t, self._mask, self._cand_di, self._cand_dj,
+            st["lf_feat"], st["lf_donor"], self.cap, self.pool_cap, self.face_pairs,
+        )
+        self._pending = (idx, ti, tj, comps)
+        return True
+
+    def harvest(self) -> np.ndarray:
+        """Decode the screen results (complete by the time the master's
+        readback returned) into new compositions int16 [N, T]."""
+        pending, self._pending = self._pending, None
+        if pending is None:
+            return np.zeros((0, self.red.T), dtype=np.int16)
+        idx_dev, ti_dev, tj_dev, comps = pending
+        idx = idx_dev.cpu().numpy()
+        ti = ti_dev.cpu().numpy()
+        tj = tj_dev.cpu().numpy()
+        idx = idx[idx >= 0]
+        if len(idx) == 0:
+            return np.zeros((0, self.red.T), dtype=np.int16)
+        P = len(ti)
+        si, pi = idx // P, idx % P
+        out = comps[si].astype(np.int16)
+        rows = np.arange(len(si))
+        out[rows, ti[pi]] -= 1
+        out[rows, tj[pi]] += 1
+        return out
+
+
 def _master_pdhg(
     MT: np.ndarray,
     v: np.ndarray,
@@ -297,11 +505,15 @@ def _master_pdhg(
     ell=None,
     device: DeviceLike = None,
     log: Optional[RunLog] = None,
+    screen=None,
 ) -> Tuple[float, np.ndarray, np.ndarray, float, Optional[tuple], bool]:
     """One approximate master solve on ``device``: the two-sided ε-LP
     through ``lp_pdhg.solve_two_sided_master[_ell]_async`` (over the ELL
     pack ``ell`` when given). The readback in ``finish_two_sided_master`` is
-    the solve's one blocking synchronisation.
+    the solve's one blocking synchronisation. ``screen`` (device-pricing
+    mode) is called with the master's device duals the moment the solve is
+    queued: the fused move screen it dispatches runs behind the solve, so
+    that readback stays the round's one synchronisation.
 
     Returns ``(eps_realized, w, p_norm, eps_obj, warm', ok)`` where
     ``eps_realized = ‖M p_norm − v‖∞`` is the float64 certificate of the
@@ -322,6 +534,8 @@ def _master_pdhg(
         handle = solve_two_sided_master_ell_async(ell, v, **kw)
     else:
         handle = solve_two_sided_master_async(MT, v, **kw)
+    if screen is not None:
+        screen(handle.lam)
     sol = finish_two_sided_master(handle)
     p = np.maximum(sol.x[:C], 0.0)
     total = p.sum()
@@ -335,7 +549,7 @@ def _master_pdhg(
 
 
 class _AnchorPricer:
-    """Double-buffered host pricing for the face loop's anchor MILPs.
+    """Double-buffered pricing for the face loop's anchor MILPs.
 
     The anchors (one dual-direction optimum, alternate-round noisy variants,
     up to three forced-inclusion columns for persistent deficits) are
@@ -348,6 +562,14 @@ class _AnchorPricer:
     it waits on the device). ``overlap=False`` runs the same schedule inline:
     the column stream is identical in both modes. The noisy perturbations
     are drawn on the caller's thread at submit time.
+
+    With ``device`` set (``solvers/device_pricing.DevicePricer``, behind the
+    ``Config.decomp_device_pricing`` gate) the worker is the card instead of
+    a host thread: ``submit`` prices the whole task batch in one async
+    device dispatch and ``harvest`` decodes it. Tasks the device served skip
+    their host MILP (``decomp_oracle_device_hit``); tasks with no surviving
+    lane still get the exact host MILP (``decomp_oracle_device_miss``). A
+    dispatch that fails raises.
     """
 
     def __init__(
@@ -357,17 +579,19 @@ class _AnchorPricer:
         reduction: TypeReduction,
         overlap: bool,
         log: Optional[RunLog] = None,
+        device=None,
     ):
         self.oracle = oracle
         self.rng = rng
         self.red = reduction
         self.log = log
+        self.device = device
         self._pool = (
             ThreadPoolExecutor(max_workers=1, thread_name_prefix="anchor-pricer")
-            if overlap
+            if overlap and device is None
             else None
         )
-        self._pending: Optional[Union[Future, List[np.ndarray]]] = None
+        self._pending: Optional[Union[Future, List[np.ndarray], tuple]] = None
 
     def _run(self, tasks) -> List[np.ndarray]:
         out = []
@@ -410,10 +634,33 @@ class _AnchorPricer:
             for t in worst:
                 if deficit[t] > 0.25 * eps and self.red.msize[t] > 0:
                     tasks.append((-r_norm, int(t)))
+        if self.device is not None:
+            # the card is the worker: one async dispatch prices the whole
+            # batch; the handle is decoded at the next harvest
+            self._pending = ("device", self.device.dispatch(tasks), tasks)
+            return
         if self._pool is not None:
             self._pending = self._pool.submit(self._run, tasks)
         else:
             self._pending = self._run(tasks)
+
+    def _harvest_device(self, handle, tasks) -> List[np.ndarray]:
+        """Decode a device pricing dispatch: device-served tasks in task
+        order, then the host-MILP results for the misses (inline: misses are
+        the exception)."""
+        if handle is None:
+            return []
+        hits, missed = self.device.harvest(handle)
+        if self.log is not None:
+            if hits:
+                self.log.count("decomp_oracle_device_hit", len(hits))
+                self.log.count("oracle_backend_device", len(hits))
+            if missed:
+                self.log.count("decomp_oracle_device_miss", len(missed))
+        out = [comp for _i, comp in hits]
+        if missed:
+            out.extend(self._run([tasks[i] for i in missed]))
+        return out
 
     def harvest(self) -> List[np.ndarray]:
         """Collect the previously submitted round's columns (blocks only
@@ -421,6 +668,8 @@ class _AnchorPricer:
         pending, self._pending = self._pending, None
         if pending is None:
             return []
+        if isinstance(pending, tuple) and pending and pending[0] == "device":
+            return self._harvest_device(pending[1], pending[2])
         if isinstance(pending, list):
             if self.log is not None:
                 self.log.count("decomp_oracle_inline")
@@ -565,7 +814,13 @@ def realize_profile(
         """End-game solve on the mass-bearing support: a deep device PDHG
         (warm-started from the master's iterate restricted to the support
         and its row duals) accepted when its float64 residual reaches the
-        bar; the host IPM otherwise."""
+        bar; the host IPM otherwise.
+
+        With the batched LP engine on, nested mass-ranked support prefixes
+        (¼, ½ and all of the support) are screened first as lanes of one
+        two-sided solve, each judged by its own float64 residual: a smaller
+        face that already realizes ``v`` converges in a fraction of the deep
+        solve's iterations. On a miss the deep polish runs as before."""
         nonlocal lp_solves
         if p_now is not None and len(p_now) == len(cols):
             sup = top_mass(p_now, cap=2048)
@@ -588,6 +843,62 @@ def realize_profile(
                     cand_pack = EllPack.from_rows(MTs.T, minor=T)
             if sparse_enabled(cfg, cand_pack.fill):
                 ell_sup = cand_pack
+        if accel and batch_screen and len(sup) > _POLISH_SCREEN_MIN_SUP:
+            from citizensassemblies_tpu_torch.solvers.batch_lp import (
+                solve_lp_batch,
+                solve_polish_screen_ell,
+                two_sided_master_batch_lp,
+            )
+
+            caps = sorted({max(len(sup) // 4, 1), max(len(sup) // 2, 1), len(sup)})
+            warm_ok = (
+                cfg.decomp_warm_start
+                and master_warm is not None
+                and p_now is not None
+                and len(p_now) == len(cols)
+            )
+
+            def prefix_warm(c_):
+                x0 = np.concatenate([p_now[sup[:c_]], [max(float(master_warm[0][-1]), 0.0)]])
+                return (x0, master_warm[1], master_warm[2])
+
+            with log.timer("decomp_polish_screen"):
+                if ell_sup is not None:
+                    # one shared pack feeds every prefix lane; the lanes
+                    # differ only in their column masks
+                    sols = solve_polish_screen_ell(
+                        ell_sup, v, caps, [prefix_warm(c_) if warm_ok else None for c_ in caps],
+                        tol=0.25 * master_tol, max_iters=24_576, cfg=cfg, log=log, device=dev,
+                    )
+                else:
+                    insts = []
+                    for c_ in caps:
+                        inst = two_sided_master_batch_lp(MTs[:, :c_], v, tol=0.25 * master_tol)
+                        if warm_ok:
+                            inst.warm = prefix_warm(c_)
+                        insts.append(inst)
+                    sols = solve_lp_batch(
+                        insts, cfg=cfg, log=log, warm_key="decomp_polish_screen",
+                        max_iters=24_576, common_bucket=True, device=dev,
+                    )
+            log.count("decomp_host_syncs")
+            log.count("decomp_polish_syncs")  # end-game, not steady-state
+            lp_solves += 1
+            best_s = None
+            for c_, sol in zip(caps, sols):
+                p_s = np.maximum(sol.x[:c_], 0.0)
+                tot = p_s.sum()
+                if not np.isfinite(tot) or tot <= 0:
+                    continue
+                p_s = p_s / tot
+                eps_s = float(np.abs(MTs[:, :c_] @ p_s - v).max())
+                if best_s is None or eps_s < best_s[2]:
+                    best_s = (c_, p_s, eps_s)
+            if best_s is not None and best_s[2] <= the_bar:
+                c_, p_s, eps_s = best_s
+                log.count("lp_batch_polish_hit")
+                return C_sup[:c_], p_s, eps_s
+            log.count("lp_batch_polish_miss")
         if accel:
             from citizensassemblies_tpu_torch.solvers.lp_pdhg import (
                 solve_two_sided_master,
@@ -642,10 +953,41 @@ def realize_profile(
     # cooldown after a failed polish: without it a near-accept optimum would
     # trigger a polish every remaining round
     polish_after = 0
-    pricer = _AnchorPricer(oracle, rng, reduction, overlap=bool(cfg.decomp_oracle_overlap), log=log)
+    # device-pricing mode: the anchor worker is the card (one dispatch prices
+    # the whole batch, the host MILP runs only for the tasks it misses), and
+    # the move screen chains onto the master's device duals (_FusedScreen),
+    # so a steady round synchronises with the device once
+    dev_pricer = None
+    if accel:
+        from citizensassemblies_tpu_torch.solvers.device_pricing import (
+            DevicePricer,
+            device_pricing_enabled,
+        )
+
+        if device_pricing_enabled(cfg, dev):
+            dev_pricer = DevicePricer(reduction, cfg=cfg, log=log, device=dev)
+    pricer = _AnchorPricer(
+        oracle, rng, reduction, overlap=bool(cfg.decomp_oracle_overlap), log=log,
+        device=dev_pricer,
+    )
     warm_enabled = bool(cfg.decomp_warm_start)
     warm_stall = _WarmStall(int(cfg.decomp_warm_stall_rounds))
     batched_expand = bool(cfg.decomp_batched_expand) and accel
+    fused_screen = (
+        _FusedScreen(reduction, per_round_cap=16_384, cfg=cfg, device=dev)
+        if dev_pricer is not None and batched_expand
+        else None
+    )
+    if fused_screen is not None and not fused_screen.ok:  # pragma: no cover
+        fused_screen = None
+    # the batched polish-face screen of the end-game (solvers/batch_lp)
+    from citizensassemblies_tpu_torch.solvers.batch_lp import clear_warm_slots, lp_batch_enabled
+
+    batch_screen = accel and lp_batch_enabled(cfg, dev)
+    if batch_screen:
+        # the screen's warm slots are per-run state: a previous profile's
+        # iterate must not leak into this one
+        clear_warm_slots("decomp_polish_screen")
 
     def rank_add(cand: List[np.ndarray], r_norm: np.ndarray) -> int:
         """Grow the master where it helps: most negative <r, c/m> first."""
@@ -692,14 +1034,28 @@ def realize_profile(
                     use_sparse = sparse_enabled(cfg, ell_now.fill)
                     log.gauge("sparse_fill_pct", int(round(100 * ell_now.fill)))
                     log.count("sparse_hit" if use_sparse else "sparse_miss")
+                screen_cb = None
+                if fused_screen is not None:
+                    # the screened block is this master's own columns in
+                    # mass-ranked order (the previous prune's support
+                    # first), known before the master returns
+                    comps_block = C[:_SCREEN_ROWS]
+
+                    def screen_cb(lam_dev, _blk=comps_block):
+                        with log.timer("decomp_expand"):
+                            fused_screen.dispatch(_blk, lam_dev)
+
                 with log.timer("decomp_master"):
                     eps, w, p, eps_obj, pdhg_warm, _ok = _master_pdhg(
                         MT, v, cfg, warm_arg,
                         max_iters=4_096 if far else 12_288, tol=master_tol,
                         ell=ell_now if use_sparse else None, device=dev, log=log,
+                        screen=screen_cb,
                     )
                 lp_solves += 1
-                log.count("decomp_host_syncs")  # the master's readback
+                # the master's readback; in device-pricing mode the fused
+                # screen and the lagged anchor batch ride on it
+                log.count("decomp_host_syncs")
                 if not np.isfinite(eps):
                     # quarantined master (the sentinel froze the lane, or its
                     # mixture went non-finite): re-solve this round on the
@@ -803,7 +1159,15 @@ def realize_profile(
                 cand.extend(pricer.harvest())
                 realized = MT @ p if len(p) == MT.shape[1] else None
                 pricer.submit(rnd, r_norm, eps, realized, v)
-            if kept:
+            if fused_screen is not None and fused_screen.pending:
+                with log.timer("decomp_expand"):
+                    # dispatched behind this round's master on its device
+                    # duals, complete by the time the master's readback
+                    # returned: decoding it costs no further synchronisation
+                    moved = fused_screen.harvest()
+                    if len(moved):
+                        cand.append(moved)
+            elif kept:
                 with log.timer("decomp_expand"):
                     cand.append(
                         neighbor_columns(
@@ -829,6 +1193,10 @@ def realize_profile(
                 # rather than conclude exhaustion with columns in flight
                 with log.timer("decomp_oracle"):
                     late = pricer.harvest()
+                if dev_pricer is not None:
+                    # the just-dispatched device batch had no master solve
+                    # to hide behind: this harvest waits on it
+                    log.count("decomp_host_syncs")
                 added = rank_add(late, r_norm)
             obj_note = f" obj~{eps_obj:.2e}" if use_pdhg else ""
             log.emit(

@@ -313,6 +313,12 @@ class MasterHandle:
     T: int
     tol: float
 
+    @property
+    def lam(self) -> torch.Tensor:
+        """The solve's unscaled duals ``[λ_lo (T), λ_up (T)]`` on the device
+        (a view: work queued on it runs behind the solve in stream order)."""
+        return self.out[self.Cp + 1 : self.Cp + 1 + 2 * self.T]
+
 
 def _handle(x, lam, mu, it, res, flags, Cp: int, T: int, tol: float) -> MasterHandle:
     """Pack one lane's outputs into one device vector, so the readback is
@@ -473,18 +479,70 @@ def solve_two_sided_master_ell(ell, v, cfg=None, warm=None, tol=None, max_iters=
 # inequality blocks above the ELL fill cutoff.
 
 
+#: one stream per device on which dense blocks are captured (a graph cannot
+#: be captured on the default stream), and whether it has run a block yet
+_CAPTURE_STREAMS: dict = {}
+
+
+def _replayed(block: Callable, args: Tuple[torch.Tensor, ...]) -> Callable:
+    """``block`` captured once into a CUDA graph over static copies of
+    ``args``; the returned function copies its arguments in, replays the
+    graph on the current stream and returns clones of the outputs. The
+    first capture on a device runs the block once eagerly on the capture
+    stream first, so the BLAS handle and workspace of that stream exist
+    before any capture."""
+    dev = args[0].device
+    static = tuple(a.clone() for a in args)
+    stream, warmed = _CAPTURE_STREAMS.get(dev, (None, False))
+    if stream is None:
+        stream = torch.cuda.Stream(device=dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        if not warmed:
+            block(*static)
+        graph.capture_begin()
+        outs = block(*static)
+        graph.capture_end()
+    _CAPTURE_STREAMS[dev] = (stream, True)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def run(*a):
+        for s, v in zip(static, a):
+            s.copy_(v)
+        graph.replay()
+        return tuple(o.clone() for o in outs)
+
+    return run
+
+
 def _lp_iterate(
     G_mv: Apply, G_rmv: Apply, As, cs, hs, bs, x, lam, mu, norm, scale, tol,
-    max_iters: int, check_every: int, sentinel: bool = False,
+    max_iters: int, check_every: int, sentinel: bool = False, graph: bool = False,
 ):
     """The restart-to-average PDHG block loop of the generic LP in scaled
     coordinates, generic over ``G_mv(x) -> Gx`` and ``G_rmv(λ) -> Gᵀλ``
     (``As`` is the dense scaled equality block). Runs blocks while ``res >
     tol`` and ``it < max_iters`` and (with the sentinel) the solve is not
-    poisoned; reads the residual on the host once per block. Returns the
-    scaled ``(x, lam, mu, it, res, flags)`` with ``it``/``flags`` ints and
-    ``res`` a float."""
+    poisoned; reads the residual on the host once per block. With ``graph``
+    (CUDA tensors, matvecs of plain torch ops only) a solve that reaches its
+    second block captures the block's ``check_every`` iterations into a CUDA
+    graph and replays it from then on: the same kernels in the same order,
+    without a host launch per operation. Returns the scaled ``(x, lam, mu,
+    it, res, flags)`` with ``it``/``flags`` ints and ``res`` a float."""
     tol32 = float(np.float32(tol))
+
+    def block(q, y, m, tau, sigma):
+        xs, ls, ms = torch.zeros_like(q), torch.zeros_like(y), torch.zeros_like(m)
+        for _ in range(check_every):
+            grad = cs + G_rmv(y) + As.t() @ m
+            q_new = torch.clamp_min(q - tau * grad, 0.0)
+            qb = 2.0 * q_new - q
+            y = torch.clamp_min(y + sigma * (G_mv(qb) - hs), 0.0)
+            m = m + sigma * (As @ qb - bs)
+            q = q_new
+            xs, ls, ms = xs + q, ls + y, ms + m
+        return q, y, m, xs, ls, ms
 
     def kkt(x, lam, mu):
         pri_ineq = torch.clamp_min(G_mv(x) - hs, 0.0)
@@ -505,20 +563,16 @@ def _lp_iterate(
     best = float("inf")
     since = 0
     inv = 1.0 / check_every
+    run = block
+    blocks = 0
     while res > tol32 and it < max_iters and not pois:
         tau = 0.9 * omega / norm
         sigma = 0.9 / (omega * norm)
         x_in, lam_in, mu_in = x, lam, mu
-        q, y, m = x, lam, mu
-        xs, ls, ms = torch.zeros_like(x), torch.zeros_like(lam), torch.zeros_like(mu)
-        for _ in range(check_every):
-            grad = cs + G_rmv(y) + As.t() @ m
-            q_new = torch.clamp_min(q - tau * grad, 0.0)
-            qb = 2.0 * q_new - q
-            y = torch.clamp_min(y + sigma * (G_mv(qb) - hs), 0.0)
-            m = m + sigma * (As @ qb - bs)
-            q = q_new
-            xs, ls, ms = xs + q, ls + y, ms + m
+        if graph and blocks == 1:
+            run = _replayed(block, (x, lam, mu, tau, sigma))
+        blocks += 1
+        q, y, m, xs, ls, ms = run(x, lam, mu, tau, sigma)
         xa = (x_av + xs * inv) * 0.5
         la = (lam_av + ls * inv) * 0.5
         ma = (mu_av + ms * inv) * 0.5
@@ -578,12 +632,13 @@ def _pdhg_body_ell(
 
 def _pdhg_body(
     c, G, h, A, b, x0, lam0, mu0, tol,
-    max_iters: int, check_every: int, sentinel: bool = False,
+    max_iters: int, check_every: int, sentinel: bool = False, graph: Optional[bool] = None,
 ):
     """The dense chained core of the generic LP (``G`` a dense ``[m1, nv]``
     tensor): Ruiz on the stacked ``[G; A]``, the power-iteration ‖K‖ and
-    :func:`_lp_iterate` with dense matvecs. Returns the unscaled ``(x, lam,
-    mu, it, res, flags)``."""
+    :func:`_lp_iterate` with dense matvecs, its blocks replayed as a CUDA
+    graph when ``graph`` (default: on CUDA tensors). Returns the unscaled
+    ``(x, lam, mu, it, res, flags)``."""
     m1, nv = G.shape
     K = torch.cat([G, A], dim=0)
     d_r = torch.ones(K.shape[0], dtype=torch.float32, device=K.device)
@@ -605,6 +660,7 @@ def _pdhg_body(
         lambda q: Gs @ q, lambda y: Gs.t() @ y, pre.As, pre.cs, pre.hs, pre.bs,
         *pre.warm(x0, lam0, mu0), norm, pre.kkt_scale(), tol,
         max_iters, check_every, sentinel=sentinel,
+        graph=K.is_cuda if graph is None else graph,
     )
     return pre.unscale(*out[:3]) + out[3:]
 
@@ -831,3 +887,62 @@ def solve_final_primal_lp_pdhg(
 
         return solve_final_primal_lp(P, target)
     return sol.x[:C], float(max(sol.x[C], 0.0))
+
+
+def stage_lp_operands(MT: np.ndarray, fixed: np.ndarray):
+    """The generic-form ``(c, G, h, A, b)`` of the type-space stage LP over
+    the portfolio ``MT`` (``[T, C]``) given ``fixed`` (−1 where unfixed),
+    its columns padded to a multiple of 4096 (see
+    :func:`solve_stage_lp_pdhg`)."""
+    T, C = MT.shape
+    fixed = np.asarray(fixed, dtype=np.float64)
+    unfixed = fixed < 0
+    h = np.where(unfixed, 0.0, -(np.maximum(fixed, 0.0) - 1e-9))
+    bucket = 4096
+    Cp = ((C + bucket - 1) // bucket) * bucket
+    G = np.zeros((T, Cp + 1))
+    G[:, :C] = -MT
+    G[unfixed, Cp] = 1.0
+    A = np.zeros((1, Cp + 1))
+    A[0, :C] = 1.0
+    b = np.array([1.0])
+    c = np.zeros(Cp + 1)
+    c[Cp] = -1.0
+    return c, G, h, A, b
+
+
+def solve_stage_lp_pdhg(
+    MT: np.ndarray,
+    fixed: np.ndarray,
+    cfg: Optional[Config] = None,
+    warm: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
+    tol: Optional[float] = None,
+    device: DeviceLike = None,
+    log=None,
+):
+    """The type-space stage LP (max the min unfixed type value) by the dense
+    chained PDHG (:func:`solve_lp`) on ``device``.
+
+    Variables ``x = [p (C), z]``; min −z s.t. z − M_t·p ≤ 0 (t unfixed),
+    −M_t·p ≤ −f_t (t fixed), Σp = 1, x ≥ 0. The λ duals of the ≤-rows are
+    the per-type weights the stage CG prices with. The columns pad to a
+    multiple of 4096 (zero G and equality coefficients, zero cost: padding
+    variables stay at 0), so a warm start carries across rounds as the
+    portfolio grows. Returns ``(z, y, mu, p, ok)`` plus the raw warm triple.
+    """
+    cfg = cfg or default_config()
+    C = MT.shape[1]
+    c, G, h, A, b = stage_lp_operands(MT, fixed)
+    Cp = G.shape[1] - 1
+    if warm is not None and warm[0].shape[0] != Cp + 1:
+        x_w = np.zeros(Cp + 1)
+        m = min(C, warm[0].shape[0] - 1)
+        x_w[:m] = warm[0][:m]
+        x_w[Cp] = warm[0][-1]
+        warm = (x_w, warm[1], warm[2])
+    sol = solve_lp(c, G, h, A, b, cfg=cfg, warm=warm, tol=tol, device=device, log=log)
+    z = float(sol.x[Cp])
+    y = np.maximum(sol.lam, 0.0)
+    mu = float(sol.mu[0])
+    p = sol.x[:C]
+    return z, y, mu, p, sol.ok, (sol.x, sol.lam, sol.mu)

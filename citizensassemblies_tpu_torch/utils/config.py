@@ -38,6 +38,9 @@ class Config:
     seed_batch: int = 1_024
     #: violated columns added per dual LP solve.
     cg_columns_per_round: int = 16
+    #: violated compositions added per stage-LP solve of the type-space
+    #: stage CG (the fallback after a stalled face loop).
+    cg_columns_typespace: int = 512
     #: once the portfolio holds this many panels, stochastic pricing stops
     #: adding columns and the exact oracle carries the tail.
     max_portfolio: int = 8_192
@@ -79,9 +82,9 @@ class Config:
     decomp_warm_stall_rounds: int = 3
     #: screen the neighbour moves as one device batch per round.
     decomp_batched_expand: bool = True
-    #: device anchor pricing. ``None`` resolves to off in this package until
-    #: ROADMAP queue A item "device pricing + _FusedScreen" lands; ``True``
-    #: raises NotImplementedError.
+    #: device anchor pricing (``solvers/device_pricing``) and the fused move
+    #: screen. ``None``: on when the run's device is CUDA, off on the CPU;
+    #: ``True``/``False`` force.
     decomp_device_pricing: Optional[bool] = None
 
     # --- PDHG LP solver -------------------------------------------------------
@@ -97,10 +100,16 @@ class Config:
     pdhg_megakernel: Optional[bool] = None
 
     # --- batched LP engine ----------------------------------------------------
-    #: the B-lane polish screen. ``None`` resolves to off in this package
-    #: until ROADMAP queue A item "B-lane polish screen" lands; ``True``
-    #: raises NotImplementedError.
+    #: the batched LP engine (``solvers/batch_lp``): the B-lane polish screen
+    #: of the face loop and the probe prescreen of the enumerated path.
+    #: ``None``: on when the run's device is CUDA, off on the CPU;
+    #: ``True``/``False`` force.
     lp_batch: Optional[bool] = None
+    #: cap on a padded bucket dimension: powers of two below it, multiples
+    #: of it above.
+    lp_batch_bucket_max: int = 4_096
+    #: batched device prescreen of the enumerated path's probe LPs.
+    lp_batch_screen: bool = True
 
     # --- structured-sparse operator layer -------------------------------------
     #: ELL routing tri-state: ``None`` engages the ELL path when the measured
@@ -143,16 +152,10 @@ def default_config() -> Config:
 def check_slice_config(cfg: Config) -> None:
     """Raise NotImplementedError for a knob forced onto a path this package
     does not have yet (each names its ROADMAP queue A item)."""
-    missing = {
-        "decomp_device_pricing": "device pricing + _FusedScreen",
-        "lp_batch": "B-lane polish screen (batch_lp)",
-        "mixed_precision": "mixed precision",
-    }
-    for name, item in missing.items():
-        if getattr(cfg, name) is True:
-            raise NotImplementedError(
-                f"Config.{name}=True needs ROADMAP queue A item {item!r}"
-            )
+    if cfg.mixed_precision is True:
+        raise NotImplementedError(
+            "Config.mixed_precision=True needs ROADMAP queue A item 'mixed precision'"
+        )
     if cfg.robust_checkpoint_every or cfg.robust_checkpoint_dir:
         raise NotImplementedError(
             "face-loop checkpointing needs ROADMAP queue A item 'checkpointing'"

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -38,3 +39,17 @@ def on_accelerator(device: torch.device) -> bool:
     """True when ``device`` takes the accelerator routes (device masters,
     batched move screen, the block kernel)."""
     return torch.device(device).type == "cuda"
+
+
+def upload(array, device: torch.device, dtype=None) -> torch.Tensor:
+    """A host numpy array on ``device`` without blocking the host: to a
+    CUDA device through pinned memory and a copy queued on the current
+    stream (a copy from pageable memory waits for the stream to drain);
+    elsewhere a plain conversion."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if dtype is not None:
+        t = t.to(dtype)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)

@@ -119,15 +119,19 @@ def test_host_masters_without_pdhg(profiles):
     assert "megakernel_dispatches" not in log.counters
 
 
-def test_slice_config_refuses_missing_paths(profiles):
+@pytest.mark.parametrize(
+    "knobs", [dict(mixed_precision=True), dict(robust_checkpoint_every=1)], ids=["bf16", "checkpoint"]
+)
+def test_slice_config_refuses_missing_paths(profiles, knobs):
+    """What the port still lacks (mixed precision, face-loop checkpointing)
+    raises; device pricing and the batched LP engine are ported."""
     _, (tred, tv, tseeds) = profiles
-    for knob in ("decomp_device_pricing", "lp_batch", "mixed_precision"):
-        cfg = tconfig.default_config().replace(**{knob: True})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfd.realize_profile(
-                tred, tv, list(tseeds), tcg.CompositionOracle(tred), 6.5e-4,
-                use_pdhg=True, cfg=cfg, device="cpu",
-            )
+    cfg = tconfig.default_config().replace(**knobs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfd.realize_profile(
+            tred, tv, list(tseeds), tcg.CompositionOracle(tred), 6.5e-4,
+            use_pdhg=True, cfg=cfg, device="cpu",
+        )
 
 
 @pytest.mark.parametrize("batched", [False, True])

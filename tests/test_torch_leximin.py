@@ -1,8 +1,8 @@
 """LEXIMIN end to end: the port against the JAX package.
 
 Both packages run ``find_distribution_leximin`` on the same instances in the
-slice's configuration (device pricing, the B-lane polish screen and mixed
-precision off): ``example_small_like_instance`` takes the enumerated
+configuration whose routes the CPU takes in both (device pricing, the
+batched LP engine and mixed precision off): ``example_small_like_instance`` takes the enumerated
 type-space path, ``skewed_instance(n=160, k=14, n_categories=4, seed=2)``
 (T = 54 > ``enum_max_types``) the column-generation path with the face
 decomposition. Each side must meet its 1e-3 L∞ contract, and the two
@@ -94,11 +94,16 @@ def test_leximin_forced_device_routing(monkeypatch):
     assert "megakernel_fit_miss" not in c
 
 
-def test_leximin_refuses_paths_not_ported():
+@pytest.mark.parametrize("path", ["households", "XMIN", "mixed precision", "checkpointing"])
+def test_leximin_refuses_paths_not_ported(path):
+    """What the port still lacks raises, naming its ROADMAP item; device
+    pricing, the batched LP engine and the stage-CG fallback are ported."""
     td, ts = t_featurize(INSTANCES["example_small_like"](tgen), device="cpu")
-    with pytest.raises(NotImplementedError, match="households"):
-        t_leximin(td, ts, device="cpu", households=np.zeros(td.n, np.int64))
-    with pytest.raises(NotImplementedError, match="XMIN"):
-        t_leximin(td, ts, device="cpu", final_stage="l2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_leximin(td, ts, device="cpu", cfg=tconfig.default_config().replace(lp_batch=True))
+    kw = {
+        "households": dict(households=np.zeros(td.n, np.int64)),
+        "XMIN": dict(final_stage="l2"),
+        "mixed precision": dict(cfg=tconfig.default_config().replace(mixed_precision=True)),
+        "checkpointing": dict(checkpoint_path="ckpt.npz"),
+    }[path]
+    with pytest.raises(NotImplementedError, match=path):
+        t_leximin(td, ts, device="cpu", **kw)

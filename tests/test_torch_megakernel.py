@@ -348,9 +348,12 @@ def test_config_maps_from_reference():
     for name in fields:
         assert getattr(port, name) == getattr(ref, name), name
     assert port == tconfig.default_config()
-    for knob in ("decomp_device_pricing", "lp_batch", "mixed_precision"):
-        with pytest.raises(NotImplementedError):
-            tconfig.check_slice_config(port.replace(**{knob: True}))
+    with pytest.raises(NotImplementedError):
+        tconfig.check_slice_config(port.replace(mixed_precision=True))
+    with pytest.raises(NotImplementedError):
+        tconfig.check_slice_config(port.replace(robust_checkpoint_every=1))
+    # device pricing and the batched LP engine are ported
+    tconfig.check_slice_config(port.replace(decomp_device_pricing=True, lp_batch=True))
     tconfig.check_slice_config(port)
     # the agent-space path is ported: forcing it is a valid configuration
     tconfig.check_slice_config(port.replace(force_agent_space=True, backend="jax"))
@@ -362,3 +365,34 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tdevice.resolve_device(None)
     assert tdevice.resolve_device("cpu").type == "cpu"
+
+
+def test_polish_screen_plan_at_the_flagship_shape():
+    """The polish screen's launch at the flagship: three prefix lanes of a
+    2048-column support (``batch_lp._bucket_dim``) over T=814 types pass the
+    fit gate with no miss, split the card's 132 blocks into three groups of
+    44 (only the real lanes launch; the JAX package pads to four), and
+    keep each block's pack share resident."""
+    from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.solvers.batch_lp import _bucket_dim
+    from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
+
+    red = TypeReduction(featurize(sf_e_skewed_instance(seed=1), device="cpu")[0])
+    rng = np.random.default_rng(0)
+    comps = np.zeros((2048, red.T))
+    for c in range(2048):
+        np.add.at(comps[c], red.type_id[rng.choice(red.n, size=red.k, replace=False)], 1.0)
+    pack = TEll.from_rows((comps / red.msize[None, :]).astype(np.float32), minor=red.T)
+    Cp = _bucket_dim(len(pack), tconfig.default_config().lp_batch_bucket_max)
+    assert (red.T, Cp) == (814, 2048)
+    log = RunLog(echo=False)
+    cfg = tconfig.default_config().replace(pdhg_megakernel=True)
+    assert tmk.megakernel_mode(cfg, red.T, Cp, "cpu", log=log, lanes=3) == "fused"
+    assert "megakernel_fit_miss" not in log.counters
+    idx, val = pack.padded(Cp)
+    _perm, rowptr, _colT = tmk.csr_transpose(idx, val, red.T)
+    plan = tmk.launch_plan(3, red.T, Cp, tmk.H100_SMS, rowptr, kp=idx.shape[1])
+    assert plan.lanes == 3 and plan.blocks_per_lane == 44 and plan.grid == tmk.H100_SMS
+    assert plan.tile_floats > 0
+    assert tmk.two_sided_smem_bytes(red.T, Cp, plan.tile_floats) <= tmk.LAYOUT["kMaxSmem"]
