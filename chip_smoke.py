@@ -53,7 +53,20 @@ Phases, each fatal on failure:
    stall, under a budget, and on the pool of
    ``tests/test_torch_stage_cg.py``, where its stages price (stochastic
    draws on the card and the exact MILP), to its end and held to the same
-   run on the CPU.
+   run on the CPU;
+6. XMIN (the main path's second algorithm) on ``sf_e_skewed_instance(seed=1)``
+   from the defaults flagship's LEXIMIN distribution, its launch counters
+   zeroed just before it and read just after, run twice and held bit for
+   bit; the gather kernel held against its plain version at XMIN's shape
+   (15,000-odd panels of 112 slots over n = 1,727 agents); and the fused
+   ELL min-L2 core on the card (its PDHG blocks and ascent chunks replayed
+   as CUDA graphs, and again op by op, bit for bit) against the same core
+   on the CPU on a 1,024-panel prefix of that portfolio; the serial min-L2
+   route (``Config.lp_batch`` off: the min-ε PDHG anchor, then the
+   fixed-count ascent in graph-replayed chunks) on the card against the CPU
+   on that prefix, its chunks held bit for bit against the op-by-op ascent
+   with the gather's launch count equal in both, and on the card on the
+   whole portfolio.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
 line, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -299,7 +312,9 @@ def gather_phase(pack, rows=6144, label="gather"):
     ycol = y[:, None].contiguous()
     lib_err = float((torch.sparse.mm(csr, ycol)[:, 0] - z).abs().max())
     library_ms, library_call_ms = timed(lambda: torch.sparse.mm(csr, ycol), reps=200, warmup=10)
-    # each input read once (the padded pack, y), the output written once
+    # each input read once (the padded pack, y), the output written once,
+    # at the HBM rate: the bound of the flushed time. The hot time (ms)
+    # reads a pack that fits the 50 MB L2 from the L2 and may fall below it
     nbytes = C * kp * 8 + T * 4 + C * 4
     flops = 2 * C * kp
     bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
@@ -310,7 +325,8 @@ def gather_phase(pack, rows=6144, label="gather"):
         ms=ms, l2_flushed_ms=flushed_ms, b3_ms=b3_ms, plain_ms=plain_ms, library_ms=library_ms,
         library_max_abs_err=lib_err,
         call_ms=call_ms, plain_call_ms=plain_call_ms, library_call_ms=library_call_ms,
-        bound_ms=bound_ms, bound_by="bytes", max_abs_err=err, tolerance=GATHER_TOL,
+        bound_ms=bound_ms, bound_by="bytes", bound_pairs_with="l2_flushed_ms",
+        flushed_bound_share=bound_ms / flushed_ms, max_abs_err=err, tolerance=GATHER_TOL,
         launches=em.KERNEL.launches - launches0, ok=err <= GATHER_TOL,
     )
     print(json.dumps(rec), flush=True)
@@ -1450,7 +1466,7 @@ def defaults_flagship_phase(inst, cfg, libs):
         and solves2 == solves and again.contract_ok
     )
     print(json.dumps(rec), flush=True)
-    return rec, launches
+    return rec, launches, dist
 
 
 def mass_like_phase(cfg):
@@ -1640,6 +1656,259 @@ def stage_cg_phase(inst, cfg, label, accept, rounds=None, reference=False):
     return rec
 
 
+def xmin_run(dense, space, cfg, leximin):
+    """XMIN on the card from a LEXIMIN result: ``(dist, log, seconds)``,
+    the clock stopped after ``torch.cuda.synchronize()``."""
+    import torch
+
+    from citizensassemblies_tpu_torch.models.xmin import find_distribution_xmin
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    log = RunLog(echo=False)
+    t0 = time.perf_counter()
+    dist = find_distribution_xmin(dense, space, cfg=cfg, log=log, leximin=leximin, device="cuda")
+    torch.cuda.synchronize()
+    return dist, log, time.perf_counter() - t0
+
+
+def xmin_phase(inst, cfg, leximin, lex_seconds, libs):
+    """XMIN on the flagship pool at the defaults, seeded with the defaults
+    flagship's LEXIMIN distribution (no second LEXIMIN solve), every launch
+    counter zeroed just before it and read just after: the expansion to
+    ``8n`` distinct new panels, then the fused ELL min-L2 stage (anchor,
+    floor pick, ascent in 512-iteration chunks). Run twice with the same
+    seed: the second run must be bit-identical (portfolio, probabilities,
+    anchor and ascent iterations). Held: the contract
+    (``realization_dev ≤ 1e-3``), a support above LEXIMIN's, every panel of
+    k members meeting every quota, probabilities summing to 1 within
+    1e-9. Returns ``(rec, dist)``."""
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    dense, space = featurize(inst, device="cuda")
+    for lib in libs:
+        lib.launches = 0
+    dist, xlog, secs = xmin_run(dense, space, cfg, leximin)
+    launches = {"ell_gather": em.KERNEL.launches, "two_sided_block": mk.KERNEL.launches,
+                "lp_block": mk.LP_KERNEL.launches}
+    again, alog, secs2 = xmin_run(dense, space, cfg, leximin)
+    c, tm = xlog.counters, xlog.timers
+    P, probs = dist.committees, dist.probabilities
+    counts = P.astype(np.int64) @ dense.A_np.astype(np.int64)
+    quotas_ok = bool(
+        (P.sum(axis=1) == dense.k).all()
+        and (counts >= dense.qmin_np[None, :]).all() and (counts <= dense.qmax_np[None, :]).all()
+    )
+    support = int((probs > cfg.support_eps).sum())
+    lex_support = int((leximin.probabilities > cfg.support_eps).sum())
+    sorted_gap = float(np.abs(np.sort(dist.allocation) - np.sort(leximin.allocation)).max())
+    iters = {k: int(c.get(k, 0)) for k in ("l2_anchor_iters", "l2_ascent_iters")}
+    iters2 = {k: int(alog.counters.get(k, 0)) for k in iters}
+    same = bool(
+        np.array_equal(again.committees, P) and np.array_equal(again.probabilities, probs)
+        and iters2 == iters
+    )
+    rec = dict(
+        phase="xmin_sf_e_skewed", n=dense.n, k=dense.k, seconds=secs,
+        seconds_with_leximin=secs + lex_seconds, repeat_seconds=secs2,
+        panels=int(P.shape[0]), new_panels=int(P.shape[0] - leximin.committees.shape[0]),
+        support_panels=support, leximin_support_panels=lex_support,
+        sorted_alloc_linf_vs_leximin=sorted_gap, realization_dev=float(dist.realization_dev),
+        min_prob=float(dist.allocation.min()), contract_ok=bool(dist.contract_ok),
+        prob_sum_err=abs(float(probs.sum()) - 1.0), quotas_ok=quotas_ok,
+        timers={k: tm[k] for k in (
+            "xmin_draws", "xmin_dedup", "sparse_pack", "xmin_l2", "l2_fused", "l2_anchor",
+            "l2_ascent", "l2_eps_pdhg", "l2_dual_ascent",
+        ) if k in tm},
+        counters={k: int(c.get(k, 0)) for k in ("lp_batch_l2_fused", "sparse_hit", "sparse_miss",
+                                                 "sparse_fill_pct", "sentinel_quarantined",
+                                                 "l2_ascent_replays")},
+        anchor_iters=iters["l2_anchor_iters"], ascent_iters=iters["l2_ascent_iters"],
+        ascent_chunks=iters["l2_ascent_iters"] // 512, launches=launches,
+        repeat=dict(iters=iters2, bit_identical=same),
+    )
+    rec["ok"] = bool(
+        dist.contract_ok and dist.realization_dev <= E2E_CONTRACT and support > lex_support
+        and quotas_ok and rec["prob_sum_err"] <= 1e-9 and np.isfinite(dist.allocation).all()
+        and same and launches["ell_gather"] > 0
+    )
+    print(json.dumps(rec), flush=True)
+    return rec, dist
+
+
+#: the fused L2 core on the card against the same core on the CPU: a prefix
+#: of the grown flagship portfolio small enough for the CPU side, the
+#: schedule of solve_final_primal_l2 (anchor cap, 128-iteration checks,
+#: 512-iteration chunks, at most 40), with the sentinel; held at the bars of
+#: tests/test_torch_qp.py (the spread p within 1e-5, the floor within 1e-6)
+L2_HOLD_ROWS = 1024
+L2_HOLD_P_TOL = 1e-5
+L2_HOLD_FLOOR_TOL = 1e-6
+
+
+def xmin_l2_hold_phase(dist, leximin):
+    """``qp._get_l2_fused_core_ell`` on the first ``L2_HOLD_ROWS`` panels of
+    the XMIN portfolio (targets: the leximin values; donor: the LEXIMIN
+    probabilities) on the card, the gather kernel and the agent-major CSR
+    transpose, against the same core on the CPU (the plain gather and
+    ``index_add_``): equal anchor iterations and ascent chunks, p within
+    ``L2_HOLD_P_TOL``, the floor vector within ``L2_HOLD_FLOOR_TOL``. On the
+    card the ascent's chunks replay as a CUDA graph; the same core with
+    every chunk launched op by op must give the same result bit for bit."""
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_to_device
+    from citizensassemblies_tpu_torch.solvers import qp
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
+
+    P = dist.committees[:L2_HOLD_ROWS]
+    n = P.shape[1]
+    ell = EllPack.from_rows(P.astype(np.float32))
+    donor = np.zeros(len(P))
+    m = min(len(P), len(leximin.probabilities))
+    donor[:m] = leximin.probabilities[:m]
+    donor /= donor.sum()
+    t = np.asarray(leximin.fixed_probabilities, np.float32)
+    outs, secs, timers = {}, {}, {}
+    for label, dev, graph in (("cuda", "cuda", True), ("cuda_eager", "cuda", False), ("cpu", "cpu", False)):
+        from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+        core = qp._get_l2_fused_core_ell(qp.ANCHOR_ITERS, 128, qp.L2_CHUNK, 40, sentinel=True, graph=graph)
+        csr = csr_to_device(ell.idx, ell.val, n, dev)
+        args = [torch.as_tensor(a, device=dev) for a in (ell.idx, ell.val, t, donor.astype(np.float32))]
+        log = RunLog(echo=False)
+        t0 = time.perf_counter()
+        out = core(*args, torch.tensor(1e-6, device=dev), qp.ANCHOR_TOL, qp.ASCENT_TOL, csr, log=log)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        timers[label] = log.timers
+        outs[label] = (out[0].cpu().numpy(), out[1].cpu().numpy(), out[2], out[3], out[4])
+    g, e, c = outs["cuda"], outs["cuda_eager"], outs["cpu"]
+    p_err = float(np.abs(g[0] - c[0]).max())
+    floor_err = float(np.abs(g[1] - c[1]).max())
+    graph_equal = bool(
+        np.array_equal(g[0], e[0]) and np.array_equal(g[1], e[1]) and g[2:] == e[2:]
+    )
+    rec = dict(
+        phase="xmin_l2_hold", rows=len(P), n=n, k_pad=ell.k_pad, seconds=secs, timers=timers,
+        anchor_iters=[g[2], c[2]], ascent_iters=[g[3], c[3]], flags=[g[4], c[4]],
+        p_max_abs_err=p_err, floor_max_abs_err=floor_err, graph_bit_identical=graph_equal,
+        p_tolerance=L2_HOLD_P_TOL, floor_tolerance=L2_HOLD_FLOOR_TOL,
+    )
+    rec["ok"] = bool(
+        g[2] == c[2] and g[3] == c[3] and g[4] == c[4] == 0 and graph_equal
+        and p_err <= L2_HOLD_P_TOL and floor_err <= L2_HOLD_FLOOR_TOL
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+#: the serial min-L2 route on the card against the CPU, on the hold's
+#: prefix, at the bars of tests/test_torch_qp.py's solve_final_primal_l2
+#: cases: ε* within 1e-6, the realized deviation within 1e-5
+L2_SERIAL_EPS_TOL = 1e-6
+L2_SERIAL_DEV_TOL = 1e-5
+#: iterations of the serial ascent's graph-vs-op-by-op check: two chunks
+#: and a remainder
+L2_SERIAL_GRAPH_ITERS = 2 * 512 + 76
+
+
+def l2_serial_phase(dist, leximin, cfg):
+    """``qp.solve_final_primal_l2`` on the serial route (``lp_batch`` off:
+    the min-ε PDHG anchor ``l2_eps_pdhg``, then ``xmin_qp_iters`` ascent
+    iterations ``l2_dual_ascent`` in graph-replayed 512-iteration chunks)
+    with the LEXIMIN donor: on the first ``L2_HOLD_ROWS`` panels of the
+    XMIN portfolio on the card and on the CPU, held at
+    ``L2_SERIAL_EPS_TOL``/``L2_SERIAL_DEV_TOL``; on the card, the serial
+    ELL ascent through its chunks against the same ascent op by op
+    (``L2_SERIAL_GRAPH_ITERS``), bit for bit and with the same count of
+    gather launches, which the replays count; and on the card on the whole
+    portfolio, timed, held to the contract."""
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_to_device
+    from citizensassemblies_tpu_torch.solvers import qp
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    serial = cfg.replace(lp_batch=False)
+    t = np.asarray(leximin.fixed_probabilities, np.float64)
+    donor = np.asarray(leximin.probabilities, np.float64)
+
+    def run(P, dev):
+        log = RunLog(echo=False)
+        t0 = time.perf_counter()
+        p, eps = qp.solve_final_primal_l2(
+            P, t, iters=cfg.xmin_qp_iters, floor_donor=donor[: len(P)], cfg=serial, log=log,
+            device=dev,
+        )
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        real = float(np.abs(P.T.astype(np.float64) @ p - t).max())
+        return p, eps, real, secs, log
+
+    P = dist.committees[: L2_HOLD_ROWS]
+    hold = {dev: run(P, dev) for dev in ("cuda", "cpu")}
+    (pg, eg, rg, sg, lg), (pc, ec, rc, sc, lc) = hold["cuda"], hold["cpu"]
+    # the serial ascent's chunks against the same ascent op by op
+    ell = EllPack.from_rows(P.astype(np.float32))
+    n = P.shape[1]
+    csr = csr_to_device(ell.idx, ell.val, n, "cuda")
+    idx, val = (torch.as_tensor(a, device="cuda") for a in (ell.idx, ell.val))
+    tt = torch.as_tensor(t, dtype=torch.float32, device="cuda")
+    eps_t = torch.tensor(eg + 1e-6, dtype=torch.float32, device="cuda")
+    sigma_sq = float(qp._ell_power_norm(idx, val, n, csr=csr)) ** 2
+    lr = torch.tensor(1.0 / max(sigma_sq / 2.0, 1.0), dtype=torch.float32, device="cuda")
+    outs, gathers = {}, {}
+    for label, graph in (("warm", True), ("graph", True), ("eager", False)):
+        lam0 = torch.zeros(2 * n, dtype=torch.float32, device="cuda")
+        before = em.KERNEL.launches
+        p, lam = qp._min_norm_dual_ascent_ell(
+            idx, val, tt, eps_t, lr, lam0, L2_SERIAL_GRAPH_ITERS, csr=csr, graph=graph
+        )
+        torch.cuda.synchronize()
+        gathers[label] = em.KERNEL.launches - before
+        outs[label] = (p.cpu().numpy(), lam.cpu().numpy())
+    graph_equal = bool(
+        np.array_equal(outs["graph"][0], outs["eager"][0])
+        and np.array_equal(outs["graph"][1], outs["eager"][1])
+    )
+    # the serial route at the whole portfolio, on the card only
+    pf, ef, rf, sf, lf = run(dist.committees, "cuda")
+
+    def summary(log, secs, eps, real):
+        return dict(
+            seconds=secs, eps_star=eps, realized_dev=real,
+            timers={k: log.timers[k] for k in ("sparse_pack", "l2_eps_pdhg", "l2_dual_ascent")
+                    if k in log.timers},
+            counters={k: int(log.counters.get(k, 0)) for k in ("sparse_hit", "lp_batch_l2_fused")},
+        )
+
+    rec = dict(
+        phase="l2_serial", rows=len(P), n=n, iters=cfg.xmin_qp_iters,
+        cuda=summary(lg, sg, eg, rg), cpu=summary(lc, sc, ec, rc),
+        eps_err=abs(eg - ec), dev_err=abs(rg - rc), p_max_abs_err=float(np.abs(pg - pc).max()),
+        eps_tolerance=L2_SERIAL_EPS_TOL, dev_tolerance=L2_SERIAL_DEV_TOL,
+        graph_iters=L2_SERIAL_GRAPH_ITERS, graph_bit_identical=graph_equal,
+        gather_launches=gathers,
+        full=dict(rows=int(dist.committees.shape[0]), **summary(lf, sf, ef, rf),
+                  support_panels=int((pf > cfg.support_eps).sum()), prob_sum_err=abs(float(pf.sum()) - 1.0)),
+    )
+    rec["ok"] = bool(
+        rec["eps_err"] <= L2_SERIAL_EPS_TOL and rec["dev_err"] <= L2_SERIAL_DEV_TOL
+        and graph_equal and gathers["graph"] == gathers["eager"] == L2_SERIAL_GRAPH_ITERS + 1
+        and "l2_dual_ascent" in lg.timers and lg.counters.get("sparse_hit", 0) == 1
+        and "lp_batch_l2_fused" not in lg.counters
+        and rf <= E2E_CONTRACT and np.isfinite(pf).all() and rec["full"]["prob_sum_err"] <= 1e-9
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1655,6 +1924,7 @@ def main() -> int:
         from citizensassemblies_tpu_torch.kernels import cuda_lib
         from citizensassemblies_tpu_torch.kernels import ell_matvec as em
         from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+        from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
         from citizensassemblies_tpu_torch.utils.config import default_config
         from citizensassemblies_tpu_torch.utils.device import resolve_device
     except ImportError as exc:
@@ -1696,7 +1966,19 @@ def main() -> int:
     e2e, _ = flagship_phase(sf_e_skewed_instance(seed=1), slice_cfg, libs)
     # the main path: the flagship at the package's defaults
     defaults_cfg = default_config().replace(mixed_precision=False)
-    e2e_defaults, launches = defaults_flagship_phase(sf_e_skewed_instance(seed=1), defaults_cfg, libs)
+    e2e_defaults, launches, lex_defaults = defaults_flagship_phase(
+        sf_e_skewed_instance(seed=1), defaults_cfg, libs
+    )
+    # XMIN on the same pool, seeded with that LEXIMIN distribution; its
+    # gather launches count with the main path's
+    xmin, xmin_dist = xmin_phase(
+        sf_e_skewed_instance(seed=1), defaults_cfg, lex_defaults, e2e_defaults["seconds"], libs
+    )
+    launches["ell_gather"] += xmin["launches"]["ell_gather"]
+    xmin_pack = EllPack.from_rows(xmin_dist.committees.astype(np.float32))
+    gather_xmin = gather_phase(xmin_pack, rows=len(xmin_pack), label="gather_xmin")
+    xmin_hold = xmin_l2_hold_phase(xmin_dist, lex_defaults)
+    l2_serial = l2_serial_phase(xmin_dist, lex_defaults, defaults_cfg)
     mass = mass_like_phase(defaults_cfg)
 
     legacy = legacy_phase(sf_e_skewed_instance(seed=1))
@@ -1723,7 +2005,7 @@ def main() -> int:
         )
 
     kernels = [
-        summary("ell_gather", gather, [gather, gather_dual]),
+        summary("ell_gather", gather, [gather, gather_dual, gather_xmin]),
         summary("two_sided_block", b1, [b1, b3, bnan, screen]),
         summary("lp_block", lp, [lp, lp_sf_b]),
     ]
@@ -1731,8 +2013,8 @@ def main() -> int:
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     print(card, flush=True)
     failed = [
-        r for r in (e2e, e2e_defaults, mass, legacy, agent, agent_sf_b, dense_graph, stage_cg,
-                    stage_cg_pricing)
+        r for r in (e2e, e2e_defaults, xmin, xmin_hold, l2_serial, mass, legacy, agent, agent_sf_b,
+                    dense_graph, stage_cg, stage_cg_pricing)
         if not r["ok"]
     ]
     if failed:

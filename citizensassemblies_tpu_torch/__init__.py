@@ -17,16 +17,26 @@ from citizensassemblies_tpu_torch.core.instance import (
     featurize,
     read_instance,
 )
+from citizensassemblies_tpu_torch.models import (
+    Distribution,
+    find_distribution_leximin,
+    find_distribution_xmin,
+    legacy_probabilities,
+)
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 
 __all__ = [
     "Config",
     "DenseInstance",
+    "Distribution",
     "FeatureSpace",
     "InfeasibleQuotasError",
     "Instance",
     "SelectionError",
     "default_config",
     "featurize",
+    "find_distribution_leximin",
+    "find_distribution_xmin",
+    "legacy_probabilities",
     "read_instance",
 ]

@@ -1,7 +1,8 @@
 """Carry the JAX package's state into this package, from plain numpy and dicts.
 
 The system has no weights: what crosses over is configurations, instances,
-ELL packs of master columns and PDHG warm starts. Every function here takes
+ELL packs of master columns, PDHG warm starts and distributions (a LEXIMIN
+result seeds XMIN through its ``leximin=`` argument). Every function here takes
 plain Python and numpy values (for example ``dataclasses.asdict`` of the JAX
 package's ``Config``, or the host arrays of its ``DenseInstance``) and never
 imports the JAX package.
@@ -15,6 +16,7 @@ from typing import Mapping, Tuple
 import numpy as np
 
 from citizensassemblies_tpu_torch.core.instance import DenseInstance, dense_instance
+from citizensassemblies_tpu_torch.models.leximin import Distribution
 from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
 from citizensassemblies_tpu_torch.utils.config import Config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike
@@ -78,3 +80,29 @@ def portfolio_from_panels(panels, n: int) -> np.ndarray:
     for r, panel in enumerate(panels):
         P[r, np.asarray(panel, dtype=np.int64)] = True
     return P
+
+
+def distribution_from_arrays(
+    committees: np.ndarray,
+    probabilities: np.ndarray,
+    allocation: np.ndarray,
+    fixed_probabilities: np.ndarray,
+    covered: np.ndarray,
+    realization_dev: float,
+    contract_ok: bool,
+) -> Distribution:
+    """This package's :class:`Distribution` from the arrays of one (for
+    example the JAX package's ``Distribution`` fields): the portfolio bool
+    ``[C, n]``, its float64 probabilities ``[C]``, the per-agent allocation
+    and leximin values ``[n]``, the coverage mask, the realized deviation
+    and the contract flag. The output lines start empty."""
+    return Distribution(
+        committees=np.asarray(committees, dtype=bool),
+        probabilities=np.asarray(probabilities, dtype=np.float64),
+        allocation=np.asarray(allocation, dtype=np.float64),
+        output_lines=[],
+        fixed_probabilities=np.asarray(fixed_probabilities, dtype=np.float64),
+        covered=np.asarray(covered, dtype=bool),
+        realization_dev=float(realization_dev),
+        contract_ok=bool(contract_ok),
+    )

@@ -11,6 +11,11 @@ package needs neither ``nvcc`` nor a card.
 A launch failure is an error: :meth:`CudaLibrary.call` (and
 :meth:`CudaLibrary.run`, which counts no launch) raises when the C entry
 point returns a nonzero ``cudaError_t``.
+
+A wrapper called while a CUDA graph is captured launches nothing: its
+kernel runs at each replay. :func:`launch_counts` and
+:func:`move_captured_launches` let the capture take those calls out of the
+counters, and :func:`count_replay` adds them back at every replay.
 """
 
 from __future__ import annotations
@@ -44,6 +49,10 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+#: every library of the package, in creation order
+LIBRARIES: List["CudaLibrary"] = []
+
+
 class CudaLibrary:
     """One kernel source, its shared library and its launch counter.
 
@@ -63,6 +72,7 @@ class CudaLibrary:
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
+        LIBRARIES.append(self)
 
     def start_build(self):
         cmd = [nvcc()] + NVCC_FLAGS + [f"-I{CSRC}"]
@@ -100,6 +110,28 @@ class CudaLibrary:
         if rc != 0:
             raise RuntimeError(f"{self.name}.{fname} failed with cudaError_t {rc}")
         return rc
+
+
+def launch_counts() -> List[int]:
+    """Every library's launch count, in :data:`LIBRARIES` order."""
+    return [lib.launches for lib in LIBRARIES]
+
+
+def move_captured_launches(before: List[int]) -> List[int]:
+    """The launches counted since ``before`` (:func:`launch_counts` taken
+    when a graph capture began), taken back out of the counters: during a
+    capture the wrappers only record their kernels. Returns them per
+    library, for :func:`count_replay`."""
+    captured = [lib.launches - b for lib, b in zip(LIBRARIES, before)]
+    for lib, c in zip(LIBRARIES, captured):
+        lib.launches -= c
+    return captured
+
+
+def count_replay(captured: List[int]) -> None:
+    """Count the launches one replay of a captured graph makes."""
+    for lib, c in zip(LIBRARIES, captured):
+        lib.launches += c
 
 
 def build_all(libs: List[CudaLibrary]) -> float:

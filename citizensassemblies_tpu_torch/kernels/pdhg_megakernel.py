@@ -479,16 +479,29 @@ def two_sided_prelude(idx: torch.Tensor, val: torch.Tensor, v: torch.Tensor, col
 def csr_forward(csr, vals_s: torch.Tensor):
     """The forward product ``u[b, t] = Σ_{c,s: idx[c,s]=t} vals_s[b,c,s]·p[b,c]``
     as a function of ``p [B, C]``, summed per type in column order over the
-    type-major CSR ``csr`` (:func:`csr_transpose` of the pack) by
-    ``torch.segment_reduce`` with the lanes on the trailing axis: a fixed
-    order with no atomics. ``vals_s`` is ``[B, C, k_pad]``."""
+    type-major CSR ``csr`` (:func:`csr_transpose` of the pack) by one 1-D
+    ``torch.segment_reduce`` over the B·T segments of the lanes laid end to
+    end: a fixed order with no atomics. (A 2-D reduction with the lanes on
+    a trailing axis sums each segment in one thread: at the XMIN anchor's
+    1.68M entries over 1,727 segments it took 844 µs against 60 µs this
+    way on an NVIDIA H100 80GB HBM3 at 700 W, ``chip_qp_probe.py``. On the
+    CPU both sum in the same order, bit for bit.) ``vals_s`` is
+    ``[B, C, k_pad]``."""
     perm, rowptr, colT = csr
-    vals_t = vals_s.reshape(vals_s.shape[0], -1)[:, perm].t().contiguous()  # [nnz, B]
+    B = vals_s.shape[0]
+    T = rowptr.shape[0] - 1
+    nnz = perm.shape[0]
+    vals_t = vals_s.reshape(B, -1)[:, perm].contiguous()  # [B, nnz]
+    lane = torch.arange(B, dtype=torch.int64, device=rowptr.device)[:, None] * nnz
+    offsets = torch.cat([
+        (rowptr[None, :-1].to(torch.int64) + lane).reshape(-1),
+        torch.full((1,), B * nnz, dtype=torch.int64, device=rowptr.device),
+    ])
 
     def forward(p):
         return torch.segment_reduce(
-            vals_t * p.t()[colT], "sum", offsets=rowptr, axis=0, unsafe=True
-        ).t().contiguous()
+            (vals_t * p[:, colT]).reshape(-1), "sum", offsets=offsets, axis=0, unsafe=True
+        ).view(B, T)
 
     return forward
 
@@ -516,7 +529,9 @@ def ell_operators(idx, vals_s, pre, csr, gather=ell_gather_mv):
 
 def two_sided_blocks_plain(csr, idx, vals_s, pre, state, tol, *, max_iters, check_every, sentinel):
     """The block kernel's plain version: the same block loop in torch ops
-    (``lp_pdhg._two_sided_iterate`` over the plain packed matvecs)."""
+    (``lp_pdhg._two_sided_iterate`` over the plain packed matvecs), launched
+    op by op on the card as well, so its times stay those of the plain
+    loop that ``chip_smoke.py`` has always held the kernel against."""
     from citizensassemblies_tpu_torch.solvers.lp_pdhg import _two_sided_iterate
 
     K_apply, KT_apply = ell_operators(idx, vals_s, pre, csr, gather=ell_gather_mv_plain)
@@ -524,7 +539,7 @@ def two_sided_blocks_plain(csr, idx, vals_s, pre, state, tol, *, max_iters, chec
     return _two_sided_iterate(
         K_apply, KT_apply, pre.cs_eps, pre.hs_lo, pre.hs_up, pre.bs,
         p, eps, l_lo, l_up, mu, norm, scale, tol,
-        max_iters, check_every, sentinel=sentinel,
+        max_iters, check_every, sentinel=sentinel, graph=False,
     )
 
 

@@ -24,8 +24,14 @@ the dual LP over the portfolio (by PDHG on ``device`` with
 prices new panels with the LEGACY sampler on ``device``, the exact oracle
 certifying termination; a final LP realizes the fixed probabilities.
 
-Not in this package yet, each raising ``NotImplementedError``: households,
-``final_stage="l2"`` and checkpointing.
+``final_stage="l2"`` realizes the certificate with the min-L2 stage of
+``solvers/qp`` instead (type space: over the rotation expansion of the
+compositions, ``compositions.expand_compositions``; agent space: over the
+column-generation portfolio), as XMIN does; it never falls back to agent
+space, and ``contract_ok`` reports its deviation.
+
+Not in this package yet, each raising ``NotImplementedError``: households
+and checkpointing.
 """
 
 from __future__ import annotations
@@ -80,7 +86,7 @@ class Distribution:
 
 
 def _typespace_leximin(
-    dense: DenseInstance, cfg: Config, log: RunLog, device
+    dense: DenseInstance, cfg: Config, log: RunLog, device, final_stage: str = "lp"
 ) -> Distribution:
     """Exact leximin in type space: enumeration when the type count is
     small, the relaxation profile plus one face decomposition otherwise."""
@@ -117,7 +123,53 @@ def _typespace_leximin(
         )
         with log.timer("typespace_cg"):
             ts = leximin_cg_typespace(dense, reduction, cfg=cfg, log=log, device=device)
+    if final_stage == "l2":
+        return realize_typespace_l2(dense, reduction, ts, cfg, log, device)
     return realize_typespace(dense, reduction, ts, cfg, log, enumerated=comps is not None)
+
+
+def realize_typespace_l2(dense: DenseInstance, reduction, ts, cfg: Config, log: RunLog,
+                         device) -> Distribution:
+    """Realize a type-space certificate with the min-L2 stage: the
+    rotation expansion of the compositions (``expand_compositions``) is the
+    portfolio, its probabilities the ε-floor donor of
+    ``qp.solve_final_primal_l2`` (so the host ε-LP never runs)."""
+    from citizensassemblies_tpu_torch.solvers.compositions import expand_compositions
+    from citizensassemblies_tpu_torch.solvers.qp import solve_final_primal_l2
+
+    fixed_agent = ts.type_values[reduction.type_id]
+    with log.timer("final_stage"):
+        P, p_seed = expand_compositions(
+            ts.compositions, ts.probabilities, reduction,
+            budget=cfg.expand_budget, support_eps=cfg.support_eps,
+        )
+        probs, eps_dev = solve_final_primal_l2(
+            P, fixed_agent, iters=cfg.xmin_qp_iters, log=log, floor_donor=p_seed, cfg=cfg,
+            device=device,
+        )
+    probs = np.clip(probs, 0.0, 1.0)
+    probs = probs / probs.sum()
+    allocation = P.T.astype(np.float64) @ probs
+    coverable = ts.coverable if hasattr(ts, "coverable") else ts.compositions.max(axis=0) > 0
+    total_dev = float(np.max(np.abs(allocation - fixed_agent)))
+    log.emit(
+        f"Leximin done (type space): {ts.stages} stages, {ts.lp_solves} LP solves, "
+        f"{P.shape[0]} panels in portfolio, final ε = {eps_dev:.2e}, "
+        f"max |alloc − target| = {total_dev:.2e}."
+    )
+    log.emit(format_timers(log.timers))
+    if log.counters:
+        log.emit(format_counters(log.counters))
+    return Distribution(
+        committees=P,
+        probabilities=probs,
+        allocation=allocation,
+        output_lines=list(log.lines),
+        fixed_probabilities=fixed_agent,
+        covered=coverable[reduction.type_id],
+        realization_dev=total_dev,
+        contract_ok=bool(total_dev <= CONTRACT_LINF),
+    )
 
 
 def realize_typespace(
@@ -274,6 +326,7 @@ def _agent_space_leximin(
     oracle: HighsCommitteeOracle,
     initial_panels,
     ts_fallback: Optional[Distribution],
+    final_stage: str = "lp",
 ) -> Distribution:
     """The agent-space column generation (``leximin.py:338-470``). With a
     ``ts_fallback`` (a type-space result that missed the contract) the loop
@@ -433,7 +486,13 @@ def _agent_space_leximin(
 
     P = portfolio.matrix()
     with log.timer("final_stage"):
-        if pdhg:
+        if final_stage == "l2":
+            from citizensassemblies_tpu_torch.solvers.qp import solve_final_primal_l2
+
+            # the JAX package's call passes no cfg and no donor: the default
+            # routing and the host ε-LP, then the ascent on ``device``
+            probs, eps_dev = solve_final_primal_l2(P, fixed, log=log, device=device)
+        elif pdhg:
             from citizensassemblies_tpu_torch.solvers.lp_pdhg import solve_final_primal_lp_pdhg
 
             probs, eps_dev = solve_final_primal_lp_pdhg(P, fixed, cfg=cfg, device=device, log=log)
@@ -482,15 +541,15 @@ def find_distribution_leximin(
     unless the caller passes another (``device="cpu"`` runs them on the
     host). Raises when CUDA is absent and no device was passed.
     ``initial_panels`` warm-starts the agent-space portfolio.
+    ``final_stage="l2"`` realizes the certificate with the min-L2 stage of
+    ``solvers/qp`` (XMIN's) instead of the final LP.
     """
     cfg = cfg or default_config()
     check_slice_config(cfg)
     if households is not None:
-        raise NotImplementedError("households need ROADMAP queue A item 'households'")
-    if final_stage != "lp":
-        raise NotImplementedError(
-            "final_stage='l2' needs the XMIN L2 stage (ROADMAP queue A item 'XMIN')"
-        )
+        raise NotImplementedError("households need ROADMAP queue A item 2 'households'")
+    if final_stage not in ("lp", "l2"):
+        raise ValueError(f"final_stage must be 'lp' or 'l2', not {final_stage!r}")
     if checkpoint_path is not None:
         raise NotImplementedError(
             "checkpoint_path needs ROADMAP queue A item 'checkpointing' (utils/checkpoint.CGState)"
@@ -505,8 +564,10 @@ def find_distribution_leximin(
     check_feasible_or_suggest(dense, space, oracle)
     ts_fallback = None
     if not initial_panels and not cfg.force_agent_space:
-        dist = _typespace_leximin(dense, cfg, log, dev)
-        if dist.contract_ok:
+        dist = _typespace_leximin(dense, cfg, log, dev, final_stage)
+        if dist.contract_ok or final_stage == "l2":
+            # the l2 stage never falls back (its callers gate the deviation
+            # with their own band); contract_ok still reports it
             return dist
         # contract miss: run the exact agent-space CG, keeping the certified
         # type-space profile as the budget-expiry rescue
@@ -515,4 +576,6 @@ def find_distribution_leximin(
             f"(dev {dist.realization_dev:.2e}); falling back to agent-space CG."
         )
         ts_fallback = dist
-    return _agent_space_leximin(dense, cfg, log, dev, oracle, initial_panels, ts_fallback)
+    return _agent_space_leximin(
+        dense, cfg, log, dev, oracle, initial_panels, ts_fallback, final_stage
+    )

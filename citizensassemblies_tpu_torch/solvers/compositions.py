@@ -634,3 +634,102 @@ def decompose_with_pricing(
     else:
         P = np.stack(rows, axis=0)
     return P, p, float(eps_dev)
+
+
+def expand_compositions(
+    comps: np.ndarray,
+    probs: np.ndarray,
+    reduction: TypeReduction,
+    budget: int = 4096,
+    support_eps: float = 1e-11,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Expand a distribution over compositions into concrete panels.
+
+    Members are assigned within each type so that every agent of type t is
+    selected with (near-)equal probability ``Σ_c p_c c_t/m_t``:
+
+    * **exact path** — when the total rotation count fits the budget, each
+      composition ``c`` is expanded into ``R_c = lcm_t(m_t/gcd(c_t, m_t))``
+      block-rotated panels of probability ``p_c/R_c``; within-type uniformity
+      is then exact (each member appears in exactly ``R_c·c_t/m_t`` panels);
+    * **equidistributed path** — otherwise each composition receives
+      ``R_c ≈ budget·p_c`` panels with equidistributed rotation offsets
+      (``floor(r·m_t/R_c)``), so member counts differ by at most one and the
+      per-agent deviation from composition c is at most ``p_c/R_c ≈ 1/budget``.
+
+    Callers polish the result against the exact type targets (the min-L2
+    stage of ``solvers/qp``), which removes the residual construction error.
+    Returns ``(panels bool [R, n], panel_probs float64 [R])``.
+    """
+    from math import gcd
+
+    sel = probs > support_eps
+    comps = comps[sel]
+    p = probs[sel].astype(np.float64)
+    p = p / p.sum()
+    S, T = comps.shape
+    n = reduction.n
+    msize = reduction.msize
+    members = reduction.members
+
+    def lcm(a: int, b: int) -> int:
+        return a // gcd(a, b) * b
+
+    exact_R = []
+    total = 0
+    for c in comps:
+        R = 1
+        for t in range(T):
+            ct, mt = int(c[t]), int(msize[t])
+            if 0 < ct < mt:
+                R = lcm(R, mt // gcd(ct, mt))
+                if R > budget:
+                    break
+        exact_R.append(R)
+        total += R
+        if total > budget:
+            break
+
+    panels: List[np.ndarray] = []
+    pprobs: List[float] = []
+    if total <= budget:
+        for s in range(S):
+            c, R = comps[s], exact_R[s]
+            for r in range(R):
+                row = np.zeros(n, dtype=bool)
+                for t in range(T):
+                    ct, mt = int(c[t]), int(msize[t])
+                    if ct:
+                        idx = (r * ct + np.arange(ct)) % mt
+                        row[members[t][idx]] = True
+                panels.append(row)
+                pprobs.append(p[s] / R)
+    else:
+        # proportional rotation counts, ≥ 1 per support composition
+        R_s = np.maximum(1, np.round(p * budget).astype(int))
+        for s in range(S):
+            c, R = comps[s], int(R_s[s])
+            for r in range(R):
+                row = np.zeros(n, dtype=bool)
+                for t in range(T):
+                    ct, mt = int(c[t]), int(msize[t])
+                    if ct:
+                        start = (r * mt) // R
+                        idx = (start + np.arange(ct)) % mt
+                        row[members[t][idx]] = True
+                panels.append(row)
+                pprobs.append(p[s] / R)
+
+    # merge duplicate panels (e.g. trivial rotations when c_t ∈ {0, m_t})
+    seen: dict = {}
+    rows: List[np.ndarray] = []
+    q: List[float] = []
+    for row, pr in zip(panels, pprobs):
+        kb = row.tobytes()
+        if kb in seen:
+            q[seen[kb]] += pr
+        else:
+            seen[kb] = len(rows)
+            rows.append(row)
+            q.append(pr)
+    return np.stack(rows, axis=0), np.asarray(q, dtype=np.float64)

@@ -79,7 +79,7 @@ Apply = Callable[..., Tuple[torch.Tensor, ...]]
 def _two_sided_iterate(
     K_apply: Apply, KT_apply: Apply, cs_eps, hs_lo, hs_up, bs,
     p, eps, l_lo, l_up, mu, norm, scale, tol,
-    max_iters: int, check_every: int, sentinel: bool = False,
+    max_iters: int, check_every: int, sentinel: bool = False, graph: Optional[bool] = None,
 ):
     """The restart-to-average PDHG block loop of the two-sided master,
     batched over lanes (leading axis B on every vector, ``[B]`` scalars),
@@ -89,11 +89,15 @@ def _two_sided_iterate(
     A lane runs blocks while ``res > tol & it < max_iters`` and (with the
     sentinel) it is not poisoned; a lane whose mask is clear keeps its state
     unchanged. The loop stops when no lane is active, which reads the masks
-    on the host once per block. Returns the scaled ``(p, eps, l_lo, l_up,
-    mu, it, res, flags)``.
+    on the host once per block. With ``graph`` (default: on CUDA tensors)
+    a solve that reaches its second block captures the block's
+    ``check_every`` iterations into a CUDA graph and replays it from then
+    on, as :func:`_lp_iterate` does. Returns the scaled ``(p, eps, l_lo,
+    l_up, mu, it, res, flags)``.
     """
     B = p.shape[0]
     dev = p.device
+    graph = p.is_cuda if graph is None else graph
 
     def kkt(p, eps, l_lo, l_up, mu):
         r_lo, r_up, r_eq = K_apply(p, eps)
@@ -125,19 +129,12 @@ def _two_sided_iterate(
     def sel(mask, new, old):
         return torch.where(mask.reshape((B,) + (1,) * (new.dim() - 1)), new, old)
 
-    while True:
-        active = (res > tol) & (it < max_iters) & ~pois
-        if not bool(active.any()):
-            break
-        tau = 0.9 * omega / norm
-        sigma = 0.9 / (omega * norm)
-        p_in, e_in, ll_in, lu_in, mu_in = p, eps, l_lo, l_up, mu
-        q, e, lo, up, m = p, eps, l_lo, l_up, mu
-        ps = torch.zeros_like(p)
-        es = torch.zeros_like(eps)
-        lls = torch.zeros_like(l_lo)
-        lus = torch.zeros_like(l_up)
-        ms = torch.zeros_like(mu)
+    def block(q, e, lo, up, m, tau, sigma):
+        ps = torch.zeros_like(q)
+        es = torch.zeros_like(e)
+        lls = torch.zeros_like(lo)
+        lus = torch.zeros_like(up)
+        ms = torch.zeros_like(m)
         for _ in range(check_every):
             g_p, g_e = KT_apply(lo, up, m)
             q_new = torch.clamp_min(q - tau[:, None] * g_p, 0.0)
@@ -150,6 +147,21 @@ def _two_sided_iterate(
             m = m + sigma * (r_eq - bs)
             q, e = q_new, e_new
             ps, es, lls, lus, ms = ps + q, es + e, lls + lo, lus + up, ms + m
+        return q, e, lo, up, m, ps, es, lls, lus, ms
+
+    run = block
+    blocks = 0
+    while True:
+        active = (res > tol) & (it < max_iters) & ~pois
+        if not bool(active.any()):
+            break
+        tau = 0.9 * omega / norm
+        sigma = 0.9 / (omega * norm)
+        p_in, e_in, ll_in, lu_in, mu_in = p, eps, l_lo, l_up, mu
+        if graph and blocks == 1:
+            run = _replayed(block, (p, eps, l_lo, l_up, mu, tau, sigma))
+        blocks += 1
+        q, e, lo, up, m, ps, es, lls, lus, ms = run(p, eps, l_lo, l_up, mu, tau, sigma)
         pa = (p_av + ps * inv) * 0.5
         ea = (e_av + es * inv) * 0.5
         lla = (ll_av + lls * inv) * 0.5
@@ -272,14 +284,15 @@ def unscale(pre: _TwoSidedScaled, p, eps, l_lo, l_up, mu):
     return x_out, lam_out, mu * pre.d_e
 
 
-def _solve_scaled(pre, K_apply, KT_apply, x0, lam0, mu0, tol, max_iters, check_every, sentinel):
+def _solve_scaled(pre, K_apply, KT_apply, x0, lam0, mu0, tol, max_iters, check_every, sentinel,
+                  graph: Optional[bool] = None):
     B, C = pre.d_c.shape
     norm = power_norm(K_apply, KT_apply, B, C, pre.d_c.device)
     p, eps, l_lo, l_up, mu = warm_scaled(pre, x0, lam0, mu0)
     p, eps, l_lo, l_up, mu, it, res, flags = _two_sided_iterate(
         K_apply, KT_apply, pre.cs_eps, pre.hs_lo, pre.hs_up, pre.bs,
         p, eps, l_lo, l_up, mu, norm, kkt_scale(pre), tol,
-        max_iters, check_every, sentinel=sentinel,
+        max_iters, check_every, sentinel=sentinel, graph=graph,
     )
     x_out, lam_out, mu_out = unscale(pre, p, eps, l_lo, l_up, mu)
     return x_out, lam_out, mu_out, it, res, flags
@@ -287,7 +300,7 @@ def _solve_scaled(pre, K_apply, KT_apply, x0, lam0, mu0, tol, max_iters, check_e
 
 def _pdhg_two_sided_body_ell(
     idx, val, v, colmask, x0, lam0, mu0, tol, csr,
-    max_iters: int, check_every: int, sentinel: bool = False,
+    max_iters: int, check_every: int, sentinel: bool = False, graph: Optional[bool] = None,
 ):
     """The chained ELL route: the two-sided master over the packed columns
     ``idx``/``val`` ``[C, k_pad]`` (minor axis = the T types; ``csr`` their
@@ -295,12 +308,15 @@ def _pdhg_two_sided_body_ell(
     batched over the lanes of ``colmask``/``x0``/``lam0``/``mu0``/``tol``.
     Same prelude as the fused route
     (``kernels/pdhg_megakernel.two_sided_prelude``), then
-    :func:`_two_sided_iterate` with the packed matvecs."""
+    :func:`_two_sided_iterate` with the packed matvecs, its blocks replayed
+    as a CUDA graph with ``graph`` (default: on CUDA tensors)."""
     from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
 
     pre, vals_s = mk.two_sided_prelude(idx, val, v, colmask)
     K_apply, KT_apply = mk.ell_operators(idx, vals_s, pre, csr)
-    return _solve_scaled(pre, K_apply, KT_apply, x0, lam0, mu0, tol, max_iters, check_every, sentinel)
+    return _solve_scaled(
+        pre, K_apply, KT_apply, x0, lam0, mu0, tol, max_iters, check_every, sentinel, graph=graph
+    )
 
 
 @dataclasses.dataclass
@@ -490,7 +506,11 @@ def _replayed(block: Callable, args: Tuple[torch.Tensor, ...]) -> Callable:
     graph on the current stream and returns clones of the outputs. The
     first capture on a device runs the block once eagerly on the capture
     stream first, so the BLAS handle and workspace of that stream exist
-    before any capture."""
+    before any capture. The hand-written kernels' launch counters count the
+    captured launches at each replay, where they run, and not at the
+    capture (``kernels/cuda_lib.move_captured_launches``)."""
+    from citizensassemblies_tpu_torch.kernels import cuda_lib
+
     dev = args[0].device
     static = tuple(a.clone() for a in args)
     stream, warmed = _CAPTURE_STREAMS.get(dev, (None, False))
@@ -501,9 +521,11 @@ def _replayed(block: Callable, args: Tuple[torch.Tensor, ...]) -> Callable:
     with torch.cuda.stream(stream):
         if not warmed:
             block(*static)
+        before = cuda_lib.launch_counts()
         graph.capture_begin()
         outs = block(*static)
         graph.capture_end()
+        captured = cuda_lib.move_captured_launches(before)
     _CAPTURE_STREAMS[dev] = (stream, True)
     torch.cuda.current_stream(dev).wait_stream(stream)
 
@@ -511,6 +533,7 @@ def _replayed(block: Callable, args: Tuple[torch.Tensor, ...]) -> Callable:
         for s, v in zip(static, a):
             s.copy_(v)
         graph.replay()
+        cuda_lib.count_replay(captured)
         return tuple(o.clone() for o in outs)
 
     return run

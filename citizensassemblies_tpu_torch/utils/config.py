@@ -1,4 +1,4 @@
-"""Typed configuration: the knobs the LEXIMIN main path reads.
+"""Typed configuration: the knobs the LEXIMIN, LEGACY and XMIN paths read.
 
 Field names and defaults are those of the JAX package's ``Config``, so a
 reference configuration maps onto this one field by field
@@ -56,6 +56,10 @@ class Config:
     enum_cap: int = 200_000
     #: abandon enumeration beyond this many search nodes.
     enum_node_budget: int = 3_000_000
+    #: panel budget when expanding a composition distribution into concrete
+    #: panels (``compositions.expand_compositions``, the ``final_stage="l2"``
+    #: route of type space).
+    expand_budget: int = 4_096
     #: panel cap for the greedy water-filling seed of the panel decomposition.
     decompose_budget: int = 16_384
     #: probe-LP tolerance certifying that a type cannot exceed the stage value.
@@ -86,6 +90,20 @@ class Config:
     #: screen. ``None``: on when the run's device is CUDA, off on the CPU;
     #: ``True``/``False`` force.
     decomp_device_pricing: Optional[bool] = None
+
+    # --- XMIN -----------------------------------------------------------------
+    #: portfolio-expansion budget as a multiple of n, counted in distinct
+    #: panels added (may be fractional for a capped expansion).
+    xmin_iterations_factor: float = 8
+    #: dual-ascent iterations of the min-L2 final stage
+    #: (``solvers/qp.solve_final_primal_l2``).
+    xmin_qp_iters: int = 20_000
+    #: attempts to sample a panel not already in the portfolio, as a multiple
+    #: of n (the reference's ``xmin.py:466``).
+    xmin_dedup_attempts_factor: int = 3
+    #: L∞ budget of XMIN's support-maximizing blend: per-agent probabilities
+    #: stay within this of their leximin values after the spread.
+    xmin_linf_band: float = 8e-4
 
     # --- PDHG LP solver -------------------------------------------------------
     pdhg_max_iters: int = 100_000

@@ -97,13 +97,17 @@ def test_leximin_forced_device_routing(monkeypatch):
 @pytest.mark.parametrize("path", ["households", "XMIN", "mixed precision", "checkpointing"])
 def test_leximin_refuses_paths_not_ported(path):
     """What the port still lacks raises, naming its ROADMAP item; device
-    pricing, the batched LP engine and the stage-CG fallback are ported."""
+    pricing, the batched LP engine, the stage-CG fallback and XMIN (with
+    LEXIMIN's ``final_stage="l2"``) are ported, XMIN's households are not."""
+    from citizensassemblies_tpu_torch.models.xmin import find_distribution_xmin
+
     td, ts = t_featurize(INSTANCES["example_small_like"](tgen), device="cpu")
+    entry = find_distribution_xmin if path == "XMIN" else t_leximin
     kw = {
         "households": dict(households=np.zeros(td.n, np.int64)),
-        "XMIN": dict(final_stage="l2"),
+        "XMIN": dict(households=np.zeros(td.n, np.int64)),
         "mixed precision": dict(cfg=tconfig.default_config().replace(mixed_precision=True)),
         "checkpointing": dict(checkpoint_path="ckpt.npz"),
     }[path]
     with pytest.raises(NotImplementedError, match=path):
-        t_leximin(td, ts, device="cpu", **kw)
+        entry(td, ts, device="cpu", **kw)
