@@ -66,7 +66,19 @@ Phases, each fatal on failure:
    fixed-count ascent in graph-replayed chunks) on the card against the CPU
    on that prefix, its chunks held bit for bit against the op-by-op ascent
    with the gather's launch count equal in both, and on the card on the
-   whole portfolio.
+   whole portfolio;
+7. households (at most one member per household), each path with its
+   launch counters zeroed just before it and read just after: LEXIMIN on
+   the n=240 pairs' household quotient with every master forced onto the
+   card, against the same call on the CPU, then device pricing and the
+   fused screen on that quotient's reduction held to their CPU runs; the
+   bench's two household pools (``bench.py:711-727``: 200 couples of
+   n=400, twice and bit for bit, after the quota repair its household rows
+   need, and 600 couples of n=1200) at the defaults, each panel
+   household-disjoint and the least probability certified by
+   ``audit_maximin`` on the quotient's instance; the agent-space route with
+   households on the n=64 couples (dual LPs on the LP kernel); and XMIN
+   with households from the n=400 distribution, twice and bit for bit.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
 line, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -143,9 +155,10 @@ PROFILE_TOL = 1e-3
 #: finish its first stage in six minutes on the card, as the JAX package's
 #: PDHG does not meet 1e-6 within the cap on most of its dual LPs either
 #: (tests/test_torch_sf_dual.py), so it runs under a budget per stage and in
-#: all
-STAGE_BUDGET_S = 90.0
-AGENT_BUDGET_S = 120.0
+#: all, short enough to keep the whole run well inside its time limit (the
+#: first stage ends within neither 45 s nor 90 s)
+STAGE_BUDGET_S = 45.0
+AGENT_BUDGET_S = 60.0
 #: the polish screen's lanes at the flagship: nested prefixes of a
 #: 2048-column support (face_decompose.polish_support), each to a quarter of
 #: the master tolerance within 24,576 iterations, warm from a master solve;
@@ -841,7 +854,7 @@ def legacy_phase(inst):
     return rec
 
 
-def leximin_run(inst, device, cfg):
+def leximin_run(inst, device, cfg, households=None, initial_panels=None):
     from citizensassemblies_tpu_torch.core.instance import featurize
     from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin
     from citizensassemblies_tpu_torch.utils.logging import RunLog
@@ -849,7 +862,10 @@ def leximin_run(inst, device, cfg):
     dense, space = featurize(inst, device=device)
     log = RunLog(echo=False)
     t0 = time.perf_counter()
-    dist = find_distribution_leximin(dense, space, cfg=cfg, log=log, device=device)
+    dist = find_distribution_leximin(
+        dense, space, cfg=cfg, log=log, device=device, households=households,
+        initial_panels=initial_panels,
+    )
     if device != "cpu":
         import torch
 
@@ -1197,8 +1213,8 @@ def flagship_reduction():
     return TypeReduction(featurize(sf_e_skewed_instance(seed=1), device="cpu")[0])
 
 
-def device_pricing_phase(red):
-    """``DevicePricer`` on the flagship reduction (T=814, k=110) with one
+def device_pricing_phase(red, label="device_pricing_sf_e"):
+    """``DevicePricer`` on a reduction (the flagship's: T=814, k=110) with one
     round's task batch, as ``face_decompose._AnchorPricer.submit`` builds it
     (the dual direction, two noisy variants, three forced-inclusion tasks):
     the dispatch queued under sync-debug "error", timed by CUDA events from
@@ -1231,7 +1247,7 @@ def device_pricing_phase(red):
     equal = bool(np.array_equal(comps, ref.comps.numpy()) and np.array_equal(ok, ref.ok.numpy()))
     flags_exact = bool(np.array_equal(gpu._validate(comps, ok), ok))
     rec = dict(
-        phase="device_pricing_sf_e", T=T, k=red.k, tasks=len(tasks), lanes=int(comps.shape[0]),
+        phase=label, T=T, k=red.k, tasks=len(tasks), lanes=int(comps.shape[0]),
         ms=ms, host_ms=host_ms, hits=len(hits), missed=len(missed),
         feasible_lanes=int(ok.sum()), equal_to_cpu=equal, flags_exact=flags_exact,
         no_sync_in_dispatch=True,
@@ -1243,8 +1259,9 @@ def device_pricing_phase(red):
     return rec
 
 
-def fused_screen_phase(red, pack, MT):
-    """``_FusedScreen`` on 512 flagship compositions and the device duals
+def fused_screen_phase(red, MT, label="fused_screen_sf_e"):
+    """``_FusedScreen`` on 512 compositions (``MT``'s columns times the type
+    sizes; at the flagship, flagship panels) and the device duals
     of a master solve over them (queued behind the solve): the dispatch
     under sync-debug "error", timed by CUDA events from dispatch to ready;
     its pairs, indices and new compositions equal to the same code's CPU
@@ -1280,7 +1297,7 @@ def fused_screen_phase(red, pack, MT):
     moved_cpu = cpu.harvest()
     equal = bool(all(np.array_equal(a, b) for a, b in zip(got, want)) and np.array_equal(moved, moved_cpu))
     rec = dict(
-        phase="fused_screen_sf_e", rows=512, T=red.T, pairs=int(len(got[1])),
+        phase=label, rows=512, T=red.T, pairs=int(len(got[1])),
         feasible_moves=int((got[0] >= 0).sum()), ms=ms, host_ms=host_ms,
         equal_to_cpu=equal, no_sync_in_dispatch=True,
     )
@@ -1909,6 +1926,332 @@ def l2_serial_phase(dist, leximin, cfg):
     return rec
 
 
+#: the household phases (queue A item 2): the leximin values of the card's
+#: run and the CPU's are host LP optima from identical inputs; the
+#: certificate's gap bar is the contract's
+HH_FIXED_TOL = 1e-6
+HH_MAXIMIN_GAP = 1e-3
+
+
+def households_pool(n):
+    """The household pools of bench.py:711-727 (couples ``arange(n) // 2``)
+    and the n=240 pairs of tests/test_device_pricing.py:221-226."""
+    from citizensassemblies_tpu_torch.core.generator import skewed_instance
+
+    if n == 240:
+        inst = skewed_instance(n=240, k=16, n_categories=3, seed=7, features_per_category=[3, 3, 3])
+    elif n == 400:
+        inst = skewed_instance(n=400, k=40, n_categories=6, seed=2,
+                               features_per_category=[2, 3, 4, 2, 3, 3])
+    elif n == 1200:
+        inst = skewed_instance(n=1200, k=110, n_categories=7, seed=2,
+                               features_per_category=[2, 4, 5, 3, 2, 4, 6], skew=0.4)
+    elif n == 64:  # the couples of tests/test_households.py:70
+        inst = skewed_instance(n=64, k=10, n_categories=3, seed=5, features_per_category=[2, 3, 2])
+    else:
+        raise ValueError(f"no household pool of {n} agents")
+    return inst, (np.arange(n) // 2).astype(np.int32)
+
+
+def households_check(dense, P, households):
+    """``(quotas_ok, disjoint)`` of a portfolio: every panel of k members
+    meets every quota; no panel holds two members of one household."""
+    h = np.unique(households, return_inverse=True)[1].reshape(-1)
+    counts = P.astype(np.int64) @ dense.A_np.astype(np.int64)
+    quotas_ok = bool(
+        (P.sum(axis=1) == dense.k).all()
+        and (counts >= dense.qmin_np[None, :]).all() and (counts <= dense.qmax_np[None, :]).all()
+    )
+    per_house = P.astype(np.int32) @ np.eye(int(h.max()) + 1, dtype=np.int32)[h]
+    return quotas_ok, bool((per_house <= 1).all())
+
+
+def households_hold_phase(cfg, libs):
+    """LEXIMIN with households on the n=240 pairs' quotient (T > 64 orbits
+    over F > 64 features), every master forced onto the card
+    (``decomp_host_master_max_types=0``: the two-sided kernel), against the
+    same call on the CPU: the fixed probabilities within ``HH_FIXED_TOL``,
+    both within the contract, every panel household-disjoint; then device
+    pricing and the fused screen on the quotient's reduction, each
+    dispatched under sync-debug "error" and held to its CPU run."""
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+    from citizensassemblies_tpu_torch.solvers.device_pricing import DevicePricer
+    from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
+    from citizensassemblies_tpu_torch.solvers.quotient import build_household_quotient
+
+    inst, hh = households_pool(240)
+    forced = cfg.replace(decomp_host_master_max_types=0)
+    for lib in libs:
+        lib.launches = 0
+    d_gpu, log_gpu, s_gpu, l_gpu = leximin_run(inst, "cuda", forced, hh)
+    launches = {"two_sided_block": mk.KERNEL.launches, "ell_gather": em.KERNEL.launches}
+    d_cpu, _, s_cpu, l_cpu = leximin_run(inst, "cpu", forced, hh)
+    dense = featurize(inst, device="cpu")[0]
+    red = TypeReduction(build_household_quotient(dense, hh).dense_aug)
+    quotas_ok, disjoint = households_check(dense, d_gpu.committees, hh)
+    fixed_gap = float(np.abs(d_gpu.fixed_probabilities - d_cpu.fixed_probabilities).max())
+    c = log_gpu.counters
+    rec = dict(
+        phase="households_hold", n=dense.n, k=dense.k, T=red.T, F=red.F,
+        seconds_gpu=s_gpu, seconds_cpu=s_cpu, linf_gpu=l_gpu, linf_cpu=l_cpu,
+        fixed_gap=fixed_gap, fixed_tolerance=HH_FIXED_TOL,
+        alloc_gap=float(np.abs(d_gpu.allocation - d_cpu.allocation).max()),
+        quotas_ok=quotas_ok, disjoint=disjoint, launches=launches,
+        counters={k: int(c.get(k, 0)) for k in (
+            "decomp_rounds", "megakernel_dispatches", "megakernel_fit_miss",
+            "decomp_oracle_device_hit", "decomp_oracle_device_miss", "lp_batch_polish_hit",
+            "lp_batch_polish_miss")},
+    )
+    rec["ok"] = bool(
+        d_gpu.contract_ok and d_cpu.contract_ok and fixed_gap <= HH_FIXED_TOL and quotas_ok
+        and disjoint and launches["two_sided_block"] > 0 and rec["counters"]["megakernel_fit_miss"] == 0
+        and red.F > 64
+    )
+    print(json.dumps(rec), flush=True)
+    # 512 feasible compositions of the quotient from device-pricing lanes
+    # (CPU, seeded), as the columns the fused screen moves
+    rng = np.random.default_rng(12)
+    cpu_pricer = DevicePricer(red, device="cpu")
+    comps = []
+    while len(comps) < 512:
+        handle = cpu_pricer.dispatch([(rng.normal(0, 1.0, red.T), None) for _ in range(16)])
+        lanes, ok = handle.comps.numpy(), handle.ok.numpy()
+        comps.extend(lanes.reshape(-1, red.T)[ok.reshape(-1)])
+    MT = (np.stack(comps[:512]).astype(np.float64) / red.msize[None, :]).T
+    pricing = device_pricing_phase(red, "households_device_pricing")
+    screen = fused_screen_phase(red, MT, "households_fused_screen")
+    rec["ok"] = bool(rec["ok"] and pricing["ok"] and screen["ok"])
+    return rec
+
+
+def households_leximin_phase(n, cfg, libs, repeat=False):
+    """LEXIMIN with households on the bench pool of ``n`` couples at the
+    package's defaults, every launch counter zeroed just before it and read
+    just after. A pool whose household rows make the quotas infeasible
+    raises ``InfeasibleQuotasError``; its suggested quotas are applied and
+    the run made again (bench.py:651-672), and the host seconds of the
+    feasibility gate and the relaxation MILP are recorded (by wrapping
+    them). Held: the contract, every panel household-disjoint and meeting
+    the quotas, ``audit_maximin`` on the quotient's augmented instance
+    within ``HH_MAXIMIN_GAP``; with ``repeat`` a second run, bit for bit.
+    Returns ``(rec, dist, dense, space, households)``."""
+    import dataclasses
+    from unittest import mock
+
+    from citizensassemblies_tpu_torch.core.instance import InfeasibleQuotasError, featurize
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+    from citizensassemblies_tpu_torch.models import leximin
+    from citizensassemblies_tpu_torch.solvers import highs_backend
+    from citizensassemblies_tpu_torch.solvers.highs_backend import audit_maximin
+    from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
+    from citizensassemblies_tpu_torch.solvers.quotient import build_household_quotient
+
+    inst, hh = households_pool(n)
+    host = {"feasibility_s": 0.0, "relaxation_s": 0.0}
+    gate, relax = leximin.check_feasible_or_suggest, highs_backend.relax_infeasible_quotas
+
+    def timed_gate(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return gate(*a, **kw)
+        finally:
+            host["feasibility_s"] += time.perf_counter() - t
+
+    def timed_relax(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return relax(*a, **kw)
+        finally:
+            host["relaxation_s"] += time.perf_counter() - t
+
+    for lib in libs:
+        lib.launches = 0
+    repaired = False
+    t0 = time.perf_counter()
+    with mock.patch.object(leximin, "check_feasible_or_suggest", timed_gate), \
+            mock.patch.object(highs_backend, "relax_infeasible_quotas", timed_relax):
+        try:
+            dist, hlog, secs, linf = leximin_run(inst, "cuda", cfg, hh)
+        except InfeasibleQuotasError as exc:
+            repaired = True
+            inst = dataclasses.replace(inst, categories={
+                cat: {f: exc.quotas[(cat, f)] for f in feats}
+                for cat, feats in inst.categories.items()
+            })
+            dist, hlog, secs, linf = leximin_run(inst, "cuda", cfg, hh)
+    total = time.perf_counter() - t0
+    launches = {"two_sided_block": mk.KERNEL.launches, "ell_gather": em.KERNEL.launches,
+                "lp_block": mk.LP_KERNEL.launches}
+    dense, space = featurize(inst, device="cuda")
+    quotient = build_household_quotient(dense, hh)
+    red = TypeReduction(quotient.dense_aug)
+    t = time.perf_counter()
+    audit = audit_maximin(quotient.dense_aug, dist.allocation, dist.covered)
+    audit_s = time.perf_counter() - t
+    quotas_ok, disjoint = households_check(dense, dist.committees, hh)
+    c, tm = hlog.counters, hlog.timers
+    keys = ("decomp_rounds", "decomp_host_syncs", "decomp_polish_syncs",
+            "decomp_oracle_device_hit", "decomp_oracle_device_miss", "device_pricing_dispatches",
+            "lp_batch_polish_hit", "lp_batch_polish_miss", "megakernel_dispatches",
+            "megakernel_fit_miss", "oracle_backend_highs", "oracle_backend_native")
+    rec = dict(
+        phase=f"households_n{n}", n=dense.n, k=dense.k, seconds=secs, seconds_with_repair=total,
+        repaired=repaired, host_gate=host, household_classes=int(quotient.n_classes),
+        T=red.T, F=red.F, contract_ok=bool(dist.contract_ok), linf=linf,
+        min_prob=float(dist.allocation[dist.covered].min()),
+        panels=int(len(dist.probabilities)), quotas_ok=quotas_ok, disjoint=disjoint,
+        audit=audit, audit_s=audit_s, launches=launches,
+        counters={k: int(c.get(k, 0)) for k in keys},
+        timers={k: tm.get(k, 0.0) for k in (
+            "relax_leximin", "inject", "decomp_master", "decomp_polish", "decomp_polish_screen",
+            "decomp_expand", "decomp_oracle", "final_stage", "typespace_cg",
+        )},
+        fell_back=any("falling back" in line for line in dist.output_lines),
+    )
+    ok = (
+        dist.contract_ok and linf <= E2E_CONTRACT and np.isfinite(dist.allocation).all()
+        and quotas_ok and disjoint and audit["maximin_gap"] <= HH_MAXIMIN_GAP
+        and rec["counters"]["megakernel_fit_miss"] == 0 and not rec["fell_back"]
+    )
+    if n == 1200:
+        ok = ok and launches["two_sided_block"] > 0 and launches["ell_gather"] > 0
+    if repeat:
+        again, alog, secs2, _ = leximin_run(inst, "cuda", cfg, hh)
+        same = bool(
+            np.array_equal(again.committees, dist.committees)
+            and np.array_equal(again.probabilities, dist.probabilities)
+        )
+        rec["repeat"] = dict(seconds=secs2, bit_identical=same,
+                             counters={k: int(alog.counters.get(k, 0)) for k in keys})
+        ok = ok and same
+    rec["ok"] = bool(ok)
+    print(json.dumps(rec), flush=True)
+    return rec, dist, dense, space, hh
+
+
+def households_agent_space_phase(cfg, libs):
+    """The agent-space CG with households on the n=64 couples, forced by
+    four household-disjoint warm-start panels from the card's sampler
+    (``initial_panels``), every dual LP on the card (``backend="jax"``: the
+    LP kernel), every launch counter zeroed just before it and read just
+    after. Held: one ``lp_block`` launch for every dual LP, the contract,
+    every panel household-disjoint, the allocation within the contract of
+    the quotient solve on the same pool."""
+    import torch
+
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+    from citizensassemblies_tpu_torch.models.legacy import sample_panels_batch
+
+    inst, hh = households_pool(64)
+    dense = featurize(inst, device="cuda")[0]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    panels, ok = sample_panels_batch(dense, gen, 32, households=hh)
+    panels = np.sort(panels.cpu().numpy(), axis=1)
+    seeds = [tuple(panels[b].tolist()) for b in np.nonzero(ok.cpu().numpy())[0][:4]]
+    agent_cfg = cfg.replace(backend="jax")
+    for lib in libs:
+        lib.launches = 0
+    dist, alog, secs, linf = leximin_run(inst, "cuda", agent_cfg, hh, initial_panels=seeds)
+    launches = {"lp_block": mk.LP_KERNEL.launches, "ell_gather": em.KERNEL.launches,
+                "two_sided_block": mk.KERNEL.launches}
+    quotient, _, q_secs, _ = leximin_run(inst, "cuda", cfg, hh)
+    quotas_ok, disjoint = households_check(dense, dist.committees, hh)
+    gap = float(np.abs(dist.allocation - quotient.allocation).max())
+    c, tm = alog.counters, alog.timers
+    rec = dict(
+        phase="households_agent_space_64", n=dense.n, k=dense.k, seconds=secs,
+        quotient_seconds=q_secs, warm_panels=len(seeds), contract_ok=bool(dist.contract_ok),
+        linf=linf, alloc_gap_to_quotient=gap, quotas_ok=quotas_ok, disjoint=disjoint,
+        launches=launches,
+        dual_solves=int(c.get("agent_space_dual_solves", 0)),
+        host_fallbacks=int(c.get("dual_lp_host_fallback", 0)),
+        oracle_backend_highs=int(c.get("oracle_backend_highs", 0)),
+        timers={k: tm.get(k, 0.0) for k in ("dual_lp", "stochastic_pricing", "exact_oracle",
+                                            "final_stage")},
+    )
+    rec["ok"] = bool(
+        len(seeds) == 4 and dist.contract_ok and quotient.contract_ok and gap <= E2E_CONTRACT
+        and quotas_ok and disjoint and launches["lp_block"] > 0
+        and launches["lp_block"] == rec["dual_solves"]
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def households_xmin_phase(dense, space, cfg, households, leximin, lex_seconds, libs):
+    """XMIN with households on the n=400 couples, seeded with
+    ``households_n400``'s distribution, every launch counter zeroed just
+    before it and read just after; run twice, bit for bit. Held: every
+    panel household-disjoint and meeting the quotas, ``realization_dev``
+    within the contract, the min-L2 stage's gather launched."""
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+    from citizensassemblies_tpu_torch.models.xmin import find_distribution_xmin
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    def run():
+        log = RunLog(echo=False)
+        t0 = time.perf_counter()
+        dist = find_distribution_xmin(dense, space, cfg=cfg, households=households, log=log,
+                                      leximin=leximin, device="cuda")
+        torch.cuda.synchronize()
+        return dist, log, time.perf_counter() - t0
+
+    for lib in libs:
+        lib.launches = 0
+    dist, xlog, secs = run()
+    launches = {"ell_gather": em.KERNEL.launches, "two_sided_block": mk.KERNEL.launches,
+                "lp_block": mk.LP_KERNEL.launches}
+    again, alog, secs2 = run()
+    quotas_ok, disjoint = households_check(dense, dist.committees, households)
+    c, tm = xlog.counters, xlog.timers
+    support = int((dist.probabilities > cfg.support_eps).sum())
+    same = bool(
+        np.array_equal(again.committees, dist.committees)
+        and np.array_equal(again.probabilities, dist.probabilities)
+    )
+    rec = dict(
+        phase="xmin_households_n400", n=dense.n, k=dense.k, seconds=secs,
+        seconds_with_leximin=secs + lex_seconds, repeat_seconds=secs2,
+        panels=int(dist.committees.shape[0]),
+        new_panels=int(dist.committees.shape[0] - leximin.committees.shape[0]),
+        support_panels=support,
+        leximin_support_panels=int((leximin.probabilities > cfg.support_eps).sum()),
+        realization_dev=float(dist.realization_dev), contract_ok=bool(dist.contract_ok),
+        quotas_ok=quotas_ok, disjoint=disjoint, launches=launches,
+        prob_sum_err=abs(float(dist.probabilities.sum()) - 1.0),
+        timers={k: tm[k] for k in ("xmin_draws", "xmin_dedup", "sparse_pack", "xmin_l2",
+                                   "l2_fused", "l2_anchor", "l2_ascent") if k in tm},
+        counters={k: int(c.get(k, 0)) for k in ("lp_batch_l2_fused", "l2_anchor_iters",
+                                                 "l2_ascent_iters", "l2_ascent_replays")},
+        repeat=dict(bit_identical=same),
+    )
+    rec["ok"] = bool(
+        dist.contract_ok and dist.realization_dev <= E2E_CONTRACT and quotas_ok and disjoint
+        and same and launches["ell_gather"] > 0 and rec["prob_sum_err"] <= 1e-9
+        and np.isfinite(dist.allocation).all()
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def households_phases(cfg, libs):
+    """Every household phase, in order; returns their records by name."""
+    hold = households_hold_phase(cfg, libs)
+    n400, dist400, dense400, space400, hh400 = households_leximin_phase(400, cfg, libs, repeat=True)
+    n1200 = households_leximin_phase(1200, cfg, libs)[0]
+    agent = households_agent_space_phase(cfg, libs)
+    xmin = households_xmin_phase(dense400, space400, cfg, hh400, dist400, n400["seconds"], libs)
+    return dict(hold=hold, n400=n400, n1200=n1200, agent=agent, xmin=xmin)
+
+
 def main() -> int:
     import torch
 
@@ -1956,7 +2299,7 @@ def main() -> int:
 
     red = flagship_reduction()
     device_pricing_phase(red)
-    fused_screen_phase(red, pack, MT)
+    fused_screen_phase(red, MT)
 
     slice_cfg = default_config().replace(
         decomp_device_pricing=False, lp_batch=False, mixed_precision=False
@@ -1994,27 +2337,38 @@ def main() -> int:
         skewed_instance(n=80, k=8, n_categories=3, seed=3), defaults_cfg, "stage_cg_pricing_skewed_80",
         STAGE_CG_PRICING_ACCEPT, reference=True,
     )
+    # households (queue A item 2): the quotient's masters on the two-sided
+    # kernel and the gather, the agent-space route's dual LPs on the LP
+    # kernel, XMIN's min-L2 stage on the gather; their launches count with
+    # the main path's
+    households = households_phases(defaults_cfg, libs)
+    for rec in households.values():
+        for name, count in rec.get("launches", {}).items():
+            launches[name] += count
 
-    def summary(name, rec, phase_recs):
+    def summary(name, rec, phase_recs, holds):
         return dict(
             name=name, route="cuda", source=f"citizensassemblies_tpu_torch/csrc/{name}.cu",
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in phase_recs), ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-            library_ms=rec["library_ms"], passed=all(r["ok"] for r in phase_recs),
+            library_ms=rec["library_ms"],
+            passed=all(r["ok"] for r in phase_recs) and all(r["ok"] for r in holds),
         )
 
     kernels = [
-        summary("ell_gather", gather, [gather, gather_dual, gather_xmin]),
-        summary("two_sided_block", b1, [b1, b3, bnan, screen]),
-        summary("lp_block", lp, [lp, lp_sf_b]),
+        summary("ell_gather", gather, [gather, gather_dual, gather_xmin],
+                [households["n1200"], households["xmin"]]),
+        summary("two_sided_block", b1, [b1, b3, bnan, screen],
+                [households["hold"], households["n1200"]]),
+        summary("lp_block", lp, [lp, lp_sf_b], [households["agent"]]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")
     print(card, flush=True)
     failed = [
         r for r in (e2e, e2e_defaults, xmin, xmin_hold, l2_serial, mass, legacy, agent, agent_sf_b,
-                    dense_graph, stage_cg, stage_cg_pricing)
+                    dense_graph, stage_cg, stage_cg_pricing, *households.values())
         if not r["ok"]
     ]
     if failed:

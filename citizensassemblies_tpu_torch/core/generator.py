@@ -1,6 +1,8 @@
 """Synthetic instance generation.
 
-Parameterized random instance families at reference scale (an
+The reference's cross-product generator (``data/generate_examples/main.py``:
+respondents as the cross product of all feature combinations with
+per-combination counts), and parameterized random instance families at reference scale (an
 ``sf_e_110``-like pool: n=1727, k=110, 7 categories; the real pool is
 withheld, so benchmarks run on synthetic pools with matching shape
 statistics), plus a stand-in shaped like ``example_small_20``. The same
@@ -9,12 +11,38 @@ seed gives the same instance as the JAX package's generator.
 
 from __future__ import annotations
 
+import itertools
 import math
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from citizensassemblies_tpu_torch.core.instance import Instance, Quota
+
+
+def cross_product_instance(
+    categories: Sequence[str],
+    features: Sequence[Sequence[str]],
+    quotas: Sequence[Sequence[Tuple[int, int]]],
+    counts: Sequence[int],
+    k: int,
+    name: str = "synthetic",
+) -> Instance:
+    """Build an instance whose pool enumerates the cross product of all feature
+    combinations, repeating combination ``i`` ``counts[i]`` times — the
+    reference generator's respondent layout (``data/generate_examples/main.py``).
+    """
+    combos = list(itertools.product(*features))
+    if len(counts) != len(combos):
+        raise ValueError(f"need {len(combos)} counts, got {len(counts)}")
+    cat_quotas: Dict[str, Dict[str, Quota]] = {}
+    for ci, cat in enumerate(categories):
+        cat_quotas[cat] = {feat: tuple(quotas[ci][fi]) for fi, feat in enumerate(features[ci])}
+    agents: List[Dict[str, str]] = []
+    for combo, count in zip(combos, counts):
+        for _ in range(count):
+            agents.append({cat: feat for cat, feat in zip(categories, combo)})
+    return Instance(k=k, categories=cat_quotas, agents=agents, name=name)
 
 
 def random_instance(

@@ -262,3 +262,28 @@ def featurize(
     )
     space = FeatureSpace(categories=tuple(cat_names), cells=tuple(cells))
     return dense, space
+
+
+def compute_households(
+    instance: Instance, address_columns: Sequence[str]
+) -> np.ndarray:
+    """Group agents into households by equality on the address columns
+    (the reference's ``_compute_households``, ``leximin.py:359-362``, and the
+    same-address matching of ``legacy.py:78-99``).
+
+    Returns int32[n] household ids, numbered in order of first appearance,
+    for the ``households`` argument of the samplers, the oracles and the
+    model entry points. Requires the instance to have been read with
+    ``extra_columns=address_columns``.
+    """
+    if not instance.columns_data:
+        raise ValueError(
+            "instance has no columns_data — re-read it with "
+            f"extra_columns={list(address_columns)!r} to enable household checks"
+        )
+    ids: Dict[Tuple[str, ...], int] = {}
+    out = np.zeros(len(instance.agents), dtype=np.int32)
+    for i, cols in enumerate(instance.columns_data):
+        key = tuple(cols.get(c, "") for c in address_columns)
+        out[i] = ids.setdefault(key, len(ids))
+    return out

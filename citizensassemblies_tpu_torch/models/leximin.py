@@ -26,12 +26,19 @@ certifying termination; a final LP realizes the fixed probabilities.
 
 ``final_stage="l2"`` realizes the certificate with the min-L2 stage of
 ``solvers/qp`` instead (type space: over the rotation expansion of the
-compositions, ``compositions.expand_compositions``; agent space: over the
-column-generation portfolio), as XMIN does; it never falls back to agent
-space, and ``contract_ok`` reports its deviation.
+compositions, ``compositions.expand_compositions``, or with households a
+household-disjoint decomposition; agent space: over the column-generation
+portfolio), as XMIN does; it never falls back to agent space, and
+``contract_ok`` reports its deviation.
 
-Not in this package yet, each raising ``NotImplementedError``: households
-and checkpointing.
+**Households** (at most one member per household, the reference's
+``leximin.py:211-221``): type space runs on the household quotient's
+augmented instance (``solvers/quotient.py``), whose distinct rows are the
+symmetry orbits, and realizes household-disjoint panels; agent space adds
+the household rows to the exact oracle and the feasibility gate, and
+samples household-disjoint panels.
+
+Not in this package yet, raising ``NotImplementedError``: checkpointing.
 """
 
 from __future__ import annotations
@@ -43,7 +50,12 @@ from typing import List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from citizensassemblies_tpu_torch.core.instance import DenseInstance, FeatureSpace, on_device
+from citizensassemblies_tpu_torch.core.instance import (
+    DenseInstance,
+    FeatureSpace,
+    SelectionError,
+    on_device,
+)
 from citizensassemblies_tpu_torch.solvers.highs_backend import (
     HighsCommitteeOracle,
     check_feasible_or_suggest,
@@ -86,10 +98,14 @@ class Distribution:
 
 
 def _typespace_leximin(
-    dense: DenseInstance, cfg: Config, log: RunLog, device, final_stage: str = "lp"
+    dense: DenseInstance, cfg: Config, log: RunLog, device, final_stage: str = "lp",
+    households: Optional[np.ndarray] = None,
 ) -> Distribution:
     """Exact leximin in type space: enumeration when the type count is
-    small, the relaxation profile plus one face decomposition otherwise."""
+    small, the relaxation profile plus one face decomposition otherwise.
+    With ``households`` the caller passes the household quotient's
+    augmented instance, and the realization keeps every panel
+    household-disjoint."""
     from citizensassemblies_tpu_torch.solvers.compositions import (
         enumerate_compositions,
         leximin_over_compositions,
@@ -124,25 +140,43 @@ def _typespace_leximin(
         with log.timer("typespace_cg"):
             ts = leximin_cg_typespace(dense, reduction, cfg=cfg, log=log, device=device)
     if final_stage == "l2":
-        return realize_typespace_l2(dense, reduction, ts, cfg, log, device)
-    return realize_typespace(dense, reduction, ts, cfg, log, enumerated=comps is not None)
+        return realize_typespace_l2(dense, reduction, ts, cfg, log, device, households)
+    return realize_typespace(
+        dense, reduction, ts, cfg, log, enumerated=comps is not None, households=households
+    )
 
 
 def realize_typespace_l2(dense: DenseInstance, reduction, ts, cfg: Config, log: RunLog,
-                         device) -> Distribution:
+                         device, households: Optional[np.ndarray] = None) -> Distribution:
     """Realize a type-space certificate with the min-L2 stage: the
     rotation expansion of the compositions (``expand_compositions``) is the
     portfolio, its probabilities the ε-floor donor of
-    ``qp.solve_final_primal_l2`` (so the host ε-LP never runs)."""
-    from citizensassemblies_tpu_torch.solvers.compositions import expand_compositions
+    ``qp.solve_final_primal_l2`` (so the host ε-LP never runs). The
+    expansion is not household-aware, so with ``households`` a
+    household-disjoint decomposition (``decompose_with_pricing``) is the
+    portfolio and the donor instead."""
+    from citizensassemblies_tpu_torch.solvers.compositions import (
+        decompose_with_pricing,
+        expand_compositions,
+    )
     from citizensassemblies_tpu_torch.solvers.qp import solve_final_primal_l2
 
     fixed_agent = ts.type_values[reduction.type_id]
     with log.timer("final_stage"):
-        P, p_seed = expand_compositions(
-            ts.compositions, ts.probabilities, reduction,
-            budget=cfg.expand_budget, support_eps=cfg.support_eps,
-        )
+        if households is None:
+            P, p_seed = expand_compositions(
+                ts.compositions, ts.probabilities, reduction,
+                budget=cfg.expand_budget, support_eps=cfg.support_eps,
+            )
+        else:
+            realized = ts.probabilities @ (
+                ts.compositions.astype(np.float64) / reduction.msize.astype(np.float64)[None, :]
+            )
+            P, p_seed, _ = decompose_with_pricing(
+                ts.compositions, ts.probabilities, reduction, realized[reduction.type_id],
+                budget=cfg.decompose_budget, support_eps=cfg.support_eps, log=log, tol=2e-5,
+                households=households,
+            )
         probs, eps_dev = solve_final_primal_l2(
             P, fixed_agent, iters=cfg.xmin_qp_iters, log=log, floor_donor=p_seed, cfg=cfg,
             device=device,
@@ -179,9 +213,11 @@ def realize_typespace(
     cfg: Config,
     log: RunLog,
     enumerated: bool = True,
+    households: Optional[np.ndarray] = None,
 ) -> Distribution:
     """Realize a type-space leximin certificate (compositions,
-    probabilities, type values) as a concrete panel portfolio."""
+    probabilities, type values) as a concrete panel portfolio, every panel
+    household-disjoint with ``households``."""
     from citizensassemblies_tpu_torch.solvers.compositions import decompose_with_pricing
 
     fixed_agent = ts.type_values[reduction.type_id]
@@ -200,6 +236,7 @@ def realize_typespace(
             budget=cfg.decompose_budget,
             support_eps=cfg.support_eps,
             log=log,
+            households=households,
             # the enumerated path polishes to decomp_tol, the CG path floors
             # the panel tolerance at its greedy noise scale (2e-5); pools of
             # n ≥ 200 never go below 2.5e-4; and the total error
@@ -276,17 +313,18 @@ def _seed_portfolio(
     cfg: Config,
     generator: torch.Generator,
     log: RunLog,
+    households: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Seed a diverse portfolio covering every coverable agent: one batched
-    LEGACY draw on the instance's device, then one exact solve per agent
-    the batch missed (force the agent in, maximize the coverage of the
-    other uncovered agents; ``leximin.py:279-289``). Returns the bool[n]
-    coverage mask."""
+    LEGACY draw on the instance's device (household-disjoint with
+    ``households``), then one exact solve per agent the batch missed (force
+    the agent in, maximize the coverage of the other uncovered agents;
+    ``leximin.py:279-289``). Returns the bool[n] coverage mask."""
     from citizensassemblies_tpu_torch.models.legacy import sample_panels_batch
 
     n = dense.n
     budget = max(256, min(cfg.mw_rounds_factor * n, cfg.seed_batch))
-    panels, ok = sample_panels_batch(dense, generator, budget)
+    panels, ok = sample_panels_batch(dense, generator, budget, households=households)
     panels = np.sort(panels.cpu().numpy(), axis=1)
     for b in np.nonzero(ok.cpu().numpy())[0]:
         portfolio.add(tuple(panels[b].tolist()))
@@ -327,6 +365,7 @@ def _agent_space_leximin(
     initial_panels,
     ts_fallback: Optional[Distribution],
     final_stage: str = "lp",
+    households: Optional[np.ndarray] = None,
 ) -> Distribution:
     """The agent-space column generation (``leximin.py:338-470``). With a
     ``ts_fallback`` (a type-space result that missed the contract) the loop
@@ -343,7 +382,7 @@ def _agent_space_leximin(
         for row in portfolio.rows:
             covered |= row
     else:
-        covered = _seed_portfolio(dense, oracle, portfolio, cfg, generator, log)
+        covered = _seed_portfolio(dense, oracle, portfolio, cfg, generator, log, households)
         # agents in no feasible committee get probability 0 up front, as
         # the reference excludes them (leximin.py:286-296,364)
         fixed[~covered] = 0.0
@@ -435,7 +474,9 @@ def _agent_space_leximin(
                 )
 
                 with log.timer("stochastic_pricing"):
-                    panels, values, ok = stochastic_price(dense, sol.y, generator, cfg=cfg)
+                    panels, values, ok = stochastic_price(
+                        dense, sol.y, generator, cfg=cfg, households=households
+                    )
                 new = best_violating_panels(
                     panels, values, ok, sol.yhat + cfg.eps, portfolio.seen,
                     max_new=cfg.cg_columns_per_round,
@@ -540,14 +581,21 @@ def find_distribution_leximin(
     and (with ``Config.backend == "jax"``) the agent-space dual LPs: CUDA
     unless the caller passes another (``device="cpu"`` runs them on the
     host). Raises when CUDA is absent and no device was passed.
+    ``households`` (int[n] group ids, ``core.instance.compute_households``)
+    allows at most one member of each household on a panel.
     ``initial_panels`` warm-starts the agent-space portfolio.
     ``final_stage="l2"`` realizes the certificate with the min-L2 stage of
     ``solvers/qp`` (XMIN's) instead of the final LP.
+
+    With households the type-space solve runs on the household quotient,
+    as in the JAX package. Where that solve raises a ``SelectionError`` or
+    a ``compositions.HouseholdPickError`` (class caps broken), the exact
+    agent-space CG runs instead; any other error, a kernel's build or launch
+    failure among them, propagates (the JAX package falls back on any
+    exception).
     """
     cfg = cfg or default_config()
     check_slice_config(cfg)
-    if households is not None:
-        raise NotImplementedError("households need ROADMAP queue A item 2 'households'")
     if final_stage not in ("lp", "l2"):
         raise ValueError(f"final_stage must be 'lp' or 'l2', not {final_stage!r}")
     if checkpoint_path is not None:
@@ -560,11 +608,16 @@ def find_distribution_leximin(
     log.emit("Using leximin algorithm.")
     if space is None:
         space = FeatureSpace(categories=(), cells=())
-    oracle = HighsCommitteeOracle(dense, log=log)
-    check_feasible_or_suggest(dense, space, oracle)
+    oracle = HighsCommitteeOracle(dense, households=households, log=log)
+    check_feasible_or_suggest(dense, space, oracle, households)
     ts_fallback = None
+    dist = None
     if not initial_panels and not cfg.force_agent_space:
-        dist = _typespace_leximin(dense, cfg, log, dev, final_stage)
+        if households is None:
+            dist = _typespace_leximin(dense, cfg, log, dev, final_stage)
+        else:
+            dist = _quotient_leximin(dense, households, cfg, log, dev, final_stage)
+    if dist is not None:
         if dist.contract_ok or final_stage == "l2":
             # the l2 stage never falls back (its callers gate the deviation
             # with their own band); contract_ok still reports it
@@ -577,5 +630,32 @@ def find_distribution_leximin(
         )
         ts_fallback = dist
     return _agent_space_leximin(
-        dense, cfg, log, dev, oracle, initial_panels, ts_fallback, final_stage
+        dense, cfg, log, dev, oracle, initial_panels, ts_fallback, final_stage, households
     )
+
+
+def _quotient_leximin(
+    dense: DenseInstance, households: np.ndarray, cfg: Config, log: RunLog, device,
+    final_stage: str,
+) -> Optional[Distribution]:
+    """The type-space solve on the household quotient (orbit space), or
+    None when it raises one of the two errors after which the agent-space
+    CG is the way on (see ``find_distribution_leximin``)."""
+    from citizensassemblies_tpu_torch.solvers.compositions import HouseholdPickError
+    from citizensassemblies_tpu_torch.solvers.quotient import build_household_quotient
+
+    quotient = build_household_quotient(dense, households)
+    log.emit(
+        f"Household quotient: {quotient.n_classes} household classes over "
+        f"{len(quotient.class_of_household)} households — solving in orbit space."
+    )
+    try:
+        return _typespace_leximin(
+            quotient.dense_aug, cfg, log, device, final_stage, households=quotient.households
+        )
+    except (SelectionError, HouseholdPickError) as exc:
+        log.emit(
+            f"Household quotient solve failed ({type(exc).__name__}: {exc}); "
+            f"falling back to agent-space CG."
+        )
+        return None

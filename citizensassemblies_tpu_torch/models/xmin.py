@@ -14,7 +14,8 @@ LEXIMIN probabilities are computed once, and the min-L2 stage
 (``solvers/qp.solve_final_primal_l2``) runs once over the grown portfolio
 with the LEXIMIN distribution as its ε-floor donor. A closed-form blend with
 the uniform distribution over the new panels then maximizes the support
-inside the ``Config.xmin_linf_band`` budget.
+inside the ``Config.xmin_linf_band`` budget. With ``households`` the
+LEXIMIN seed and every expansion draw are household-disjoint.
 """
 
 from __future__ import annotations
@@ -49,34 +50,34 @@ def find_distribution_xmin(
     """The XMIN distribution: leximin-optimal per-agent probabilities over an
     expanded, support-maximized portfolio, on ``device`` (CUDA unless the
     caller passes another; raises when CUDA is absent and no device was
-    passed).
+    passed). ``households`` (int[n] group ids) allows at most one member of
+    each household on a panel.
 
     ``leximin`` supplies a precomputed LEXIMIN distribution for the same
     problem and configuration, skipping that solve (for one from the JAX
     package, ``interop.distribution_from_arrays``)."""
     cfg = cfg or default_config()
     check_slice_config(cfg)
-    if households is not None:
-        raise NotImplementedError(
-            "XMIN with households needs ROADMAP queue A item 2 'households'"
-        )
     dev = resolve_device(device)
     dense = on_device(dense, dev)
     log = log if log is not None else RunLog(echo=False)
-    return _xmin_impl(dense, space, cfg, log, leximin, dev)
+    return _xmin_impl(dense, space, cfg, households, log, leximin, dev)
 
 
 def _xmin_impl(
     dense: DenseInstance,
     space: Optional[FeatureSpace],
     cfg: Config,
+    households: Optional[np.ndarray],
     log: RunLog,
     leximin: Optional[Distribution],
     device: torch.device,
 ) -> Distribution:
     # 1) exact leximin (fixes every agent's probability; xmin.py:506-508)
     if leximin is None:
-        leximin = find_distribution_leximin(dense, space, cfg=cfg, log=log, device=device)
+        leximin = find_distribution_leximin(
+            dense, space, cfg=cfg, log=log, device=device, households=households
+        )
     n = dense.n
 
     # 2) portfolio expansion: collect target_new DISTINCT new panels (the
@@ -97,7 +98,7 @@ def _xmin_impl(
     while len(new_members) < target_new and drawn < max_draws:
         B = min(cfg.pricing_batch, max_draws - drawn)
         with log.timer("xmin_draws"):
-            panels, ok = sample_panels_batch(dense, generator, B)
+            panels, ok = sample_panels_batch(dense, generator, B, households=households)
             panels = np.sort(panels.cpu().numpy(), axis=1).astype(np.int32)
             ok = ok.cpu().numpy()
         drawn += B

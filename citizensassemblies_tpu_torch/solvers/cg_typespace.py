@@ -77,10 +77,9 @@ class CompositionOracle:
         ``rel_gap`` relaxes the MILP's optimality gap for callers that use the
         result as a *heuristic column* rather than a certificate (the face
         loop's anchor columns: acceptance there is the arithmetic residual of
-        the master iterate, so anchor optimality buys nothing — but each
-        exact solve at T ≈ 1000 costs ~0.2 s and the anchors were ~20 % of
-        the flagship decomposition wall-clock). Certification calls keep the
-        exact default."""
+        the master iterate, so anchor optimality buys nothing, while an
+        exact solve at T ≈ 1000 is a large share of an anchor round).
+        Certification calls keep the exact default."""
         if self.log is not None:
             self.log.count("oracle_backend_highs")
         lo = np.zeros(self.red.T)
@@ -244,8 +243,8 @@ def _marginal_probe_confirm(
     # HiGHS's ~1e-7 primal tolerance, deliberately: raising it to 1e-7
     # inflates slack_gain ≈ probe_relax·Σm past ALLOWANCE_CAP at n ≈ 1700,
     # which makes every sound group-probe budget unpassable and degrades
-    # tranche certification to one LP per candidate (measured: ~1001 probe
-    # LPs and +7 s on the sf_e_like stage loop). The rare numerically-empty
+    # tranche certification to one LP per candidate (about one probe LP
+    # per type of the sf_e_like stage loop). The rare numerically-empty
     # face a sub-tolerance relaxation can produce is handled by the
     # empty-face detection plus the 10×-relaxed retry face below, which
     # costs one extra LP only when it actually occurs. A loose face (the
@@ -479,9 +478,10 @@ def _decomp_lp(MT: np.ndarray, v: np.ndarray) -> Tuple[float, np.ndarray, float,
     A_eq = scipy.sparse.csr_matrix(np.concatenate([np.ones(C), [0.0]])[None, :])
     c_obj = np.zeros(C + 1)
     c_obj[C] = 1.0
-    # dual simplex wins on the small host masters (~25 % over IPM at
-    # T ≈ 150, C ≈ 2000) but degrades badly on tall systems — a T = 1199
-    # polish took ~100 s via ds vs ~10 s via IPM — so the order flips on T
+    # dual simplex wins on the small host masters (T ≈ 150, C ≈ 2000) but
+    # degrades badly on tall systems such as a T = 1199 household-quotient
+    # polish, where the interior point is many times faster — so the order
+    # flips on T
     methods = (
         ("highs-ds", "highs-ipm", "highs")
         if T <= 384
@@ -872,8 +872,8 @@ def leximin_cg_typespace(
                     add_comp(got[0])
                     # the witness composition certifies EVERY type it
                     # contains — marking them all cuts the probe count
-                    # ~10× on many-small-type pools (sf_e-like: the
-                    # one-at-a-time loop cost ~7 s of 40 ms MILPs)
+                    # by about the composition's support on
+                    # many-small-type pools such as sf_e-like
                     witness = got[0] > 0
                     present |= witness
                     int_certified |= witness
@@ -927,24 +927,23 @@ def leximin_cg_typespace(
         # plus a large first master on every instance. Beyond ~1k types
         # the finer R=2048 stream pays for itself: the hull needs ~T
         # columns and repair-drop rates rise with the feature count
-        # (the n=1200 household quotient, T=1199/F=626, kept only 331
-        # of 1024 slices and ground 19 face rounds from ε=2e-2; at
-        # R=2048 it keeps ~1400, starts at 1.4e-2, and runs 80→66 s —
-        # unlike the measured-unhelpful top-up of SEPARATE phase-shifted
-        # streams, one finer stream also tightens the cumulative
-        # apportionment feedback to ~1/2048)
+        # (the n=1200 household quotient, T=1199/F=626, keeps about a
+        # third of 1024 slices and grinds many face rounds from ε=2e-2;
+        # at R=2048 it keeps more slices than types and starts lower —
+        # unlike a top-up of SEPARATE phase-shifted streams, one finer
+        # stream also tightens the cumulative apportionment feedback to
+        # ~1/2048)
         for c in _slice_relaxation(
             x_target, reduction, R=1024 if reduction.T <= 1024 else 2048
         ):
             injected += add_comp(c)
-        # NOTE (measured): topping the hull up with extra phase-shifted
-        # streams when injected < T (household-quotient instances start
+        # NOTE: topping the hull up with extra phase-shifted streams when
+        # injected < T (household-quotient instances start
         # under-determined, ε ~ 2e-2) lowers the round-0 ε but does NOT
-        # reduce the face-round count — n=1200 couples ran 187 s with
-        # the top-up vs 170 s without — so the injection stays single-
-        # stream; the ε tail there is integrality structure, not hull
-        # bulk (same finding as the large-T deep-pass experiment in
-        # face_decompose.py).
+        # reduce the face-round count on the n=1200 couples, so the
+        # injection stays single-stream; the ε tail there is integrality
+        # structure, not hull bulk (same finding as the large-T deep-pass
+        # experiment in face_decompose.py).
         if T <= 64:
             # independent roundings only help at small type counts — at
             # sf_e scale their quota-feasible yield is zero (measured)

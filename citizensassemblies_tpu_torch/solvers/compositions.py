@@ -428,6 +428,52 @@ def leximin_over_compositions(
     )
 
 
+class HouseholdPickError(ValueError):
+    """A household-disjoint pick found fewer distinct households than a
+    composition's duty count: the compositions violate the quotient's class
+    caps."""
+
+
+def _household_disjoint_pick(
+    scores: np.ndarray,
+    rot: np.ndarray,
+    houses: np.ndarray,
+    ct: int,
+    used: set,
+) -> np.ndarray:
+    """Indices of ``ct`` members maximizing ``scores`` (ties broken by
+    ``rot``) whose households are distinct from each other and from ``used``;
+    marks the chosen households used.
+
+    Conflicts only arise within one household class (a household's members
+    all carry the class in their augmented feature row — see
+    ``solvers/quotient.py``), and the class-cap quota row keeps the class's
+    total duty count at most its household count, so this greedy always
+    finds ``ct`` members: every class-``c`` orbit has a member in each of
+    the class's ``m_c`` households.
+    """
+    order = np.lexsort((rot, -scores))
+    picked: List[int] = []
+    for j in order:
+        h = int(houses[j])
+        if h in used:
+            continue
+        used.add(h)
+        picked.append(int(j))
+        if len(picked) == ct:
+            break
+    if len(picked) < ct:
+        # the input contract (class-cap quota rows) is violated; failing
+        # loudly beats emitting an undersized panel that would enter the
+        # distribution with positive probability
+        raise HouseholdPickError(
+            f"household-disjoint pick infeasible: needed {ct} members but "
+            f"only {len(picked)} households available — compositions violate "
+            "the quotient's class caps"
+        )
+    return np.asarray(picked, dtype=np.int64)
+
+
 def greedy_decompose(
     comps: np.ndarray,
     probs: np.ndarray,
@@ -435,6 +481,7 @@ def greedy_decompose(
     targets: np.ndarray,
     support_eps: float = 1e-11,
     max_panels: int = 16_384,
+    households: Optional[np.ndarray] = None,
     delta_cap: float = 0.0,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Water-filling decomposition of a composition distribution into panels.
@@ -446,6 +493,11 @@ def greedy_decompose(
     the largest step that overshoots no member. Exact up to float rounding on
     most instances (the caller verifies and LP-polishes any residual);
     portfolio size is typically O(Σ_t m_t/c_t) per support composition.
+
+    With ``households`` (int[n] group ids, on a household-quotient reduction —
+    ``solvers/quotient.py``), each slice's picks are also household-disjoint,
+    so every emitted panel honors the ≤1-per-household constraint exactly
+    (reference ``leximin.py:211-221``).
 
     ``delta_cap`` (> 0) bounds each slice's probability mass: when the
     mixture is a *basic* LP solution (sparse support, e.g. from an exact
@@ -479,11 +531,14 @@ def greedy_decompose(
     )
     got = greedy_decompose_native(
         reduction, comps[order], p[order], per_type_need,
-        max_panels, delta_cap=delta_cap,
+        max_panels, households=households, delta_cap=delta_cap,
     )
     if got is not None:
         return got
 
+    house_of = (
+        [households[members[t]] for t in range(T)] if households is not None else None
+    )
     needs = [np.full(int(msize[t]), 0.0) for t in range(T)]
     for t in range(T):
         needs[t][:] = targets[members[t][0]] if len(members[t]) else 0.0
@@ -497,12 +552,16 @@ def greedy_decompose(
             row = np.zeros(n, dtype=bool)
             delta = min(rho, delta_cap) if delta_cap > 0 else rho
             chosen: List[Tuple[int, np.ndarray]] = []
+            used_houses: set = set()
             for t in range(T):
                 ct, mt = int(c[t]), int(msize[t])
                 if not ct:
                     continue
                 rot = (np.arange(mt) - cursors[t]) % mt
-                idx = np.lexsort((rot, -needs[t]))[:ct]
+                if house_of is None:
+                    idx = np.lexsort((rot, -needs[t]))[:ct]
+                else:
+                    idx = _household_disjoint_pick(needs[t], rot, house_of[t], ct, used_houses)
                 chosen.append((t, idx))
                 m = float(needs[t][idx].min())
                 if m > 1e-15:
@@ -530,6 +589,7 @@ def decompose_with_pricing(
     max_rounds: int = 200,
     log: Optional[RunLog] = None,
     tol: float = 1e-9,
+    households: Optional[np.ndarray] = None,
 ) -> Tuple[np.ndarray, np.ndarray, float]:
     """Exact panel decomposition of a composition distribution.
 
@@ -547,6 +607,11 @@ def decompose_with_pricing(
     (``leximin.py:420-424``). An exact decomposition always exists (uniform
     within-type selection is a finite convex combination of concrete panels),
     so ε converges to ~0. Returns ``(panels bool [R, n], probs, ε)``.
+
+    With ``households`` every emitted panel is household-disjoint; the
+    prefix-sum pricing value then upper-bounds the realized column's value
+    (the disjoint pick may have to skip a top member), so a stall guard
+    breaks the loop when ε stops improving instead of trusting the estimate.
     """
     log = log or RunLog(echo=False)
     n = reduction.n
@@ -559,7 +624,7 @@ def decompose_with_pricing(
     tol = max(tol, 1e-9)
     P0, q0 = greedy_decompose(
         comps, probs, reduction, targets, support_eps=support_eps,
-        max_panels=budget,
+        max_panels=budget, households=households,
     )
     total = q0.sum()
     if abs(total - 1.0) < tol:
@@ -575,7 +640,8 @@ def decompose_with_pricing(
             # portfolio for skipping the LP pricing loop entirely
             P1, q1 = greedy_decompose(
                 comps, probs, reduction, targets, support_eps=support_eps,
-                max_panels=budget, delta_cap=1.5 * tol,
+                max_panels=budget, households=households,
+                delta_cap=1.5 * tol,
             )
             t1 = q1.sum()
             if abs(t1 - 1.0) < tol:
@@ -596,11 +662,23 @@ def decompose_with_pricing(
     # a nexus-class polish pay ~18 LP rounds for ~1150 columns)
     p = None
     eps_dev = 1.0
+    best_eps = np.inf
+    stalled = 0
     for _ in range(max_rounds):
         P = np.stack(rows, axis=0)
         p, eps_dev, y, mu = solve_final_primal_lp_duals(P, targets)
         if eps_dev <= tol:
             break
+        if households is not None:
+            # the pricing estimate below only bounds a household-disjoint
+            # column's value from above: stop when realized columns no
+            # longer move ε rather than loop on a phantom improvement
+            if eps_dev > best_eps - 1e-12:
+                stalled += 1
+                if stalled >= 8:
+                    break
+            else:
+                best_eps, stalled = eps_dev, 0
         # price: value(c) = Σ_t (sum of the c_t largest y within type t)
         prefix = np.zeros((T, maxm + 1))
         tops: List[np.ndarray] = []
@@ -616,10 +694,13 @@ def decompose_with_pricing(
         added = 0
         for ci in cand:
             row = np.zeros(n, dtype=bool)
-            for t in range(T):
-                ct = int(comps[ci, t])
-                if ct:
-                    row[tops[t][:ct]] = True
+            if households is None:
+                for t in range(T):
+                    ct = int(comps[ci, t])
+                    if ct:
+                        row[tops[t][:ct]] = True
+            elif not _household_disjoint_row(row, comps[ci], tops, households):
+                continue  # never add an undersized panel
             kb = row.tobytes()
             if kb not in seen:
                 seen.add(kb)
@@ -634,6 +715,31 @@ def decompose_with_pricing(
     else:
         P = np.stack(rows, axis=0)
     return P, p, float(eps_dev)
+
+
+def _household_disjoint_row(row, comp, tops, households) -> bool:
+    """Realize composition ``comp`` into ``row`` household-disjointly, each
+    type's duty taken down its members in ``tops`` order (dual weight,
+    descending), skipping households already used; False when a type runs
+    out of households (the column breaks the class caps)."""
+    used_houses: set = set()
+    for t, ct in enumerate(comp):
+        ct = int(ct)
+        if not ct:
+            continue
+        picked = 0
+        for a in tops[t]:
+            h = int(households[a])
+            if h in used_houses:
+                continue
+            used_houses.add(h)
+            row[a] = True
+            picked += 1
+            if picked == ct:
+                break
+        if picked < ct:
+            return False
+    return True
 
 
 def expand_compositions(

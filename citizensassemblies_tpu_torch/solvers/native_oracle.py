@@ -289,9 +289,9 @@ def slice_stream_native(
 ) -> Optional[np.ndarray]:
     """The full aimed-slicer loop in one native call (``slice_stream`` in
     ``native/slice_repair.cpp``): apportionment, gap top-up, quota repair and
-    cumulative feedback for all ``R`` slices. The per-slice python path costs
-    ~0.3 ms/slice in ctypes marshalling and numpy bookkeeping — at R ≈ 1000
-    that overhead alone dominated mid-tier (n ≈ 300-400) leximin solves.
+    cumulative feedback for all ``R`` slices. A per-slice Python path pays
+    ctypes marshalling and numpy bookkeeping for every slice, which grows
+    with R ≈ 1000 into a large share of a mid-tier (n ≈ 300-400) solve.
 
     ``j0`` shifts the apportionment phase and the tie streams (see
     ``slice_stream`` in the C++ source), so repeated calls with different
@@ -390,6 +390,7 @@ def greedy_decompose_native(
     probs_sorted: np.ndarray,
     per_type_need: np.ndarray,
     max_panels: int,
+    households: Optional[np.ndarray] = None,
     delta_cap: float = 0.0,
 ):
     """Native water-filling decomposition (``native/slicer.cpp``) with the
@@ -397,8 +398,10 @@ def greedy_decompose_native(
     (same sort keys, cursor rotation, forced-overshoot rule). ``comps_sorted``
     /``probs_sorted`` must already be support-filtered and ordered largest
     mass first; ``per_type_need`` is the initial need per type (equal across
-    a type's members). Returns ``(panels bool [R, n], probs)`` or None when
-    the library is unavailable (callers then run the Python loop)."""
+    a type's members). ``households`` (int[n] group ids) makes each slice's
+    picks household-disjoint. Returns ``(panels bool [R, n], probs)`` or
+    None when the library is unavailable (callers then run the Python
+    loop)."""
     lib = _load_slicer()
     if lib is None:
         return None
@@ -418,6 +421,13 @@ def greedy_decompose_native(
         np.asarray(per_type_need, dtype=np.float64), sizes
     )
     needs_flat = np.ascontiguousarray(needs_flat)
+    if households is not None:
+        houses_flat = np.ascontiguousarray(np.asarray(households)[members_flat], dtype=np.int32)
+        houses_ptr = _ptr(houses_flat, ctypes.c_int32)
+        n_houses = int(np.asarray(households).max()) + 1
+    else:
+        houses_ptr = None
+        n_houses = 0
     out_panels = np.zeros((max_panels, n), dtype=np.uint8)
     out_probs = np.zeros(max_panels, dtype=np.float64)
     out_count = ctypes.c_int(0)
@@ -425,7 +435,7 @@ def greedy_decompose_native(
         T, n, S,
         _ptr(comps, ctypes.c_int32), _ptr(probs, ctypes.c_double),
         _ptr(members_flat, ctypes.c_int32), _ptr(member_off, ctypes.c_int32),
-        None, 0,  # no household groups
+        houses_ptr, n_houses,
         _ptr(needs_flat, ctypes.c_double),
         float(delta_cap), int(max_panels),
         _ptr(out_panels, ctypes.c_uint8), _ptr(out_probs, ctypes.c_double),

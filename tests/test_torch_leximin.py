@@ -96,18 +96,38 @@ def test_leximin_forced_device_routing(monkeypatch):
 
 @pytest.mark.parametrize("path", ["households", "XMIN", "mixed precision", "checkpointing"])
 def test_leximin_refuses_paths_not_ported(path):
-    """What the port still lacks raises, naming its ROADMAP item; device
-    pricing, the batched LP engine, the stage-CG fallback and XMIN (with
-    LEXIMIN's ``final_stage="l2"``) are ported, XMIN's households are not."""
+    """What the port still lacks raises, naming its ROADMAP item (mixed
+    precision, checkpointing). Households, refused until ROADMAP queue A
+    item 2 was ported, now run in LEXIMIN and in XMIN: the call returns a
+    distribution within the contract whose every panel is
+    household-disjoint."""
     from citizensassemblies_tpu_torch.models.xmin import find_distribution_xmin
 
-    td, ts = t_featurize(INSTANCES["example_small_like"](tgen), device="cpu")
+    if path in ("households", "XMIN"):
+        # the couples of tests/test_households.py:70 (on example_small_like's
+        # quotient, T=16, the enumeration spends its whole node budget first)
+        pool = tgen.skewed_instance(n=64, k=10, n_categories=3, seed=5,
+                                    features_per_category=[2, 3, 2])
+    else:
+        pool = INSTANCES["example_small_like"](tgen)
+    td, ts = t_featurize(pool, device="cpu")
+    couples = np.arange(td.n) // 2
     entry = find_distribution_xmin if path == "XMIN" else t_leximin
     kw = {
-        "households": dict(households=np.zeros(td.n, np.int64)),
-        "XMIN": dict(households=np.zeros(td.n, np.int64)),
+        "households": dict(households=couples),
+        # the expansion and the ascent cut short: only the household path
+        # is under test here (tests/test_torch_households.py holds XMIN
+        # against the JAX package)
+        "XMIN": dict(households=couples, cfg=tconfig.default_config().replace(
+            xmin_iterations_factor=1, xmin_qp_iters=1000)),
         "mixed precision": dict(cfg=tconfig.default_config().replace(mixed_precision=True)),
         "checkpointing": dict(checkpoint_path="ckpt.npz"),
     }[path]
+    if "households" in kw:
+        dist = entry(td, ts, device="cpu", **kw)
+        assert dist.contract_ok
+        for panel in dist.panels:
+            assert len(set(couples[list(panel)].tolist())) == len(panel)
+        return
     with pytest.raises(NotImplementedError, match=path):
         entry(td, ts, device="cpu", **kw)

@@ -202,9 +202,18 @@ def test_leximin_l2_final_stage_matches_reference(space):
 
 
 def test_xmin_refuses_households():
+    """XMIN refused households until ROADMAP queue A item 2 was ported; now
+    it runs with them (its LEXIMIN seed included): every panel of the grown
+    portfolio is household-disjoint, and the contract holds."""
     td, ts = t_featurize(_pool(tgen), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        txmin.find_distribution_xmin(td, ts, households=np.arange(td.n) // 2, device="cpu")
+    couples = np.arange(td.n) // 2
+    _, tc = _cfgs("serial")
+    dist = txmin.find_distribution_xmin(td, ts, cfg=tc, households=couples, device="cpu")
+    assert dist.contract_ok and dist.realization_dev <= CONTRACT
+    _assert_panels_feasible(td, dist.committees)
+    for row in dist.committees:
+        members = np.nonzero(row)[0]
+        assert len(set(couples[members].tolist())) == len(members)
 
 
 def test_xmin_without_a_device_needs_cuda(monkeypatch):
