@@ -37,7 +37,9 @@ Phases, each fatal on failure:
    which must agree launch for launch, in the slice configuration of the
    earlier slices and at the package's defaults (the main path: device
    pricing, the fused screen, the batched polish screen; one host sync per
-   steady round); the defaults on ``mass_like_instance(seed=3)`` and
+   steady round; bf16 operand demotion on, the run held bit for bit
+   against the same run with it off, the demotion counters printed); the
+   defaults on ``mass_like_instance(seed=3)`` and
    ``example_small_like_instance()`` against the batched engine off; LEGACY's 10,000-draw estimator on
    the same pool; the agent-space LEXIMIN column generation with device
    dual LPs (the LP kernel) on ``skewed_instance(n=120, k=12,
@@ -53,15 +55,20 @@ Phases, each fatal on failure:
    stall, under a budget, and on the pool of
    ``tests/test_torch_stage_cg.py``, where its stages price (stochastic
    draws on the card and the exact MILP), to its end and held to the same
-   run on the CPU;
+   run on the CPU; the agent-space run on the n=120 pool once more with
+   demotion on, bit for bit against it off;
 6. XMIN (the main path's second algorithm) on ``sf_e_skewed_instance(seed=1)``
    from the defaults flagship's LEXIMIN distribution, its launch counters
    zeroed just before it and read just after, run twice and held bit for
-   bit; the gather kernel held against its plain version at XMIN's shape
-   (15,000-odd panels of 112 slots over n = 1,727 agents); and the fused
+   bit, and once with demotion off, bit for bit; the gather kernel held
+   against its plain version at XMIN's shape (15,000-odd panels of 112
+   slots over n = 1,727 agents), and its bf16-value path at that 0/1 pack
+   bit for bit against its float32 path and against the plain version,
+   both paths timed hot and with the L2 flushed; and the fused
    ELL min-L2 core on the card (its PDHG blocks and ascent chunks replayed
    as CUDA graphs, and again op by op, bit for bit) against the same core
-   on the CPU on a 1,024-panel prefix of that portfolio; the serial min-L2
+   on the CPU on a 512-panel prefix of that portfolio, on a short schedule
+   (an anchor cap of 4,096 iterations, 10 ascent chunks); the serial min-L2
    route (``Config.lp_batch`` off: the min-ε PDHG anchor, then the
    fixed-count ascent in graph-replayed chunks) on the card against the CPU
    on that prefix, its chunks held bit for bit against the op-by-op ascent
@@ -78,7 +85,16 @@ Phases, each fatal on failure:
    household-disjoint and the least probability certified by
    ``audit_maximin`` on the quotient's instance; the agent-space route with
    households on the n=64 couples (dual LPs on the LP kernel); and XMIN
-   with households from the n=400 distribution, twice and bit for bit.
+   with households from the n=400 distribution, twice and bit for bit;
+8. checkpoints and faults at the flagship's defaults: the face loop with a
+   snapshot every round, killed by the ``face_abort`` fault site on a
+   pinned schedule and resumed to the contract, within 1e-3 of the
+   uninterrupted run; ``checkpoint_path=`` end to end (the file gone after
+   a bit-identical run) and a crafted agent-space state resumed on the
+   n=120 pool; and seeded faults (``pdhg_nan`` on the first master,
+   ``device_dispatch`` at the first pricing dispatch, ``qp_nan`` in XMIN),
+   each recovered to the contract. Every clean phase holds zero
+   quarantines and zero host re-solves.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
 line, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -89,6 +105,7 @@ be imported.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -156,9 +173,10 @@ PROFILE_TOL = 1e-3
 #: PDHG does not meet 1e-6 within the cap on most of its dual LPs either
 #: (tests/test_torch_sf_dual.py), so it runs under a budget per stage and in
 #: all, short enough to keep the whole run well inside its time limit (the
-#: first stage ends within neither 45 s nor 90 s)
-STAGE_BUDGET_S = 45.0
-AGENT_BUDGET_S = 60.0
+#: first stage ends within none of 20, 30, 45 and 90 s; 20 s since the
+#: checkpoint and fault phases came in)
+STAGE_BUDGET_S = 20.0
+AGENT_BUDGET_S = 27.0
 #: the polish screen's lanes at the flagship: nested prefixes of a
 #: 2048-column support (face_decompose.polish_support), each to a quarter of
 #: the master tolerance within 24,576 iterations, warm from a master solve;
@@ -193,6 +211,19 @@ DENSE_GRAPH_MAX_ITERS = 10_240
 
 E2E_CONTRACT = 1e-3
 
+#: what every clean phase must show: no sentinel quarantine, no host
+#: re-solve (a kernel fault in a clean run must not hide behind either)
+FAULT_KEYS = ("sentinel_poisoned", "sentinel_quarantined", "robust_host_resolve")
+#: the demotion counters (utils/precision.py)
+MP_KEYS = ("mp_demoted_operands", "mp_lossy_skip")
+#: checkpoint_flagship's kill: face_abort at this rate and seed fires at the
+#: third consultation (the start of round 2 of the first attempt, after its
+#: round-0 and round-1 checkpoints) and at none of the next 15 (the
+#: resumed attempt's rounds), by the injector's deterministic schedule
+CKPT_ABORT = ("face_abort:0.3", 2012)
+#: faults_flagship's pdhg_nan schedule: fires at the first master only
+PDHG_NAN_FIRST = ("pdhg_nan:0.25", 270)
+
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
@@ -204,6 +235,45 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def fault_counts(counters) -> dict:
+    """The quarantine and host re-solve counters of a run (``FAULT_KEYS``)."""
+    return {k: int(counters.get(k, 0)) for k in FAULT_KEYS}
+
+
+def clean(counters) -> bool:
+    """No quarantine and no host re-solve in the run."""
+    return not any(fault_counts(counters).values())
+
+
+def mp_counts(counters) -> dict:
+    return {k: int(counters.get(k, 0)) for k in MP_KEYS}
+
+
+def face_profiles(store: list):
+    """A stand-in for ``face_decompose.realize_profile`` that appends each
+    face loop's realized type profile ``(C/m)ᵀ p`` and its distance to the
+    target ``‖(C/m)ᵀ p − v‖∞`` to ``store`` (the quantity the loop
+    certifies, which the JAX package's checkpoint test compares)."""
+    from citizensassemblies_tpu_torch.solvers import face_decompose
+
+    realize = face_decompose.realize_profile
+
+    def recorded(reduction, v, *a, **kw):
+        out = realize(reduction, v, *a, **kw)
+        profile = (out[0].astype(np.float64) / reduction.msize[None, :]).T @ out[1]
+        store.append((profile, float(np.abs(profile - v).max())))
+        return out
+
+    return recorded
+
+
+def bf16_gathers() -> int:
+    """The gather's bf16-value launches since its counters were zeroed."""
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+
+    return em.KERNEL.entry_launches.get("ell_gather_bf16_launch", 0)
 
 
 def cuda_ms(fn, reps: int = 1, warmup: int = 1) -> float:
@@ -345,6 +415,70 @@ def gather_phase(pack, rows=6144, label="gather"):
     print(json.dumps(rec), flush=True)
     if not rec["ok"]:
         raise SystemExit(f"gather kernel disagrees with its plain version: {err}")
+    return rec
+
+
+def gather_bf16_phase(pack, label="gather_xmin_bf16"):
+    """The gather kernel's bf16-value path on a 0/1 pack (XMIN's portfolio,
+    the operand mixed precision demotes): held bit for bit against the
+    float32 path on the same values (one lane and three), and against the
+    plain version at ``GATHER_TOL``. Both paths timed in this one call, hot
+    (the pack in the L2) and with the L2 flushed before each call; the bound
+    counts 2-byte values beside the 4-byte indices."""
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+
+    dev = torch.device("cuda")
+    idx_np, val_np = pack.padded(len(pack))
+    C, kp = idx_np.shape
+    T = pack.minor
+    idx = torch.as_tensor(idx_np, device=dev)
+    val = torch.as_tensor(val_np, device=dev)
+    val16 = val.to(torch.bfloat16)
+    lossless = bool(torch.equal(val16.float(), val))
+    g = torch.Generator(device="cpu").manual_seed(1)
+    y = torch.randn(T, generator=g).to(dev)
+    yb = torch.randn((3, T), generator=g).to(dev)
+    entry0 = em.KERNEL.entry_launches.get("ell_gather_bf16_launch", 0)
+    z16, z32 = em.ell_gather_mv(idx, val16, y), em.ell_gather_mv(idx, val, y)
+    zb16, zb32 = em.ell_gather_mv(idx, val16, yb), em.ell_gather_mv(idx, val, yb)
+    torch.cuda.synchronize()
+    bf16_launched = em.KERNEL.entry_launches.get("ell_gather_bf16_launch", 0) - entry0
+    bitwise = bool(torch.equal(z16, z32) and torch.equal(zb16, zb32))
+    err = max(
+        float((z16 - em.ell_gather_mv_plain(idx, val16, y)).abs().max()),
+        float((zb16 - em.ell_gather_mv_plain(idx, val16, yb)).abs().max()),
+    )
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    G, threads, blocks = em.launch_shape(C, kp, 1, sms, bf16=True)
+    ms, call_ms = timed(lambda: em.ell_gather_mv(idx, val16, y), reps=200, warmup=10)
+    flushed_ms = device_ms(lambda: em.ell_gather_mv(idx, val16, y), 50, "ell_gather", flush_l2=True)
+    f32_ms = device_ms(lambda: em.ell_gather_mv(idx, val, y), 200, "ell_gather")
+    f32_flushed_ms = device_ms(lambda: em.ell_gather_mv(idx, val, y), 50, "ell_gather", flush_l2=True)
+    plain_ms, plain_call_ms = timed(lambda: em.ell_gather_mv_plain(idx, val16, y), reps=200, warmup=10)
+    # each input read once (int32 indices, bf16 values, y), the output
+    # written once, at the HBM rate: the bound of the flushed time
+    nbytes = C * kp * 6 + T * 4 + C * 4
+    flops = 2 * C * kp
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
+    f32_bound_ms = 1e3 * max((C * kp * 8 + T * 4 + C * 4) / HBM_BYTES_PER_S, flops / F32_FLOPS)
+    rec = dict(
+        phase=label, name="ell_gather", entry="ell_gather_bf16_launch",
+        replaces=REPLACES["ell_gather"], shape=dict(C=C, k_pad=kp, T=T, lanes=[1, 3]),
+        grid=blocks, threads=threads, lanes_per_column=G,
+        lanes_per_column_f32=em.launch_shape(C, kp, 1, sms)[0], lossless=lossless,
+        bitwise_vs_f32=bitwise, ms=ms, l2_flushed_ms=flushed_ms, f32_ms=f32_ms,
+        f32_l2_flushed_ms=f32_flushed_ms, plain_ms=plain_ms, call_ms=call_ms,
+        plain_call_ms=plain_call_ms, bound_ms=bound_ms, f32_bound_ms=f32_bound_ms,
+        bound_by="bytes", bound_pairs_with="l2_flushed_ms",
+        flushed_bound_share=bound_ms / flushed_ms, max_abs_err=err, tolerance=GATHER_TOL,
+        bf16_launches=bf16_launched,
+    )
+    rec["ok"] = bool(lossless and bitwise and err <= GATHER_TOL and bf16_launched == 2)
+    print(json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise SystemExit(f"the gather's bf16 path disagrees: bitwise {bitwise}, err {err}")
     return rec
 
 
@@ -891,10 +1025,11 @@ def reference_phase(slice_cfg):
     rec = dict(
         phase="reference_small", n=160, k=14, seconds_cpu=s_cpu, seconds_gpu=s_gpu,
         linf_cpu=l_cpu, linf_gpu=l_gpu, fixed_gap=fixed_gap, alloc_gap=alloc_gap,
-        device_masters=int(c.get("megakernel_dispatches", 0)),
+        device_masters=int(c.get("megakernel_dispatches", 0)), faults=fault_counts(c),
         ok=bool(
             d_cpu.contract_ok and d_gpu.contract_ok and fixed_gap <= 1e-9
             and alloc_gap <= 2 * E2E_CONTRACT and c.get("megakernel_dispatches", 0) > 0
+            and clean(c)
         ),
     )
     print(json.dumps(rec), flush=True)
@@ -928,13 +1063,25 @@ def agent_space_phase(inst, slice_cfg, label):
         return sol
 
     for lib in (em.KERNEL, mk.KERNEL, mk.LP_KERNEL):
-        lib.launches = 0
+        lib.reset_counts()
     cfg = slice_cfg.replace(force_agent_space=True, backend="jax")
     with mock.patch.object(lp_pdhg, "solve_lp_ell", recorded_ell):
         dist, alog, secs, linf = leximin_run(inst, "cuda", cfg)
     launches = {"lp_block": mk.LP_KERNEL.launches, "ell_gather": em.KERNEL.launches,
                 "two_sided_block": mk.KERNEL.launches}
     again, alog2, secs2, _ = leximin_run(inst, "cuda", cfg)
+    # demotion on: the dual LPs' 0/1 operands go up as bf16, the LP
+    # kernel's prelude widens them: bit for bit the run with it off
+    mp, mlog, secs_mp, _ = leximin_run(inst, "cuda", cfg.replace(mixed_precision=True))
+    mixed = dict(
+        seconds=secs_mp, counters=mp_counts(mlog.counters),
+        dual_solves=int(mlog.counters.get("agent_space_dual_solves", 0)),
+        bit_identical=bool(
+            np.array_equal(mp.allocation, dist.allocation)
+            and np.array_equal(mp.probabilities, dist.probabilities)
+            and np.array_equal(mp.committees, dist.committees)
+        ),
+    )
     repeat = dict(
         seconds=secs2, dual_lp=alog2.timers.get("dual_lp", 0.0),
         dual_solves=int(alog2.counters.get("agent_space_dual_solves", 0)),
@@ -960,7 +1107,7 @@ def agent_space_phase(inst, slice_cfg, label):
             "dual_lp", "stochastic_pricing", "exact_oracle", "final_stage",
         )},
         device_solves=solves, device_solve_s=sum(x[2] for x in solves),
-        repeat=repeat,
+        repeat=repeat, mixed_precision_on=mixed, faults=fault_counts(c),
     )
     rec["ok"] = bool(
         dist.contract_ok and ts.contract_ok and prof <= PROFILE_TOL
@@ -968,9 +1115,12 @@ def agent_space_phase(inst, slice_cfg, label):
         and launches["ell_gather"] > 0 and rec["megakernel_fit_miss"] == 0
         and repeat["dual_solves"] == rec["dual_solves"]
         and repeat["host_fallbacks"] == rec["host_fallbacks"] and repeat["same_allocation"]
+        and mixed["bit_identical"] and mixed["dual_solves"] == rec["dual_solves"]
+        and mixed["counters"]["mp_demoted_operands"] > 0
+        and clean(c) and clean(alog2.counters) and clean(mlog.counters)
     )
     print(json.dumps(rec), flush=True)
-    return rec
+    return rec, dist, cfg
 
 
 class _StageBudgetSpent(Exception):
@@ -1056,7 +1206,7 @@ def agent_space_budget_phase(inst, slice_cfg, label):
         return sol
 
     for lib in (em.KERNEL, mk.KERNEL, mk.LP_KERNEL):
-        lib.launches = 0
+        lib.reset_counts()
     dense, space = featurize(inst, device="cuda")
     alog = RunLog(echo=False)
     cfg = slice_cfg.replace(force_agent_space=True, backend="jax")
@@ -1137,7 +1287,7 @@ def flagship_phase(inst, slice_cfg, libs):
             return leximin_run(inst, "cuda", slice_cfg) + (masters,)
 
     for lib in libs:
-        lib.launches = 0
+        lib.reset_counts()
     dist, elog, secs, linf, masters = run()
     launches = {"ell_gather": em.KERNEL.launches, "two_sided_block": mk.KERNEL.launches}
     again, _, secs2, _, masters2 = run()
@@ -1160,12 +1310,13 @@ def flagship_phase(inst, slice_cfg, libs):
         masters=masters,
         repeat=dict(seconds=secs2, masters=masters2, same_master_iters=masters2 == masters,
                     same_allocation=bool(np.array_equal(again.allocation, alloc))),
+        faults=fault_counts(c),
     )
     e2e["ok"] = bool(
         dist.contract_ok and linf <= E2E_CONTRACT and np.isfinite(alloc).all()
         and alloc.shape == (1727,) and launches["ell_gather"] > 0
         and launches["two_sided_block"] > 0 and e2e["megakernel_fit_miss"] == 0
-        and masters2 == masters and again.contract_ok
+        and masters2 == masters and again.contract_ok and clean(c)
     )
     print(json.dumps(e2e), flush=True)
     return e2e, launches
@@ -1407,27 +1558,31 @@ def polish_screen_phase(MT):
 
 
 def defaults_flagship_phase(inst, cfg, libs):
-    """The flagship at the package's defaults (``default_config()`` with
-    ``mixed_precision=False``): device anchor pricing, the fused move
-    screen and the batched polish screen engage. Every launch counter is
-    zeroed just before the run and read just after. Each master's and each
+    """The flagship at the package's defaults (``default_config()``):
+    device anchor pricing, the fused move screen, the batched polish screen
+    and bf16 operand demotion engage. Every launch counter is zeroed just
+    before the run and read just after. Each master's and each
     polish-screen lane's (Cp, iterations) is recorded by wrapping
     ``lp_pdhg.finish_two_sided_master`` and
     ``batch_lp.solve_polish_screen_ell``; the run is made twice and must
-    take the same iterations solve for solve. Fails unless the contract
-    holds, no solve missed the kernel's fit rule, device pricing served
-    anchors and the steady rounds kept to one synchronisation each
-    (``decomp_host_syncs − decomp_polish_syncs ≤ decomp_rounds``)."""
+    take the same iterations solve for solve, and once more with
+    ``mixed_precision=False``, which must give the same solves, iterations,
+    panels and allocation bit for bit. Fails unless the contract holds, no
+    solve missed the kernel's fit rule, device pricing served anchors, the
+    steady rounds kept to one synchronisation each
+    (``decomp_host_syncs − decomp_polish_syncs ≤ decomp_rounds``) and
+    nothing was quarantined."""
     from unittest import mock
 
     from citizensassemblies_tpu_torch.kernels import ell_matvec as em
     from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
-    from citizensassemblies_tpu_torch.solvers import batch_lp, lp_pdhg
+    from citizensassemblies_tpu_torch.solvers import batch_lp, face_decompose, lp_pdhg
 
     finish = lp_pdhg.finish_two_sided_master
     screen = batch_lp.solve_polish_screen_ell
+    profiles = []
 
-    def run():
+    def run(cfg=cfg):
         solves = []
 
         def recorded(h):
@@ -1441,14 +1596,17 @@ def defaults_flagship_phase(inst, cfg, libs):
             return sols
 
         with mock.patch.object(lp_pdhg, "finish_two_sided_master", recorded), \
-                mock.patch.object(batch_lp, "solve_polish_screen_ell", recorded_screen):
+                mock.patch.object(batch_lp, "solve_polish_screen_ell", recorded_screen), \
+                mock.patch.object(face_decompose, "realize_profile", face_profiles(profiles)):
             return leximin_run(inst, "cuda", cfg) + (solves,)
 
     for lib in libs:
-        lib.launches = 0
+        lib.reset_counts()
     dist, dlog, secs, linf, solves = run()
-    launches = {"ell_gather": em.KERNEL.launches, "two_sided_block": mk.KERNEL.launches}
+    launches = {"ell_gather": em.KERNEL.launches, "two_sided_block": mk.KERNEL.launches,
+                "ell_gather_bf16": bf16_gathers()}
     again, alog, secs2, _, solves2 = run()
+    off, olog, secs_off, _, solves_off = run(cfg.replace(mixed_precision=False))
     c, tm = dlog.counters, dlog.timers
     alloc = dist.allocation
     mean = alloc.mean()
@@ -1474,6 +1632,15 @@ def defaults_flagship_phase(inst, cfg, libs):
         repeat=dict(seconds=secs2, solves=solves2, same_iters=solves2 == solves,
                     counters={k: int(alog.counters.get(k, 0)) for k in keys},
                     same_allocation=bool(np.array_equal(again.allocation, alloc))),
+        mixed_precision=mp_counts(c), faults=fault_counts(c),
+        mixed_precision_off=dict(
+            seconds=secs_off, counters=mp_counts(olog.counters), same_solves=solves_off == solves,
+            bit_identical=bool(
+                np.array_equal(off.committees, dist.committees)
+                and np.array_equal(off.probabilities, dist.probabilities)
+                and np.array_equal(off.allocation, alloc)
+            ),
+        ),
     )
     rec["ok"] = bool(
         dist.contract_ok and linf <= E2E_CONTRACT and np.isfinite(alloc).all()
@@ -1481,9 +1648,13 @@ def defaults_flagship_phase(inst, cfg, libs):
         and launches["two_sided_block"] > 0 and counters["megakernel_fit_miss"] == 0
         and counters["decomp_oracle_device_hit"] > 0 and rec["sync_rule"]
         and solves2 == solves and again.contract_ok
+        and sum(rec["mixed_precision"].values()) > 0
+        and rec["mixed_precision_off"]["same_solves"] and rec["mixed_precision_off"]["bit_identical"]
+        and not any(rec["mixed_precision_off"]["counters"].values())
+        and clean(c) and clean(alog.counters) and clean(olog.counters)
     )
     print(json.dumps(rec), flush=True)
-    return rec, launches, dist
+    return rec, launches, dist, profiles[0]
 
 
 def mass_like_phase(cfg):
@@ -1516,9 +1687,11 @@ def mass_like_phase(cfg):
             lp_batch_dispatches=int(c.get("lp_batch_dispatches", 0)),
             typespace_lp_s=log_on.timers.get("typespace_lp"),
             typespace_lp_s_engine_off=log_off.timers.get("typespace_lp"),
+            mixed_precision=mp_counts(c), faults=fault_counts(c),
         )
         rec[key] = sub
-        ok = ok and on.contract_ok and off.contract_ok and gap <= 1e-6
+        ok = (ok and on.contract_ok and off.contract_ok and gap <= 1e-6 and clean(c)
+              and clean(log_off.counters))
     rec["ok"] = bool(ok and rec["example_small_like"]["lp_batch_probe_screened"] > 0)
     print(json.dumps(rec), flush=True)
     return rec
@@ -1695,7 +1868,10 @@ def xmin_phase(inst, cfg, leximin, lex_seconds, libs):
     ``8n`` distinct new panels, then the fused ELL min-L2 stage (anchor,
     floor pick, ascent in 512-iteration chunks). Run twice with the same
     seed: the second run must be bit-identical (portfolio, probabilities,
-    anchor and ascent iterations). Held: the contract
+    anchor and ascent iterations); and once with ``mixed_precision=False``,
+    which must be bit-identical to the engaged run (at the defaults the
+    portfolio's 0/1 pack goes up as bf16 and the ascent's gathers take the
+    kernel's bf16-value path). Held: no quarantine, the contract
     (``realization_dev ≤ 1e-3``), a support above LEXIMIN's, every panel of
     k members meeting every quota, probabilities summing to 1 within
     1e-9. Returns ``(rec, dist)``."""
@@ -1705,11 +1881,12 @@ def xmin_phase(inst, cfg, leximin, lex_seconds, libs):
 
     dense, space = featurize(inst, device="cuda")
     for lib in libs:
-        lib.launches = 0
+        lib.reset_counts()
     dist, xlog, secs = xmin_run(dense, space, cfg, leximin)
     launches = {"ell_gather": em.KERNEL.launches, "two_sided_block": mk.KERNEL.launches,
-                "lp_block": mk.LP_KERNEL.launches}
+                "lp_block": mk.LP_KERNEL.launches, "ell_gather_bf16": bf16_gathers()}
     again, alog, secs2 = xmin_run(dense, space, cfg, leximin)
+    off, olog, secs_off = xmin_run(dense, space, cfg.replace(mixed_precision=False), leximin)
     c, tm = xlog.counters, xlog.timers
     P, probs = dist.committees, dist.probabilities
     counts = P.astype(np.int64) @ dense.A_np.astype(np.int64)
@@ -1725,6 +1902,10 @@ def xmin_phase(inst, cfg, leximin, lex_seconds, libs):
     same = bool(
         np.array_equal(again.committees, P) and np.array_equal(again.probabilities, probs)
         and iters2 == iters
+    )
+    same_off = bool(
+        np.array_equal(off.committees, P) and np.array_equal(off.probabilities, probs)
+        and {k: int(olog.counters.get(k, 0)) for k in iters} == iters
     )
     rec = dict(
         phase="xmin_sf_e_skewed", n=dense.n, k=dense.k, seconds=secs,
@@ -1744,11 +1925,17 @@ def xmin_phase(inst, cfg, leximin, lex_seconds, libs):
         anchor_iters=iters["l2_anchor_iters"], ascent_iters=iters["l2_ascent_iters"],
         ascent_chunks=iters["l2_ascent_iters"] // 512, launches=launches,
         repeat=dict(iters=iters2, bit_identical=same),
+        mixed_precision=mp_counts(c), faults=fault_counts(c),
+        mixed_precision_off=dict(seconds=secs_off, counters=mp_counts(olog.counters),
+                                 bit_identical=same_off),
     )
     rec["ok"] = bool(
         dist.contract_ok and dist.realization_dev <= E2E_CONTRACT and support > lex_support
         and quotas_ok and rec["prob_sum_err"] <= 1e-9 and np.isfinite(dist.allocation).all()
         and same and launches["ell_gather"] > 0
+        and rec["mixed_precision"]["mp_demoted_operands"] >= 1 and same_off
+        and not any(rec["mixed_precision_off"]["counters"].values())
+        and clean(c) and clean(alog.counters) and clean(olog.counters)
     )
     print(json.dumps(rec), flush=True)
     return rec, dist
@@ -1758,8 +1945,9 @@ def xmin_phase(inst, cfg, leximin, lex_seconds, libs):
 #: of the grown flagship portfolio small enough for the CPU side, the
 #: schedule of solve_final_primal_l2 (anchor cap, 128-iteration checks,
 #: 512-iteration chunks, at most 40), with the sentinel; held at the bars of
-#: tests/test_torch_qp.py (the spread p within 1e-5, the floor within 1e-6)
-L2_HOLD_ROWS = 1024
+#: tests/test_torch_qp.py (the spread p within 1e-5, the floor within 1e-6).
+#: 512 panels since the checkpoint and fault phases came in (1,024 before)
+L2_HOLD_ROWS = 512
 L2_HOLD_P_TOL = 1e-5
 L2_HOLD_FLOOR_TOL = 1e-6
 
@@ -1984,7 +2172,7 @@ def households_hold_phase(cfg, libs):
     inst, hh = households_pool(240)
     forced = cfg.replace(decomp_host_master_max_types=0)
     for lib in libs:
-        lib.launches = 0
+        lib.reset_counts()
     d_gpu, log_gpu, s_gpu, l_gpu = leximin_run(inst, "cuda", forced, hh)
     launches = {"two_sided_block": mk.KERNEL.launches, "ell_gather": em.KERNEL.launches}
     d_cpu, _, s_cpu, l_cpu = leximin_run(inst, "cpu", forced, hh)
@@ -2003,11 +2191,12 @@ def households_hold_phase(cfg, libs):
             "decomp_rounds", "megakernel_dispatches", "megakernel_fit_miss",
             "decomp_oracle_device_hit", "decomp_oracle_device_miss", "lp_batch_polish_hit",
             "lp_batch_polish_miss")},
+        mixed_precision=mp_counts(c), faults=fault_counts(c),
     )
     rec["ok"] = bool(
         d_gpu.contract_ok and d_cpu.contract_ok and fixed_gap <= HH_FIXED_TOL and quotas_ok
         and disjoint and launches["two_sided_block"] > 0 and rec["counters"]["megakernel_fit_miss"] == 0
-        and red.F > 64
+        and red.F > 64 and clean(c)
     )
     print(json.dumps(rec), flush=True)
     # 512 feasible compositions of the quotient from device-pricing lanes
@@ -2068,7 +2257,7 @@ def households_leximin_phase(n, cfg, libs, repeat=False):
             host["relaxation_s"] += time.perf_counter() - t
 
     for lib in libs:
-        lib.launches = 0
+        lib.reset_counts()
     repaired = False
     t0 = time.perf_counter()
     with mock.patch.object(leximin, "check_feasible_or_suggest", timed_gate), \
@@ -2084,7 +2273,7 @@ def households_leximin_phase(n, cfg, libs, repeat=False):
             dist, hlog, secs, linf = leximin_run(inst, "cuda", cfg, hh)
     total = time.perf_counter() - t0
     launches = {"two_sided_block": mk.KERNEL.launches, "ell_gather": em.KERNEL.launches,
-                "lp_block": mk.LP_KERNEL.launches}
+                "lp_block": mk.LP_KERNEL.launches, "ell_gather_bf16": bf16_gathers()}
     dense, space = featurize(inst, device="cuda")
     quotient = build_household_quotient(dense, hh)
     red = TypeReduction(quotient.dense_aug)
@@ -2110,11 +2299,12 @@ def households_leximin_phase(n, cfg, libs, repeat=False):
             "decomp_expand", "decomp_oracle", "final_stage", "typespace_cg",
         )},
         fell_back=any("falling back" in line for line in dist.output_lines),
+        mixed_precision=mp_counts(c), faults=fault_counts(c),
     )
     ok = (
         dist.contract_ok and linf <= E2E_CONTRACT and np.isfinite(dist.allocation).all()
         and quotas_ok and disjoint and audit["maximin_gap"] <= HH_MAXIMIN_GAP
-        and rec["counters"]["megakernel_fit_miss"] == 0 and not rec["fell_back"]
+        and rec["counters"]["megakernel_fit_miss"] == 0 and not rec["fell_back"] and clean(c)
     )
     if n == 1200:
         ok = ok and launches["two_sided_block"] > 0 and launches["ell_gather"] > 0
@@ -2155,7 +2345,7 @@ def households_agent_space_phase(cfg, libs):
     seeds = [tuple(panels[b].tolist()) for b in np.nonzero(ok.cpu().numpy())[0][:4]]
     agent_cfg = cfg.replace(backend="jax")
     for lib in libs:
-        lib.launches = 0
+        lib.reset_counts()
     dist, alog, secs, linf = leximin_run(inst, "cuda", agent_cfg, hh, initial_panels=seeds)
     launches = {"lp_block": mk.LP_KERNEL.launches, "ell_gather": em.KERNEL.launches,
                 "two_sided_block": mk.KERNEL.launches}
@@ -2173,11 +2363,12 @@ def households_agent_space_phase(cfg, libs):
         oracle_backend_highs=int(c.get("oracle_backend_highs", 0)),
         timers={k: tm.get(k, 0.0) for k in ("dual_lp", "stochastic_pricing", "exact_oracle",
                                             "final_stage")},
+        mixed_precision=mp_counts(c), faults=fault_counts(c),
     )
     rec["ok"] = bool(
         len(seeds) == 4 and dist.contract_ok and quotient.contract_ok and gap <= E2E_CONTRACT
         and quotas_ok and disjoint and launches["lp_block"] > 0
-        and launches["lp_block"] == rec["dual_solves"]
+        and launches["lp_block"] == rec["dual_solves"] and clean(c)
     )
     print(json.dumps(rec), flush=True)
     return rec
@@ -2205,10 +2396,10 @@ def households_xmin_phase(dense, space, cfg, households, leximin, lex_seconds, l
         return dist, log, time.perf_counter() - t0
 
     for lib in libs:
-        lib.launches = 0
+        lib.reset_counts()
     dist, xlog, secs = run()
     launches = {"ell_gather": em.KERNEL.launches, "two_sided_block": mk.KERNEL.launches,
-                "lp_block": mk.LP_KERNEL.launches}
+                "lp_block": mk.LP_KERNEL.launches, "ell_gather_bf16": bf16_gathers()}
     again, alog, secs2 = run()
     quotas_ok, disjoint = households_check(dense, dist.committees, households)
     c, tm = xlog.counters, xlog.timers
@@ -2232,11 +2423,223 @@ def households_xmin_phase(dense, space, cfg, households, leximin, lex_seconds, l
         counters={k: int(c.get(k, 0)) for k in ("lp_batch_l2_fused", "l2_anchor_iters",
                                                  "l2_ascent_iters", "l2_ascent_replays")},
         repeat=dict(bit_identical=same),
+        mixed_precision=mp_counts(c), faults=fault_counts(c),
     )
     rec["ok"] = bool(
         dist.contract_ok and dist.realization_dev <= E2E_CONTRACT and quotas_ok and disjoint
         and same and launches["ell_gather"] > 0 and rec["prob_sum_err"] <= 1e-9
-        and np.isfinite(dist.allocation).all()
+        and np.isfinite(dist.allocation).all() and clean(c)
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+#: the bar of tests/test_checkpoint.py for a resumed agent-space run
+#: against the uninterrupted one (a crafted state fixes half the agents at
+#: their leximin values and the rest is solved again)
+RESUME_TOL = 2e-2
+
+
+def checkpoint_flagship_phase(inst, cfg, reference, reference_profile):
+    """The flagship at the defaults with ``robust_checkpoint_every=1``: one
+    injector (``CKPT_ABORT``, the process default, so its schedule runs on
+    across attempts) kills the face loop by ``face_abort`` at the start of
+    round 2 of the first attempt; the next attempt resumes from the
+    snapshot of that round's top (the loop state with it) and runs to its
+    end. Held: exactly one kill, ``robust_resume`` ≥ 1, the contract, the
+    checkpoint directory empty after, no quarantine, and both the face
+    loop's realized type profile and the per-agent allocation within
+    ``E2E_CONTRACT`` (1e-3) of the uninterrupted defaults run's
+    (``reference_profile``, ``(profile, distance)``, and ``reference``).
+    Whether they are equal bit for bit (the resume replays the rounds) is
+    reported. Each snapshot's write is timed (``save_face_state``)."""
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin
+    from citizensassemblies_tpu_torch.robust import checkpoint as rck
+    from citizensassemblies_tpu_torch.robust import inject
+    from citizensassemblies_tpu_torch.solvers import face_decompose
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    dense, space = featurize(inst, device="cuda")
+    save = rck.save_face_state
+    saves = []
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        save(*a, **kw)
+        saves.append(time.perf_counter() - t)
+
+    attempts, dist, profiles = [], None, []
+    log = RunLog(echo=False)
+    with tempfile.TemporaryDirectory() as ckdir, \
+            mock.patch.object(rck, "save_face_state", timed_save), \
+            mock.patch.object(face_decompose, "realize_profile", face_profiles(profiles)), \
+            inject.use_injector(inject.FaultInjector(CKPT_ABORT[0], seed=CKPT_ABORT[1])):
+        run_cfg = cfg.replace(robust_checkpoint_every=1, robust_checkpoint_dir=ckdir)
+        for _ in range(4):
+            t0 = time.perf_counter()
+            try:
+                dist = find_distribution_leximin(dense, space, cfg=run_cfg, log=log, device="cuda")
+                torch.cuda.synchronize()
+                attempts.append(["completed", time.perf_counter() - t0])
+                break
+            except inject.FaultInjected as exc:
+                attempts.append([f"killed ({exc.site})", time.perf_counter() - t0])
+        left = sorted(os.listdir(ckdir))
+    c = log.counters
+    gap = float(np.abs(dist.allocation - reference.allocation).max()) if dist is not None else None
+    # the completed (resumed) attempt's face loop is the last one recorded
+    profile_gap = (float(np.abs(profiles[-1][0] - reference_profile[0]).max())
+                   if dist is not None and profiles else None)
+    rec = dict(
+        phase="checkpoint_flagship", schedule=list(CKPT_ABORT), attempts=attempts,
+        robust_resume=int(c.get("robust_resume", 0)),
+        robust_checkpoint_saved=int(c.get("robust_checkpoint_saved", 0)),
+        fault_face_abort=int(c.get("fault_face_abort", 0)),
+        save_s=saves, save_s_mean=float(np.mean(saves)) if saves else None,
+        decomp_rounds=int(c.get("decomp_rounds", 0)),
+        resumed_line=next((ln for ln in log.lines if "face checkpoint resumed" in ln), None),
+        files_left=left, faults=fault_counts(c),
+    )
+    if dist is not None:
+        rec.update(contract_ok=bool(dist.contract_ok), linf=float(dist.realization_dev),
+                   face_dist_to_target=[reference_profile[1], profiles[-1][1]],
+                   profile_gap_to_uninterrupted=profile_gap, alloc_gap_to_uninterrupted=gap,
+                   tolerance=E2E_CONTRACT,
+                   bit_identical=bool(
+                       np.array_equal(profiles[-1][0], reference_profile[0])
+                       and np.array_equal(dist.allocation, reference.allocation)))
+    rec["ok"] = bool(
+        dist is not None and dist.contract_ok and rec["fault_face_abort"] == 1
+        and rec["robust_resume"] >= 1 and rec["robust_checkpoint_saved"] >= 1
+        and profile_gap <= E2E_CONTRACT and gap <= E2E_CONTRACT and not left and clean(c)
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def checkpoint_leximin_phase(inst, cfg, reference, agent_inst, agent_cfg, agent_ref):
+    """``checkpoint_path=`` end to end. The flagship at the defaults: the
+    type-space checkpoint is written once before the face decomposition
+    (timed) and removed on success, and the run is bit for bit the
+    uninterrupted defaults run (``reference``). A crafted agent-space state
+    on the agent-space pool (its uninterrupted run's portfolio, half the
+    agents fixed at their leximin values): the run logs the resume, meets
+    the contract, lands within ``RESUME_TOL`` of the uninterrupted run and
+    removes the file."""
+    import tempfile
+    from unittest import mock
+
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin
+    from citizensassemblies_tpu_torch.utils import checkpoint as ck
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    save = ck.save_ts_state
+    saves = []
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        save(*a, **kw)
+        saves.append(time.perf_counter() - t)
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        path = os.path.join(ckdir, "flagship.npz")
+        dense, space = featurize(inst, device="cuda")
+        log = RunLog(echo=False)
+        t0 = time.perf_counter()
+        with mock.patch.object(ck, "save_ts_state", timed_save):
+            dist = find_distribution_leximin(dense, space, cfg=cfg, log=log, device="cuda",
+                                             checkpoint_path=path)
+        secs = time.perf_counter() - t0
+        flagship = dict(
+            seconds=secs, contract_ok=bool(dist.contract_ok), ts_saves=saves,
+            file_left=os.path.exists(path), faults=fault_counts(log.counters),
+            bit_identical=bool(
+                np.array_equal(dist.allocation, reference.allocation)
+                and np.array_equal(dist.probabilities, reference.probabilities)
+            ),
+        )
+        path = os.path.join(ckdir, "agent.npz")
+        adense, aspace = featurize(agent_inst, device="cuda")
+        n = adense.n
+        fixed = agent_ref.fixed_probabilities.copy()
+        fixed[np.argsort(fixed)[n // 2:]] = -1.0
+        ck.save_cg_state(path, ck.CGState(
+            portfolio=agent_ref.committees, fixed=fixed, covered=agent_ref.covered,
+            key=np.array([0, 123], dtype=np.uint32),
+            fingerprint=ck.problem_fingerprint(adense, agent_cfg),
+        ))
+        alog = RunLog(echo=False)
+        t0 = time.perf_counter()
+        resumed = find_distribution_leximin(adense, aspace, cfg=agent_cfg, log=alog,
+                                            device="cuda", checkpoint_path=path)
+        agent = dict(
+            seconds=time.perf_counter() - t0, contract_ok=bool(resumed.contract_ok),
+            resumed_line=next((ln for ln in alog.lines if "Resumed checkpoint" in ln), None),
+            alloc_gap_to_uninterrupted=float(np.abs(resumed.allocation - agent_ref.allocation).max()),
+            tolerance=RESUME_TOL, file_left=os.path.exists(path),
+            dual_solves=int(alog.counters.get("agent_space_dual_solves", 0)),
+            faults=fault_counts(alog.counters),
+        )
+    rec = dict(phase="checkpoint_leximin", flagship=flagship, agent_space_resume=agent)
+    rec["ok"] = bool(
+        flagship["contract_ok"] and flagship["bit_identical"] and not flagship["file_left"]
+        and len(saves) == 1 and clean(log.counters)
+        and agent["contract_ok"] and agent["resumed_line"] is not None and not agent["file_left"]
+        and agent["alloc_gap_to_uninterrupted"] <= RESUME_TOL and clean(alog.counters)
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def faults_flagship_phase(inst, cfg, reference):
+    """Seeded faults through ``Config.fault_sites`` at the flagship's
+    defaults, each a full run that must still meet the contract:
+    ``pdhg_nan`` on the first master (``PDHG_NAN_FIRST``), which the CUDA
+    sentinel quarantines and the round re-solves on the host
+    (``robust_host_resolve``); ``device_dispatch`` at the first pricing
+    dispatch, which walks the device-pricing rung (the anchors go through
+    the host MILP from then on); ``qp_nan`` on XMIN (from ``reference``),
+    whose fused stage is quarantined and the serial route realizes the
+    targets (``realization_dev`` within the contract)."""
+    from citizensassemblies_tpu_torch.core.instance import featurize
+
+    out = {}
+    for name, (spec, seed) in (("pdhg_nan", PDHG_NAN_FIRST), ("device_dispatch", ("device_dispatch:1.0", 0))):
+        dist, log, secs, linf = leximin_run(inst, "cuda", cfg.replace(fault_sites=spec, fault_seed=seed))
+        c = log.counters
+        out[name] = dict(
+            spec=spec, seed=seed, seconds=secs, contract_ok=bool(dist.contract_ok), linf=linf,
+            counters={k: int(c.get(k, 0)) for k in (
+                f"fault_{name}", "robust_degrade_device_pricing", "decomp_oracle_device_hit",
+                "decomp_oracle_device_miss", "decomp_rounds", *FAULT_KEYS)},
+        )
+    dense, space = featurize(inst, device="cuda")
+    dist, xlog, secs = xmin_run(dense, space, cfg.replace(fault_sites="qp_nan:1.0"), reference)
+    c = xlog.counters
+    out["qp_nan"] = dict(
+        spec="qp_nan:1.0", seconds=secs, contract_ok=bool(dist.contract_ok),
+        realization_dev=float(dist.realization_dev),
+        counters={k: int(c.get(k, 0)) for k in (
+            "fault_qp_nan", "lp_batch_l2_fused", *FAULT_KEYS)},
+        timers={k: xlog.timers[k] for k in ("l2_fused", "l2_dual_ascent", "xmin_l2")
+                if k in xlog.timers},
+    )
+    p, d, q = (out[k]["counters"] for k in ("pdhg_nan", "device_dispatch", "qp_nan"))
+    rec = dict(phase="faults_flagship", **out)
+    rec["ok"] = bool(
+        all(out[k]["contract_ok"] for k in out)
+        and p["fault_pdhg_nan"] == 1 and p["sentinel_quarantined"] >= 1 and p["robust_host_resolve"] >= 1
+        and d["fault_device_dispatch"] == 1 and d["robust_degrade_device_pricing"] == 1
+        and d["decomp_oracle_device_hit"] == 0 and not any(d[k] for k in FAULT_KEYS)
+        and q["fault_qp_nan"] == 1 and q["lp_batch_l2_fused"] == 1 and q["sentinel_quarantined"] == 1
+        and out["qp_nan"]["realization_dev"] <= E2E_CONTRACT
     )
     print(json.dumps(rec), flush=True)
     return rec
@@ -2307,9 +2710,10 @@ def main() -> int:
     reference_phase(slice_cfg)
 
     e2e, _ = flagship_phase(sf_e_skewed_instance(seed=1), slice_cfg, libs)
-    # the main path: the flagship at the package's defaults
-    defaults_cfg = default_config().replace(mixed_precision=False)
-    e2e_defaults, launches, lex_defaults = defaults_flagship_phase(
+    # the main path: the flagship at the package's defaults (bf16 operand
+    # demotion on, as on any CUDA run)
+    defaults_cfg = default_config()
+    e2e_defaults, launches, lex_defaults, face_defaults = defaults_flagship_phase(
         sf_e_skewed_instance(seed=1), defaults_cfg, libs
     )
     # XMIN on the same pool, seeded with that LEXIMIN distribution; its
@@ -2318,14 +2722,16 @@ def main() -> int:
         sf_e_skewed_instance(seed=1), defaults_cfg, lex_defaults, e2e_defaults["seconds"], libs
     )
     launches["ell_gather"] += xmin["launches"]["ell_gather"]
+    launches["ell_gather_bf16"] += xmin["launches"]["ell_gather_bf16"]
     xmin_pack = EllPack.from_rows(xmin_dist.committees.astype(np.float32))
     gather_xmin = gather_phase(xmin_pack, rows=len(xmin_pack), label="gather_xmin")
+    gather_bf16 = gather_bf16_phase(xmin_pack)
     xmin_hold = xmin_l2_hold_phase(xmin_dist, lex_defaults)
     l2_serial = l2_serial_phase(xmin_dist, lex_defaults, defaults_cfg)
     mass = mass_like_phase(defaults_cfg)
 
     legacy = legacy_phase(sf_e_skewed_instance(seed=1))
-    agent = agent_space_phase(
+    agent, agent_dist, agent_cfg = agent_space_phase(
         skewed_instance(n=120, k=12, n_categories=3, seed=1), slice_cfg, "agent_space_skewed_120"
     )
     launches["lp_block"] = agent["launches"]["lp_block"]
@@ -2345,6 +2751,15 @@ def main() -> int:
     for rec in households.values():
         for name, count in rec.get("launches", {}).items():
             launches[name] += count
+    # checkpoints and seeded faults (queue A items 4 and 6) at the flagship
+    ckpt_face = checkpoint_flagship_phase(
+        sf_e_skewed_instance(seed=1), defaults_cfg, lex_defaults, face_defaults
+    )
+    ckpt_lex = checkpoint_leximin_phase(
+        sf_e_skewed_instance(seed=1), defaults_cfg, lex_defaults,
+        skewed_instance(n=120, k=12, n_categories=3, seed=1), agent_cfg, agent_dist,
+    )
+    faults = faults_flagship_phase(sf_e_skewed_instance(seed=1), defaults_cfg, lex_defaults)
 
     def summary(name, rec, phase_recs, holds):
         return dict(
@@ -2356,9 +2771,16 @@ def main() -> int:
             passed=all(r["ok"] for r in phase_recs) and all(r["ok"] for r in holds),
         )
 
+    gather_row = summary("ell_gather", gather, [gather, gather_dual, gather_xmin, gather_bf16],
+                         [households["n1200"], households["xmin"]])
+    # the bf16-value path of the same kernel, at XMIN's demoted pack
+    gather_row.update(
+        bf16_launches=launches["ell_gather_bf16"], bf16_ms=gather_bf16["ms"],
+        bf16_l2_flushed_ms=gather_bf16["l2_flushed_ms"], bf16_plain_ms=gather_bf16["plain_ms"],
+        bf16_bound_ms=gather_bf16["bound_ms"], bf16_bitwise_vs_f32=gather_bf16["bitwise_vs_f32"],
+    )
     kernels = [
-        summary("ell_gather", gather, [gather, gather_dual, gather_xmin],
-                [households["n1200"], households["xmin"]]),
+        gather_row,
         summary("two_sided_block", b1, [b1, b3, bnan, screen],
                 [households["hold"], households["n1200"]]),
         summary("lp_block", lp, [lp, lp_sf_b], [households["agent"]]),
@@ -2368,7 +2790,8 @@ def main() -> int:
     print(card, flush=True)
     failed = [
         r for r in (e2e, e2e_defaults, xmin, xmin_hold, l2_serial, mass, legacy, agent, agent_sf_b,
-                    dense_graph, stage_cg, stage_cg_pricing, *households.values())
+                    dense_graph, stage_cg, stage_cg_pricing, *households.values(), ckpt_face,
+                    ckpt_lex, faults)
         if not r["ok"]
     ]
     if failed:

@@ -15,7 +15,9 @@ point returns a nonzero ``cudaError_t``.
 A wrapper called while a CUDA graph is captured launches nothing: its
 kernel runs at each replay. :func:`launch_counts` and
 :func:`move_captured_launches` let the capture take those calls out of the
-counters, and :func:`count_replay` adds them back at every replay.
+counters, and :func:`count_replay` adds them back at every replay. Each
+library counts its launches in all (``launches``) and per C entry point
+(``entry_launches``: the gather's float32 and bf16-value paths apart).
 """
 
 from __future__ import annotations
@@ -68,11 +70,18 @@ class CudaLibrary:
         #: kernel launches since the last reset (``chip_smoke.py`` zeroes it
         #: before driving the main path and reads it after)
         self.launches = 0
+        #: the same launches per C entry point
+        self.entry_launches: Dict[str, int] = {}
         #: ptxas resource report of the build in this process, if it built
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
         LIBRARIES.append(self)
+
+    def reset_counts(self) -> None:
+        """Zero the launch counters (outside a graph capture)."""
+        self.launches = 0
+        self.entry_launches.clear()
 
     def start_build(self):
         cmd = [nvcc()] + NVCC_FLAGS + [f"-I{CSRC}"]
@@ -100,6 +109,7 @@ class CudaLibrary:
         raises on a nonzero CUDA error code."""
         rc = self.run(fname, *args)
         self.launches += 1
+        self.entry_launches[fname] = self.entry_launches.get(fname, 0) + 1
         return rc
 
     def run(self, fname: str, *args) -> int:
@@ -112,26 +122,33 @@ class CudaLibrary:
         return rc
 
 
-def launch_counts() -> List[int]:
-    """Every library's launch count, in :data:`LIBRARIES` order."""
-    return [lib.launches for lib in LIBRARIES]
+def launch_counts() -> List[Dict[str, int]]:
+    """Every library's launch counts per C entry point, in
+    :data:`LIBRARIES` order."""
+    return [dict(lib.entry_launches) for lib in LIBRARIES]
 
 
-def move_captured_launches(before: List[int]) -> List[int]:
+def move_captured_launches(before: List[Dict[str, int]]) -> List[Dict[str, int]]:
     """The launches counted since ``before`` (:func:`launch_counts` taken
     when a graph capture began), taken back out of the counters: during a
     capture the wrappers only record their kernels. Returns them per
-    library, for :func:`count_replay`."""
-    captured = [lib.launches - b for lib, b in zip(LIBRARIES, before)]
-    for lib, c in zip(LIBRARIES, captured):
-        lib.launches -= c
+    library and entry point, for :func:`count_replay`."""
+    captured = []
+    for lib, b in zip(LIBRARIES, before):
+        moved = {f: n - b.get(f, 0) for f, n in lib.entry_launches.items() if n != b.get(f, 0)}
+        for f, c in moved.items():
+            lib.entry_launches[f] -= c
+            lib.launches -= c
+        captured.append(moved)
     return captured
 
 
-def count_replay(captured: List[int]) -> None:
+def count_replay(captured: List[Dict[str, int]]) -> None:
     """Count the launches one replay of a captured graph makes."""
-    for lib, c in zip(LIBRARIES, captured):
-        lib.launches += c
+    for lib, moved in zip(LIBRARIES, captured):
+        for f, c in moved.items():
+            lib.entry_launches[f] = lib.entry_launches.get(f, 0) + c
+            lib.launches += c
 
 
 def build_all(libs: List[CudaLibrary]) -> float:

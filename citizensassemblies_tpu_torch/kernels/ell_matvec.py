@@ -6,9 +6,13 @@
 lane per row). ``idx`` is shared; ``val`` is shared ``[C, k_pad]`` or per
 lane ``[B, C, k_pad]``. Padding slots carry value 0 and index 0.
 
-On a CUDA tensor :func:`ell_gather_mv` launches ``csrc/ell_gather.cu``
-(replacing the JAX package's ``kernels/ell_matvec.py:_ell_gather_kernel``)
-or raises; on a CPU tensor it runs :func:`ell_gather_mv_plain`.
+``val`` is float32, or bf16 for a demoted operand (``utils/precision.py``;
+the sum is float32 either way, and on lossless values bitwise the float32
+path's). On a CUDA tensor :func:`ell_gather_mv` launches
+``csrc/ell_gather.cu`` (replacing the JAX package's
+``kernels/ell_matvec.py:_ell_gather_kernel``), its float32 or its
+bf16-value entry point, or raises; on a CPU tensor it runs
+:func:`ell_gather_mv_plain`.
 """
 
 from __future__ import annotations
@@ -27,10 +31,8 @@ KERNEL = CudaLibrary(
     "ell_gather.cu",
     ["ell_gather.cuh"],
     {
-        "ell_gather_launch": (
-            ctypes.c_int,
-            [_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        ),
+        name: (ctypes.c_int, [_P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+        for name in ("ell_gather_launch", "ell_gather_bf16_launch")
     },
 )
 
@@ -39,14 +41,20 @@ KERNEL = CudaLibrary(
 MAX_WARPS = 4
 
 
-def launch_shape(C: int, kp: int, B: int, sms: int):
+def launch_shape(C: int, kp: int, B: int, sms: int, bf16: bool = False):
     """``(G, threads, blocks)`` of the kernel for ``B`` lanes of ``C``
     columns of ``kp`` slots on a card of ``sms`` SMs: ``G`` lanes per column
     (the largest of 8, 4, 2, 1 that divides ``kp / 4``, so each lane reads
     whole 16-byte vectors and none idles), and the most warps a block may
-    have, up to :data:`MAX_WARPS`, while the grid still covers every SM."""
+    have, up to :data:`MAX_WARPS`, while the grid still covers every SM.
+    With ``bf16`` values ``G`` is half the float32 path's: a lane reads 8
+    values in one 16-byte load with two 16-byte index loads and keeps the
+    two sums of the float32 path's lanes ``2g`` and ``2g + 1``, so the
+    summation order, and the output, is the float32 path's."""
     kv = int(kp) // 4
     G = next(g for g in (8, 4, 2, 1) if kv % g == 0)
+    if bf16:
+        G = max(G // 2, 1)
     lanes = int(C) * G
     warps = MAX_WARPS
     while warps > 1 and int(B) * -(-lanes // (32 * warps)) < int(sms):
@@ -61,7 +69,8 @@ def _sm_count(device_index: int) -> int:
 
 
 def ell_gather_mv_plain(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """The gather in plain torch ops (the CPU route and the kernel's check)."""
+    """The gather in plain torch ops (the CPU route and the kernel's check);
+    a bf16 ``val`` is promoted to float32 in the product."""
     return (val * y[..., idx]).sum(dim=-1)
 
 
@@ -83,17 +92,24 @@ def ell_gather_mv_cuda(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor) ->
         raise ValueError(f"val shape {tuple(val.shape)} does not match idx {(C, kp)}")
     if val.dim() == 3 and (val.shape[0] != B or not batched):
         raise ValueError("a per-lane val needs a y with the same lane count")
-    for name, t, dt in (("idx", idx, torch.int32), ("val", val, torch.float32), ("y", Y, torch.float32)):
+    if val.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"val must be float32 or bfloat16, not {val.dtype}")
+    bf16 = val.dtype == torch.bfloat16
+    for name, t, dt in (("idx", idx, torch.int32), ("val", val, val.dtype), ("y", Y, torch.float32)):
         if t.device != Y.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dt} tensor on {Y.device}")
-    # the kernel reads idx and val as 16-byte vectors
-    if kp % 4 or idx.data_ptr() % 16 or val.data_ptr() % 16:
-        raise ValueError(f"the gather kernel takes k_pad % 4 == 0 (got {kp}) and 16-byte aligned packs")
+    # the kernel reads idx and val as 16-byte vectors: 4 float32 values or
+    # 8 bf16 values
+    slots = 8 if bf16 else 4
+    if kp % slots or idx.data_ptr() % 16 or val.data_ptr() % 16:
+        raise ValueError(
+            f"the gather kernel takes k_pad % {slots} == 0 (got {kp}) and 16-byte aligned packs"
+        )
     dev = Y.device.index if Y.device.index is not None else torch.cuda.current_device()
-    G, threads, _ = launch_shape(C, kp, B, _sm_count(dev))
+    G, threads, _ = launch_shape(C, kp, B, _sm_count(dev), bf16=bf16)
     out = torch.empty((B, C), dtype=torch.float32, device=Y.device)
     KERNEL.call(
-        "ell_gather_launch",
+        "ell_gather_bf16_launch" if bf16 else "ell_gather_launch",
         ptr(idx), ptr(val), ctypes.c_longlong(C * kp if val.dim() == 3 else 0),
         ptr(Y), ptr(out), B, T, C, kp, G, threads, stream_of(Y),
     )

@@ -71,6 +71,7 @@ from citizensassemblies_tpu_torch.kernels.cuda_lib import CSRC, CudaLibrary, ptr
 from citizensassemblies_tpu_torch.kernels.ell_matvec import ell_gather_mv, ell_gather_mv_plain
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils import device as _device
+from citizensassemblies_tpu_torch.utils.precision import host_float32, iterate_dtype, operand_tensor
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -443,19 +444,23 @@ def lp_megakernel_mode(cfg: Optional[Config], nv: int, m1: int, m2: int, device,
 
 def two_sided_prelude(idx: torch.Tensor, val: torch.Tensor, v: torch.Tensor, colmask: torch.Tensor):
     """Ruiz equilibration of the two-sided master on the packed columns,
-    per lane. ``idx``/``val`` ``[C, k_pad]`` (shared), ``v [T]``,
-    ``colmask [B, C]``. Returns ``(scaled, vals_s [B, C, k_pad])``."""
+    per lane. ``idx``/``val`` ``[C, k_pad]`` (shared; ``val`` float32 or a
+    demoted bf16 operand), ``v [T]``, ``colmask [B, C]``. Returns
+    ``(scaled, vals_s [B, C, k_pad])``. A bf16 ``val`` is widened exactly in
+    its first product with a float32 scaling, so the scalings and
+    ``vals_s`` are float32 and bitwise those of the float32 operand: the
+    block kernels never see a bf16 value."""
     from citizensassemblies_tpu_torch.solvers.lp_pdhg import _root, _TwoSidedScaled
     from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_row_absmax
 
     T = v.shape[0]
     B, C = colmask.shape
-    dev = val.device
+    f32 = dict(dtype=iterate_dtype(val.dtype), device=val.device)
     absV = val.abs()
-    d_r = torch.ones((B, T), dtype=torch.float32, device=dev)
-    d_e = torch.ones(B, dtype=torch.float32, device=dev)
-    d_c = torch.ones((B, C), dtype=torch.float32, device=dev)
-    d_eps = torch.ones(B, dtype=torch.float32, device=dev)
+    d_r = torch.ones((B, T), **f32)
+    d_e = torch.ones(B, **f32)
+    d_c = torch.ones((B, C), **f32)
+    d_eps = torch.ones(B, **f32)
     for _ in range(8):
         S = absV * d_r[:, idx] * d_c[:, :, None]
         row_ineq = torch.maximum(ell_row_absmax(idx, S, T), d_r * d_eps[:, None])
@@ -543,12 +548,15 @@ def two_sided_blocks_plain(csr, idx, vals_s, pre, state, tol, *, max_iters, chec
     )
 
 
-def csr_transpose(idx_np: np.ndarray, val_np: np.ndarray, T: int):
+def csr_transpose(idx_np: np.ndarray, val_np, T: int):
     """Type-major transpose of a column pack: ``(perm, rowptr, colT)`` with
     ``perm`` the flat pack positions of the nonzero slots ordered by type
-    (stable, so each type's entries stay in column order)."""
+    (stable, so each type's entries stay in column order). ``val_np`` is
+    the host values, float32 or a demoted bf16 tensor. The transpose holds
+    positions only: its consumers gather the values from the pack on the
+    device, in the pack's dtype."""
     kp = idx_np.shape[1]
-    nz = np.flatnonzero(val_np.reshape(-1) != 0)
+    nz = np.flatnonzero(host_float32(val_np).reshape(-1) != 0)
     keys = idx_np.reshape(-1)[nz]
     order = np.argsort(keys, kind="stable")
     perm = nz[order].astype(np.int64)
@@ -654,8 +662,8 @@ def barrier_loop(lanes: int, blocks_per_lane: int, rounds: int, device) -> None:
 
 
 def two_sided_setup(idx_np: np.ndarray, val_np: np.ndarray, v, colmask, x0, lam0, mu0, csr):
-    """Everything before the block loop: the pack on ``v``'s device, the
-    Ruiz prelude, the power-iteration ‖K‖ and the scaled warm start
+    """Everything before the block loop: the pack on ``v``'s device (its
+    values in their own dtype, float32 or demoted bf16), the Ruiz prelude, the power-iteration ‖K‖ and the scaled warm start
     (``csr`` the pack's :func:`csr_transpose` on that device). Returns
     ``(idx, vals_s, pre, state)`` for :func:`two_sided_blocks_cuda` and
     :func:`two_sided_blocks_plain`."""
@@ -663,7 +671,7 @@ def two_sided_setup(idx_np: np.ndarray, val_np: np.ndarray, v, colmask, x0, lam0
 
     dev = v.device
     idx = torch.as_tensor(np.ascontiguousarray(idx_np, dtype=np.int32), device=dev)
-    val = torch.as_tensor(np.ascontiguousarray(val_np, dtype=np.float32), device=dev)
+    val = operand_tensor(val_np, dev)
     B, C = colmask.shape
     pre, vals_s = two_sided_prelude(idx, val, v, colmask)
     K_apply, KT_apply = ell_operators(idx, vals_s, pre, csr)
@@ -677,7 +685,8 @@ def dispatch_two_sided(
     max_iters: int, check_every: int, sentinel: bool, log=None,
 ):
     """The fused two-sided solve for a batch of lanes sharing one column
-    pack (numpy ``[C, k_pad]``, moved to ``v``'s device here). Lane tensors:
+    pack (``[C, k_pad]``: numpy indices, numpy float32 values or a demoted
+    bf16 tensor of them, moved to ``v``'s device here). Lane tensors:
     ``colmask [B, C]``, ``x0 [B, C+1]``, ``lam0 [B, 2T]``, ``mu0 [B]``,
     ``tol [B]``. Returns ``(x [B, C+1], lam [B, 2T], mu [B], it [B],
     res [B], flags [B])``; the block loop is the kernel on a CUDA device and
@@ -705,18 +714,20 @@ def lp_prelude(c, idx, val, h, A, b):
     """Ruiz equilibration of the stacked ``[G; A]`` with G as packed rows
     ``idx``/``val`` ``[m1, k_pad]`` over the nv variables (8 sweeps; the
     column norms of G are a ``scatter_reduce`` max over the packed values).
-    Returns the :class:`~citizensassemblies_tpu_torch.solvers.lp_pdhg.LPScaled`
-    data."""
+    ``val`` and ``A`` are float32 or demoted bf16 operands, widened exactly
+    in their products with the float32 scalings: ``vals_s`` and the scaled
+    ``As`` are float32, bitwise those of float32 operands. Returns the
+    :class:`~citizensassemblies_tpu_torch.solvers.lp_pdhg.LPScaled` data."""
     from citizensassemblies_tpu_torch.solvers.lp_pdhg import LPScaled, _root
     from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_row_absmax
 
     m1 = idx.shape[0]
     nv = c.shape[0]
-    dev = val.device
+    f32 = dict(dtype=iterate_dtype(val.dtype), device=val.device)
     absV = val.abs()
     absA = A.abs()
-    d_r = torch.ones(m1 + A.shape[0], dtype=torch.float32, device=dev)
-    d_c = torch.ones(nv, dtype=torch.float32, device=dev)
+    d_r = torch.ones(m1 + A.shape[0], **f32)
+    d_c = torch.ones(nv, **f32)
     for _ in range(8):
         Sg = absV * d_r[:m1, None] * d_c[idx]
         Sa = d_r[m1:, None] * absA * d_c[None, :]
@@ -780,7 +791,7 @@ def lp_blocks_plain(csr, idx, pre, state, tol, *, max_iters, check_every, sentin
     )
 
 
-def lp_launch_inputs(idx_np: np.ndarray, val_np: np.ndarray, nv: int, m2: int, device,
+def lp_launch_inputs(idx_np: np.ndarray, val_np, nv: int, m2: int, device,
                      blocks: Optional[int] = None):
     """``(csr, plan)``: the pack's variable-major :func:`csr_transpose` and,
     on a CUDA device, its :class:`LaunchPlan` (:func:`lp_launch_plan`;
@@ -850,21 +861,27 @@ def lp_blocks_cuda(csr, plan: LaunchPlan, idx, pre, state, tol, *, max_iters, ch
 
 
 def dispatch_lp(
-    c, idx_np: np.ndarray, val_np: np.ndarray, h, A, b, x0, lam0, mu0, tol, *,
+    c, idx_np: np.ndarray, val_np, h, A, b, x0, lam0, mu0, tol, *,
     device, max_iters: int, check_every: int, sentinel: bool, log=None,
 ):
     """The fused generic-LP solve on ``device``: numpy operands (the pack
     ``[m1, k_pad]`` over nv = ``len(c)`` variables, the dense ``A [m2, nv]``,
-    the unscaled warm start). Returns the unscaled ``(x, lam, mu)`` tensors
+    the unscaled warm start); the pack's values and ``A`` may be demoted
+    bf16 tensors, which go to the device as they are. Returns the unscaled ``(x, lam, mu)`` tensors
     and ``(it, res, flags)`` as Python numbers; the block loop is the kernel
     on a CUDA device and its plain version on the CPU."""
     dev = torch.device(device)
     nv = len(c)
     csr, plan = lp_launch_inputs(idx_np, val_np, nv, np.shape(A)[0], dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    t = [torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, val_np, h, A, b, x0, lam0, mu0)]
+    c_, h_, b_, x0_, lam0_, mu0_ = (
+        torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, h, b, x0, lam0, mu0)
+    )
     idx = torch.as_tensor(np.ascontiguousarray(idx_np, dtype=np.int32), device=dev)
-    pre, state = lp_setup(t[0], idx, *t[1:], csr)
+    pre, state = lp_setup(
+        c_, idx, operand_tensor(val_np, dev), h_, operand_tensor(A, dev), b_, x0_, lam0_, mu0_,
+        csr,
+    )
     kw = dict(max_iters=max_iters, check_every=check_every, sentinel=sentinel)
     if plan is not None:
         out = lp_blocks_cuda(csr, plan, idx, pre, state, tol, **kw)

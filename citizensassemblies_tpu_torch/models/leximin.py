@@ -38,7 +38,12 @@ symmetry orbits, and realizes household-disjoint panels; agent space adds
 the household rows to the exact oracle and the feasibility gate, and
 samples household-disjoint panels.
 
-Not in this package yet, raising ``NotImplementedError``: checkpointing.
+**Checkpoints** (``checkpoint_path=``): the agent-space CG saves its state
+at every outer-round boundary and the type-space path its seed columns and
+targets before the face decomposition (``utils/checkpoint.py``); a run
+given the same path resumes from a checkpoint of the same problem, and a
+finished run removes the file. ``Config.fault_sites`` installs a fault
+injector for the call (``robust/inject.py``).
 """
 
 from __future__ import annotations
@@ -62,7 +67,9 @@ from citizensassemblies_tpu_torch.solvers.highs_backend import (
     solve_dual_lp,
     solve_final_primal_lp,
 )
-from citizensassemblies_tpu_torch.utils.config import Config, check_slice_config, default_config
+from citizensassemblies_tpu_torch.robust import inject
+from citizensassemblies_tpu_torch.utils import checkpoint as ckpt
+from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
 from citizensassemblies_tpu_torch.utils.logging import RunLog, format_counters, format_timers
 
@@ -99,13 +106,13 @@ class Distribution:
 
 def _typespace_leximin(
     dense: DenseInstance, cfg: Config, log: RunLog, device, final_stage: str = "lp",
-    households: Optional[np.ndarray] = None,
+    households: Optional[np.ndarray] = None, checkpoint_path: Optional[str] = None,
 ) -> Distribution:
     """Exact leximin in type space: enumeration when the type count is
-    small, the relaxation profile plus one face decomposition otherwise.
-    With ``households`` the caller passes the household quotient's
-    augmented instance, and the realization keeps every panel
-    household-disjoint."""
+    small, the relaxation profile plus one face decomposition otherwise
+    (checkpointed at ``checkpoint_path``, removed once it is done). With
+    ``households`` the caller passes the household quotient's augmented
+    instance, and the realization keeps every panel household-disjoint."""
     from citizensassemblies_tpu_torch.solvers.compositions import (
         enumerate_compositions,
         leximin_over_compositions,
@@ -138,7 +145,11 @@ def _typespace_leximin(
             f"(enumeration over budget)."
         )
         with log.timer("typespace_cg"):
-            ts = leximin_cg_typespace(dense, reduction, cfg=cfg, log=log, device=device)
+            ts = leximin_cg_typespace(
+                dense, reduction, cfg=cfg, log=log, device=device, checkpoint_path=checkpoint_path
+            )
+        if checkpoint_path is not None:
+            ckpt.clear_cg_state(checkpoint_path)
     if final_stage == "l2":
         return realize_typespace_l2(dense, reduction, ts, cfg, log, device, households)
     return realize_typespace(
@@ -366,27 +377,50 @@ def _agent_space_leximin(
     ts_fallback: Optional[Distribution],
     final_stage: str = "lp",
     households: Optional[np.ndarray] = None,
+    checkpoint_path: Optional[str] = None,
 ) -> Distribution:
     """The agent-space column generation (``leximin.py:338-470``). With a
     ``ts_fallback`` (a type-space result that missed the contract) the loop
     runs under ``Config.agent_space_budget_s``; past it the fallback ships,
-    flagged."""
+    flagged. With ``checkpoint_path`` the state is saved at every outer
+    round and a checkpoint of the same problem is resumed; the file is
+    removed once the distribution is realized, and kept when the budget
+    ships the fallback (a rerun then resumes the exact CG)."""
     n = dense.n
     generator = torch.Generator(device=dense.device).manual_seed(int(cfg.solver_seed))
     portfolio = _Portfolio(n)
-    fixed = np.full(n, -1.0)  # < 0: not fixed yet
-    if initial_panels:
-        for panel in initial_panels:
-            portfolio.add(tuple(sorted(panel)))
-        covered = np.zeros(n, dtype=bool)
-        for row in portfolio.rows:
-            covered |= row
+    ckpt_fp = ""
+    resumed = None
+    if checkpoint_path is not None:
+        ckpt_fp = ckpt.problem_fingerprint(dense, cfg, households)
+        resumed = ckpt.load_cg_state(checkpoint_path, n, ckpt_fp)
+    if resumed is not None:
+        for row in resumed.portfolio:
+            portfolio.add(tuple(np.nonzero(row)[0].tolist()))
+        covered = resumed.covered.astype(bool)
+        fixed = np.asarray(resumed.fixed, dtype=np.float64)
+        ckpt.restore_generator(generator, resumed.key)
+        reduction_counter = resumed.reduction_counter
+        dual_solves = resumed.dual_solves
+        exact_prices = resumed.exact_prices
+        log.emit(
+            f"Resumed checkpoint: {len(portfolio)} committees, "
+            f"{int((fixed >= 0).sum())}/{n} probabilities already fixed."
+        )
     else:
-        covered = _seed_portfolio(dense, oracle, portfolio, cfg, generator, log, households)
-        # agents in no feasible committee get probability 0 up front, as
-        # the reference excludes them (leximin.py:286-296,364)
-        fixed[~covered] = 0.0
-    reduction_counter = dual_solves = exact_prices = 0
+        fixed = np.full(n, -1.0)  # < 0: not fixed yet
+        if initial_panels:
+            for panel in initial_panels:
+                portfolio.add(tuple(sorted(panel)))
+            covered = np.zeros(n, dtype=bool)
+            for row in portfolio.rows:
+                covered |= row
+        else:
+            covered = _seed_portfolio(dense, oracle, portfolio, cfg, generator, log, households)
+            # agents in no feasible committee get probability 0 up front, as
+            # the reference excludes them (leximin.py:286-296,364)
+            fixed[~covered] = 0.0
+        reduction_counter = dual_solves = exact_prices = 0
     pdhg = cfg.backend == "jax"
 
     deadline = (
@@ -412,6 +446,14 @@ def _agent_space_leximin(
             f"tolerance only)."
         )
         ts_fallback.output_lines.append(msg)
+        if checkpoint_path is not None:
+            # the CG's progress is resumable state: a rerun with the same
+            # path resumes the exact CG (unbudgeted: it has no fallback)
+            ts_fallback.output_lines.append(log.emit(
+                f"Agent-space CG checkpoint preserved at {checkpoint_path}; rerunning with "
+                f"the same checkpoint path resumes the exact CG instead of re-deriving "
+                f"this fallback."
+            ))
         return ts_fallback
 
     def fix_tranche(sol) -> None:
@@ -431,6 +473,13 @@ def _agent_space_leximin(
         if expired is not None:
             return expired
         log.emit(f"Fixed {int((fixed >= 0).sum())}/{n} probabilities.")
+        if checkpoint_path is not None:
+            ckpt.save_cg_state(checkpoint_path, ckpt.CGState(
+                portfolio=portfolio.matrix() if len(portfolio) else np.zeros((0, n), bool),
+                fixed=fixed, covered=covered, key=ckpt.generator_key(generator),
+                reduction_counter=reduction_counter, dual_solves=dual_solves,
+                exact_prices=exact_prices, fingerprint=ckpt_fp,
+            ))
         dual_warm = None
         # stochastic pricing sits out the rest of a stage after two
         # zero-yield batches; the exact oracle then carries the tail
@@ -551,6 +600,8 @@ def _agent_space_leximin(
     log.emit(format_timers(log.timers))
     if log.counters:
         log.emit(format_counters(log.counters))
+    if checkpoint_path is not None:
+        ckpt.clear_cg_state(checkpoint_path)
     total_dev = float(np.max(np.abs(allocation - fixed)))
     return Distribution(
         committees=P,
@@ -585,7 +636,11 @@ def find_distribution_leximin(
     allows at most one member of each household on a panel.
     ``initial_panels`` warm-starts the agent-space portfolio.
     ``final_stage="l2"`` realizes the certificate with the min-L2 stage of
-    ``solvers/qp`` (XMIN's) instead of the final LP.
+    ``solvers/qp`` (XMIN's) instead of the final LP. ``checkpoint_path``
+    saves the run's column-generation state there and resumes from a
+    checkpoint of the same problem (see the module docstring); the file is
+    removed on success. ``Config.fault_sites`` installs a fault injector
+    for the call.
 
     With households the type-space solve runs on the household quotient,
     as in the JAX package. Where that solve raises a ``SelectionError`` or
@@ -595,13 +650,20 @@ def find_distribution_leximin(
     exception).
     """
     cfg = cfg or default_config()
-    check_slice_config(cfg)
     if final_stage not in ("lp", "l2"):
         raise ValueError(f"final_stage must be 'lp' or 'l2', not {final_stage!r}")
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "checkpoint_path needs ROADMAP queue A item 'checkpointing' (utils/checkpoint.CGState)"
+    with inject.request_injector(cfg):
+        return _leximin_impl(
+            dense, space, cfg, log, device, households, initial_panels, final_stage,
+            checkpoint_path,
         )
+
+
+def _leximin_impl(
+    dense: DenseInstance, space: Optional[FeatureSpace], cfg: Config, log: Optional[RunLog],
+    device: DeviceLike, households: Optional[np.ndarray], initial_panels, final_stage: str,
+    checkpoint_path: Optional[str],
+) -> Distribution:
     dev = resolve_device(device)
     dense = on_device(dense, dev)
     log = log if log is not None else RunLog(echo=False)
@@ -612,9 +674,15 @@ def find_distribution_leximin(
     check_feasible_or_suggest(dense, space, oracle, households)
     ts_fallback = None
     dist = None
-    if not initial_panels and not cfg.force_agent_space:
+    # a valid agent-space checkpoint means CG work to resume: honour it
+    has_ckpt = checkpoint_path is not None and ckpt.load_cg_state(
+        checkpoint_path, dense.n, ckpt.problem_fingerprint(dense, cfg, households)
+    ) is not None
+    if not initial_panels and not cfg.force_agent_space and not has_ckpt:
         if households is None:
-            dist = _typespace_leximin(dense, cfg, log, dev, final_stage)
+            dist = _typespace_leximin(
+                dense, cfg, log, dev, final_stage, checkpoint_path=checkpoint_path
+            )
         else:
             dist = _quotient_leximin(dense, households, cfg, log, dev, final_stage)
     if dist is not None:
@@ -630,7 +698,8 @@ def find_distribution_leximin(
         )
         ts_fallback = dist
     return _agent_space_leximin(
-        dense, cfg, log, dev, oracle, initial_panels, ts_fallback, final_stage, households
+        dense, cfg, log, dev, oracle, initial_panels, ts_fallback, final_stage, households,
+        checkpoint_path,
     )
 
 

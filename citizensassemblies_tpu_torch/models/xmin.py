@@ -33,7 +33,8 @@ from citizensassemblies_tpu_torch.models.leximin import (
     find_distribution_leximin,
 )
 from citizensassemblies_tpu_torch.solvers.qp import solve_final_primal_l2
-from citizensassemblies_tpu_torch.utils.config import Config, check_slice_config, default_config
+from citizensassemblies_tpu_torch.robust import inject
+from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
 from citizensassemblies_tpu_torch.utils.logging import RunLog
 
@@ -55,13 +56,14 @@ def find_distribution_xmin(
 
     ``leximin`` supplies a precomputed LEXIMIN distribution for the same
     problem and configuration, skipping that solve (for one from the JAX
-    package, ``interop.distribution_from_arrays``)."""
+    package, ``interop.distribution_from_arrays``). ``Config.fault_sites``
+    installs a fault injector for the call."""
     cfg = cfg or default_config()
-    check_slice_config(cfg)
     dev = resolve_device(device)
     dense = on_device(dense, dev)
     log = log if log is not None else RunLog(echo=False)
-    return _xmin_impl(dense, space, cfg, households, log, leximin, dev)
+    with inject.request_injector(cfg):
+        return _xmin_impl(dense, space, cfg, households, log, leximin, dev)
 
 
 def _xmin_impl(

@@ -30,6 +30,14 @@ two with inert lanes; lanes are independent, so the results are the same).
 The engine is a wall-clock mechanism only: callers keep their own
 acceptance checks (float64 residuals, host confirms), and with
 ``Config.lp_batch`` off every call site runs its serial path.
+
+Under ``Config.mixed_precision`` a bucket's constraint matrices ``G`` and
+``A`` go to the device as bf16 when the plan certifies them
+(``batch_lp.vmapped_core`` args 1 and 3) and every lane's round trip is
+exact; the polish screen's pack stays float32 (the plan demotes nothing
+there). The fault sites ``warm_slot_corrupt`` (a loaded warm slot) and
+``pdhg_nan`` (a cold lane) poison single lanes for the sentinel to
+quarantine.
 """
 
 from __future__ import annotations
@@ -40,9 +48,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from citizensassemblies_tpu_torch.robust import inject
 from citizensassemblies_tpu_torch.utils import device as _device
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
+from citizensassemblies_tpu_torch.utils.precision import demote_operator, operand_tensor
 
 
 @dataclasses.dataclass
@@ -137,6 +147,18 @@ def clear_warm_slots(warm_key: Optional[str] = None) -> None:
         del _WARM_SLOTS[k]
 
 
+def warm_slots(warm_key: str) -> Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray, int]]:
+    """One caller's warm-start slots (position → slot), for a checkpoint."""
+    return {k[1]: slot for k, slot in _WARM_SLOTS.items() if k[0] == warm_key}
+
+
+def restore_warm_slots(warm_key: str, slots: Dict[int, tuple]) -> None:
+    """Replace one caller's warm-start slots with checkpointed ones."""
+    clear_warm_slots(warm_key)
+    for pos, (x, lam, mu, tail) in slots.items():
+        _WARM_SLOTS[(warm_key, int(pos))] = (x, lam, mu, int(tail))
+
+
 def _book(lanes: int, log) -> None:
     if log is not None:
         log.count("lp_batch_dispatches")
@@ -209,6 +231,7 @@ def solve_lp_batch(
     t32 = dict(dtype=torch.float32, device=dev)
     for (m1, m2, nv), idxs in groups.items():
         _book(len(idxs), log)
+        lanes = []
         for i in idxs:
             inst = problems[i]
             nvi, m1i, m2i = inst.c.shape[0], inst.G.shape[0], inst.A.shape[0]
@@ -227,13 +250,36 @@ def solve_lp_batch(
                     warm = slot[:3]
                     if log is not None:
                         log.count("lp_batch_warm_hits")
+                    if inject.site("warm_slot_corrupt", log):
+                        # a corrupt slot must be quarantined by the lane's
+                        # sentinel, not poison the bucket
+                        bad = np.array(warm[0], dtype=np.float64)
+                        bad[:1] = np.nan
+                        warm = (bad, warm[1], warm[2])
+            if warm is None and inject.site("pdhg_nan", log):
+                x0[0] = np.nan  # one cold lane poisoned
             if warm is not None:
                 # re-pad at the instance's REAL sizes: the bucket padding
                 # beyond them is all-zero columns the iterate never touches
                 x0[:nvi], lam0[:m1i], mu0[:m2i] = _repad_warm(warm, inst.tail_vars, nvi, m1i, m2i)
+            lanes.append([c, G, h, A, b, x0, lam0, mu0])
+        # the bucket's constraint matrices demote together, as the JAX
+        # package's stacked operands do: one count per bucket and operand
+        for arg in (1, 3):
+            stacked = demote_operator(
+                np.stack([lane[arg] for lane in lanes]), cfg, core="batch_lp.vmapped_core",
+                arg=arg, log=log, device=dev,
+            )
+            for lane, op in zip(lanes, stacked):
+                lane[arg] = op
+        for i, (c, G, h, A, b, x0, lam0, mu0) in zip(idxs, lanes):
+            inst = problems[i]
+            nvi, m1i, m2i = inst.c.shape[0], inst.G.shape[0], inst.A.shape[0]
             tol_i = float(inst.tol if inst.tol is not None else base_tol)
             x, lam, mu, it, res, flags = _pdhg_body(
-                *(torch.as_tensor(a, **t32) for a in (c, G, h, A, b, x0, lam0, mu0)), tol_i, **kw
+                torch.as_tensor(c, **t32), operand_tensor(G, dev), torch.as_tensor(h, **t32),
+                operand_tensor(A, dev), *(torch.as_tensor(a, **t32) for a in (b, x0, lam0, mu0)),
+                tol_i, **kw,
             )
             poisoned = bool(flags & FLAG_POISONED)
             if poisoned:

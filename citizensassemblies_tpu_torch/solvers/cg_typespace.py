@@ -800,9 +800,19 @@ def leximin_cg_typespace(
     cfg: Optional[Config] = None,
     log: Optional[RunLog] = None,
     device=None,
+    checkpoint_path: Optional[str] = None,
 ) -> TypeCGResult:
     """LEXIMIN via the relaxation profile and one face decomposition (see
-    the module docstring); ``device`` carries the decomposition masters."""
+    the module docstring); ``device`` carries the decomposition masters.
+
+    With ``checkpoint_path`` the seed columns, the relaxation targets and
+    the coverable types are saved there before the face decomposition
+    (``utils/checkpoint.TypeCGState``), and a matching checkpoint (same
+    :func:`~citizensassemblies_tpu_torch.utils.checkpoint.problem_fingerprint`
+    of ``dense`` and ``cfg``) skips the coverage and injection phases. The
+    caller removes the file when the run is done."""
+    from citizensassemblies_tpu_torch.utils import checkpoint as ckpt
+
     cfg = cfg or default_config()
     log = log or RunLog(echo=False)
     T = reduction.T
@@ -820,89 +830,105 @@ def leximin_cg_typespace(
         comps.append(c.astype(np.int32))
         return True
 
-    # ---- seeding: relaxation-derived coverage --------------------------------
-    # Fractional coverage (v_relax > 0) does NOT imply integer coverage: a
-    # type can carry relaxation mass yet appear in no integer composition,
-    # in which case the decomposition target is unrealizable. Certify every
-    # type by integer evidence — membership in an aimed slice, or one exact
-    # forced-inclusion MILP — and re-run the relaxation with proven-
-    # uncoverable types pinned to x_t = 0.
-    with log.timer("relax_leximin"):
-        excluded = np.zeros(T, dtype=bool)
-        # integer-coverage evidence persists across rounds: a forced-
-        # inclusion MILP's verdict cannot change when more types get
-        # excluded (excluding only shrinks the polytope for OTHERS, and
-        # a witness composition never contains an excluded type), so
-        # certified/refuted types are never re-solved
-        int_certified = np.zeros(T, dtype=bool)
-        int_refuted = np.zeros(T, dtype=bool)
-        probe_solves = 0
-        # exclusion grows monotonically, so the loop terminates; 8
-        # rounds is a generous bound (rounds after the first mostly pay
-        # only the T-var relaxation re-run — refuted types regaining
-        # mass re-exclude WITHOUT new MILP solves)
-        for _cov_round in range(8):
-            v_relax, _ = _leximin_relaxation(
-                reduction, log, probe_tol=cfg.probe_tol,
-                exclude=excluded if excluded.any() else None,
-            )
-            frac_cov = v_relax > 1e-9
-            # a refuted type that regained relaxation mass after other
-            # exclusions re-routed it must be excluded too (its MILP
-            # verdict is permanent)
-            regained = int_refuted & frac_cov & ~excluded
-            newly_uncoverable = list(np.nonzero(regained)[0].astype(int))
-            # integer evidence from a cheap aimed-slice pass
-            trial = _slice_relaxation(v_relax * msize, reduction, R=256)
-            present = (
-                np.any(np.stack(trial) > 0, axis=0)
-                if trial
-                else np.zeros(T, dtype=bool)
-            ) | int_certified
-            for t in np.nonzero(~present & ~excluded & ~int_refuted)[0]:
-                if present[t]:
-                    continue  # certified by an earlier probe's witness
-                got = oracle.maximize(np.zeros(T), forced_type=int(t))
-                probe_solves += 1
-                if got is None:
-                    int_refuted[t] = True
-                    if frac_cov[t]:
-                        newly_uncoverable.append(int(t))
-                else:
-                    add_comp(got[0])
-                    # the witness composition certifies EVERY type it
-                    # contains — marking them all cuts the probe count
-                    # by about the composition's support on
-                    # many-small-type pools such as sf_e-like
-                    witness = got[0] > 0
-                    present |= witness
-                    int_certified |= witness
-            if not newly_uncoverable:
-                break
-            excluded[newly_uncoverable] = True
+    # a checkpoint resume restores the seed columns and the certified targets
+    # and skips the coverage and injection phases
+    ckpt_fp = ""
+    resumed = None
+    if checkpoint_path is not None:
+        ckpt_fp = ckpt.problem_fingerprint(dense, cfg)
+        resumed = ckpt.load_ts_state(checkpoint_path, T, ckpt_fp)
+
+    if resumed is None:
+        # ---- seeding: relaxation-derived coverage --------------------------------
+        # Fractional coverage (v_relax > 0) does NOT imply integer coverage: a
+        # type can carry relaxation mass yet appear in no integer composition,
+        # in which case the decomposition target is unrealizable. Certify every
+        # type by integer evidence — membership in an aimed slice, or one exact
+        # forced-inclusion MILP — and re-run the relaxation with proven-
+        # uncoverable types pinned to x_t = 0.
+        with log.timer("relax_leximin"):
+            excluded = np.zeros(T, dtype=bool)
+            # integer-coverage evidence persists across rounds: a forced-
+            # inclusion MILP's verdict cannot change when more types get
+            # excluded (excluding only shrinks the polytope for OTHERS, and
+            # a witness composition never contains an excluded type), so
+            # certified/refuted types are never re-solved
+            int_certified = np.zeros(T, dtype=bool)
+            int_refuted = np.zeros(T, dtype=bool)
+            probe_solves = 0
+            # exclusion grows monotonically, so the loop terminates; 8
+            # rounds is a generous bound (rounds after the first mostly pay
+            # only the T-var relaxation re-run — refuted types regaining
+            # mass re-exclude WITHOUT new MILP solves)
+            for _cov_round in range(8):
+                v_relax, _ = _leximin_relaxation(
+                    reduction, log, probe_tol=cfg.probe_tol,
+                    exclude=excluded if excluded.any() else None,
+                )
+                frac_cov = v_relax > 1e-9
+                # a refuted type that regained relaxation mass after other
+                # exclusions re-routed it must be excluded too (its MILP
+                # verdict is permanent)
+                regained = int_refuted & frac_cov & ~excluded
+                newly_uncoverable = list(np.nonzero(regained)[0].astype(int))
+                # integer evidence from a cheap aimed-slice pass
+                trial = _slice_relaxation(v_relax * msize, reduction, R=256)
+                present = (
+                    np.any(np.stack(trial) > 0, axis=0)
+                    if trial
+                    else np.zeros(T, dtype=bool)
+                ) | int_certified
+                for t in np.nonzero(~present & ~excluded & ~int_refuted)[0]:
+                    if present[t]:
+                        continue  # certified by an earlier probe's witness
+                    got = oracle.maximize(np.zeros(T), forced_type=int(t))
+                    probe_solves += 1
+                    if got is None:
+                        int_refuted[t] = True
+                        if frac_cov[t]:
+                            newly_uncoverable.append(int(t))
+                    else:
+                        add_comp(got[0])
+                        # the witness composition certifies EVERY type it
+                        # contains — marking them all cuts the probe count
+                        # by about the composition's support on
+                        # many-small-type pools such as sf_e-like
+                        witness = got[0] > 0
+                        present |= witness
+                        int_certified |= witness
+                if not newly_uncoverable:
+                    break
+                excluded[newly_uncoverable] = True
+                log.emit(
+                    f"Coverage round {_cov_round + 1}: "
+                    f"{len(newly_uncoverable)} fractionally-covered type(s) "
+                    "proven integer-uncoverable; re-running the relaxation "
+                    "with them excluded."
+                )
+            else:
+                # the round budget ended ON an exclusion: the target must
+                # still be recomputed without the just-excluded mass or the
+                # decomposition chases an unrealizable profile
+                v_relax, _ = _leximin_relaxation(
+                    reduction, log, probe_tol=cfg.probe_tol, exclude=excluded
+                )
+            # int-refuted types are never coverable regardless of the mass
+            # the final relaxation left on them
+            coverable = (present | (v_relax > 1e-9)) & ~excluded & ~int_refuted
+            # the certification slices aim at the final target — keep them
+            # as seed columns (the main injection below dedups against them)
+            for c in trial:
+                add_comp(c)
             log.emit(
-                f"Coverage round {_cov_round + 1}: "
-                f"{len(newly_uncoverable)} fractionally-covered type(s) "
-                "proven integer-uncoverable; re-running the relaxation "
-                "with them excluded."
+                f"Coverage: {int(coverable.sum())}/{T} types coverable "
+                f"(integer-certified; {probe_solves} probe solves)."
             )
-        else:
-            # the round budget ended ON an exclusion: the target must
-            # still be recomputed without the just-excluded mass or the
-            # decomposition chases an unrealizable profile
-            v_relax, _ = _leximin_relaxation(
-                reduction, log, probe_tol=cfg.probe_tol, exclude=excluded
-            )
-        # int-refuted types are never coverable regardless of the mass
-        # the final relaxation left on them
-        coverable = (present | (v_relax > 1e-9)) & ~excluded & ~int_refuted
-        # the certification slices aim at the final target — keep them
-        # as seed columns (the main injection below dedups against them)
-        for c in trial:
+    else:
+        for c in resumed.compositions:
             add_comp(c)
+        coverable = resumed.coverable.astype(bool)
         log.emit(
-            f"Coverage: {int(coverable.sum())}/{T} types coverable "
-            f"(integer-certified; {probe_solves} probe solves)."
+            f"Resumed type-space checkpoint: {len(comps)} compositions, round {resumed.round}."
         )
 
     if (~coverable).any():
@@ -910,49 +936,60 @@ def leximin_cg_typespace(
     rng = np.random.default_rng(cfg.solver_seed)
 
     # ---- phase 1: leximin of the marginal relaxation + one decomposition ----
-    with log.timer("inject"):
-        v_relax = np.where(coverable, v_relax, 0.0)
-        # aim the column hull at the *target* marginal v·m — the mixture
-        # the master must realize (M p = v ⇔ Σ p_c c = v·m). The last
-        # stage's vertex optimum x_star is a poor proxy: its early-fixed
-        # types sit above their floors, so slicing it leaves the master
-        # dozens of correction rounds short of the actual target.
-        x_target = v_relax * reduction.msize.astype(np.float64)
-        injected = 0
-        # R=1024 is the sweet spot for the first master: hd/obf-class
-        # shapes certify on it directly, and when the round-0 master
-        # misses (sf_d-class), the face loop's deep R=2048 pass (fresh
-        # tie streams via j0) supplies the missing hull diversity at the
-        # cost of one more master — cheaper than paying a deep stream
-        # plus a large first master on every instance. Beyond ~1k types
-        # the finer R=2048 stream pays for itself: the hull needs ~T
-        # columns and repair-drop rates rise with the feature count
-        # (the n=1200 household quotient, T=1199/F=626, keeps about a
-        # third of 1024 slices and grinds many face rounds from ε=2e-2;
-        # at R=2048 it keeps more slices than types and starts lower —
-        # unlike a top-up of SEPARATE phase-shifted streams, one finer
-        # stream also tightens the cumulative apportionment feedback to
-        # ~1/2048)
-        for c in _slice_relaxation(
-            x_target, reduction, R=1024 if reduction.T <= 1024 else 2048
-        ):
-            injected += add_comp(c)
-        # NOTE: topping the hull up with extra phase-shifted streams when
-        # injected < T (household-quotient instances start
-        # under-determined, ε ~ 2e-2) lowers the round-0 ε but does NOT
-        # reduce the face-round count on the n=1200 couples, so the
-        # injection stays single-stream; the ε tail there is integrality
-        # structure, not hull bulk (same finding as the large-T deep-pass
-        # experiment in face_decompose.py).
-        if T <= 64:
-            # independent roundings only help at small type counts — at
-            # sf_e scale their quota-feasible yield is zero (measured)
-            for c in _round_relaxation(x_target, reduction, rng, count=256):
+    if resumed is None:
+        with log.timer("inject"):
+            v_relax = np.where(coverable, v_relax, 0.0)
+            # aim the column hull at the *target* marginal v·m — the mixture
+            # the master must realize (M p = v ⇔ Σ p_c c = v·m). The last
+            # stage's vertex optimum x_star is a poor proxy: its early-fixed
+            # types sit above their floors, so slicing it leaves the master
+            # dozens of correction rounds short of the actual target.
+            x_target = v_relax * reduction.msize.astype(np.float64)
+            injected = 0
+            # R=1024 is the sweet spot for the first master: hd/obf-class
+            # shapes certify on it directly, and when the round-0 master
+            # misses (sf_d-class), the face loop's deep R=2048 pass (fresh
+            # tie streams via j0) supplies the missing hull diversity at the
+            # cost of one more master — cheaper than paying a deep stream
+            # plus a large first master on every instance. Beyond ~1k types
+            # the finer R=2048 stream pays for itself: the hull needs ~T
+            # columns and repair-drop rates rise with the feature count
+            # (the n=1200 household quotient, T=1199/F=626, keeps about a
+            # third of 1024 slices and grinds many face rounds from ε=2e-2;
+            # at R=2048 it keeps more slices than types and starts lower —
+            # unlike a top-up of SEPARATE phase-shifted streams, one finer
+            # stream also tightens the cumulative apportionment feedback to
+            # ~1/2048)
+            for c in _slice_relaxation(
+                x_target, reduction, R=1024 if reduction.T <= 1024 else 2048
+            ):
                 injected += add_comp(c)
-        log.emit(f"Injected {injected} aimed columns around the relaxation target.")
+            # NOTE: topping the hull up with extra phase-shifted streams when
+            # injected < T (household-quotient instances start
+            # under-determined, ε ~ 2e-2) lowers the round-0 ε but does NOT
+            # reduce the face-round count on the n=1200 couples, so the
+            # injection stays single-stream; the ε tail there is integrality
+            # structure, not hull bulk (same finding as the large-T deep-pass
+            # experiment in face_decompose.py).
+            if T <= 64:
+                # independent roundings only help at small type counts — at
+                # sf_e scale their quota-feasible yield is zero (measured)
+                for c in _round_relaxation(x_target, reduction, rng, count=256):
+                    injected += add_comp(c)
+            log.emit(f"Injected {injected} aimed columns around the relaxation target.")
+    else:
+        v_relax = resumed.v_relax
     from citizensassemblies_tpu_torch.solvers.face_decompose import realize_profile
 
     with log.timer("decomp"):
+        if checkpoint_path is not None and comps:
+            # the stage CG's sampler is seeded from cfg.solver_seed, which the
+            # fingerprint pins: the key records it as a [0, seed] pair
+            ckpt.save_ts_state(checkpoint_path, ckpt.TypeCGState(
+                compositions=np.stack(comps, axis=0), v_relax=v_relax, coverable=coverable,
+                key=np.asarray([0, cfg.solver_seed], dtype=np.uint32), round=0,
+                fingerprint=ckpt_fp,
+            ))
         C_sup, probs, eps_dev, lp_solves = realize_profile(
             reduction,
             v_relax,

@@ -36,8 +36,22 @@ once. With the batched LP engine (``Config.lp_batch``) the end-game screens
 nested polish faces as lanes of one two-sided solve
 (``batch_lp.solve_polish_screen_ell``) before the deep polish.
 
-Not in this package yet: face-loop checkpointing and the multi-device
-sharded master.
+With ``Config.robust_checkpoint_every``/``robust_checkpoint_dir`` the
+loop saves, after every N rounds, its running best certified state and its
+whole state at the next round's top (``robust/checkpoint.FaceCheckpointer``);
+a run of the same problem resumes at that round and replays the rounds the
+uninterrupted run would have run, and a certified return removes the file.
+A snapshot without the loop state (the JAX package's) resumes its columns
+first with its mixture warming the first master. The fault sites ``face_abort``
+(each round's start), ``oracle_raise`` (each anchor MILP; retried once,
+then skipped) and ``device_dispatch`` (each device pricing dispatch) are
+consulted here. Only an injected fault (``FaultInjected``) at
+``device_dispatch`` degrades the run to host-MILP anchors
+(``robust_degrade_device_pricing``); any other error of the dispatch, a
+kernel's among them, propagates.
+
+Not in this package yet: the multi-device sharded master and the
+per-request deadline check (it needs the serving layer's request context).
 """
 
 from __future__ import annotations
@@ -49,8 +63,15 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from citizensassemblies_tpu_torch.robust import inject
+from citizensassemblies_tpu_torch.robust.policy import DegradationLadder
+from citizensassemblies_tpu_torch.robust.checkpoint import (
+    FaceCheckpointer,
+    FaceLoopState,
+    FaceSubmit,
+)
 from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
-from citizensassemblies_tpu_torch.utils.config import check_slice_config, default_config
+from citizensassemblies_tpu_torch.utils.config import default_config
 from citizensassemblies_tpu_torch.utils import device as _device
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device, upload
 from citizensassemblies_tpu_torch.utils.logging import RunLog
@@ -568,8 +589,13 @@ class _AnchorPricer:
     a host thread: ``submit`` prices the whole task batch in one async
     device dispatch and ``harvest`` decodes it. Tasks the device served skip
     their host MILP (``decomp_oracle_device_hit``); tasks with no surviving
-    lane still get the exact host MILP (``decomp_oracle_device_miss``). A
-    dispatch that fails raises.
+    lane still get the exact host MILP (``decomp_oracle_device_miss``).
+    An injected fault at the dispatch (site ``device_dispatch``) walks the
+    degradation ladder (``robust/policy.DegradationLadder``) one rung; its
+    first rung turns device pricing off, which drops the device for the
+    rest of the run, the host MILPs carrying the anchors
+    (``robust_degrade_device_pricing``). Any other failure of the dispatch
+    raises.
     """
 
     def __init__(
@@ -580,12 +606,18 @@ class _AnchorPricer:
         overlap: bool,
         log: Optional[RunLog] = None,
         device=None,
+        cfg=None,
     ):
         self.oracle = oracle
         self.rng = rng
         self.red = reduction
         self.log = log
         self.device = device
+        self.cfg = cfg or default_config()
+        self._ladder = DegradationLadder()
+        # the fault injector rides a context variable: the worker thread is
+        # outside the caller's context, so it is captured here
+        self._inj = inject.active_injector()
         self._pool = (
             ThreadPoolExecutor(max_workers=1, thread_name_prefix="anchor-pricer")
             if overlap and device is None
@@ -600,6 +632,7 @@ class _AnchorPricer:
             # anchor costs convergence speed, never exactness
             for attempt in (0, 1):
                 try:
+                    inject.raise_if("oracle_raise", self.log, inj=self._inj)
                     # a 1 % MILP gap: anchor optimality buys nothing
                     got = self.oracle.maximize(weights, forced_type=forced, rel_gap=1e-2)
                     if got is not None:
@@ -637,8 +670,23 @@ class _AnchorPricer:
         if self.device is not None:
             # the card is the worker: one async dispatch prices the whole
             # batch; the handle is decoded at the next harvest
-            self._pending = ("device", self.device.dispatch(tasks), tasks)
-            return
+            try:
+                inject.raise_if("device_dispatch", self.log, inj=self._inj)
+            except inject.FaultInjected:
+                # one rung of the ladder; its first turns device pricing
+                # off, and the exact host MILPs carry the anchors from here
+                # on (the device only ever saved host work, so this is a
+                # slowdown, never another result). Only an injected fault
+                # walks it: a real failure of the dispatch raises out of
+                # the loop.
+                self.cfg = self._ladder.degrade(self.cfg, self.log)
+                if self.cfg.decomp_device_pricing is False:
+                    if self.log is not None:
+                        self.log.count("robust_degrade_device_pricing")
+                    self.device = None
+            else:
+                self._pending = ("device", self.device.dispatch(tasks), tasks)
+                return
         if self._pool is not None:
             self._pending = self._pool.submit(self._run, tasks)
         else:
@@ -747,7 +795,6 @@ def realize_profile(
     from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack, sparse_enabled
 
     cfg = cfg or default_config()
-    check_slice_config(cfg)
     log = log or RunLog(echo=False)
     dev = resolve_device(device)
     T = reduction.T
@@ -772,8 +819,27 @@ def realize_profile(
         cols.append(c.astype(np.int16))
         return True
 
-    for c in seed_comps:
-        add(c)
+    # --- crash-consistent checkpoints (robust/checkpoint) --------------------
+    # a matching snapshot resumes here. With its loop state the round's
+    # column set is restored as it was (the seeds were spent before the
+    # save); without it (a JAX package snapshot) its columns seed the hull
+    # first (so its mixture maps positionally onto the first master's warm
+    # start) and the seeds dedup in behind them
+    ckpt = FaceCheckpointer(cfg, reduction, v, accept)
+    resume = ckpt.load(T)
+    loop_state: Optional[FaceLoopState] = resume.loop if resume is not None else None
+    if resume is not None:
+        for c in resume.compositions if loop_state is None else loop_state.cols:
+            add(c)
+        log.count("robust_resume")
+        log.emit(
+            f"  face checkpoint resumed: {len(cols)} columns from round "
+            f"{resume.round} (eps {resume.eps:.2e})."
+        )
+
+    if loop_state is None:
+        for c in seed_comps:
+            add(c)
 
     # --- structured-sparse master state (solvers/sparse_ops) ----------------
     # master columns are compositions (≤ k nonzeros of T types); the ELL pack
@@ -781,6 +847,13 @@ def realize_profile(
     # the new columns, a prune subsets, a column-set replacement resets it
     sparse_try = accel and cfg.sparse_ops is not False
     ell_pack: Optional[EllPack] = EllPack(minor=T) if sparse_try else None
+    if ell_pack is not None and loop_state is not None and loop_state.ell_kpad > 0:
+        # the pack's slot width only grows: start at the saved one so the
+        # master reads the same padded layout as the uninterrupted run
+        kp = loop_state.ell_kpad
+        ell_pack = EllPack(
+            minor=T, idx=np.zeros((0, kp), np.int32), val=np.zeros((0, kp), np.float32)
+        )
 
     def ell_synced() -> Optional[EllPack]:
         """Append any columns added since the last sync; returns the pack,
@@ -943,6 +1016,16 @@ def realize_profile(
     rng = np.random.default_rng(0)
     eps_hist: List[float] = []
     pdhg_warm = None
+    if loop_state is not None:
+        pdhg_warm = loop_state.warm
+    elif resume is not None and len(resume.probabilities) <= len(cols):
+        # the first master starts from the checkpointed mixture (its columns
+        # came first, so it maps positionally), the ε slot at the certified
+        # residual of the save
+        x_w = np.zeros(len(cols) + 1)
+        x_w[: len(resume.probabilities)] = resume.probabilities
+        x_w[-1] = max(float(resume.eps), 0.0)
+        pdhg_warm = (x_w, np.zeros(2 * T), np.zeros(1))
     best: Optional[Tuple[np.ndarray, np.ndarray, float]] = None
     t_start = time.time()
     # the stalled-acceptance band the caller still accepts outright
@@ -968,7 +1051,7 @@ def realize_profile(
             dev_pricer = DevicePricer(reduction, cfg=cfg, log=log, device=dev)
     pricer = _AnchorPricer(
         oracle, rng, reduction, overlap=bool(cfg.decomp_oracle_overlap), log=log,
-        device=dev_pricer,
+        device=dev_pricer, cfg=cfg,
     )
     warm_enabled = bool(cfg.decomp_warm_start)
     warm_stall = _WarmStall(int(cfg.decomp_warm_stall_rounds))
@@ -989,6 +1072,56 @@ def realize_profile(
         # iterate must not leak into this one
         clear_warm_slots("decomp_polish_screen")
 
+    # the anchor batch submitted last and not yet harvested (a snapshot
+    # replays it)
+    submitted: Optional[FaceSubmit] = None
+    start_round = 0
+    if loop_state is not None:
+        # restore the loop where the snapshot left it: the next master, the
+        # running best and history, the pricing stream (its in-flight batch
+        # submitted again from the generator state that drew it) and the
+        # polish screen's warm slots
+        start_round = loop_state.next_round
+        p, eps = loop_state.p, float(loop_state.eps)
+        eps_hist = [float(e) for e in loop_state.eps_hist]
+        best = (np.asarray(resume.compositions, dtype=np.int16), resume.probabilities,
+                float(resume.eps))
+        lp_solves = int(loop_state.lp_solves)
+        polish_after = int(loop_state.polish_after)
+        warm_stall.best, warm_stall.streak = float(loop_state.stall[0]), int(loop_state.stall[1])
+        t_start = time.time() - float(loop_state.elapsed)
+        if loop_state.device_degraded:
+            pricer.device = None
+        if loop_state.pending is not None:
+            q = loop_state.pending
+            rng.bit_generator.state = q.rng_state
+            pricer.submit(q.rnd, q.r_norm, q.eps, q.realized, v)
+            submitted = q
+        rng.bit_generator.state = loop_state.rng_state
+        if batch_screen:
+            from citizensassemblies_tpu_torch.solvers.batch_lp import restore_warm_slots
+
+            restore_warm_slots("decomp_polish_screen", loop_state.slots)
+
+    def snapshot(rnd: int) -> None:
+        """Save the best certified state after round ``rnd − 1`` with the
+        loop state of round ``rnd``'s top."""
+        if best is None or len(best[1]) != len(best[0]) or not ckpt.due(rnd - 1):
+            return
+        from citizensassemblies_tpu_torch.solvers.batch_lp import warm_slots
+
+        loop = FaceLoopState(
+            next_round=rnd, cols=np.stack(cols), p=np.asarray(p, dtype=np.float64),
+            eps=float(eps), eps_hist=np.asarray(eps_hist, dtype=np.float64), warm=pdhg_warm,
+            stall=(warm_stall.best, warm_stall.streak), polish_after=polish_after,
+            lp_solves=lp_solves, rng_state=rng.bit_generator.state, pending=submitted,
+            device_degraded=dev_pricer is not None and pricer.device is None,
+            ell_kpad=ell_pack.k_pad if ell_pack is not None else -1,
+            slots=warm_slots("decomp_polish_screen") if batch_screen else {},
+            elapsed=time.time() - t_start,
+        )
+        ckpt.maybe_save(rnd - 1, best[0], best[1], best[2], log=log, loop=loop)
+
     def rank_add(cand: List[np.ndarray], r_norm: np.ndarray) -> int:
         """Grow the master where it helps: most negative <r, c/m> first."""
         if not cand:
@@ -1004,8 +1137,12 @@ def realize_profile(
         return added
 
     try:
-        for rnd in range(max_rounds):
+        for rnd in range(start_round, max_rounds):
             t_round = time.time()
+            if rnd > 0:
+                snapshot(rnd)
+            # the kill switch the checkpoint/resume contract is tested with
+            inject.raise_if("face_abort", log)
             # stall detection on the running best: the best of the last 4
             # rounds failed to beat the best of all earlier rounds by ≥ 2 %
             if len(eps_hist) >= 7 and min(eps_hist[-4:]) > min(eps_hist[:-4]) * 0.98:
@@ -1101,6 +1238,7 @@ def realize_profile(
                             f"{len(C_sup)} support columns ({lp_solves} master solves, "
                             f"end-game polish)."
                         )
+                        ckpt.clear()  # certified: no stale resume point
                         return C_sup, p_sup, eps_sup, lp_solves
                     # a failed polish value is the optimum of a support
                     # subset: keep it out of eps/eps_hist/best
@@ -1128,6 +1266,7 @@ def realize_profile(
                     f"Face decomposition: eps = {eps:.2e} certified on {len(cols)} "
                     f"columns ({lp_solves} master solves)."
                 )
+                ckpt.clear()  # certified: no stale resume point
                 return C.astype(np.int32), p, float(eps), lp_solves
             # the duals w (= y_lo − y_up) mark over-served (w < 0) vs
             # under-served (w > 0) types; move units down the gradient
@@ -1158,6 +1297,7 @@ def realize_profile(
             with log.timer("decomp_oracle"):
                 cand.extend(pricer.harvest())
                 realized = MT @ p if len(p) == MT.shape[1] else None
+                submitted = FaceSubmit(rnd, r_norm, eps, realized, rng.bit_generator.state)
                 pricer.submit(rnd, r_norm, eps, realized, v)
             if fused_screen is not None and fused_screen.pending:
                 with log.timer("decomp_expand"):
@@ -1193,6 +1333,7 @@ def realize_profile(
                 # rather than conclude exhaustion with columns in flight
                 with log.timer("decomp_oracle"):
                     late = pricer.harvest()
+                submitted = None
                 if dev_pricer is not None:
                     # the just-dispatched device batch had no master solve
                     # to hide behind: this harvest waits on it
@@ -1223,6 +1364,7 @@ def realize_profile(
             f"Face decomposition: eps = {eps:.2e} on {len(C_sup)} support columns "
             f"({lp_solves} master solves)."
         )
+        ckpt.clear()  # the loop ran to its end: no stale resume point
         return C_sup, p_sup, float(eps), lp_solves
     finally:
         pricer.close()

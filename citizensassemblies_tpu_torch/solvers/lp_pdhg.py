@@ -25,6 +25,14 @@ The chained route reads every lane's residual on the host after each
 block; the fused route never does. Both freeze a lane exactly as the
 JAX package's ``while_loop`` does, and share the ``(x, lam, mu)`` layout:
 ``x = [p (Cp), ε]``, ``lam = [λ_lo (T), λ_up (T)]``, ``mu = [μ]``.
+
+Under ``Config.mixed_precision`` the read-only operator matrices go to the
+device as bf16 where the committed plan certifies them and their round
+trip is exact (``utils/precision.demote_operator``, at the JAX package's
+four sites); the preludes widen them exactly, so the iterates are bitwise
+those of the float32 operands. Each solve consults the ``pdhg_nan`` fault
+site (``robust/inject.py``), which poisons its warm start for the sentinel
+to quarantine.
 """
 
 from __future__ import annotations
@@ -35,8 +43,10 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from citizensassemblies_tpu_torch.robust import inject
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
+from citizensassemblies_tpu_torch.utils.precision import demote_operator, iterate_dtype, operand_tensor
 
 
 @dataclasses.dataclass
@@ -440,6 +450,11 @@ def solve_two_sided_master_ell_async(
     Cp = ((C + bucket - 1) // bucket) * bucket
     idx_p, val_p = ell.padded(Cp)
     x0, lam0, mu0 = _warm_arrays(warm, C, Cp, T)
+    if inject.site("pdhg_nan", log):
+        x0[0] = np.nan  # the sentinel must quarantine, the round recover
+    val_d = demote_operator(
+        val_p, cfg, core="lp_pdhg.two_sided_core_ell", arg=1, log=log, device=dev
+    )
     colmask = np.zeros(Cp, dtype=np.float32)
     colmask[:C] = 1.0
     mi = int(max_iters if max_iters is not None else cfg.pdhg_max_iters)
@@ -461,13 +476,13 @@ def solve_two_sided_master_ell_async(
     if fused:
         # fused route: one kernel launch for the whole solve
         out = mk.dispatch_two_sided(
-            idx_p, val_p, *lanes, max_iters=mi, check_every=ce, sentinel=sent,
+            idx_p, val_d, *lanes, max_iters=mi, check_every=ce, sentinel=sent,
             log=log,
         )
     else:
         out = _pdhg_two_sided_body_ell(
             torch.as_tensor(idx_p, dtype=torch.int32, device=dev),
-            torch.as_tensor(val_p, **f32), *lanes, csr,
+            operand_tensor(val_d, dev), *lanes, csr,
             max_iters=mi, check_every=ce, sentinel=sent,
         )
     return _handle(*(o[0] for o in out), Cp=Cp, T=T, tol=tol)
@@ -658,14 +673,17 @@ def _pdhg_body(
     max_iters: int, check_every: int, sentinel: bool = False, graph: Optional[bool] = None,
 ):
     """The dense chained core of the generic LP (``G`` a dense ``[m1, nv]``
-    tensor): Ruiz on the stacked ``[G; A]``, the power-iteration ‖K‖ and
+    tensor; ``G`` and ``A`` float32 or demoted bf16): Ruiz on the stacked
+    ``[G; A]``, the power-iteration ‖K‖ and
     :func:`_lp_iterate` with dense matvecs, its blocks replayed as a CUDA
     graph when ``graph`` (default: on CUDA tensors). Returns the unscaled
     ``(x, lam, mu, it, res, flags)``."""
     m1, nv = G.shape
+    # a demoted bf16 G or A is widened exactly by the products with the
+    # float32 scalings below: Ks and every matvec are float32
     K = torch.cat([G, A], dim=0)
-    d_r = torch.ones(K.shape[0], dtype=torch.float32, device=K.device)
-    d_c = torch.ones(nv, dtype=torch.float32, device=K.device)
+    d_r = torch.ones(K.shape[0], dtype=iterate_dtype(K.dtype), device=K.device)
+    d_c = torch.ones(nv, dtype=iterate_dtype(K.dtype), device=K.device)
     absK = K.abs()
     for _ in range(8):
         S = d_r[:, None] * absK * d_c[None, :]
@@ -749,10 +767,16 @@ def _host_resolve_lp(c, G, h, A, b) -> Optional[LPSolution]:
     return LPSolution(ok=True, x=x, lam=lam, mu=mu, objective=float(c64 @ x), iters=-1, kkt=0.0)
 
 
-def _generic_warm(warm, nv: int, m1: int, m2: int):
+def _generic_warm(warm, nv: int, m1: int, m2: int, log=None):
+    """The float32 warm triple of a generic LP (copies: the ``pdhg_nan``
+    fault site poisons ``x0`` in place when it fires)."""
     if warm is not None:
-        return tuple(np.asarray(w, np.float32).reshape(-1) for w in warm)
-    return np.zeros(nv, np.float32), np.zeros(m1, np.float32), np.zeros(m2, np.float32)
+        x0, lam0, mu0 = (np.array(w, np.float32).reshape(-1) for w in warm)
+    else:
+        x0, lam0, mu0 = np.zeros(nv, np.float32), np.zeros(m1, np.float32), np.zeros(m2, np.float32)
+    if inject.site("pdhg_nan", log):
+        x0[0] = np.nan  # the sentinel must quarantine, the host re-solve recover
+    return x0, lam0, mu0
 
 
 def _finish_lp(c, G_dense, h, A, b, out, tol: float, log) -> LPSolution:
@@ -795,9 +819,15 @@ def solve_lp(c, G, h, A, b, cfg: Optional[Config] = None, warm=None, tol: Option
     m1, nv = G.shape
     m2 = np.shape(A)[0]
     f32 = dict(dtype=torch.float32, device=dev)
-    x0, lam0, mu0 = (torch.as_tensor(w, **f32) for w in _generic_warm(warm, nv, m1, m2))
+    x0, lam0, mu0 = (torch.as_tensor(w, **f32) for w in _generic_warm(warm, nv, m1, m2, log))
+    G_d, A_d = (
+        demote_operator(np.asarray(a, np.float32), cfg, core="lp_pdhg.pdhg_core", arg=i, log=log,
+                        device=dev)
+        for i, a in ((1, G), (3, A))
+    )
+    c_, h_, b_ = (torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, h, b))
     out = _pdhg_body(
-        *(torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, G, h, A, b)),
+        c_, operand_tensor(G_d, dev), h_, operand_tensor(A_d, dev), b_,
         x0, lam0, mu0, tol, max_iters=int(cfg.pdhg_max_iters),
         check_every=int(cfg.pdhg_check_every), sentinel=sentinels_enabled(cfg),
     )
@@ -818,19 +848,28 @@ def solve_lp_ell(c, ell, h, A, b, cfg: Optional[Config] = None, warm=None, tol: 
     dev = resolve_device(device)
     tol = float(tol if tol is not None else cfg.pdhg_tol)
     nv, m1, m2 = len(c), len(ell), np.shape(A)[0]
-    x0, lam0, mu0 = _generic_warm(warm, nv, m1, m2)
+    x0, lam0, mu0 = _generic_warm(warm, nv, m1, m2, log)
+    val_d = demote_operator(ell.val, cfg, core="lp_pdhg.pdhg_core_ell", arg=2, log=log, device=dev)
+    A_d = demote_operator(
+        np.asarray(A, np.float32), cfg, core="lp_pdhg.pdhg_core_ell", arg=4, log=log, device=dev
+    )
     kw = dict(max_iters=int(cfg.pdhg_max_iters), check_every=int(cfg.pdhg_check_every),
               sentinel=sentinels_enabled(cfg))
     if mk.lp_megakernel_mode(cfg, nv, m1, m2, dev, log=log) == "fused":
         # fused route: one kernel launch for the whole solve
-        out = mk.dispatch_lp(c, ell.idx, ell.val, h, A, b, x0, lam0, mu0, tol,
+        out = mk.dispatch_lp(c, ell.idx, val_d, h, A_d, b, x0, lam0, mu0, tol,
                              device=dev, log=log, **kw)
     else:
         f32 = dict(dtype=torch.float32, device=dev)
         csr = mk.csr_to_device(ell.idx, ell.val, nv, dev)
-        t = [torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, ell.val, h, A, b, x0, lam0, mu0)]
+        c_, h_, b_, x0_, lam0_, mu0_ = (
+            torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, h, b, x0, lam0, mu0)
+        )
         idx = torch.as_tensor(ell.idx, dtype=torch.int32, device=dev)
-        out = _pdhg_body_ell(t[0], idx, *t[1:], tol, csr, **kw)
+        out = _pdhg_body_ell(
+            c_, idx, operand_tensor(val_d, dev), h_, operand_tensor(A_d, dev), b_,
+            x0_, lam0_, mu0_, tol, csr, **kw,
+        )
     return _finish_lp(c, lambda: ell_unpack_rows(ell.idx, ell.val, nv), h, A, b, out, tol, log)
 
 

@@ -20,6 +20,7 @@ from citizensassemblies_tpu_torch.core.instance import DenseInstance
 from citizensassemblies_tpu_torch.models.legacy import sample_panels_batch
 from citizensassemblies_tpu_torch.utils import device as _device
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
+from citizensassemblies_tpu_torch.utils.precision import iterate_dtype
 
 
 def beta_ladder(batch: int, lo: float = -1.0, hi: float = 3.5) -> np.ndarray:
@@ -31,7 +32,7 @@ def beta_ladder(batch: int, lo: float = -1.0, hi: float = 3.5) -> np.ndarray:
 def _pricing_scores(weights: torch.Tensor, batch: int) -> torch.Tensor:
     """[B, n] member-pick scores: β_b · ŵ with the log-spaced β ladder."""
     w = weights / (weights.abs().max() + 1e-12)
-    betas = torch.as_tensor(beta_ladder(batch), dtype=torch.float32, device=w.device)
+    betas = torch.as_tensor(beta_ladder(batch), dtype=iterate_dtype(w.dtype), device=w.device)
     return betas[:, None] * w[None, :]
 
 

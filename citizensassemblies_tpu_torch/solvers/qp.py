@@ -32,10 +32,20 @@ transpose on CUDA (``index_add_`` sums with atomics there, so repeat runs
 would not be bit-identical), ``index_add_`` on the CPU. Prefix sums run in
 a fixed order on CUDA too (:func:`_prefix_sum`).
 
+Under ``Config.mixed_precision`` the portfolio (the 0/1 panel matrix, so
+its bf16 round trip is exact) goes to the device as bf16 at the JAX
+package's four sites (``qp.l2_fused_core[_ell]``, ``qp.l2_dual_ascent[_ell]``
+of the committed plan): on the ELL route the gather kernel reads the bf16
+values (its bf16-value path) and the agent-major CSR gathers them from the
+pack in the same dtype; the dense route widens the matrix on the device
+before its products (a dense ``matmul`` takes no mixed dtypes). Every
+product is float32 and bitwise that of the float32 operand. The fused
+cores consult the ``qp_nan`` fault site, which poisons the donor for the
+sentinel to quarantine.
+
 Left out until their ROADMAP queue A items land: the serving context and its
-pack memo (item 9), the ``qp_nan`` fault site (item 6), the
-no-implicit-transfer guard (item 7), dispatch spans (items 9-10), bf16
-operand demotion (item 3) and the AOT/IR registrations (item 10).
+pack memo (item 9), the no-implicit-transfer guard (item 7), dispatch spans
+(items 9-10) and the AOT/IR registrations (item 10).
 """
 
 from __future__ import annotations
@@ -46,11 +56,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from citizensassemblies_tpu_torch.robust import inject
 from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_gather_mv, ell_scatter_mv
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device, upload
 from citizensassemblies_tpu_torch.utils.logging import RunLog
 from citizensassemblies_tpu_torch.utils.memo import LRU
+from citizensassemblies_tpu_torch.utils.precision import demote_operator, iterate_dtype
 
 #: ascent iterations between two convergence reads of the fused cores
 L2_CHUNK = 512
@@ -181,8 +193,9 @@ def _min_norm_dual_ascent(P, t, eps, lr, lam0, iters: int, graph: Optional[bool]
     ``Pᵀp ≥ t − ε`` and ``Pᵀp ≤ t + ε`` (one-sided floors let the spread
     re-route surplus mass upward, several ×ε onto single agents). ``lam0``
     is the warm-start carry; ``graph`` (default: on CUDA tensors) replays
-    the iterations in CUDA-graph chunks (:func:`_iterate`). Returns
-    ``(p, lam)``."""
+    the iterations in CUDA-graph chunks (:func:`_iterate`). A demoted bf16
+    ``P`` is widened first. Returns ``(p, lam)``."""
+    P = P.to(iterate_dtype(P.dtype))
     n = P.shape[1]
     PT = P.t()
 
@@ -215,7 +228,8 @@ def _min_norm_dual_ascent_ell(idx, val, t, eps, lr, lam0, iters: int, csr: Optio
 
 def _power_norm(K: torch.Tensor, iters: int = 40) -> torch.Tensor:
     """‖K‖₂ by power iteration on KᵀK (the JAX package's
-    ``lp_pdhg._power_norm``)."""
+    ``lp_pdhg._power_norm``); a demoted bf16 ``K`` is widened first."""
+    K = K.to(iterate_dtype(K.dtype))
     v = torch.ones(K.shape[1], dtype=K.dtype, device=K.device) / np.sqrt(np.float32(K.shape[1]))
     for _ in range(iters):
         w = K.t() @ (K @ v)
@@ -227,7 +241,7 @@ def _ell_power_norm(idx, val, n: int, iters: int = 40, csr: Optional[Csr] = None
     """‖P‖₂ power estimate via the ELL matvec pair (the dense
     :func:`_power_norm` on the packed rep)."""
     gather, scatter = _ell_ops(idx, val, n, csr)
-    v = torch.ones(n, dtype=val.dtype, device=val.device) / np.sqrt(np.float32(n))
+    v = torch.ones(n, dtype=iterate_dtype(val.dtype), device=val.device) / np.sqrt(np.float32(n))
     for _ in range(iters):
         w = scatter(gather(v))
         v = w / (torch.linalg.norm(w) + 1e-12)
@@ -293,7 +307,8 @@ def _get_l2_fused_core(
     the spread iterate's per-block movement drops below tolerance.
 
     The core is ``fused(P, t, p_don, eps_margin, eps_tol, ascent_tol,
-    log=None)`` and returns ``(p, p_floor, it_eps, ascent_iters)`` —
+    log=None)`` (``P`` float32 or demoted bf16) and returns ``(p, p_floor,
+    it_eps, ascent_iters)`` —
     ``+ (flags,)`` with the sentinel (the anchor's flags | bit 1 for a
     frozen ascent). ``graph`` replays the anchor's PDHG blocks and each
     ascent chunk as CUDA graphs (``None``: on CUDA tensors), bit for bit
@@ -308,6 +323,8 @@ def _get_l2_fused_core(
     def fused(P, t, p_don, eps_margin, eps_tol, ascent_tol, log=None):
         from citizensassemblies_tpu_torch.solvers.lp_pdhg import _pdhg_body
 
+        # a demoted bf16 P is widened on the device before its products
+        P = P.to(iterate_dtype(P.dtype))
         C, n = P.shape
         dev = P.device
         f32 = dict(dtype=torch.float32, device=dev)
@@ -364,7 +381,9 @@ def _get_l2_fused_core_ell(
     anyway).
 
     The core is ``fused(idx, val, t, p_don, eps_margin, eps_tol,
-    ascent_tol, csr, log=None)`` with ``csr`` the pack's agent-major CSR
+    ascent_tol, csr, log=None)`` (``val`` float32 or demoted bf16: the
+    anchor's prelude widens it, the ascent's gathers read it as it is) with
+    ``csr`` the pack's agent-major CSR
     transpose on the pack's device; it returns what the dense core returns,
     and ``graph`` and ``log`` are the dense core's."""
     key = (int(eps_iters), int(check_every), int(chunk), int(max_chunks), bool(sentinel), graph)
@@ -490,7 +509,6 @@ def solve_final_primal_l2(
             # of the call: a copy from pageable memory waits for the stream
             csr = csr_to_device(ell.idx, ell.val, n, dev)
             idx_t = upload(ell.idx, dev)
-            val_t = upload(ell.val, dev)
         log.gauge("sparse_fill_pct", int(round(100 * ell.fill)))
         log.count("sparse_hit")
     else:
@@ -512,18 +530,30 @@ def solve_final_primal_l2(
             check_every = int(cfg.pdhg_check_every or 128)
             with log.timer("l2_fused"):
                 tj = upload(np.asarray(target, np.float32), dev)
-                dj = upload(np.asarray(p_don, np.float32), dev)
+                dj_h = np.asarray(p_don, np.float32)
+                if inject.site("qp_nan", log):
+                    # poison the donor: the QP sentinel must quarantine and
+                    # the serial route recover
+                    dj_h = dj_h.copy()
+                    dj_h[0] = np.nan
+                dj = upload(dj_h, dev)
                 margin = torch.tensor(eps_margin, dtype=torch.float32, device=dev)
                 if ell is not None:
                     core = _get_l2_fused_core_ell(
                         ANCHOR_ITERS, check_every, L2_CHUNK, max_chunks, sentinel=sent
                     )
+                    val_t = upload(demote_operator(
+                        ell.val, cfg, core="qp.l2_fused_core_ell", arg=1, log=log, device=dev
+                    ), dev)
                     out = core(idx_t, val_t, tj, dj, margin, ANCHOR_TOL, ASCENT_TOL, csr, log=log)
                 else:
                     core = _get_l2_fused_core(
                         ANCHOR_ITERS, check_every, L2_CHUNK, max_chunks, sentinel=sent
                     )
-                    Pj = upload(np.asarray(P, np.float32), dev)
+                    Pj = upload(demote_operator(
+                        np.asarray(P, np.float32), cfg, core="qp.l2_fused_core", arg=0, log=log,
+                        device=dev,
+                    ), dev)
                     out = core(Pj, tj, dj, margin, ANCHOR_TOL, ASCENT_TOL, log=log)
                 fused_p = out[0].cpu().numpy().astype(np.float64)
                 p_floor = np.clip(out[1].cpu().numpy().astype(np.float64), 0.0, 1.0)
@@ -566,9 +596,14 @@ def solve_final_primal_l2(
         # the closed-form row·column-sum bound overestimates σ² by orders of
         # magnitude on expanded portfolios, stalling the spread
         if ell is not None:
+            val_t = upload(demote_operator(
+                ell.val, cfg, core="qp.l2_dual_ascent_ell", arg=1, log=log, device=dev
+            ), dev)
             sigma_sq = float(_ell_power_norm(idx_t, val_t, n, csr=csr)) ** 2
         else:
-            Pj = upload(np.asarray(P, np.float32), dev)
+            Pj = upload(demote_operator(
+                np.asarray(P, np.float32), cfg, core="qp.l2_dual_ascent", arg=0, log=log, device=dev
+            ), dev)
             sigma_sq = float(_power_norm(Pj)) ** 2
         L = max(sigma_sq / 2.0, 1.0)
         with log.timer("l2_dual_ascent"):

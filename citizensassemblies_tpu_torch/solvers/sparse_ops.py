@@ -5,8 +5,10 @@ nonzeros out of ``T`` types, so dense matvecs are mostly multiply-by-zero.
 
 * **ELL layout** — a ``[major, minor]`` matrix with at most ``k_pad``
   nonzeros per major row is stored as ``indices[major, k_pad]`` (int32
-  minor positions) and ``values[major, k_pad]`` (float32), padding slots
-  pointing at minor 0 with value 0.0 — inert for both matvec directions.
+  minor positions) and ``values[major, k_pad]`` (float32 on the host; a
+  demoted operand goes to the device as bf16, ``utils/precision.py``),
+  padding slots pointing at minor 0 with value 0.0 — inert for both matvec
+  directions.
 * **matvecs** — the gather direction ``(M x)[j] = Σ_s values[j,s] ·
   x[indices[j,s]]`` (:func:`ell_gather_mv`, the hand-written CUDA kernel
   on CUDA tensors, ``kernels/ell_matvec.py``) and the scatter/transpose
@@ -31,6 +33,7 @@ import torch
 
 from citizensassemblies_tpu_torch.kernels.ell_matvec import ell_gather_mv
 from citizensassemblies_tpu_torch.utils.config import Config
+from citizensassemblies_tpu_torch.utils.precision import iterate_dtype
 
 __all__ = [
     "EllPack", "ell_gather_mv", "ell_pack_rows", "ell_row_absmax",
@@ -197,8 +200,9 @@ class EllPack:
 
 def ell_scatter_mv(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor, minor: int) -> torch.Tensor:
     """``(Mᵀ y)[i] = Σ_{j,s: idx[j,s]=i} val[j,s]·y[j]`` via ``index_add_``.
-    ``y`` is ``[major]`` or ``[B, major]``; ``val`` shared or ``[B, ...]``."""
-    contrib = val * y[..., None]
+    ``y`` is ``[major]`` or ``[B, major]``; ``val`` shared or ``[B, ...]``,
+    float32 or bf16 (the products are float32 either way)."""
+    contrib = val.to(iterate_dtype(val.dtype)) * y[..., None]
     if contrib.dim() == 2:
         out = torch.zeros(int(minor), dtype=contrib.dtype, device=contrib.device)
         return out.index_add_(0, idx.reshape(-1), contrib.reshape(-1))
@@ -209,8 +213,9 @@ def ell_scatter_mv(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor, minor:
 
 def ell_row_absmax(idx: torch.Tensor, val: torch.Tensor, minor: int) -> torch.Tensor:
     """Per-MINOR max of |values| (0 for minors no slot hits). ``val`` is
-    ``[major, k_pad]`` or ``[B, major, k_pad]``."""
-    a = val.abs()
+    ``[major, k_pad]`` or ``[B, major, k_pad]``; a bf16 ``val`` gives
+    float32 maxima."""
+    a = val.abs().to(iterate_dtype(val.dtype))
     if a.dim() == 2:
         out = torch.zeros(int(minor), dtype=a.dtype, device=a.device)
         return out.scatter_reduce_(0, idx.reshape(-1), a.reshape(-1), reduce="amax")
@@ -226,8 +231,8 @@ def ell_ruiz_equilibrate(idx: torch.Tensor, val: torch.Tensor, minor: int, iters
     rep: ``d_major[j]·M[j, i]·d_minor[i]`` of ≈ unit row/col ∞-norms, the
     8-sweep sqrt scheme; all-zero rows/columns keep scale 1."""
     major = idx.shape[0]
-    d_j = torch.ones(major, dtype=torch.float32, device=val.device)
-    d_i = torch.ones(int(minor), dtype=torch.float32, device=val.device)
+    d_j = torch.ones(major, dtype=iterate_dtype(val.dtype), device=val.device)
+    d_i = torch.ones(int(minor), dtype=iterate_dtype(val.dtype), device=val.device)
     absv = val.abs()
     for _ in range(iters):
         S = absv * d_j[:, None] * d_i[idx]

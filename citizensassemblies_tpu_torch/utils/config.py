@@ -135,18 +135,33 @@ class Config:
     sparse_ops: Optional[bool] = None
     sparse_fill_cutoff: float = 0.25
 
-    #: bf16 operand demotion. ``None`` resolves to off in this package until
-    #: ROADMAP queue A item "mixed precision" lands; ``True`` raises
-    #: NotImplementedError.
+    #: bf16 operand demotion under the committed ``PRECISION_PLAN.json``
+    #: (``utils/precision.py``): only operands whose bf16 round trip is
+    #: exact are demoted, lossy ones stay float32 (``mp_lossy_skip``), so an
+    #: engaged run equals an off run bit for bit. ``None``: on when the
+    #: run's device is CUDA, off on the CPU; ``True``/``False`` force.
     mixed_precision: Optional[bool] = None
 
     # --- fault tolerance ------------------------------------------------------
+    #: fault-injection spec ``"site:rate,site:rate"`` over the sites of
+    #: ``robust/inject.FAULT_SITES``; the model entry points install an
+    #: injector from it. Empty (the default): no injection, each site
+    #: consult is a None check. The schedule is seed-deterministic
+    #: (``fault_seed``): the same spec and seed fire the same faults.
+    fault_sites: str = ""
+    #: seed of the fault schedule.
+    fault_seed: int = 0
     #: freeze a PDHG lane whose KKT residual goes non-finite at its last
     #: finite block and flag it (the caller re-solves on the host).
     robust_sentinels: bool = True
-    #: face-loop checkpointing (ROADMAP queue A item "checkpointing"); any
-    #: value other than the defaults raises NotImplementedError.
+    #: save the face loop's certified state (columns, mixture, its
+    #: arithmetic ε) every N rounds, so a killed run resumes from its last
+    #: saved round (``robust/checkpoint.py``, atomic tmp+rename writes).
+    #: 0 (the default) disables face checkpointing.
     robust_checkpoint_every: int = 0
+    #: directory of the face-loop checkpoints (``face_<fp16>.npz``, named by
+    #: a fingerprint of the problem, so a snapshot only resumes into the
+    #: same problem). Empty disables face checkpointing.
     robust_checkpoint_dir: str = ""
 
     # --- backends -------------------------------------------------------------
@@ -166,15 +181,3 @@ class Config:
 def default_config() -> Config:
     return Config()
 
-
-def check_slice_config(cfg: Config) -> None:
-    """Raise NotImplementedError for a knob forced onto a path this package
-    does not have yet (each names its ROADMAP queue A item)."""
-    if cfg.mixed_precision is True:
-        raise NotImplementedError(
-            "Config.mixed_precision=True needs ROADMAP queue A item 'mixed precision'"
-        )
-    if cfg.robust_checkpoint_every or cfg.robust_checkpoint_dir:
-        raise NotImplementedError(
-            "face-loop checkpointing needs ROADMAP queue A item 'checkpointing'"
-        )

@@ -42,11 +42,15 @@ def on_accelerator(device: torch.device) -> bool:
 
 
 def upload(array, device: torch.device, dtype=None) -> torch.Tensor:
-    """A host numpy array on ``device`` without blocking the host: to a
-    CUDA device through pinned memory and a copy queued on the current
-    stream (a copy from pageable memory waits for the stream to drain);
-    elsewhere a plain conversion."""
-    t = torch.from_numpy(np.ascontiguousarray(array))
+    """A host array (numpy, or a CPU tensor such as a demoted bf16 operand)
+    on ``device`` without blocking the host: to a CUDA device through
+    pinned memory and a copy queued on the current stream (a copy from
+    pageable memory waits for the stream to drain); elsewhere a plain
+    conversion."""
+    if isinstance(array, torch.Tensor):
+        t = array.contiguous()
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(array))
     if dtype is not None:
         t = t.to(dtype)
     dev = torch.device(device)

@@ -122,16 +122,41 @@ def test_host_masters_without_pdhg(profiles):
 @pytest.mark.parametrize(
     "knobs", [dict(mixed_precision=True), dict(robust_checkpoint_every=1)], ids=["bf16", "checkpoint"]
 )
-def test_slice_config_refuses_missing_paths(profiles, knobs):
-    """What the port still lacks (mixed precision, face-loop checkpointing)
-    raises; device pricing and the batched LP engine are ported."""
+def test_slice_config_refuses_missing_paths(profiles, knobs, tmp_path):
+    """Mixed precision and face-loop checkpointing, refused until ROADMAP
+    queue A items 3 and 4 were ported, now run. bf16: every master on the
+    device route (the block kernel's plain version) with demotion on
+    returns the loop with it off bit for bit, each master's pack counted
+    (its values are fractions c/m, so each stays float32 as a lossy skip).
+    Checkpoint: the loop saves its running best each round and removes the
+    file once it returns certified."""
     _, (tred, tv, tseeds) = profiles
-    cfg = tconfig.default_config().replace(**knobs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfd.realize_profile(
-            tred, tv, list(tseeds), tcg.CompositionOracle(tred), 6.5e-4,
-            use_pdhg=True, cfg=cfg, device="cpu",
-        )
+    if "mixed_precision" in knobs:
+        out = {}
+        for mp in (False, True):
+            cfg = tconfig.default_config().replace(**{**SLICE, "mixed_precision": mp})
+            log = TLog(echo=False)
+            out[mp] = tfd.realize_profile(
+                tred, tv, list(tseeds), tcg.CompositionOracle(tred), 6.5e-4, log=log,
+                max_rounds=2, use_pdhg=True, cfg=cfg, device="cpu",
+            )[:3] + (log.counters,)
+        (C0, p0, e0, c0), (C1, p1, e1, c1) = out[False], out[True]
+        np.testing.assert_array_equal(C1, C0)
+        np.testing.assert_array_equal(p1, p0)
+        assert e1 == e0
+        assert c1["mp_lossy_skip"] == c1["megakernel_dispatches"] >= 2
+        assert "mp_lossy_skip" not in c0
+        return
+    cfg = tconfig.default_config().replace(robust_checkpoint_dir=str(tmp_path), **knobs)
+    log = TLog(echo=False)
+    C, p, eps, _ = tfd.realize_profile(
+        tred, tv, list(tseeds), tcg.CompositionOracle(tred), 6.5e-4, log=log,
+        use_pdhg=True, cfg=cfg, device="cpu",
+    )
+    _certified(tred, tv, C, p, eps, max(cfg.decomp_accept, cfg.decomp_accept_stalled),
+               arithmetic=False)
+    assert log.counters.get("robust_checkpoint_saved", 0) >= 1
+    assert not list(tmp_path.glob("face_*.npz"))
 
 
 @pytest.mark.parametrize("batched", [False, True])

@@ -95,12 +95,14 @@ def test_leximin_forced_device_routing(monkeypatch):
 
 
 @pytest.mark.parametrize("path", ["households", "XMIN", "mixed precision", "checkpointing"])
-def test_leximin_refuses_paths_not_ported(path):
-    """What the port still lacks raises, naming its ROADMAP item (mixed
-    precision, checkpointing). Households, refused until ROADMAP queue A
-    item 2 was ported, now run in LEXIMIN and in XMIN: the call returns a
-    distribution within the contract whose every panel is
-    household-disjoint."""
+def test_leximin_refuses_paths_not_ported(path, tmp_path):
+    """Paths the port once refused, each naming its ROADMAP item, now run.
+    Households (queue A item 2) in LEXIMIN and in XMIN: a distribution
+    within the contract whose every panel is household-disjoint. Mixed
+    precision (item 3): the agent-space route with device dual LPs demotes
+    their 0/1 operands and returns the run with demotion off bit for bit.
+    Checkpointing (item 4): ``checkpoint_path`` runs to the contract and
+    leaves no file behind."""
     from citizensassemblies_tpu_torch.models.xmin import find_distribution_xmin
 
     if path in ("households", "XMIN"):
@@ -108,26 +110,39 @@ def test_leximin_refuses_paths_not_ported(path):
         # quotient, T=16, the enumeration spends its whole node budget first)
         pool = tgen.skewed_instance(n=64, k=10, n_categories=3, seed=5,
                                     features_per_category=[2, 3, 2])
+    elif path == "mixed precision":
+        pool = tgen.random_instance(n=24, k=5, n_categories=2, seed=3)
     else:
         pool = INSTANCES["example_small_like"](tgen)
     td, ts = t_featurize(pool, device="cpu")
     couples = np.arange(td.n) // 2
-    entry = find_distribution_xmin if path == "XMIN" else t_leximin
-    kw = {
-        "households": dict(households=couples),
-        # the expansion and the ascent cut short: only the household path
-        # is under test here (tests/test_torch_households.py holds XMIN
-        # against the JAX package)
-        "XMIN": dict(households=couples, cfg=tconfig.default_config().replace(
-            xmin_iterations_factor=1, xmin_qp_iters=1000)),
-        "mixed precision": dict(cfg=tconfig.default_config().replace(mixed_precision=True)),
-        "checkpointing": dict(checkpoint_path="ckpt.npz"),
-    }[path]
-    if "households" in kw:
+    if path in ("households", "XMIN"):
+        entry = find_distribution_xmin if path == "XMIN" else t_leximin
+        kw = dict(households=couples)
+        if path == "XMIN":
+            # the expansion and the ascent cut short: only the household path
+            # is under test here (tests/test_torch_households.py holds XMIN
+            # against the JAX package)
+            kw["cfg"] = tconfig.default_config().replace(xmin_iterations_factor=1, xmin_qp_iters=1000)
         dist = entry(td, ts, device="cpu", **kw)
         assert dist.contract_ok
         for panel in dist.panels:
             assert len(set(couples[list(panel)].tolist())) == len(panel)
         return
-    with pytest.raises(NotImplementedError, match=path):
-        entry(td, ts, device="cpu", **kw)
+    if path == "mixed precision":
+        out = {}
+        for mp in (False, True):
+            cfg = tconfig.default_config().replace(
+                mixed_precision=mp, force_agent_space=True, backend="jax")
+            log = RunLog(echo=False)
+            out[mp] = (t_leximin(td, ts, cfg=cfg, log=log, device="cpu"), log.counters)
+        (off, c_off), (on, c_on) = out[False], out[True]
+        assert on.contract_ok
+        np.testing.assert_array_equal(on.allocation, off.allocation)
+        np.testing.assert_array_equal(on.probabilities, off.probabilities)
+        assert c_on["agent_space_dual_solves"] == c_off["agent_space_dual_solves"]
+        assert c_on.get("mp_demoted_operands", 0) >= 2 and "mp_demoted_operands" not in c_off
+        return
+    path_ = tmp_path / "ckpt.npz"
+    dist = t_leximin(td, ts, checkpoint_path=str(path_), device="cpu")
+    assert dist.contract_ok and not path_.exists()

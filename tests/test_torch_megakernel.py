@@ -348,15 +348,29 @@ def test_config_maps_from_reference():
     for name in fields:
         assert getattr(port, name) == getattr(ref, name), name
     assert port == tconfig.default_config()
-    with pytest.raises(NotImplementedError):
-        tconfig.check_slice_config(port.replace(mixed_precision=True))
-    with pytest.raises(NotImplementedError):
-        tconfig.check_slice_config(port.replace(robust_checkpoint_every=1))
-    # device pricing and the batched LP engine are ported
-    tconfig.check_slice_config(port.replace(decomp_device_pricing=True, lp_batch=True))
-    tconfig.check_slice_config(port)
-    # the agent-space path is ported: forcing it is a valid configuration
-    tconfig.check_slice_config(port.replace(force_agent_space=True, backend="jax"))
+    # mixed precision and the face checkpoints, once refused, resolve: the
+    # mapped knobs engage demotion and the checkpointer
+    from types import SimpleNamespace
+
+    from citizensassemblies_tpu_torch.robust.checkpoint import FaceCheckpointer
+    from citizensassemblies_tpu_torch.solvers.batch_lp import lp_batch_enabled
+    from citizensassemblies_tpu_torch.solvers.device_pricing import device_pricing_enabled
+    from citizensassemblies_tpu_torch.utils.precision import mixed_precision_enabled
+
+    cpu = torch.device("cpu")
+    mapped = interop.config_from_dict(dataclasses.asdict(ref.replace(
+        mixed_precision=True, robust_checkpoint_every=1, robust_checkpoint_dir="ckpt",
+        fault_sites="pdhg_nan:0.5", fault_seed=7,
+    )))
+    assert mixed_precision_enabled(mapped, cpu) and not mixed_precision_enabled(port, cpu)
+    red = SimpleNamespace(type_feature=np.zeros((2, 1)), qmin=np.zeros(1), qmax=np.ones(1),
+                          msize=np.ones(2), k=1)
+    assert FaceCheckpointer(mapped, red, np.ones(2), 1e-3).enabled
+    assert not FaceCheckpointer(port, red, np.ones(2), 1e-3).enabled
+    assert (mapped.fault_sites, mapped.fault_seed) == ("pdhg_nan:0.5", 7)
+    # device pricing and the batched LP engine are ported: forced on, on
+    forced = port.replace(decomp_device_pricing=True, lp_batch=True)
+    assert device_pricing_enabled(forced, cpu) and lp_batch_enabled(forced, cpu)
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu():
