@@ -94,7 +94,20 @@ Phases, each fatal on failure:
    n=120 pool; and seeded faults (``pdhg_nan`` on the first master,
    ``device_dispatch`` at the first pricing dispatch, ``qp_nan`` in XMIN),
    each recovered to the contract. Every clean phase holds zero
-   quarantines and zero host re-solves.
+   quarantines and zero host re-solves;
+9. the analysis layer through its CLI (``python -m
+   citizensassemblies_tpu_torch``, run in this process), each call with its
+   launch counters zeroed just before it and read just after: the flagship
+   pool written as ``sf_e_skewed_110/`` in the two-CSV schema with an
+   ``intersections.csv`` beside it, analysed at the defaults with the timing
+   harness (LEGACY twice, LEXIMIN, XMIN, the statistics, figures and CSVs,
+   three timed LEXIMIN runs), its LEXIMIN allocation bit for bit the
+   defaults flagship's and its XMIN allocation that of
+   ``xmin_sf_e_skewed``; the same call again, every pass from the cache
+   with no launch and the same statistics; and the ``--generate``
+   ``example_small_20`` pool on the card against the CPU. Where matplotlib
+   is not installed the figure writers draw nothing (the phases say so) and
+   still write their CSVs.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
 line, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -2645,6 +2658,298 @@ def faults_flagship_phase(inst, cfg, reference):
     return rec
 
 
+#: the statistics.txt lines of the JAX package's layout
+#: (tests/test_analysis.py:126-139), the timing line aside
+ANALYSIS_NEEDLES = (
+    "instance:\tsf_e_skewed", "pool size n:\t1727", "panel size k:\t110",
+    "# quota categories:\t7", "LEGACY minimum probability:",
+    "LEXIMIN minimum probability (exact):", "XMIN minimum probability (exact):",
+    "LEGACY number of unique panels seen:", "gini coefficient of XMIN:",
+    "geometric mean of LEGACY:", "share selected by LEGACY with probability below LEXIMIN",
+)
+TIMING_LINE = "Out of 3 runs, LEXIMIN took a median running time of"
+#: the upstream CSV headers (reference_output/example_small_20_*.csv:1)
+CSV_HEADERS = {
+    "prob_allocs_data.csv": ["algorithm", "percentile of pool members", "selection probability"],
+    "ratio_product_data.csv": ["ratio product", "selection probability"],
+}
+FIGURES = ("prob_allocs.pdf", "pair_probability_graph.pdf", "number_of_unique_panels.pdf",
+           "ratio_product.pdf", "intersections.pdf")
+#: LEXIMIN's least probability on the ``--generate`` example_small_20 pool
+#: (``example_small_like_instance()``, a stand-in for the withheld real one),
+#: as both packages compute it on the CPU
+EXAMPLE_SMALL_LEXIMIN_MIN = 0.08939309517559738
+#: the card's example_small run against the CPU's: LEXIMIN within 1e-6;
+#: XMIN draws its new panels from the run device's generator (CUDA's Philox
+#: stream is not the CPU's), and each run holds its allocation within
+#: ``xmin_linf_band`` (8e-4) of the same leximin values, so 2 × 8e-4; LEGACY's
+#: draws differ for the same reason: each agent within 5 standard deviations
+#: of the difference of two 10,000-draw estimates
+EXAMPLE_SMALL_TOL = 1e-6
+EXAMPLE_SMALL_XMIN_TOL = 2 * 8e-4
+
+
+def analysis_data(root, inst):
+    """``inst`` as ``<root>/sf_e_skewed_110/`` in the two-CSV schema, with an
+    ``intersections.csv`` in the reference schema beside it: every pair of
+    the pool's cells from two categories, each with its share of the pool,
+    to four places, stated as the population share."""
+    import csv
+
+    from citizensassemblies_tpu_torch.core.generator import write_instance_csvs
+    from citizensassemblies_tpu_torch.core.instance import featurize
+
+    d = root / "sf_e_skewed_110"
+    write_instance_csvs(inst, d)
+    dense, space = featurize(inst, device="cpu")
+    A = dense.A_np
+    with open(d / "intersections.csv", "w", newline="", encoding="utf-8") as fh:
+        w = csv.writer(fh)
+        w.writerow(["category 1", "feature 1", "category 2", "feature 2", "population share"])
+        for i, (c1, f1) in enumerate(space.cells):
+            for j in range(i + 1, len(space.cells)):
+                c2, f2 = space.cells[j]
+                if c1 != c2:
+                    w.writerow([c1, f1, c2, f2, f"{float((A[:, i] & A[:, j]).mean()):.4f}"])
+    return d
+
+
+def figures_context():
+    """``(context, status)``: with matplotlib installed the figure writers
+    draw as they are; without it the context stands a stub in for their
+    pyplot, so the writers still write their CSVs and draw nothing."""
+    import contextlib
+    import importlib.util
+    from unittest import mock
+
+    from citizensassemblies_tpu_torch.analysis import plots
+
+    if importlib.util.find_spec("matplotlib") is not None:
+        return contextlib.nullcontext(), "rendered"
+    plt = mock.MagicMock()
+    plt.subplots.return_value = (mock.MagicMock(), mock.MagicMock())
+    return mock.patch.object(plots, "_pyplot", return_value=plt), "not rendered: matplotlib absent"
+
+
+def analysis_main(argv, libs, cached=False):
+    """``python -m citizensassemblies_tpu_torch <argv>`` in this process,
+    every launch counter zeroed just before and read just after; each
+    cached pass (``run_*_or_retrieve``) and each figure writer timed, the
+    clock stopped after ``torch.cuda.synchronize()``. ``cached``: the
+    passes' solvers raise, so every pass must come from the cache. Returns
+    ``(rc, AnalysisResult, launches, seconds, pass_seconds, plot_seconds,
+    figures)``."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from citizensassemblies_tpu_torch.analysis import cache, cli, plots, report
+
+    captured, passes, plot_s = {}, [], []
+    analyze = report.analyze_instance
+
+    def capture(*a, **kw):
+        captured["result"] = analyze(*a, **kw)
+        return captured["result"]
+
+    def timed(fn, store, label=None):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            store.append([label, secs] if label else secs)
+            return out
+        return run
+
+    figures_ctx, figures = figures_context()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(figures_ctx)
+        stack.enter_context(mock.patch.object(report, "analyze_instance", capture))
+        for name in ("run_legacy_or_retrieve", "run_leximin_or_retrieve", "run_xmin_or_retrieve"):
+            stack.enter_context(mock.patch.object(
+                report, name, timed(getattr(report, name), passes, name[4:-12])))
+        for name in ("plot_number_of_panels", "plot_pair_probability",
+                     "plot_probability_allocations", "plot_ratio_products",
+                     "plot_intersectional_representation"):
+            stack.enter_context(mock.patch.object(plots, name, timed(getattr(plots, name), plot_s)))
+        if cached:
+            for name in ("legacy_probabilities", "find_distribution_leximin",
+                         "find_distribution_xmin"):
+                stack.enter_context(mock.patch.object(
+                    cache, name, side_effect=AssertionError(f"{name} ran: cache missed")))
+        for lib in libs:
+            lib.reset_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = {lib.name: lib.launches for lib in libs}
+    launches["ell_gather_bf16"] = bf16_gathers()
+    return rc, captured.get("result"), launches, secs, passes, float(sum(plot_s)), figures
+
+
+def analysis_outputs(out, stem):
+    """The statistics text, CSV headers and figures present in ``out``."""
+    import csv
+
+    text = (out / f"{stem}_statistics.txt").read_text(encoding="utf-8")
+    headers = {}
+    for name in CSV_HEADERS:
+        with open(out / f"{stem}_{name}", encoding="utf-8") as fh:
+            headers[name] = next(csv.reader(fh))
+    return text, headers, [f for f in FIGURES if (out / f"{stem}_{f}").exists()]
+
+
+def analysis_flagship_phase(root, libs, leximin, xmin):
+    """The analysis CLI on the flagship pool through the two-CSV round trip
+    (``analysis_data``), at the defaults, with the timing harness: LEGACY
+    twice (10,000 draws), LEXIMIN, XMIN (its own LEXIMIN seed), the
+    statistics, figures and CSVs, three timed LEXIMIN runs. Held: the
+    LEXIMIN allocation bit for bit the defaults flagship's (``leximin``), the
+    XMIN allocation that of ``xmin_sf_e_skewed`` (``xmin``; bit for bit
+    expected, else within 1e-3), both contract lines "satisfied", every line
+    of the JAX package's layout (``ANALYSIS_NEEDLES``, the seven ``MSE``
+    lines, the timing line), the CSV headers, every figure where matplotlib
+    is installed, and launches of the two-sided kernel and the gather.
+    Returns ``(rec, statistics text, argv)``."""
+    from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
+    from citizensassemblies_tpu_torch.ops.intersections import DIFF_PAIRS
+
+    data = analysis_data(root / "data", sf_e_skewed_instance(seed=1))
+    out = root / "analysis"
+    argv = ["sf_e_skewed", "110", "--data-dir", str(data.parent), "--out-dir", str(out),
+            "--cache-dir", str(root / "distributions")]
+    rc, res, launches, secs, passes, plot_s, figures = analysis_main(argv, libs)
+    text, headers, drawn = analysis_outputs(out, "sf_e_skewed_110")
+    lex, xm = res.runs["leximin"].allocation, res.runs["xmin"].allocation
+    xmin_gap = float(np.abs(xm - xmin.allocation).max())
+    contract = [ln for ln in text.splitlines() if "realization contract" in ln]
+    mse_lines = [f"MSE({a}, {b})\t" for a, b in DIFF_PAIRS]
+    missing = [x for x in (*ANALYSIS_NEEDLES, *mse_lines, TIMING_LINE) if x not in text]
+    rec = dict(
+        phase="analysis_flagship", seconds=secs, passes=passes, plot_seconds=plot_s,
+        timing_median_s=res.timing_median_s, launches=launches, figures=figures,
+        figures_drawn=drawn, stats=res.stats, minimizer_ucb=res.minimizer_ucb,
+        share_below_leximin_min=res.share_below_leximin_min,
+        intersection_rows=sum(1 for _ in open(data / "intersections.csv")) - 1,
+        mses={f"{a} | {b}": v for (a, b), v in res.intersection_mses.items()},
+        unique_panels={t: len(r.unique_panels) for t, r in res.runs.items()},
+        leximin_bit_identical=bool(np.array_equal(lex, leximin.allocation)),
+        xmin_bit_identical=bool(np.array_equal(xm, xmin.allocation)), xmin_gap=xmin_gap,
+        contract_lines=contract, missing_lines=missing, csv_headers=headers,
+        cache_mb={p.name: p.stat().st_size / 2**20 for p in sorted((root / "distributions").iterdir())},
+    )
+    rec["ok"] = bool(
+        rc == 0 and rec["leximin_bit_identical"] and xmin_gap <= E2E_CONTRACT
+        and len(contract) == 2 and all("\tsatisfied (" in ln for ln in contract)
+        and not missing and headers == CSV_HEADERS
+        and (figures != "rendered" or len(drawn) == len(FIGURES))
+        and launches["two_sided_block"] > 0 and launches["ell_gather"] > 0
+        and all(np.isfinite(v) for st in res.stats.values() for v in st.values())
+    )
+    print(json.dumps(rec), flush=True)
+    return rec, text, argv
+
+
+def analysis_cached_phase(libs, argv, first_text):
+    """The same CLI call again with ``--skiptiming``: every pass must load
+    from the cache (the solvers raise if called) with no kernel launch, and
+    ``statistics.txt`` must equal the first run's save for its last line,
+    the timing line, which reads "Skip timing." here."""
+    from pathlib import Path
+
+    rc, res, launches, secs, passes, plot_s, figures = analysis_main(
+        argv + ["--skiptiming"], libs, cached=True)
+    out = Path(argv[argv.index("--out-dir") + 1])
+    text = (out / "sf_e_skewed_110_statistics.txt").read_text(encoding="utf-8")
+    first, again = first_text.splitlines(), text.splitlines()
+    rec = dict(
+        phase="analysis_cached", seconds=secs, passes=passes, plot_seconds=plot_s,
+        launches=launches, figures=figures, last_line=again[-1],
+        same_statistics=first[:-1] == again[:-1],
+    )
+    rec["ok"] = bool(
+        rc == 0 and res is not None and not any(launches.values())
+        and rec["same_statistics"] and again[-1] == "Skip timing."
+        and first[-1].startswith(TIMING_LINE)
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def analysis_example_small_phase(root, libs):
+    """``--generate``, then ``example_small_20 20`` through the CLI on the
+    card with the timing harness, and the same CLI with ``--device cpu``
+    (``--skiptiming``: the CPU's LEXIMIN times are not what is compared).
+    Held: LEXIMIN's allocation and statistics within ``EXAMPLE_SMALL_TOL`` of
+    the CPU's and its least probability of ``EXAMPLE_SMALL_LEXIMIN_MIN``;
+    XMIN's within ``EXAMPLE_SMALL_XMIN_TOL``; LEGACY's allocation agent by
+    agent within 5 standard deviations of the difference of two estimates;
+    both contracts; the kernels launched on the card's run."""
+    data = root / "data"
+    rcs = [analysis_main(["--generate", "--data-dir", str(data)], libs)[0]]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        argv = ["example_small", "20", "--data-dir", str(data), "--out-dir", str(root / dev),
+                "--cache-dir", str(root / f"{dev}_distributions"), "--device", dev]
+        rc, res, launches, secs, passes, plot_s, figures = analysis_main(
+            argv + (["--skiptiming"] if dev == "cpu" else []), libs)
+        rcs.append(rc)
+        runs[dev] = dict(res=res, launches=launches, seconds=secs, passes=passes)
+    g, c = runs["cuda"]["res"], runs["cpu"]["res"]
+    draws = g.runs["legacy"].num_draws
+
+    def gap(tag):
+        return float(np.abs(g.runs[tag].allocation - c.runs[tag].allocation).max())
+
+    def stat_gap(tag):
+        return max(abs(g.stats[tag][f] - c.stats[tag][f]) for f in g.stats[tag])
+
+    pbar = (g.runs["legacy"].allocation + c.runs["legacy"].allocation) / 2
+    legacy_z = float(np.max(
+        np.abs(g.runs["legacy"].allocation - c.runs["legacy"].allocation)
+        / np.sqrt(np.maximum(2 * pbar * (1 - pbar) / draws, 1e-12))))
+    rec = dict(
+        phase="analysis_example_small", card_seconds=runs["cuda"]["seconds"],
+        cpu_seconds=runs["cpu"]["seconds"], card_passes=runs["cuda"]["passes"],
+        cpu_passes=runs["cpu"]["passes"], timing_median_s=g.timing_median_s,
+        launches=runs["cuda"]["launches"], cpu_launches=runs["cpu"]["launches"],
+        figures=figures, leximin_min=g.stats["leximin"]["min"],
+        leximin_min_cpu=c.stats["leximin"]["min"], leximin_gap=gap("leximin"),
+        leximin_stat_gap=stat_gap("leximin"), xmin_gap=gap("xmin"),
+        xmin_stat_gap=stat_gap("xmin"), legacy_max_z=legacy_z,
+        contract_ok={d: [r.runs[t].contract_ok for t in ("leximin", "xmin")]
+                     for d, r in (("cuda", g), ("cpu", c))},
+    )
+    rec["ok"] = bool(
+        rcs == [0, 0, 0] and rec["leximin_gap"] <= EXAMPLE_SMALL_TOL
+        and rec["leximin_stat_gap"] <= EXAMPLE_SMALL_TOL
+        and abs(rec["leximin_min"] - EXAMPLE_SMALL_LEXIMIN_MIN) <= EXAMPLE_SMALL_TOL
+        and rec["xmin_gap"] <= EXAMPLE_SMALL_XMIN_TOL
+        and rec["xmin_stat_gap"] <= EXAMPLE_SMALL_XMIN_TOL and legacy_z <= 5.0
+        and all(all(v) for v in rec["contract_ok"].values())
+        and not any(rec["cpu_launches"].values())
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def analysis_phases(libs, leximin, xmin):
+    """Every analysis phase, in order, in one temporary directory; returns
+    their records by name."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        flagship, text, argv = analysis_flagship_phase(root / "flagship", libs, leximin, xmin)
+        cached = analysis_cached_phase(libs, argv, text)
+        small = analysis_example_small_phase(root / "example_small", libs)
+    return dict(flagship=flagship, cached=cached, example_small=small)
+
+
 def households_phases(cfg, libs):
     """Every household phase, in order; returns their records by name."""
     hold = households_hold_phase(cfg, libs)
@@ -2760,6 +3065,13 @@ def main() -> int:
         skewed_instance(n=120, k=12, n_categories=3, seed=1), agent_cfg, agent_dist,
     )
     faults = faults_flagship_phase(sf_e_skewed_instance(seed=1), defaults_cfg, lex_defaults)
+    # the analysis layer (queue A item 5) through its CLI: the flagship's
+    # LEXIMIN and XMIN passes and the timing harness on the two-sided kernel
+    # and the gather; their launches count with the main path's
+    analysis = analysis_phases(libs, lex_defaults, xmin_dist)
+    for rec in (analysis["flagship"], analysis["example_small"]):
+        for name, count in rec["launches"].items():
+            launches[name] += count
 
     def summary(name, rec, phase_recs, holds):
         return dict(
@@ -2772,7 +3084,7 @@ def main() -> int:
         )
 
     gather_row = summary("ell_gather", gather, [gather, gather_dual, gather_xmin, gather_bf16],
-                         [households["n1200"], households["xmin"]])
+                         [households["n1200"], households["xmin"], analysis["flagship"]])
     # the bf16-value path of the same kernel, at XMIN's demoted pack
     gather_row.update(
         bf16_launches=launches["ell_gather_bf16"], bf16_ms=gather_bf16["ms"],
@@ -2782,7 +3094,7 @@ def main() -> int:
     kernels = [
         gather_row,
         summary("two_sided_block", b1, [b1, b3, bnan, screen],
-                [households["hold"], households["n1200"]]),
+                [households["hold"], households["n1200"], analysis["flagship"]]),
         summary("lp_block", lp, [lp, lp_sf_b], [households["agent"]]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2791,7 +3103,7 @@ def main() -> int:
     failed = [
         r for r in (e2e, e2e_defaults, xmin, xmin_hold, l2_serial, mass, legacy, agent, agent_sf_b,
                     dense_graph, stage_cg, stage_cg_pricing, *households.values(), ckpt_face,
-                    ckpt_lex, faults)
+                    ckpt_lex, faults, *analysis.values())
         if not r["ok"]
     ]
     if failed:

@@ -2,10 +2,12 @@
 
 The PyTorch and CUDA counterpart of the JAX package ``citizensassemblies_tpu``,
 with the same module layout (``core/``, ``solvers/``, ``models/``,
-``kernels/``, ``utils/``). It imports neither JAX nor the JAX package. Entry
-points take an explicit ``device`` and run on the GPU unless the caller asks
-for the CPU (``device="cpu"``); the hand-written Hopper kernels live under
-``csrc/`` and are built at first use (``kernels/cuda_lib.py``).
+``kernels/``, ``ops/``, ``analysis/``, ``utils/``; the analysis CLI is
+``python -m citizensassemblies_tpu_torch``). It imports neither JAX nor the
+JAX package. Entry points take an explicit ``device`` and run on the GPU
+unless the caller asks for the CPU (``device="cpu"``); the hand-written
+Hopper kernels live under ``csrc/`` and are built at first use
+(``kernels/cuda_lib.py``).
 """
 
 from citizensassemblies_tpu_torch.core.instance import (
@@ -14,8 +16,10 @@ from citizensassemblies_tpu_torch.core.instance import (
     InfeasibleQuotasError,
     Instance,
     SelectionError,
+    compute_households,
     featurize,
     read_instance,
+    read_instance_dir,
 )
 from citizensassemblies_tpu_torch.models import (
     Distribution,
@@ -33,10 +37,12 @@ __all__ = [
     "InfeasibleQuotasError",
     "Instance",
     "SelectionError",
+    "compute_households",
     "default_config",
     "featurize",
     "find_distribution_leximin",
     "find_distribution_xmin",
     "legacy_probabilities",
     "read_instance",
+    "read_instance_dir",
 ]

@@ -7,12 +7,15 @@ per-combination counts), and parameterized random instance families at reference
 withheld, so benchmarks run on synthetic pools with matching shape
 statistics), plus a stand-in shaped like ``example_small_20``. The same
 seed gives the same instance as the JAX package's generator.
+:func:`write_instance_csvs` writes an instance in the two-CSV input schema.
 """
 
 from __future__ import annotations
 
+import csv
 import itertools
 import math
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -265,6 +268,108 @@ def sf_d_skewed_instance(seed: int = 1) -> Instance:
     )
 
 
+def cca_skewed_instance(seed: int = 1) -> Instance:
+    """Heterogeneous synthetic stand-in shaped like ``cca_75`` — the
+    second-hardest reference instance (n=825, k=75, 4 categories, LEXIMIN
+    Gini 67.8 % / runtime 433.5 s,
+    ``reference_output/cca_75_statistics.txt:2-5,9,15``). The real pool is
+    withheld; skew 1.0 with the default seed lands the exact leximin profile
+    in the real band — measured Gini 0.687 / min 2.1 % vs the real 0.678 /
+    2.4 %."""
+    return skewed_instance(
+        n=825,
+        k=75,
+        n_categories=4,
+        features_per_category=[2, 4, 5, 3],
+        seed=seed,
+        skew=1.0,
+        name="cca_skewed_75",
+    )
+
+
+def obf_skewed_instance(seed: int = 1) -> Instance:
+    """Heterogeneous synthetic stand-in shaped like ``obf_30`` — the
+    most category-rich reference instance (n=321, k=30, 8 categories,
+    LEXIMIN Gini 42.7 % / runtime 183.9 s,
+    ``reference_output/obf_30_statistics.txt:2-5,9,15``). Skew 0.65 with the
+    default seed lands in the real band — measured Gini 0.446 / min 4.9 % vs
+    the real 0.427 / 4.7 %."""
+    return skewed_instance(
+        n=321,
+        k=30,
+        n_categories=8,
+        features_per_category=[2, 3, 4, 2, 3, 2, 4, 5],
+        seed=seed,
+        skew=0.65,
+        name="obf_skewed_30",
+    )
+
+
+def hd_skewed_instance(seed: int = 2) -> Instance:
+    """Heterogeneous synthetic stand-in shaped like ``hd_30`` (n=239, k=30,
+    7 categories, LEXIMIN Gini 52.9 % / min 5.1 % / runtime 37.2 s,
+    ``reference_output/hd_30_statistics.txt:2-5,9,15``). Skew 0.8 with the
+    default seed matches the real Gini closely (measured 0.535 vs 0.529)
+    though its minimum probability sits lower (2.5 % vs 5.1 %)."""
+    return skewed_instance(
+        n=239,
+        k=30,
+        n_categories=7,
+        features_per_category=[2, 3, 2, 4, 3, 2, 3],
+        seed=seed,
+        skew=0.8,
+        name="hd_skewed_30",
+    )
+
+
+def nexus_skewed_instance(seed: int = 1) -> Instance:
+    """Heterogeneous synthetic stand-in shaped like ``nexus_170`` — the
+    high-selection-ratio reference instance (n=342, k=170: half the pool is
+    selected; 5 categories, LEXIMIN Gini 25.4 % / min 32.5 % / runtime
+    83.4 s, ``reference_output/nexus_170_statistics.txt:2-5,9,15``). Skew 0.5
+    with the default seed lands in the real band — measured Gini 0.292 /
+    min 26.4 %."""
+    return skewed_instance(
+        n=342,
+        k=170,
+        n_categories=5,
+        features_per_category=[2, 3, 4, 2, 3],
+        seed=seed,
+        skew=0.5,
+        name="nexus_skewed_170",
+    )
+
+
+def sf_a_skewed_instance(seed: int = 1) -> Instance:
+    """Heterogeneous synthetic stand-in shaped like ``sf_a_35`` (n=312, k=35,
+    6 categories, LEXIMIN Gini 37.3 % / min 6.7 % / runtime 19.6 s,
+    ``reference_output/sf_a_35_statistics.txt:2-5,9,15``)."""
+    return skewed_instance(
+        n=312,
+        k=35,
+        n_categories=6,
+        features_per_category=[2, 3, 4, 2, 3, 3],
+        seed=seed,
+        skew=0.6,
+        name="sf_a_skewed_35",
+    )
+
+
+def sf_c_skewed_instance(seed: int = 1) -> Instance:
+    """Heterogeneous synthetic stand-in shaped like ``sf_c_44`` (n=161, k=44,
+    7 categories, LEXIMIN Gini 52.5 % / min 8.6 % / runtime 6.0 s,
+    ``reference_output/sf_c_44_statistics.txt:2-5,9,15``)."""
+    return skewed_instance(
+        n=161,
+        k=44,
+        n_categories=7,
+        features_per_category=[2, 3, 2, 3, 2, 3, 2],
+        seed=seed,
+        skew=0.7,
+        name="sf_c_skewed_44",
+    )
+
+
 def mass_like_instance(seed: int = 3) -> Instance:
     """A mass_24-shaped instance: n=70, k=24, 5 categories, with two
     categories fully pinned (min = max on every cell), the tight-quota
@@ -293,6 +398,57 @@ def mass_like_instance(seed: int = 3) -> Instance:
     return dataclasses.replace(base, categories=cats)
 
 
+def sf_e_like_instance(seed: int = 0) -> Instance:
+    """Synthetic stand-in for the withheld ``sf_e_110`` pool: n=1727, k=110,
+    7 quota categories (shape from ``reference_output/sf_e_110_statistics.txt:2-5``)."""
+    return random_instance(
+        n=1727,
+        k=110,
+        n_categories=7,
+        features_per_category=[2, 4, 5, 3, 2, 4, 6],
+        seed=seed,
+        quota_slack=0.3,
+        name="sf_e_like_110",
+    )
+
+
+def sf_e_schema_instance(seed: int = 1, n: int = 1727, k: int = 110) -> Instance:
+    """sf_e_110-shaped synthetic pool carrying the REAL anonymized schema of
+    the one sf_e artifact the reference ships,
+    ``data/sf_e_110/intersections.csv`` (346 rows; the pool itself is withheld
+    for privacy, ``README.md:125-132``): 7 categories named ``a``–``g`` with
+    feature counts (3, 4, 12, 3, 5, 2, 2) and features named ``a1``…``g2``, so
+    the shipped intersections file parses against this pool's feature space
+    verbatim and the C21 pipeline (``ops/intersections.py``) can be exercised
+    on real data end-to-end. ``n``/``k`` default to the real shape; smaller
+    values keep the schema (every feature still appears in the pool) for
+    CPU-sized tests.
+    """
+    import dataclasses
+
+    base = skewed_instance(
+        n=n,
+        k=k,
+        n_categories=7,
+        features_per_category=[3, 4, 12, 3, 5, 2, 2],
+        seed=seed,
+        skew=0.4,
+        name="sf_e_110",
+    )
+    cat_names = ["a", "b", "c", "d", "e", "f", "g"]
+    renames: Dict[str, Tuple[str, Dict[str, str]]] = {}
+    categories: Dict[str, Dict[str, Quota]] = {}
+    for (old_cat, feats), new_cat in zip(base.categories.items(), cat_names):
+        fmap = {old: f"{new_cat}{i + 1}" for i, old in enumerate(feats)}
+        renames[old_cat] = (new_cat, fmap)
+        categories[new_cat] = {fmap[old]: q for old, q in feats.items()}
+    agents = [
+        {renames[c][0]: renames[c][1][f] for c, f in agent.items()}
+        for agent in base.agents
+    ]
+    return dataclasses.replace(base, categories=categories, agents=agents)
+
+
 def example_small_like_instance(seed: int = 0) -> Instance:
     """Synthetic stand-in shaped like ``example_small_20``: n=200, k=20, two
     binary categories with quotas [9, 20] (see
@@ -310,3 +466,24 @@ def example_small_like_instance(seed: int = 0) -> Instance:
         for _ in range(200)
     ]
     return Instance(k=20, categories=categories, agents=agents, name="example_small_like_20")
+
+
+def write_instance_csvs(instance: Instance, directory: Union[str, Path]) -> None:
+    """Write ``categories.csv`` + ``respondents.csv`` in the reference input
+    schema (``README.md`` data format; note the reference generator writes
+    typo'd ``categories.cvs``/``respondentes.cvs`` — we emit the names the CLI
+    actually consumes, ``analysis.py:660-666``)."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / "categories.csv", "w", newline="", encoding="utf-8") as fh:
+        writer = csv.writer(fh)
+        writer.writerow(["category", "feature", "min", "max"])
+        for cat, feats in instance.categories.items():
+            for feat, (lo, hi) in feats.items():
+                writer.writerow([cat, feat, lo, hi])
+    cat_names = list(instance.categories)
+    with open(directory / "respondents.csv", "w", newline="", encoding="utf-8") as fh:
+        writer = csv.writer(fh)
+        writer.writerow(cat_names)
+        for agent in instance.agents:
+            writer.writerow([agent[c] for c in cat_names])

@@ -231,6 +231,22 @@ def read_instance(
     )
 
 
+def read_instance_dir(directory: Union[str, Path], k: Optional[int] = None) -> Instance:
+    """Read ``<name>_<k>/categories.csv`` + ``respondents.csv`` the way the
+    reference CLI resolves instances (``analysis.py:649-668,703-705``)."""
+    directory = Path(directory)
+    if k is None:
+        stem, _, k_str = directory.name.rpartition("_")
+        if not stem or not k_str.isdigit():
+            raise ValueError(
+                f"directory name {directory.name!r} does not end in underscore + panel size"
+            )
+        k = int(k_str)
+    return read_instance(
+        directory / "categories.csv", directory / "respondents.csv", k, name=directory.name
+    )
+
+
 def featurize(
     instance: Instance, device: DeviceLike = None
 ) -> Tuple[DenseInstance, FeatureSpace]:
@@ -264,6 +280,19 @@ def featurize(
     return dense, space
 
 
+def validate_quotas(instance: Instance) -> None:
+    """Per-category sanity asserted by the reference before Monte-Carlo
+    estimation (``analysis.py:174-176``): the lower quotas of a category must
+    not exceed k in total, and the upper quotas must reach k."""
+    for cat, feats in instance.categories.items():
+        lo = sum(q[0] for q in feats.values())
+        hi = sum(q[1] for q in feats.values())
+        if lo > instance.k:
+            raise SelectionError(f"lower quotas of category {cat!r} sum to {lo} > k={instance.k}")
+        if hi < instance.k:
+            raise SelectionError(f"upper quotas of category {cat!r} sum to {hi} < k={instance.k}")
+
+
 def compute_households(
     instance: Instance, address_columns: Sequence[str]
 ) -> np.ndarray:
@@ -287,3 +316,16 @@ def compute_households(
         key = tuple(cols.get(c, "") for c in address_columns)
         out[i] = ids.setdefault(key, len(ids))
     return out
+
+
+def panels_to_matrix(panels: Sequence[Sequence[int]], n: int) -> np.ndarray:
+    """Stack agent-index panels into a binary portfolio matrix P ∈ {0,1}^{|C|×n}."""
+    P = np.zeros((len(panels), n), dtype=bool)
+    for row, panel in enumerate(panels):
+        P[row, list(panel)] = True
+    return P
+
+
+def matrix_to_panels(P: np.ndarray) -> List[Tuple[int, ...]]:
+    """Inverse of :func:`panels_to_matrix` (sorted agent ids per row)."""
+    return [tuple(np.nonzero(row)[0].tolist()) for row in np.asarray(P)]

@@ -24,6 +24,8 @@ class Config:
     support_eps: float = 1e-11
 
     # --- LEGACY Monte-Carlo ---------------------------------------------------
+    #: number of Monte-Carlo panel draws (reference ``analysis.py:288``).
+    mc_iterations: int = 10_000
     #: chains drawn per batch by the LEGACY sampler.
     mc_batch: int = 2_048
     #: resampling sweeps with no accepted panel before LEGACY gives up.

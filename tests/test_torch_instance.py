@@ -154,3 +154,99 @@ def test_robust_linprog_matches():
         assert a.status == t.status == 0
         np.testing.assert_array_equal(a.x, t.x)
         assert a.fun == t.fun
+
+
+#: the bench families ported with the analysis layer, each built by both
+#: packages' generators from its default seed
+FAMILIES = {
+    "cca": lambda g: g.cca_skewed_instance(),
+    "obf": lambda g: g.obf_skewed_instance(),
+    "hd": lambda g: g.hd_skewed_instance(),
+    "nexus": lambda g: g.nexus_skewed_instance(),
+    "sf_a": lambda g: g.sf_a_skewed_instance(),
+    "sf_c": lambda g: g.sf_c_skewed_instance(),
+    "sf_e_like": lambda g: g.sf_e_like_instance(),
+    "sf_e_schema": lambda g: g.sf_e_schema_instance(),
+    "sf_e_schema_small": lambda g: g.sf_e_schema_instance(n=120, k=24),
+}
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_generator_family_matches(name):
+    j, t = FAMILIES[name](jgen), FAMILIES[name](tgen)
+    assert (t.k, t.name, t.columns_data) == (j.k, j.name, j.columns_data)
+    # dict equality ignores order; the feature axis is built in file order
+    assert list(t.categories) == list(j.categories)
+    assert [list(f.items()) for f in t.categories.values()] == [
+        list(f.items()) for f in j.categories.values()
+    ]
+    assert t.agents == j.agents
+
+
+@pytest.mark.parametrize("name", ["example_small_like", "sf_e_skewed_seed1"])
+def test_write_read_instance_round_trip(name, tmp_path):
+    """``write_instance_csvs`` → ``read_instance_dir`` keeps the order of
+    categories, features and agents, so the featurized pool is the one in
+    memory; the port writes the JAX package's bytes."""
+    from citizensassemblies_tpu_torch.core.instance import read_instance_dir
+
+    inst = INSTANCES[name](tgen)
+    d = tmp_path / "port" / f"{name}_{inst.k}"
+    tgen.write_instance_csvs(inst, d)
+    jgen.write_instance_csvs(INSTANCES[name](jgen), tmp_path / "jax")
+    for f in ("categories.csv", "respondents.csv"):
+        assert (d / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
+    back = read_instance_dir(d)
+    assert (back.k, back.name) == (inst.k, d.name)
+    assert list(back.categories) == list(inst.categories)
+    assert [list(f.items()) for f in back.categories.values()] == [
+        list(f.items()) for f in inst.categories.values()
+    ]
+    assert back.agents == inst.agents
+    a, _ = t_featurize(inst, device="cpu")
+    b, _ = t_featurize(back, device="cpu")
+    assert a.host == b.host
+    np.testing.assert_array_equal(a.cat_of_feature_np, b.cat_of_feature_np)
+    with pytest.raises(ValueError, match="panel size"):
+        read_instance_dir(tmp_path / "port")
+
+
+@pytest.mark.parametrize("quotas,k,raises", [
+    ({"g": {"a": (1, 3), "b": (1, 3)}}, 4, None),
+    ({"g": {"a": (3, 3), "b": (2, 3)}}, 4, "lower quotas"),
+    ({"g": {"a": (0, 1), "b": (0, 2)}, "h": {"x": (0, 4)}}, 4, "upper quotas"),
+])
+def test_validate_quotas_matches(quotas, k, raises):
+    from citizensassemblies_tpu.core.instance import Instance as JInstance
+    from citizensassemblies_tpu.core.instance import SelectionError as JSelectionError
+    from citizensassemblies_tpu.core.instance import validate_quotas as j_validate
+
+    from citizensassemblies_tpu_torch.core.instance import Instance as TInstance
+    from citizensassemblies_tpu_torch.core.instance import SelectionError as TSelectionError
+    from citizensassemblies_tpu_torch.core.instance import validate_quotas as t_validate
+
+    agents = [{c: next(iter(f)) for c, f in quotas.items()}] * 6
+    if raises is None:
+        j_validate(JInstance(k=k, categories=quotas, agents=agents))
+        t_validate(TInstance(k=k, categories=quotas, agents=agents))
+        return
+    with pytest.raises(JSelectionError, match=raises) as j_exc:
+        j_validate(JInstance(k=k, categories=quotas, agents=agents))
+    with pytest.raises(TSelectionError, match=raises) as t_exc:
+        t_validate(TInstance(k=k, categories=quotas, agents=agents))
+    assert str(t_exc.value) == str(j_exc.value)
+
+
+def test_panels_matrix_round_trip_matches():
+    from citizensassemblies_tpu.core.instance import matrix_to_panels as j_m2p
+    from citizensassemblies_tpu.core.instance import panels_to_matrix as j_p2m
+
+    from citizensassemblies_tpu_torch.core.instance import matrix_to_panels as t_m2p
+    from citizensassemblies_tpu_torch.core.instance import panels_to_matrix as t_p2m
+
+    rng = np.random.default_rng(8)
+    panels = [tuple(sorted(rng.choice(50, 7, replace=False).tolist())) for _ in range(30)]
+    P = t_p2m(panels, 50)
+    np.testing.assert_array_equal(P, j_p2m(panels, 50))
+    assert P.dtype == bool and P.shape == (30, 50)
+    assert t_m2p(P) == j_m2p(P) == panels
