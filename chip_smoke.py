@@ -107,7 +107,22 @@ Phases, each fatal on failure:
    with no launch and the same statistics; and the ``--generate``
    ``example_small_20`` pool on the card against the CPU. Where matplotlib
    is not installed the figure writers draw nothing (the phases say so) and
-   still write their CSVs.
+   still write their CSVs;
+10. distribution (``dist/``, ``parallel/``): ``make_mesh(1)`` over a real
+   one-rank NCCL world (an ``all_reduce``, the topology, the gauges,
+   ``effective_mesh`` None on one device, the world torn down); over a
+   second one-rank world, the chain-parallel sampler on the flagship pool
+   at 10,000 chains bit for bit the undistributed draw and a 2,048-chain
+   Monte-Carlo round equal to a recount; the dropout realization on the
+   defaults flagship LEXIMIN portfolio, 65,536 draws a policy with and
+   without the mesh bit for bit, the card against the CPU within 5σ at
+   4,096 draws; the row-sharded dual LP at the flagship dual LP's shape on
+   its ELL route (the gather kernel; its launches join the kernels line's)
+   and dense, against HiGHS (solved in a worker process started after the
+   build) and the LP kernel; the row-sharded face master on the flagship
+   master against the two-sided kernel; and the instance sweep over
+   ``sf_e_skewed_instance(seed=1..4)``, each instance bit for bit the
+   per-instance sampler on its noise rows.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
 line, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -495,6 +510,15 @@ def gather_bf16_phase(pack, label="gather_xmin_bf16"):
     return rec
 
 
+def flagship_target(MT):
+    """The target the flagship master phases solve for: the profile of a
+    random mixture of the first 1536 columns (so each LP has optimum 0)."""
+    rng = np.random.default_rng(1)
+    p_true = np.zeros(MT.shape[1])
+    p_true[:1536] = rng.dirichlet(np.ones(1536))
+    return MT @ p_true
+
+
 def _solve_lanes(pack, MT, caps, nan_lane=None, max_iters=SOLVE_MAX_ITERS):
     """Inputs of a B-lane two-sided solve over the flagship pack: lane b
     sees the first ``caps[b]`` columns; ``v`` is realizable by the first
@@ -506,10 +530,7 @@ def _solve_lanes(pack, MT, caps, nan_lane=None, max_iters=SOLVE_MAX_ITERS):
 
     dev = torch.device("cuda")
     T, C = MT.shape
-    rng = np.random.default_rng(1)
-    p_true = np.zeros(C)
-    p_true[:1536] = rng.dirichlet(np.ones(1536))
-    v = MT @ p_true
+    v = flagship_target(MT)
     B = len(caps)
     colmask = np.zeros((B, C), np.float32)
     for b, cap in enumerate(caps):
@@ -710,10 +731,18 @@ def dual_lp_operands(m1: int = 4096, seed: int = 0, pool=None):
     (``pool`` when given; drawn as :func:`flagship_pack` draws them), about
     10 % of the agents fixed at values in [0.02, 0.08]. Returns ``(c,
     EllPack of G, h, A, b)``."""
-    from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
-    from citizensassemblies_tpu_torch.core.instance import featurize
     from citizensassemblies_tpu_torch.solvers.lp_pdhg import dual_lp_operands as build
     from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
+
+    c, G, h, A, b = build(*dual_lp_problem(m1, seed, pool))
+    return c, EllPack.from_rows(G), h, A, b
+
+
+def dual_lp_problem(m1: int = 4096, seed: int = 0, pool=None):
+    """The portfolio ``P [m1, n]`` and the fixed probabilities of
+    :func:`dual_lp_operands`' dual LP."""
+    from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
+    from citizensassemblies_tpu_torch.core.instance import featurize
 
     dense, _ = featurize(pool if pool is not None else sf_e_skewed_instance(seed=1), device="cpu")
     n, k = dense.n, dense.k
@@ -724,8 +753,7 @@ def dual_lp_operands(m1: int = 4096, seed: int = 0, pool=None):
     fixed = np.full(n, -1.0)
     chosen = rng.choice(n, size=n // 10, replace=False)
     fixed[chosen] = rng.uniform(0.02, 0.08, size=chosen.size)
-    c, G, h, A, b = build(P, fixed)
-    return c, EllPack.from_rows(G), h, A, b
+    return P, fixed
 
 
 def lp_inputs(ops, blocks=None):
@@ -2950,6 +2978,500 @@ def analysis_phases(libs, leximin, xmin):
     return dict(flagship=flagship, cached=cached, example_small=small)
 
 
+# --- distribution (ROADMAP queue A item 7) -----------------------------------------
+#: the dropout realization's draws on the card, per policy, and its
+#: card-against-CPU draws
+DROPOUT_DRAWS = 65_536
+DROPOUT_CPU_DRAWS = 4_096
+#: the sharded dual LP's bars against HiGHS and the undistributed LP kernel
+SHARDED_DUAL_TOL = 1e-4
+#: the sharded master's bars: its arithmetic ε, Σp, and its ε against the
+#: two-sided kernel's solve of the same LP
+SHARDED_MASTER_EPS = 5e-4
+SHARDED_MASTER_SUM = 1e-6
+SHARDED_MASTER_VS_KERNEL = 1e-3
+#: how far below the kernel's realized ε the optimum that the sharded
+#: master's duals certify may read, and how far that certificate may
+#: differ from the one of the kernel's duals
+SHARDED_MASTER_DUAL = 1e-4
+#: the sharded master's aiming duals against the kernel's, relative in L1
+#: (a reversed or negated ``w`` reads near 2)
+SHARDED_MASTER_W_REL = 0.1
+#: blocks of the sharded dual LP's graph-replay-against-eager hold
+GRAPH_HOLD_BLOCKS = 4
+SWEEP_SEEDS = (1, 2, 3, 4)
+SWEEP_CHAINS = 2048
+
+
+def _highs_dual(P, fixed, conn):
+    """HiGHS (interior point, then crossover) on the dual leximin LP of
+    ``P``/``fixed``, sent down ``conn`` as ``(seconds, status, objective,
+    ŷ)``. (The simplex takes minutes on the flagship-shaped LP.) Pinned to
+    one CPU core, so the card's phases keep the others."""
+    import scipy.sparse as sp
+    from scipy.optimize import linprog
+
+    if hasattr(os, "sched_setaffinity"):
+        os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
+
+    t0 = time.perf_counter()
+    C, n = P.shape
+    unfixed = fixed < 0
+    res = linprog(
+        np.concatenate([-np.where(unfixed, 0.0, fixed), [1.0]]),
+        A_ub=sp.csr_matrix(np.hstack([P.astype(np.float64), -np.ones((C, 1))])),
+        b_ub=np.zeros(C), A_eq=np.concatenate([unfixed.astype(np.float64), [0.0]])[None, :],
+        b_eq=np.array([1.0]), bounds=(0, None), method="highs-ipm",
+    )
+    x = res.x if res.x is not None else np.zeros(n + 1)
+    conn.send((time.perf_counter() - t0, int(res.status), float(res.fun), float(x[n])))
+    conn.close()
+
+
+def start_highs_reference():
+    """The sharded dual phase's HiGHS reference, started in a daemon worker
+    process at the beginning of the run (it takes minutes on a CPU core; a
+    run that stops early terminates it on exit). Returns ``(process,
+    connection, P, fixed)``."""
+    import multiprocessing
+
+    P, fixed = dual_lp_problem()
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_highs_dual, args=(P.astype(bool), fixed, send), daemon=True)
+    proc.start()
+    send.close()
+    return proc, recv, P, fixed
+
+
+def dist_world1_phase():
+    """A real one-rank NCCL world on the card through ``make_mesh(1)``: one
+    ``all_reduce`` checked, the topology, the ``dist_mesh_*`` gauges,
+    ``effective_mesh`` is None on one device; the world torn down at the
+    end."""
+    import torch
+    import torch.distributed as dist
+
+    from citizensassemblies_tpu_torch.dist import runtime
+    from citizensassemblies_tpu_torch.parallel.mesh import make_mesh
+    from citizensassemblies_tpu_torch.utils.config import default_config
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(1)
+    backend = dist.get_backend()
+    x = torch.arange(4, dtype=torch.float32, device="cuda") + 1.0
+    dist.all_reduce(x)
+    reduced = x.cpu().tolist()
+    topo = runtime.default_topology()
+    log = RunLog(echo=False)
+    runtime.stamp_mesh_gauges(log, mesh)
+    gauges = {k: log.counters[k] for k in ("dist_mesh_hosts", "dist_mesh_devices",
+                                           "dist_process_index")}
+    effective_none = runtime.effective_mesh(default_config(), log=log) is None
+    runtime.shutdown()
+    rec = dict(
+        phase="dist_world1", seconds=time.perf_counter() - t0, backend=backend,
+        mesh_device=mesh.device_type, topology=topo.shape, hosts=topo.hosts,
+        all_reduce=reduced, gauges=gauges, effective_mesh_none=effective_none,
+        torn_down=not dist.is_initialized(),
+    )
+    rec["ok"] = bool(
+        backend == "nccl" and reduced == [1.0, 2.0, 3.0, 4.0]
+        and topo.shape == {"chains": 1, "agents": 1} and topo.hosts == 1
+        and gauges == {"dist_mesh_hosts": 1, "dist_mesh_devices": 1, "dist_process_index": 0}
+        and effective_none and rec["torn_down"]
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def mc_flagship_phase(mesh):
+    """The chain-parallel sampler on the flagship pool over the one-rank
+    mesh: 10,000 chains bit for bit ``sample_panels_batch`` on the same
+    seed, and a 2,048-chain Monte-Carlo round whose counts and pair matrix
+    equal a recount of its panels."""
+    import torch
+
+    from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.models.legacy import sample_panels_batch
+    from citizensassemblies_tpu_torch.parallel import mc
+
+    dense, _ = featurize(sf_e_skewed_instance(seed=1), device="cuda")
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(5)
+
+    def timed_draw(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (pw, okw), plain_s = timed_draw(lambda: sample_panels_batch(dense, gen(), 10_000,
+                                                                distribute=False))
+    (pd, okd), dist_s = timed_draw(lambda: mc.distributed_sample_panels(dense, gen(), 10_000, mesh))
+    _, plain_s2 = timed_draw(lambda: sample_panels_batch(dense, gen(), 10_000, distribute=False))
+    _, dist_s2 = timed_draw(lambda: mc.distributed_sample_panels(dense, gen(), 10_000, mesh))
+    same = bool(torch.equal(pw, pd) and torch.equal(okw, okd))
+    (p, ok, counts, pair), round_s = timed_draw(lambda: mc.distributed_mc_round(dense, gen(), mesh,
+                                                                               2048))
+    p, ok = p.cpu().numpy(), ok.cpu().numpy()
+    S = np.zeros((len(p), dense.n), np.float32)
+    for b in np.nonzero(ok)[0]:
+        S[b, p[b]] = 1.0
+    brute = S.T.astype(np.float64) @ S
+    np.fill_diagonal(brute, 0.0)
+    counts_exact = bool(np.array_equal(counts.cpu().numpy(), S.sum(axis=0)))
+    pair_exact = bool(np.array_equal(pair.cpu().numpy().astype(np.float64), brute))
+    rec = dict(
+        phase="mc_flagship", n=dense.n, k=dense.k, chains=10_000, bitwise=same,
+        accepted=int(okd.sum()), seconds=dist_s, panels_per_s=10_000 / dist_s,
+        repeat_seconds=dist_s2, undistributed_seconds=plain_s,
+        undistributed_repeat_seconds=plain_s2, round_chains=2048, round_accepted=int(ok.sum()),
+        round_seconds=round_s, round_panels_per_s=2048 / round_s,
+        counts_exact=counts_exact, pair_exact=pair_exact,
+    )
+    rec["ok"] = bool(same and okd.any() and counts_exact and pair_exact)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def dropout_fixture():
+    """The dropout fixture of the CPU tests (``tests/torch_worlds.py``): the
+    48-agent parity pool, 600 of its LEGACY panels drawn on the host with
+    Dirichlet weights, attendance 1 − U(0, 0.5) (``numpy`` seed 1) and the
+    base types (agents with equal feature rows)."""
+    from citizensassemblies_tpu_torch.core.generator import random_instance
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.models.legacy import sample_feasible_panels
+
+    inst = random_instance(n=48, k=6, n_categories=2, features_per_category=2, seed=0)
+    host, _ = featurize(inst, device="cpu")
+    panels, _ = sample_feasible_panels(host, 600, seed=2, distribute=False)
+    P = np.zeros((len(panels), host.n), dtype=bool)
+    P[np.arange(len(panels))[:, None], panels] = True
+    _, type_id = np.unique(host.A_np, axis=0, return_inverse=True)
+    return dict(
+        instance=inst, P=P, probs=np.random.default_rng(0).dirichlet(np.ones(len(P))),
+        attendance=1.0 - np.random.default_rng(1).uniform(0.0, 0.5, host.n),
+        type_id=type_id.reshape(-1).astype(np.int64),
+    )
+
+
+def dropout_mc_phase(mesh, leximin):
+    """The dropout realization on the defaults flagship LEXIMIN portfolio
+    with attendance 1 − U(0, 0.5) (``numpy`` seed 0) and the T=814 type
+    ids: 65,536 draws per policy with ``mesh=None`` and over the one-rank
+    mesh, bit for bit; the card against the CPU at 4,096 draws, per-agent
+    frequencies, ``quota_ok_rate`` and ``fill_rate`` within 5 binomial
+    standard deviations; and the ``type`` policy on the CPU tests' fixture
+    (:func:`dropout_fixture`), where it must fill every seat and keep every
+    quota."""
+    import torch
+
+    from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.parallel import mc
+    from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
+
+    dense, _ = featurize(sf_e_skewed_instance(seed=1), device="cuda")
+    host, _ = featurize(sf_e_skewed_instance(seed=1), device="cpu")
+    type_id = TypeReduction(host).type_id
+    att = 1.0 - np.random.default_rng(0).uniform(0.0, 0.5, size=dense.n)
+    P, probs = leximin.committees, leximin.probabilities
+
+    def within(a, b, N):
+        p = np.clip((np.asarray(a) + np.asarray(b)) / 2, 1.0 / N, 1 - 1.0 / N)
+        return bool(np.all(np.abs(np.asarray(a) - np.asarray(b)) <= 5 * np.sqrt(2 * p * (1 - p) / N)))
+
+    policies = {}
+    for policy in mc.DROPOUT_POLICIES:
+        def run(m, d=dense, draws=DROPOUT_DRAWS, dev="cuda", policy=policy):
+            g = torch.Generator(device=dev).manual_seed(11)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = mc.dropout_realization_round(P, probs, att, type_id, d, g, draws, policy, mesh=m)
+            return r, time.perf_counter() - t0
+
+        plain, plain_s = run(None)
+        meshed, mesh_s = run(mesh)
+        cpu, cpu_s = run(None, host, DROPOUT_CPU_DRAWS, "cpu")
+        card, _ = run(None, dense, DROPOUT_CPU_DRAWS)
+        bitwise = bool(
+            np.array_equal(plain.counts, meshed.counts)
+            and np.array_equal(plain.counts_valid, meshed.counts_valid)
+            and plain.quota_ok_rate == meshed.quota_ok_rate and plain.fill_rate == meshed.fill_rate
+        )
+        N = DROPOUT_CPU_DRAWS
+        agree = (
+            within(card.frequencies, cpu.frequencies, N)
+            and within(card.frequencies_valid, cpu.frequencies_valid, N)
+            and within([card.quota_ok_rate], [cpu.quota_ok_rate], N)
+            and within([card.fill_rate], [cpu.fill_rate], N * dense.k)
+        )
+        policies[policy] = dict(
+            seconds=mesh_s, draws_per_s=DROPOUT_DRAWS / mesh_s, undistributed_seconds=plain_s,
+            cpu_seconds_4096=cpu_s, bitwise_mesh_vs_none=bitwise, card_vs_cpu_5sigma=agree,
+            quota_ok_rate=meshed.quota_ok_rate, fill_rate=meshed.fill_rate,
+            cpu_quota_ok_rate=cpu.quota_ok_rate, cpu_fill_rate=cpu.fill_rate,
+        )
+    # the CPU tests' fixture, whose every type has several agents: there a
+    # same-type refill fills every seat and keeps every quota
+    fx = dropout_fixture()
+    fx_dense, _ = featurize(fx["instance"], device="cuda")
+    fx_runs = [
+        mc.dropout_realization_round(fx["P"], fx["probs"], fx["attendance"], fx["type_id"],
+                                     fx_dense, torch.Generator(device="cuda").manual_seed(4),
+                                     DROPOUT_DRAWS, "type", mesh=m)
+        for m in (None, mesh)
+    ]
+    fixture = dict(
+        n=fx_dense.n, panels=int(len(fx["P"])), quota_ok_rate=fx_runs[1].quota_ok_rate,
+        fill_rate=fx_runs[1].fill_rate,
+        bitwise_mesh_vs_none=bool(np.array_equal(fx_runs[0].counts, fx_runs[1].counts)),
+    )
+    rec = dict(phase="dropout_mc_flagship", panels=int(len(P)), n=dense.n, T=int(type_id.max()) + 1,
+               draws=DROPOUT_DRAWS, policies=policies, fixture_type=fixture)
+    rec["ok"] = bool(all(r["bitwise_mesh_vs_none"] and r["card_vs_cpu_5sigma"]
+                         for r in policies.values())
+                     and fixture["quota_ok_rate"] == fixture["fill_rate"] == 1.0
+                     and fixture["bitwise_mesh_vs_none"])
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def sharded_dual_phase(mesh, highs_ref, libs):
+    """The row-sharded dual LP at the flagship dual LP's shape (4,096 panels
+    of the flagship pool, :func:`dual_lp_problem`) over the one-rank mesh,
+    on the ELL route (its local product the gather kernel) and forced
+    dense: against HiGHS (``ok``, objective and ŷ within
+    ``SHARDED_DUAL_TOL``) and against the undistributed
+    ``solve_dual_lp_pdhg`` on the LP kernel (objective within the same)."""
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+    from citizensassemblies_tpu_torch.parallel.solver import solve_dual_lp_pdhg_sharded
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import solve_dual_lp_pdhg
+    from citizensassemblies_tpu_torch.utils.config import default_config
+
+    proc, recv, P, fixed = highs_ref
+    routes = {}
+    launches = {}
+    for route, knob in (("ell", None), ("dense", False)):
+        st = {}
+        for lib in libs:
+            lib.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = solve_dual_lp_pdhg_sharded(P, fixed, mesh, cfg=default_config().replace(
+            sparse_ops=knob), stats=st)
+        secs = time.perf_counter() - t0
+        launches[route] = {"ell_gather": em.KERNEL.launches, "lp_block": mk.LP_KERNEL.launches}
+        routes[route] = dict(route=st["route"], graph=st["graph"], ok=sol.ok, seconds=secs,
+                             blocks=st["blocks"],
+                             iterations=st["iters"], kkt=st["res"], objective=sol.objective,
+                             yhat=sol.yhat, gather_launches=launches[route]["ell_gather"],
+                             _y=sol.y)
+    # a fixed four blocks with every block eager and with blocks 2-4
+    # replayed as CUDA graphs (collectives included): the same kernels in
+    # the same order, and no product sums by atomics (the ELL route's
+    # transpose is a row-ordered CSR sum), so both routes' iterates bit for
+    # bit
+    for route, knob in (("ell", None), ("dense", False)):
+        hold = {}
+        for graph in (False, True):
+            st = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = solve_dual_lp_pdhg_sharded(P, fixed, mesh, cfg=default_config().replace(
+                sparse_ops=knob), tol=0.0, max_blocks=GRAPH_HOLD_BLOCKS, stats=st, graph=graph)
+            hold[graph] = (sol.y, sol.yhat, (time.perf_counter() - t0) / st["iters"] * 1e6)
+        gap = max(float(np.abs(hold[True][0] - hold[False][0]).max()),
+                  abs(hold[True][1] - hold[False][1]))
+        routes[route].update(eager_us_per_iter=hold[False][2], graph_us_per_iter=hold[True][2],
+                             graph_vs_eager=gap)
+    for lib in libs:
+        lib.reset_counts()
+    t0 = time.perf_counter()
+    ref, _warm = solve_dual_lp_pdhg(P, fixed, cfg=default_config(), device="cuda")
+    kernel_s = time.perf_counter() - t0
+    kernel_launches = mk.LP_KERNEL.launches
+    highs_s, status, h_obj, h_yhat = recv.recv()
+    proc.join()
+    for r in routes.values():
+        r.pop("_y")
+        r["highs_obj_err"] = abs(r["objective"] - h_obj)
+        r["highs_yhat_err"] = abs(r["yhat"] - h_yhat)
+        r["kernel_obj_err"] = abs(r["objective"] - ref.objective)
+    rec = dict(
+        phase="sharded_dual_flagship", rows=int(P.shape[0]), n=int(P.shape[1]), routes=routes,
+        highs_seconds=highs_s, highs_status=status, highs_objective=h_obj,
+        lp_kernel_seconds=kernel_s, lp_kernel_ok=ref.ok, lp_kernel_objective=ref.objective,
+        lp_kernel_launches=kernel_launches, launches=launches["ell"],
+    )
+    rec["ok"] = bool(
+        status == 0 and kernel_launches >= 1
+        and all(r["ok"] and r["highs_obj_err"] <= SHARDED_DUAL_TOL
+                and r["highs_yhat_err"] <= SHARDED_DUAL_TOL
+                and r["kernel_obj_err"] <= SHARDED_DUAL_TOL for r in routes.values())
+        and routes["ell"]["route"] == "ell" and routes["ell"]["gather_launches"] > 0
+        and routes["dense"]["gather_launches"] == 0
+        and routes["dense"]["graph_vs_eager"] == 0.0 and routes["ell"]["graph_vs_eager"] == 0.0
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def master_dual_bound(MT, v, w):
+    """The lower bound on the two-sided ε-LP's optimum that aiming duals
+    ``w = y_lo − y_up`` certify: ``(vᵀw − max_c (Mᵀw)_c) / max(1, ‖w‖₁)``
+    (``w`` scaled into the dual's feasible set, ``μ`` at its best). A
+    wrong ``w`` (rows out of order, a sign, a missing scale) reads well
+    below the optimum."""
+    w = np.asarray(w, dtype=np.float64)
+    return float((v @ w - (MT.T @ w).max()) / max(1.0, np.abs(w).sum()))
+
+
+def sharded_master_phase(mesh, pack, MT):
+    """The row-sharded face master on the flagship master of the kernel
+    phases (6,144 columns × T=814, :func:`flagship_target`) over the
+    one-rank mesh: ``eps_real`` ≤ ``SHARDED_MASTER_EPS``, Σp = 1 within
+    ``SHARDED_MASTER_SUM``, ``eps_real`` within ``SHARDED_MASTER_VS_KERNEL``
+    of the two-sided kernel's solve of the same LP, and its aiming duals
+    ``w`` against the kernel's: each certifies (:func:`master_dual_bound`)
+    an optimum within ``SHARDED_MASTER_DUAL`` of what the kernel's mixture
+    realizes, the two certificates agree within the same, and the two
+    ``w`` within ``SHARDED_MASTER_W_REL`` of the kernel's in L1."""
+    import torch
+
+    from citizensassemblies_tpu_torch.parallel.solver import solve_decomp_master_sharded
+    from citizensassemblies_tpu_torch.solvers import lp_pdhg
+    from citizensassemblies_tpu_torch.utils.config import default_config
+
+    v = flagship_target(MT)
+    st = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eps_real, w, p, eps_obj, ok = solve_decomp_master_sharded(
+        MT, v, mesh, cfg=default_config(), tol=MASTER_TOL, stats=st
+    )
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sol = lp_pdhg.solve_two_sided_master_ell(pack, v, cfg=default_config(), tol=MASTER_TOL,
+                                             device="cuda")
+    kernel_s = time.perf_counter() - t0
+    T, C = MT.shape
+    pk = np.maximum(sol.x[:C], 0.0)
+    pk = pk / pk.sum()
+    eps_kernel = float(np.abs(MT @ pk - v).max())
+    lam_k = np.maximum(np.asarray(sol.lam, dtype=np.float64), 0.0)
+    w_k = lam_k[:T] - lam_k[T : 2 * T]
+    bound, bound_k = master_dual_bound(MT, v, w), master_dual_bound(MT, v, w_k)
+    rec = dict(
+        phase="sharded_master_flagship", T=T, columns=C, seconds=secs,
+        blocks=st["blocks"], iterations=st["iters"], kkt=st["res"], converged=ok,
+        eps_real=eps_real, eps_obj=eps_obj, p_sum_err=abs(float(p.sum()) - 1.0),
+        kernel_seconds=kernel_s, kernel_iterations=int(sol.iters), kernel_eps_real=eps_kernel,
+        vs_kernel=abs(eps_real - eps_kernel),
+        dual_bound=bound, kernel_dual_bound=bound_k,
+        dual_bound_flipped=master_dual_bound(MT, v, -w),
+        dual_bound_reversed=master_dual_bound(MT, v, w[::-1]),
+        w_l1=float(np.abs(w).sum()), kernel_w_l1=float(np.abs(w_k).sum()),
+        w_vs_kernel_inf=float(np.abs(w - w_k).max()),
+        w_vs_kernel_l1=float(np.abs(w - w_k).sum()),
+    )
+    rec["ok"] = bool(
+        eps_real <= SHARDED_MASTER_EPS and rec["p_sum_err"] <= SHARDED_MASTER_SUM
+        and rec["vs_kernel"] <= SHARDED_MASTER_VS_KERNEL
+        and bound <= eps_kernel + 1e-9 and eps_kernel - bound <= SHARDED_MASTER_DUAL
+        and abs(bound - bound_k) <= SHARDED_MASTER_DUAL
+        and rec["w_vs_kernel_l1"] <= SHARDED_MASTER_W_REL * rec["kernel_w_l1"]
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def sweep_phase():
+    """``sweep_legacy_allocations``' batched draw over
+    ``sf_e_skewed_instance(seed=1..4)``, 2,048 chains each, in one batched
+    call; each instance's panels and allocation bit for bit those of the
+    per-instance sampler fed that instance's rows of the same noise;
+    padding agents at 0."""
+    import torch
+
+    from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.models.legacy import _sample_panels_kernel, gumbel
+    from citizensassemblies_tpu_torch.parallel import sweep
+
+    denses = [featurize(sf_e_skewed_instance(seed=s), device="cuda")[0] for s in SWEEP_SEEDS]
+    stacked, n_real = sweep.pad_and_stack(denses)
+    I, n_max, F_max = stacked.shape
+    B = SWEEP_CHAINS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    panels, ok = sweep.sweep_panels(stacked, B, torch.Generator(device="cuda").manual_seed(7))
+    alloc, rate = sweep.allocation_from_panels(panels, ok, n_max)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    bitwise = []
+    for i, d in enumerate(denses):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+
+        def noise_at(_step, i=i, n=d.n, gen=gen):
+            return gumbel(gen, (I, B, n_max), "cuda")[i, :, :n]
+
+        p_i, ok_i = _sample_panels_kernel(d, B, noise_at)
+        a_i, r_i = sweep.allocation_from_panels(p_i, ok_i, n_max)
+        bitwise.append(bool(torch.equal(panels[i], p_i) and torch.equal(ok[i], ok_i)
+                            and torch.equal(alloc[i], a_i) and float(rate[i]) == float(r_i)))
+    alloc_np = alloc.cpu().numpy()
+    padding_zero = bool(all(np.all(alloc_np[i, n_real[i]:] == 0.0) for i in range(I)))
+    rec = dict(
+        phase="sweep_sf_e", instances=I, n_real=[int(x) for x in n_real], n_max=n_max,
+        F_max=F_max, chains=B, seconds=secs, panels_per_s=I * B / secs,
+        accept_rate=[float(x) for x in rate.cpu().numpy()], bitwise=bitwise,
+        padding_zero=padding_zero, padded_agents=int(sum(n_max - x for x in n_real)),
+    )
+    rec["ok"] = bool(all(bitwise) and padding_zero and float(rate.min()) > 0.0)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def distribution_phases(libs, leximin, pack, MT, highs_ref):
+    """The distribution layer on the card: the one-rank NCCL world, then
+    the chain-parallel Monte-Carlo, the dropout realization, the sharded
+    dual LP and face master over one more one-rank world (torn down after),
+    and the instance sweep."""
+    import torch
+    import torch.distributed as dist
+
+    from citizensassemblies_tpu_torch.dist import runtime
+    from citizensassemblies_tpu_torch.parallel.mesh import make_mesh
+
+    out = {"world": dist_world1_phase()}
+    mesh = make_mesh(1)
+    # NCCL creates its communicator at the first collective: one of each
+    # kind here, so no phase's time holds it
+    warm = torch.ones(8, device="cuda")
+    dist.all_reduce(warm)
+    dist.all_gather([torch.empty_like(warm)], warm)
+    torch.cuda.synchronize()
+    try:
+        out["mc"] = mc_flagship_phase(mesh)
+        out["dropout"] = dropout_mc_phase(mesh, leximin)
+        out["dual"] = sharded_dual_phase(mesh, highs_ref, libs)
+        out["master"] = sharded_master_phase(mesh, pack, MT)
+    finally:
+        runtime.shutdown()
+    out["sweep"] = sweep_phase()
+    return out
+
+
 def households_phases(cfg, libs):
     """Every household phase, in order; returns their records by name."""
     hold = households_hold_phase(cfg, libs)
@@ -2991,6 +3513,9 @@ def main() -> int:
     print(json.dumps(dict(phase="build", seconds=build_s, kernels=[lib.name for lib in libs])), flush=True)
     for lib in libs:
         log(f"--- ptxas report, {lib.name} ---\n{lib.build_log.strip()}")
+    # the sharded dual phase's HiGHS reference takes minutes on one CPU
+    # core: it runs in a worker process while the card works
+    highs_ref = start_highs_reference()
 
     pack, MT, _ = flagship_pack()
     gather = gather_phase(pack)
@@ -3072,6 +3597,10 @@ def main() -> int:
     for rec in (analysis["flagship"], analysis["example_small"]):
         for name, count in rec["launches"].items():
             launches[name] += count
+    # distribution (queue A item 7): the sharded ELL dual LP's local
+    # products are gather launches of the main path's
+    distribution = distribution_phases(libs, lex_defaults, pack, MT, highs_ref)
+    launches["ell_gather"] += distribution["dual"]["launches"]["ell_gather"]
 
     def summary(name, rec, phase_recs, holds):
         return dict(
@@ -3084,7 +3613,8 @@ def main() -> int:
         )
 
     gather_row = summary("ell_gather", gather, [gather, gather_dual, gather_xmin, gather_bf16],
-                         [households["n1200"], households["xmin"], analysis["flagship"]])
+                         [households["n1200"], households["xmin"], analysis["flagship"],
+                          distribution["dual"]])
     # the bf16-value path of the same kernel, at XMIN's demoted pack
     gather_row.update(
         bf16_launches=launches["ell_gather_bf16"], bf16_ms=gather_bf16["ms"],
@@ -3103,7 +3633,7 @@ def main() -> int:
     failed = [
         r for r in (e2e, e2e_defaults, xmin, xmin_hold, l2_serial, mass, legacy, agent, agent_sf_b,
                     dense_graph, stage_cg, stage_cg_pricing, *households.values(), ckpt_face,
-                    ckpt_lex, faults, *analysis.values())
+                    ckpt_lex, faults, *analysis.values(), *distribution.values())
         if not r["ok"]
     ]
     if failed:

@@ -70,6 +70,7 @@ import torch
 from citizensassemblies_tpu_torch.kernels.cuda_lib import CSRC, CudaLibrary, ptr, stream_of
 from citizensassemblies_tpu_torch.kernels.ell_matvec import ell_gather_mv, ell_gather_mv_plain
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
+from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
 from citizensassemblies_tpu_torch.utils import device as _device
 from citizensassemblies_tpu_torch.utils.precision import host_float32, iterate_dtype, operand_tensor
 
@@ -638,15 +639,16 @@ def two_sided_blocks_cuda(csr, plan: LaunchPlan, idx, vals_s, pre, state, tol, *
     hlo = pre.hs_lo.contiguous()
     hup = pre.hs_up.contiguous()
     arow = pre.a_row.contiguous()
-    KERNEL.call(
-        "two_sided_solve_launch",
-        ptr(idx.contiguous()), ptr(vals), ptr(rowptr), ptr(colT), ptr(vsT), ptr(ecol),
-        ptr(hlo), ptr(hup), ptr(arow), ptr(p_k), ptr(pav), ptr(llo), ptr(lup),
-        ptr(llav), ptr(luav), ptr(scal), ptr(iters), ptr(scratch), ptr(bar), ptr(plan.bounds),
-        B, T, C, kp, nnz, nb, plan.tile_floats, int(check_every), int(max_iters),
-        int(bool(sentinel)),
-        stream_of(p_k),
-    )
+    with guarded_launch(dev):
+        KERNEL.call(
+            "two_sided_solve_launch",
+            ptr(idx.contiguous()), ptr(vals), ptr(rowptr), ptr(colT), ptr(vsT), ptr(ecol),
+            ptr(hlo), ptr(hup), ptr(arow), ptr(p_k), ptr(pav), ptr(llo), ptr(lup),
+            ptr(llav), ptr(luav), ptr(scal), ptr(iters), ptr(scratch), ptr(bar), ptr(plan.bounds),
+            B, T, C, kp, nnz, nb, plan.tile_floats, int(check_every), int(max_iters),
+            int(bool(sentinel)),
+            stream_of(p_k),
+        )
     out = {slot: scal[:, LAYOUT[slot]] for slot in ("S_EPS", "S_MU", "S_RES", "S_POIS", "S_STALL")}
     flags = (out["S_POIS"] > 0).to(torch.int32) + 2 * (out["S_STALL"] > 0).to(torch.int32)
     return (p_k, out["S_EPS"], llo, lup, out["S_MU"], iters, out["S_RES"], flags)
@@ -682,7 +684,7 @@ def two_sided_setup(idx_np: np.ndarray, val_np: np.ndarray, v, colmask, x0, lam0
 
 def dispatch_two_sided(
     idx_np: np.ndarray, val_np: np.ndarray, v, colmask, x0, lam0, mu0, tol, *,
-    max_iters: int, check_every: int, sentinel: bool, log=None,
+    max_iters: int, check_every: int, sentinel: bool, log=None, cfg=None,
 ):
     """The fused two-sided solve for a batch of lanes sharing one column
     pack (``[C, k_pad]``: numpy indices, numpy float32 values or a demoted
@@ -696,10 +698,11 @@ def dispatch_two_sided(
     csr, plan = two_sided_launch_inputs(idx_np, val_np, v.shape[0], colmask.shape[0], v.device)
     idx, vals_s, pre, state = two_sided_setup(idx_np, val_np, v, colmask, x0, lam0, mu0, csr)
     kw = dict(max_iters=max_iters, check_every=check_every, sentinel=sentinel)
-    if plan is not None:
-        out = two_sided_blocks_cuda(csr, plan, idx, vals_s, pre, state, tol, **kw)
-    else:
-        out = two_sided_blocks_plain(csr, idx, vals_s, pre, state, tol, **kw)
+    with no_implicit_transfers(cfg):
+        if plan is not None:
+            out = two_sided_blocks_cuda(csr, plan, idx, vals_s, pre, state, tol, **kw)
+        else:
+            out = two_sided_blocks_plain(csr, idx, vals_s, pre, state, tol, **kw)
     p, eps, l_lo, l_up, mu, it, res, flags = out
     if log is not None:
         log.count("megakernel_dispatches")
@@ -752,7 +755,9 @@ def lp_operators(idx, vals_s, csr, gather=ell_gather_mv):
     vals_t = vals_s.reshape(-1)[perm]
 
     def G_rmv(y):
-        return torch.segment_reduce(vals_t * y[rowT], "sum", offsets=rowptr)
+        # unsafe: the CSR's offsets are valid by construction, and the
+        # checks would read them back to the host at every product
+        return torch.segment_reduce(vals_t * y[rowT], "sum", offsets=rowptr, unsafe=True)
 
     return (lambda x: gather(idx, vals_s, x)), G_rmv
 
@@ -845,15 +850,16 @@ def lp_blocks_cuda(csr, plan: LaunchPlan, idx, pre, state, tol, *, max_iters, ch
     bar = torch.zeros(1, dtype=torch.int64, device=dev)
     cs, hs, bs = pre.cs.contiguous(), pre.hs.contiguous(), pre.bs.contiguous()
     As = pre.As.contiguous()
-    LP_KERNEL.call(
-        "lp_solve_launch",
-        ptr(idx.contiguous()), ptr(vals), ptr(rowptr), ptr(rowT), ptr(vsT), ptr(As), ptr(cs),
-        ptr(hs), ptr(bs), ptr(xk), ptr(xav), ptr(lamk), ptr(lav), ptr(muk), ptr(mav),
-        ptr(scal), ptr(iters), ptr(scratch), ptr(bar), ptr(plan.bounds),
-        nv, m1, m2, kp, nb, plan.tile_floats, int(check_every), int(max_iters),
-        int(bool(sentinel)),
-        stream_of(xk),
-    )
+    with guarded_launch(dev):
+        LP_KERNEL.call(
+            "lp_solve_launch",
+            ptr(idx.contiguous()), ptr(vals), ptr(rowptr), ptr(rowT), ptr(vsT), ptr(As), ptr(cs),
+            ptr(hs), ptr(bs), ptr(xk), ptr(xav), ptr(lamk), ptr(lav), ptr(muk), ptr(mav),
+            ptr(scal), ptr(iters), ptr(scratch), ptr(bar), ptr(plan.bounds),
+            nv, m1, m2, kp, nb, plan.tile_floats, int(check_every), int(max_iters),
+            int(bool(sentinel)),
+            stream_of(xk),
+        )
     flags = (scal[LP_LAYOUT["L_POIS"]] > 0).to(torch.int32) + 2 * (
         scal[LP_LAYOUT["L_STALL"]] > 0
     ).to(torch.int32)
@@ -862,7 +868,7 @@ def lp_blocks_cuda(csr, plan: LaunchPlan, idx, pre, state, tol, *, max_iters, ch
 
 def dispatch_lp(
     c, idx_np: np.ndarray, val_np, h, A, b, x0, lam0, mu0, tol, *,
-    device, max_iters: int, check_every: int, sentinel: bool, log=None,
+    device, max_iters: int, check_every: int, sentinel: bool, log=None, cfg=None,
 ):
     """The fused generic-LP solve on ``device``: numpy operands (the pack
     ``[m1, k_pad]`` over nv = ``len(c)`` variables, the dense ``A [m2, nv]``,
@@ -883,10 +889,11 @@ def dispatch_lp(
         csr,
     )
     kw = dict(max_iters=max_iters, check_every=check_every, sentinel=sentinel)
-    if plan is not None:
-        out = lp_blocks_cuda(csr, plan, idx, pre, state, tol, **kw)
-    else:
-        out = lp_blocks_plain(csr, idx, pre, state, tol, **kw)
+    with no_implicit_transfers(cfg):
+        if plan is not None:
+            out = lp_blocks_cuda(csr, plan, idx, pre, state, tol, **kw)
+        else:
+            out = lp_blocks_plain(csr, idx, pre, state, tol, **kw)
     x, lam, mu, it, res, flags = out
     if log is not None:
         log.count("megakernel_dispatches")

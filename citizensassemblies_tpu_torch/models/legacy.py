@@ -84,6 +84,31 @@ def _sample_step(A_f32, A_T_f32, qmin, qmax, n, state, noise, scores, households
     return (alive, selected, failed | starved), person
 
 
+def _draw_panels(step, A_f32, A_T_f32, qmin, qmax, alive, k: int, noise_at, scores, households):
+    """The k greedy steps of a batch of chains from the pool ``alive``
+    (bool ``[..., B, n]``): ``step`` is :func:`_sample_step`, or its
+    ``torch.func.vmap`` over a leading instance axis (``parallel/sweep``),
+    and ``noise_at(step)`` gives that step's Gumbel noise, shaped like
+    ``alive``. Returns ``(panels int64 [..., B, k], ok bool [..., B])``."""
+    dev = alive.device
+    selected = torch.zeros((*alive.shape[:-1], qmin.shape[-1]), dtype=torch.int32, device=dev)
+    failed = torch.zeros(alive.shape[:-1], dtype=torch.bool, device=dev)
+    persons: List[torch.Tensor] = []
+    for s in range(k):
+        # running out of people before the last pick fails the draw
+        out_of_people = ~alive.any(dim=-1)
+        (alive, selected, failed_s), person = step(
+            A_f32, A_T_f32, qmin, qmax, None, (alive, selected, failed),
+            noise_at(s), scores, households,
+        )
+        failed = failed_s | out_of_people
+        persons.append(person)
+    panels = torch.stack(persons, dim=-1)
+    # final lower-quota audit
+    failed = failed | (selected < qmin.unsqueeze(-2)).any(dim=-1)
+    return panels, ~failed
+
+
 def _sample_panels_kernel(
     dense: DenseInstance,
     B: int,
@@ -94,11 +119,10 @@ def _sample_panels_kernel(
     """Draw B panels; ``noise_at(step)`` gives step ``step``'s ``[B, n]``
     Gumbel noise. Returns ``(panels int64[B, k], ok bool[B])`` on the
     instance's device."""
-    n, k = dense.n, dense.k
+    n = dense.n
     dev = dense.device
     A_f32 = dense.A.to(torch.float32)
     A_T_f32 = A_f32.t().contiguous()
-    qmin, qmax = dense.qmin, dense.qmax
     if scores is None:
         scores = torch.zeros((1, n), dtype=torch.float32, device=dev)
     if households is None:
@@ -106,22 +130,10 @@ def _sample_panels_kernel(
     else:
         households = torch.as_tensor(np.asarray(households), dtype=torch.int64, device=dev)
     alive = torch.ones((B, n), dtype=torch.bool, device=dev)
-    selected = torch.zeros((B, dense.n_features), dtype=torch.int32, device=dev)
-    failed = torch.zeros(B, dtype=torch.bool, device=dev)
-    persons: List[torch.Tensor] = []
-    for step in range(k):
-        # running out of people before the last pick fails the draw
-        out_of_people = ~alive.any(dim=1)
-        (alive, selected, failed_s), person = _sample_step(
-            A_f32, A_T_f32, qmin, qmax, n, (alive, selected, failed),
-            noise_at(step), scores, households,
-        )
-        failed = failed_s | out_of_people
-        persons.append(person)
-    panels = torch.stack(persons, dim=1)
-    # final lower-quota audit
-    failed = failed | (selected < qmin[None, :]).any(dim=1)
-    return panels, ~failed
+    return _draw_panels(
+        _sample_step, A_f32, A_T_f32, dense.qmin, dense.qmax, alive, dense.k, noise_at,
+        scores, households,
+    )
 
 
 def gumbel(generator: torch.Generator, shape, device) -> torch.Tensor:
@@ -132,15 +144,35 @@ def gumbel(generator: torch.Generator, shape, device) -> torch.Tensor:
 
 def sample_panels_batch(
     dense: DenseInstance, generator: torch.Generator, batch: int, scores=None,
-    households=None, distribute: Optional[bool] = None,
+    households=None, distribute: Optional[bool] = None, cfg: Optional[Config] = None,
+    log=None,
 ):
     """Public batch draw on the instance's device; returns ``(panels [B, k],
-    ok [B])`` as tensors. ``distribute`` (sharding the chains over several
-    cards) needs ROADMAP queue A item 'distribution'; only ``None``/``False``
-    are taken."""
-    if distribute:
-        raise NotImplementedError(
-            "distribute=True needs ROADMAP queue A item 'distribution' (A14)"
+    ok [B])`` as tensors.
+
+    ``distribute`` shards the chains over the world's mesh
+    (``parallel/mc.distributed_sample_panels``): ``None`` turns it on when
+    ``dist.runtime.effective_mesh(cfg)`` hands out a mesh (a world of more
+    than one device, ``Config.dist_mesh`` on) and the batch covers it;
+    ``True`` shards over the default mesh (a one-rank world when no process
+    group runs). Every rank draws the global noise of each step and keeps
+    its rows, so the result is bit for bit the undistributed draw."""
+    from citizensassemblies_tpu_torch.dist.runtime import effective_mesh
+
+    mesh = None
+    if distribute is None:
+        mesh = effective_mesh(cfg, log)
+        if mesh is not None and batch < mesh.size():
+            mesh = None
+    elif distribute:
+        from citizensassemblies_tpu_torch.parallel.mesh import default_mesh
+
+        mesh = default_mesh(device=dense.device)
+    if mesh is not None:
+        from citizensassemblies_tpu_torch.parallel.mc import distributed_sample_panels
+
+        return distributed_sample_panels(
+            dense, generator, batch, mesh, scores=scores, households=households, log=log
         )
     n = dense.n
 
@@ -163,13 +195,16 @@ def sample_feasible_panels(
     cfg = cfg or default_config()
     if num <= 0:
         return np.zeros((0, dense.k), dtype=np.int32), 0
+    if distribute is None and not cfg.dist_mesh:
+        # mesh_to_single_device rung: stay on the undistributed draw
+        distribute = False
     generator = torch.Generator(device=dense.device).manual_seed(int(seed))
     B = min(cfg.mc_batch, max(256, num))
     collected: List[np.ndarray] = []
     total = attempts = draws = 0
     while total < num:
         panels, ok = sample_panels_batch(
-            dense, generator, B, households=households, distribute=distribute
+            dense, generator, B, households=households, distribute=distribute, cfg=cfg
         )
         good = panels.cpu().numpy()[ok.cpu().numpy()]
         draws += B

@@ -20,7 +20,10 @@ fallback after a type-space contract miss): the reference's column
 generation over panels (``leximin.py:338-470``). An outer loop fixes one
 tranche of agents per round by strict complementarity; an inner loop solves
 the dual LP over the portfolio (by PDHG on ``device`` with
-``Config.backend == "jax"``, through the LP block kernel, else HiGHS) and
+``Config.backend == "jax"``, through the LP block kernel, else HiGHS; on a
+world of more than one device, past ``Config.dual_shard_min_rows`` rows and
+with any backend but ``"highs"``, by the row-sharded PDHG of
+``parallel/solver``) and
 prices new panels with the LEGACY sampler on ``device``, the exact oracle
 certifying termination; a final LP realizes the fixed probabilities.
 
@@ -67,6 +70,7 @@ from citizensassemblies_tpu_torch.solvers.highs_backend import (
     solve_dual_lp,
     solve_final_primal_lp,
 )
+from citizensassemblies_tpu_torch.dist.runtime import effective_mesh
 from citizensassemblies_tpu_torch.robust import inject
 from citizensassemblies_tpu_torch.utils import checkpoint as ckpt
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
@@ -335,7 +339,7 @@ def _seed_portfolio(
 
     n = dense.n
     budget = max(256, min(cfg.mw_rounds_factor * n, cfg.seed_batch))
-    panels, ok = sample_panels_batch(dense, generator, budget, households=households)
+    panels, ok = sample_panels_batch(dense, generator, budget, households=households, cfg=cfg)
     panels = np.sort(panels.cpu().numpy(), axis=1)
     for b in np.nonzero(ok.cpu().numpy())[0]:
         portfolio.add(tuple(panels[b].tolist()))
@@ -491,7 +495,27 @@ def _agent_space_leximin(
             P = portfolio.matrix()
             authoritative = True  # sol comes from the exact host LP
             with log.timer("dual_lp"):
-                if pdhg:
+                # a portfolio past dual_shard_min_rows on a world of more
+                # than one device: the row-sharded PDHG over the mesh, HiGHS
+                # only on non-convergence
+                mesh = (
+                    effective_mesh(cfg, log)
+                    if cfg.backend != "highs" and len(portfolio) >= cfg.dual_shard_min_rows
+                    else None
+                )
+                if mesh is not None:
+                    from citizensassemblies_tpu_torch.parallel.solver import (
+                        solve_dual_lp_pdhg_sharded,
+                    )
+
+                    sol = solve_dual_lp_pdhg_sharded(P, fixed, mesh, cfg=cfg)
+                    log.count("dual_lp_sharded")
+                    dual_warm = None
+                    authoritative = not sol.ok
+                    if not sol.ok:
+                        log.count("dual_lp_host_fallback")
+                        sol = solve_dual_lp(P, fixed)
+                elif pdhg:
                     from citizensassemblies_tpu_torch.solvers.lp_pdhg import solve_dual_lp_pdhg
 
                     # warm-started from the previous inner round (the

@@ -100,7 +100,9 @@ def _xmin_impl(
     while len(new_members) < target_new and drawn < max_draws:
         B = min(cfg.pricing_batch, max_draws - drawn)
         with log.timer("xmin_draws"):
-            panels, ok = sample_panels_batch(dense, generator, B, households=households)
+            panels, ok = sample_panels_batch(
+                dense, generator, B, households=households, cfg=cfg
+            )
             panels = np.sort(panels.cpu().numpy(), axis=1).astype(np.int32)
             ok = ok.cpu().numpy()
         drawn += B

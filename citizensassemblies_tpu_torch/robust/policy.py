@@ -7,7 +7,7 @@
 * :class:`DegradationLadder`: the ordered fallback chain walked one rung per
   injected transient fault (``robust.inject.FaultInjected``): device
   pricing → host MILP, ELL → dense, batched → serial, fused screen → host
-  screen. Every rung lands on a gate whose off position runs a path held
+  screen, mesh → single device. Every rung lands on a gate whose off position runs a path held
   equal by the tests, so a degraded run is slower, not different, and is
   judged by the same 1e-3 L∞ arithmetic audit. The face loop's anchor
   pricer walks it at an injected ``device_dispatch`` fault
@@ -16,8 +16,12 @@
 The JAX package's ladder begins with a kernel → chained-ops rung
 (``pdhg_megakernel=False``). This package has none: a kernel that fails to
 build or launch raises, and no rung may turn that into a quiet switch to
-the plain version. Its last rung, mesh → single device, arrives with the
-multi-device path (ROADMAP queue A item 7). The per-request deadline check
+the plain version. Its last rung, mesh → single device
+(``dist_mesh=False``), is walked after a collective-layer fault: the
+``dist_collective`` site fires in ``dist.runtime.effective_mesh`` before it
+hands out a mesh of more than one device, and with the rung taken every
+routing site stays on its undistributed path (bit for bit the same draws,
+the same LPs on one device). The per-request deadline check
 inside the face loop arrives with the serving layer's request context
 (queue A item 9).
 """
@@ -99,6 +103,7 @@ DEGRADATION_LADDER: Tuple[Tuple[str, Dict[str, Any]], ...] = (
     ("ell_to_dense", {"sparse_ops": False}),
     ("batched_to_serial", {"lp_batch": False}),
     ("fused_screen_to_host", {"decomp_batched_expand": False}),
+    ("mesh_to_single_device", {"dist_mesh": False}),
 )
 
 

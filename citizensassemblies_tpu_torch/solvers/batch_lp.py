@@ -52,6 +52,7 @@ from citizensassemblies_tpu_torch.robust import inject
 from citizensassemblies_tpu_torch.utils import device as _device
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
+from citizensassemblies_tpu_torch.utils.guards import no_implicit_transfers
 from citizensassemblies_tpu_torch.utils.precision import demote_operator, operand_tensor
 
 
@@ -186,6 +187,7 @@ def solve_lp_batch(
     max_iters: Optional[int] = None,
     common_bucket: bool = False,
     device: DeviceLike = None,
+    mesh=None,
 ):
     """Solve N independent LPs, each padded into its shape bucket, on ``device``.
 
@@ -196,6 +198,12 @@ def solve_lp_batch(
     sentinel quarantined is re-solved on the float64 host path.
     ``warm_key`` engages the warm-start slots. ``common_bucket`` pads every
     instance into one shared bucket (the max of each dim).
+
+    ``mesh`` (a ``torch.distributed`` DeviceMesh of more than one device)
+    deals each bucket's lanes to the ranks in the declared ``bucket`` layout
+    (contiguous blocks; counted as ``dist_placements`` under
+    ``Config.dist_prepartition``): each rank solves its own lanes and the
+    solutions are gathered back to every rank.
 
     Counters on ``log``: ``lp_batch_dispatches`` (buckets),
     ``lp_batch_solves`` (instances), ``lp_batch_warm_hits``.
@@ -228,9 +236,14 @@ def solve_lp_batch(
             groups.setdefault(_bucket_key([inst], cap), []).append(i)
 
     out: List[Optional[LPSolution]] = [None] * len(problems)
+    slots: Dict[int, tuple] = {}
     t32 = dict(dtype=torch.float32, device=dev)
+    dealt = mesh is not None and int(mesh.size()) > 1
     for (m1, m2, nv), idxs in groups.items():
         _book(len(idxs), log)
+        own = set(idxs)
+        if dealt:
+            own = {idxs[j] for j in _own_lanes(len(idxs), mesh, cfg, log)}
         lanes = []
         for i in idxs:
             inst = problems[i]
@@ -273,14 +286,17 @@ def solve_lp_batch(
             for lane, op in zip(lanes, stacked):
                 lane[arg] = op
         for i, (c, G, h, A, b, x0, lam0, mu0) in zip(idxs, lanes):
+            if i not in own:
+                continue
             inst = problems[i]
             nvi, m1i, m2i = inst.c.shape[0], inst.G.shape[0], inst.A.shape[0]
             tol_i = float(inst.tol if inst.tol is not None else base_tol)
-            x, lam, mu, it, res, flags = _pdhg_body(
+            operands = (
                 torch.as_tensor(c, **t32), operand_tensor(G, dev), torch.as_tensor(h, **t32),
                 operand_tensor(A, dev), *(torch.as_tensor(a, **t32) for a in (b, x0, lam0, mu0)),
-                tol_i, **kw,
             )
+            with no_implicit_transfers(cfg):
+                x, lam, mu, it, res, flags = _pdhg_body(*operands, tol_i, **kw)
             poisoned = bool(flags & FLAG_POISONED)
             if poisoned:
                 # per-lane quarantine: re-solve THIS instance on the float64
@@ -305,8 +321,36 @@ def solve_lp_batch(
                 kkt=float(res),
             )
             if warm_key is not None and not poisoned:
-                _WARM_SLOTS[(warm_key, i)] = (xi, li, mi, int(inst.tail_vars))
+                slots[i] = (xi, li, mi, int(inst.tail_vars))
+    if dealt:
+        import torch.distributed as dist
+
+        gathered = [None] * dist.get_world_size()
+        dist.all_gather_object(
+            gathered, ({i: out[i] for i in range(len(out)) if out[i] is not None}, slots)
+        )
+        for sols, rank_slots in gathered:
+            for i, sol in sols.items():
+                out[i] = sol
+            slots.update(rank_slots)
+    for i, slot in slots.items():
+        _WARM_SLOTS[(warm_key, i)] = slot
     return out
+
+
+def _own_lanes(lanes: int, mesh, cfg: Config, log) -> List[int]:
+    """This rank's lane positions of a bucket of ``lanes``: its shard of the
+    lane axis (padded to a multiple of the mesh size) in the declared
+    ``bucket`` layout."""
+    from citizensassemblies_tpu_torch.dist import partition as dist_partition
+
+    ndev = int(mesh.size())
+    padded = -(-lanes // ndev) * ndev
+    ids = dist_partition.prepartition(
+        torch.arange(padded, dtype=torch.int64), dist_partition.bucket(mesh, 1), log=log,
+        count=bool(cfg.dist_prepartition),
+    ).to_local().cpu().numpy()
+    return [int(j) for j in ids if j < lanes]
 
 
 def solve_polish_screen_ell(
@@ -374,13 +418,14 @@ def solve_polish_screen_ell(
         torch.as_tensor(x0, **t32), torch.as_tensor(lam0, **t32),
         torch.as_tensor(mu0, **t32), torch.full((B,), float(tol), **t32),
     )
-    if fused:
-        core_out = mk.dispatch_two_sided(idx_p, val_p, *lanes, log=log, **kw)
-    else:
-        core_out = _pdhg_two_sided_body_ell(
-            torch.as_tensor(idx_p, dtype=torch.int32, device=dev),
-            torch.as_tensor(val_p, **t32), *lanes, csr, **kw,
-        )
+    with no_implicit_transfers(cfg):
+        if fused:
+            core_out = mk.dispatch_two_sided(idx_p, val_p, *lanes, log=log, cfg=cfg, **kw)
+        else:
+            core_out = _pdhg_two_sided_body_ell(
+                torch.as_tensor(idx_p, dtype=torch.int32, device=dev),
+                torch.as_tensor(val_p, **t32), *lanes, csr, **kw,
+            )
     x, lam, mu, it, res, flags = _readback(*core_out)
     _book(B, log)
     out = []
@@ -446,3 +491,18 @@ def face_probe_batch_lp(
         b=np.ones(1),
         tol=tol,
     )
+
+
+def final_primal_batch_lp(P: np.ndarray, target: np.ndarray, tol: Optional[float] = None) -> BatchLP:
+    """One final ε-LP ``min ε s.t. Pᵀp ≥ target − ε, Σp = 1, p ≥ 0, ε ≥
+    0`` (``leximin.py:453-464``) in the engine's generic form: the
+    per-instance solve of a sweep's fleet (``parallel/sweep.py``)."""
+    P = np.asarray(P, dtype=np.float64)
+    C, n = P.shape
+    c = np.zeros(C + 1)
+    c[C] = 1.0
+    G = np.hstack([-P.T, -np.ones((n, 1))])
+    h = -np.asarray(target, dtype=np.float64)
+    A = np.zeros((1, C + 1))
+    A[0, :C] = 1.0
+    return BatchLP(c=c, G=G, h=h, A=A, b=np.ones(1), tol=tol, tail_vars=1)

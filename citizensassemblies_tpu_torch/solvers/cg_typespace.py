@@ -1175,7 +1175,9 @@ def _stage_cg(
             with log.timer("stochastic_pricing"):
                 w_agents = torch.as_tensor(w_type[type_id], dtype=torch.float32, device=dense.device)
                 scores = _pricing_scores(w_agents, cfg.pricing_batch)
-                panels, ok_t = sample_panels_batch(dense, generator, cfg.pricing_batch, scores=scores)
+                panels, ok_t = sample_panels_batch(
+                    dense, generator, cfg.pricing_batch, scores=scores, cfg=cfg
+                )
                 panels_np = panels.cpu().numpy()
                 cand = panels_to_comps(panels_np[ok_t.cpu().numpy()])
             values = cand.astype(np.float64) @ w_type

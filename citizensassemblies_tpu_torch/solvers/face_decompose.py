@@ -50,8 +50,8 @@ consulted here. Only an injected fault (``FaultInjected``) at
 (``robust_degrade_device_pricing``); any other error of the dispatch, a
 kernel's among them, propagates.
 
-Not in this package yet: the multi-device sharded master and the
-per-request deadline check (it needs the serving layer's request context).
+Not in this package yet: the per-request deadline check (it needs the
+serving layer's request context).
 """
 
 from __future__ import annotations
@@ -63,6 +63,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from citizensassemblies_tpu_torch.dist.runtime import effective_mesh
 from citizensassemblies_tpu_torch.robust import inject
 from citizensassemblies_tpu_torch.robust.policy import DegradationLadder
 from citizensassemblies_tpu_torch.robust.checkpoint import (
@@ -74,6 +75,7 @@ from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
 from citizensassemblies_tpu_torch.utils.config import default_config
 from citizensassemblies_tpu_torch.utils import device as _device
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device, upload
+from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
 from citizensassemblies_tpu_torch.utils.logging import RunLog
 
 #: compositions per screening batch: ``realize_profile`` expands at most the
@@ -241,7 +243,7 @@ def _move_screen_dispatch(
     diff = masks[ti] ^ masks[tj]
     feat_of = np.asarray(reduction.type_feature)
     ti_t, tj_t = up(ti), up(tj)
-    ok = _screen_feasible(
+    operands = (
         up(comps.astype(np.int64)), up(counts[:, :nb]), st["lo_nb"], st["hi_nb"], up(counts),
         st["lo_f"], st["hi_f"], up(np.asarray(m, np.int64)), ti_t, tj_t,
         torch.ones(len(ti), dtype=torch.bool, device=device),
@@ -249,7 +251,9 @@ def _move_screen_dispatch(
         [up(feat_of[ti, ci]) for ci in leftover], [up(feat_of[tj, ci]) for ci in leftover],
         st["lf_donor"],
     )
-    idx, total = _first_true(ok.reshape(-1), int(per_round_cap))
+    with guarded_launch(device):
+        ok = _screen_feasible(*operands)
+        idx, total = _first_true(ok.reshape(-1), int(per_round_cap))
     return idx, total, len(ti)
 
 
@@ -263,14 +267,16 @@ def _batched_move_screen(
     packed,
     per_round_cap: int,
     device: torch.device,
+    cfg=None,
 ) -> Tuple[np.ndarray, np.ndarray, int]:
     """The whole [S, P] (composition, move) feasibility check as one batch
     of torch ops on ``device`` (:func:`_move_screen_dispatch`), then its one
     readback: the first ``per_round_cap`` feasible (composition, pair)
     indices in row-major order. Returns ``(si, pi, total_feasible)``."""
-    idx_dev, total_dev, P = _move_screen_dispatch(
-        comps, counts, reduction, m, ti, tj, packed, per_round_cap, device
-    )
+    with no_implicit_transfers(cfg):
+        idx_dev, total_dev, P = _move_screen_dispatch(
+            comps, counts, reduction, m, ti, tj, packed, per_round_cap, device
+        )
     idx = idx_dev.cpu().numpy()
     idx = idx[idx >= 0]
     return idx // P, idx % P, int(total_dev)
@@ -285,6 +291,7 @@ def neighbor_columns(
     per_round_cap: int = 16_384,
     batched: bool = False,
     device: DeviceLike = "cpu",
+    cfg=None,
 ) -> np.ndarray:
     """Feasible single-unit moves from ``comps`` along and across the face.
 
@@ -323,7 +330,7 @@ def neighbor_columns(
     if batched and packed is not None and S <= _SCREEN_ROWS:
         si, pi, _total = _batched_move_screen(
             comps, counts, reduction, m, ti, tj, packed, per_round_cap,
-            torch.device(device),
+            torch.device(device), cfg=cfg,
         )
         if len(si) == 0:
             return np.zeros((0, T), dtype=np.int16)
@@ -485,12 +492,14 @@ class _FusedScreen:
         nb = min(self.red.F, 64)
         dev = self.device
         st = self._st
-        idx, _total, ti, tj = fused_screen_core(
+        operands = (
             lam_dev, self._m_f, upload(comps, dev, torch.int64),
             upload(counts[:, :nb], dev), st["lo_nb"], st["hi_nb"], upload(counts, dev),
             st["lo_f"], st["hi_f"], self._m_t, self._mask, self._cand_di, self._cand_dj,
             st["lf_feat"], st["lf_donor"], self.cap, self.pool_cap, self.face_pairs,
         )
+        with no_implicit_transfers(self.cfg), guarded_launch(dev):
+            idx, _total, ti, tj = fused_screen_core(*operands)
         self._pending = (idx, ti, tj, comps)
         return True
 
@@ -1158,7 +1167,29 @@ def realize_profile(
                 or len(cols) > cfg.decomp_host_master_max_cols
             )
             polish_warm = None
-            if use_pdhg:
+            # beyond one card's row set: the master's 2T rows sharded over
+            # the world's mesh (no warm start: the sharded regime trades it
+            # for scale-out)
+            mesh = (
+                effective_mesh(cfg, log)
+                if use_pdhg and T >= cfg.master_shard_min_types
+                else None
+            )
+            if mesh is not None:
+                from citizensassemblies_tpu_torch.parallel.solver import (
+                    solve_decomp_master_sharded,
+                )
+
+                with log.timer("decomp_master"):
+                    eps, w, p, eps_obj, _ok = solve_decomp_master_sharded(
+                        MT, v, mesh, cfg=cfg, tol=master_tol
+                    )
+                pdhg_warm = None
+                lp_solves += 1
+                log.count("decomp_master_sharded")
+                # one upload and one harvest per sharded master
+                log.count("decomp_host_syncs")
+            elif use_pdhg:
                 # adaptive budget: far from acceptance the duals only need to
                 # be roughly right to aim the expansion
                 far = not eps_hist or eps_hist[-1] > 6 * accept
@@ -1312,7 +1343,7 @@ def realize_profile(
                     cand.append(
                         neighbor_columns(
                             np.stack(kept[:_SCREEN_ROWS]), reduction, r_norm,
-                            batched=batched_expand, device=dev,
+                            batched=batched_expand, device=dev, cfg=cfg,
                         )
                     )
                 if batched_expand:

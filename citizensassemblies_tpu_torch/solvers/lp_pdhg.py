@@ -46,6 +46,7 @@ import torch
 from citizensassemblies_tpu_torch.robust import inject
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
+from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
 from citizensassemblies_tpu_torch.utils.precision import demote_operator, iterate_dtype, operand_tensor
 
 
@@ -171,7 +172,8 @@ def _two_sided_iterate(
         if graph and blocks == 1:
             run = _replayed(block, (p, eps, l_lo, l_up, mu, tau, sigma))
         blocks += 1
-        q, e, lo, up, m, ps, es, lls, lus, ms = run(p, eps, l_lo, l_up, mu, tau, sigma)
+        with guarded_launch(dev):
+            q, e, lo, up, m, ps, es, lls, lus, ms = run(p, eps, l_lo, l_up, mu, tau, sigma)
         pa = (p_av + ps * inv) * 0.5
         ea = (e_av + es * inv) * 0.5
         lla = (ll_av + lls * inv) * 0.5
@@ -473,18 +475,19 @@ def solve_two_sided_master_ell_async(
         torch.full((1,), float(mu0), **f32),
         torch.full((1,), tol, **f32),
     )
-    if fused:
-        # fused route: one kernel launch for the whole solve
-        out = mk.dispatch_two_sided(
-            idx_p, val_d, *lanes, max_iters=mi, check_every=ce, sentinel=sent,
-            log=log,
-        )
-    else:
-        out = _pdhg_two_sided_body_ell(
-            torch.as_tensor(idx_p, dtype=torch.int32, device=dev),
-            operand_tensor(val_d, dev), *lanes, csr,
-            max_iters=mi, check_every=ce, sentinel=sent,
-        )
+    with no_implicit_transfers(cfg):
+        if fused:
+            # fused route: one kernel launch for the whole solve
+            out = mk.dispatch_two_sided(
+                idx_p, val_d, *lanes, max_iters=mi, check_every=ce, sentinel=sent,
+                log=log, cfg=cfg,
+            )
+        else:
+            out = _pdhg_two_sided_body_ell(
+                torch.as_tensor(idx_p, dtype=torch.int32, device=dev),
+                operand_tensor(val_d, dev), *lanes, csr,
+                max_iters=mi, check_every=ce, sentinel=sent,
+            )
     return _handle(*(o[0] for o in out), Cp=Cp, T=T, tol=tol)
 
 
@@ -610,7 +613,8 @@ def _lp_iterate(
         if graph and blocks == 1:
             run = _replayed(block, (x, lam, mu, tau, sigma))
         blocks += 1
-        q, y, m, xs, ls, ms = run(x, lam, mu, tau, sigma)
+        with guarded_launch(x.device):
+            q, y, m, xs, ls, ms = run(x, lam, mu, tau, sigma)
         xa = (x_av + xs * inv) * 0.5
         la = (lam_av + ls * inv) * 0.5
         ma = (mu_av + ms * inv) * 0.5
@@ -826,11 +830,13 @@ def solve_lp(c, G, h, A, b, cfg: Optional[Config] = None, warm=None, tol: Option
         for i, a in ((1, G), (3, A))
     )
     c_, h_, b_ = (torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, h, b))
-    out = _pdhg_body(
-        c_, operand_tensor(G_d, dev), h_, operand_tensor(A_d, dev), b_,
-        x0, lam0, mu0, tol, max_iters=int(cfg.pdhg_max_iters),
-        check_every=int(cfg.pdhg_check_every), sentinel=sentinels_enabled(cfg),
-    )
+    G_t, A_t = operand_tensor(G_d, dev), operand_tensor(A_d, dev)
+    with no_implicit_transfers(cfg):
+        out = _pdhg_body(
+            c_, G_t, h_, A_t, b_,
+            x0, lam0, mu0, tol, max_iters=int(cfg.pdhg_max_iters),
+            check_every=int(cfg.pdhg_check_every), sentinel=sentinels_enabled(cfg),
+        )
     return _finish_lp(c, lambda: G, h, A, b, out, tol, log)
 
 
@@ -857,8 +863,9 @@ def solve_lp_ell(c, ell, h, A, b, cfg: Optional[Config] = None, warm=None, tol: 
               sentinel=sentinels_enabled(cfg))
     if mk.lp_megakernel_mode(cfg, nv, m1, m2, dev, log=log) == "fused":
         # fused route: one kernel launch for the whole solve
-        out = mk.dispatch_lp(c, ell.idx, val_d, h, A_d, b, x0, lam0, mu0, tol,
-                             device=dev, log=log, **kw)
+        with no_implicit_transfers(cfg):
+            out = mk.dispatch_lp(c, ell.idx, val_d, h, A_d, b, x0, lam0, mu0, tol,
+                                 device=dev, log=log, cfg=cfg, **kw)
     else:
         f32 = dict(dtype=torch.float32, device=dev)
         csr = mk.csr_to_device(ell.idx, ell.val, nv, dev)
@@ -866,10 +873,9 @@ def solve_lp_ell(c, ell, h, A, b, cfg: Optional[Config] = None, warm=None, tol: 
             torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, h, b, x0, lam0, mu0)
         )
         idx = torch.as_tensor(ell.idx, dtype=torch.int32, device=dev)
-        out = _pdhg_body_ell(
-            c_, idx, operand_tensor(val_d, dev), h_, operand_tensor(A_d, dev), b_,
-            x0_, lam0_, mu0_, tol, csr, **kw,
-        )
+        val_t, A_t = operand_tensor(val_d, dev), operand_tensor(A_d, dev)
+        with no_implicit_transfers(cfg):
+            out = _pdhg_body_ell(c_, idx, val_t, h_, A_t, b_, x0_, lam0_, mu0_, tol, csr, **kw)
     return _finish_lp(c, lambda: ell_unpack_rows(ell.idx, ell.val, nv), h, A, b, out, tol, log)
 
 

@@ -56,7 +56,7 @@ def stochastic_price(
         B = min(B, 1024)
     w = torch.as_tensor(np.asarray(weights, np.float32), device=dense.device)
     panels, ok = sample_panels_batch(
-        dense, generator, B, scores=_pricing_scores(w, B), households=households
+        dense, generator, B, scores=_pricing_scores(w, B), households=households, cfg=cfg
     )
     panels = np.sort(panels.cpu().numpy(), axis=1)
     values = np.asarray(weights, dtype=np.float64)[panels].sum(axis=1)

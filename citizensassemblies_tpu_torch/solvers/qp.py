@@ -43,9 +43,12 @@ product is float32 and bitwise that of the float32 operand. The fused
 cores consult the ``qp_nan`` fault site, which poisons the donor for the
 sentinel to quarantine.
 
-Left out until their ROADMAP queue A items land: the serving context and its
-pack memo (item 9), the no-implicit-transfer guard (item 7), dispatch spans
-(items 9-10) and the AOT/IR registrations (item 10).
+The fused cores and the dual ascents run under the transfer guard
+(``utils/guards.no_implicit_transfers``): a host synchronisation inside a
+PDHG block or an ascent chunk raises under ``Config.transfer_guard =
+"disallow"``. Left out until their ROADMAP queue A items land: the serving
+context and its pack memo (item 9), dispatch spans (items 9-10) and the
+AOT/IR registrations (item 10).
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from citizensassemblies_tpu_torch.robust import inject
 from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_gather_mv, ell_scatter_mv
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device, upload
+from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
 from citizensassemblies_tpu_torch.utils.logging import RunLog
 from citizensassemblies_tpu_torch.utils.memo import LRU
 from citizensassemblies_tpu_torch.utils.precision import demote_operator, iterate_dtype
@@ -182,9 +186,11 @@ def _iterate(step, lam, iters: int, graph: bool):
     if chunks:
         run = _chunk_runner(step, L2_CHUNK, lam, graph)
         for _ in range(chunks):
-            (lam,) = run(lam)
-    for _ in range(rest):
-        lam = step(lam)
+            with guarded_launch(lam.device):
+                (lam,) = run(lam)
+    with guarded_launch(lam.device):
+        for _ in range(rest):
+            lam = step(lam)
     return lam
 
 
@@ -264,7 +270,8 @@ def _ascent_chunks(p_of, step, n: int, dev, chunk: int, max_chunks: int, ascent_
     run = _chunk_runner(step, chunk, lam, graph)
     k, delta, flags = 0, float("inf"), 0
     while delta > tol and k < max_chunks:
-        (lam_new,) = run(lam)
+        with guarded_launch(dev):
+            (lam_new,) = run(lam)
         replays += int(graph)
         p_new = p_of(lam_new)
         d = float((p_new - p).abs().max())
@@ -545,7 +552,9 @@ def solve_final_primal_l2(
                     val_t = upload(demote_operator(
                         ell.val, cfg, core="qp.l2_fused_core_ell", arg=1, log=log, device=dev
                     ), dev)
-                    out = core(idx_t, val_t, tj, dj, margin, ANCHOR_TOL, ASCENT_TOL, csr, log=log)
+                    with no_implicit_transfers(cfg):
+                        out = core(idx_t, val_t, tj, dj, margin, ANCHOR_TOL, ASCENT_TOL, csr,
+                                   log=log)
                 else:
                     core = _get_l2_fused_core(
                         ANCHOR_ITERS, check_every, L2_CHUNK, max_chunks, sentinel=sent
@@ -554,7 +563,8 @@ def solve_final_primal_l2(
                         np.asarray(P, np.float32), cfg, core="qp.l2_fused_core", arg=0, log=log,
                         device=dev,
                     ), dev)
-                    out = core(Pj, tj, dj, margin, ANCHOR_TOL, ASCENT_TOL, log=log)
+                    with no_implicit_transfers(cfg):
+                        out = core(Pj, tj, dj, margin, ANCHOR_TOL, ASCENT_TOL, log=log)
                 fused_p = out[0].cpu().numpy().astype(np.float64)
                 p_floor = np.clip(out[1].cpu().numpy().astype(np.float64), 0.0, 1.0)
             log.count("lp_batch_l2_fused")
@@ -610,12 +620,13 @@ def solve_final_primal_l2(
             eps_dev = torch.tensor(eps, dtype=torch.float32, device=dev)
             step_dev = torch.tensor(1.0 / L, dtype=torch.float32, device=dev)
             lam0 = torch.zeros(2 * n, dtype=torch.float32, device=dev)
-            if ell is not None:
-                p, _lam = _min_norm_dual_ascent_ell(
-                    idx_t, val_t, tj, eps_dev, step_dev, lam0, iters, csr=csr
-                )
-            else:
-                p, _lam = _min_norm_dual_ascent(Pj, tj, eps_dev, step_dev, lam0, iters)
+            with no_implicit_transfers(cfg):
+                if ell is not None:
+                    p, _lam = _min_norm_dual_ascent_ell(
+                        idx_t, val_t, tj, eps_dev, step_dev, lam0, iters, csr=csr
+                    )
+                else:
+                    p, _lam = _min_norm_dual_ascent(Pj, tj, eps_dev, step_dev, lam0, iters)
             p = p.cpu().numpy().astype(np.float64)
     p = np.clip(p, 0.0, 1.0)
     s = p.sum()

@@ -166,6 +166,37 @@ class Config:
     #: same problem). Empty disables face checkpointing.
     robust_checkpoint_dir: str = ""
 
+    # --- distribution (``dist/``, ``parallel/``) --------------------------------
+    #: route the agent-space dual LP through the row-sharded PDHG
+    #: (``parallel/solver.solve_dual_lp_pdhg_sharded``) when the world spans
+    #: more than one device and the portfolio has at least this many rows.
+    dual_shard_min_rows: int = 4_096
+    #: route the face master through the row-sharded PDHG
+    #: (``parallel/solver.solve_decomp_master_sharded``) when the world spans
+    #: more than one device and the problem has at least this many types.
+    master_shard_min_types: int = 4_096
+    #: mesh gate: ``True`` lets the shardable stages run over the world's
+    #: ``dist.runtime`` mesh whenever it spans more than one device;
+    #: ``False`` keeps every stage on its undistributed path (the
+    #: ``mesh_to_single_device`` rung of the degradation ladder).
+    dist_mesh: bool = True
+    #: coordinator address (``host:port`` or a ``tcp://`` / ``file://``
+    #: init method). Empty: the ``CITIZENS_DIST_*`` environment decides, and
+    #: without it ``dist.runtime.bootstrap`` initializes nothing.
+    dist_coordinator: str = ""
+    #: place operands into the declared layouts of ``dist/partition.py``
+    #: with counted placements (``dist_placements``) and reshards
+    #: (``dist_reshards``); ``False`` deals the same shards uncounted.
+    dist_prepartition: bool = True
+    #: serving-fleet size; 0 reads ``CITIZENS_FLEET_PROCESSES``, else the
+    #: world size.
+    fleet_processes: int = 0
+    #: ``utils/guards.no_implicit_transfers`` mode around the launches and
+    #: graph replays of the device hot paths: ``"disallow"`` makes a host
+    #: synchronisation inside the scope an error, ``"log"`` a warning,
+    #: ``"off"`` removes the scope.
+    transfer_guard: str = "disallow"
+
     # --- backends -------------------------------------------------------------
     #: LP engine of the agent-space CG: "jax" solves the dual LPs by PDHG on
     #: the device (the name is the JAX package's, so configurations map field

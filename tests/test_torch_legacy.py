@@ -123,8 +123,20 @@ def test_infeasible_quotas_raise():
     cfg = default_config().replace(mc_batch=64, mc_max_resample_rounds=2)
     with pytest.raises(SelectionError, match="no feasible panel"):
         tleg.sample_feasible_panels(td, 10, cfg=cfg)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        tleg.sample_panels_batch(td, torch.Generator(), 8, distribute=True)
+    # distributed over a one-rank world the infeasible draw fails alike, and
+    # draws what the undistributed sampler draws
+    from citizensassemblies_tpu_torch.dist import runtime
+
+    try:
+        want = tleg.sample_panels_batch(td, torch.Generator().manual_seed(1), 8, distribute=False)
+        got = tleg.sample_panels_batch(td, torch.Generator().manual_seed(1), 8, distribute=True)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        assert not got[1].any()
+        with pytest.raises(SelectionError, match="no feasible panel"):
+            tleg.sample_feasible_panels(td, 10, cfg=cfg, distribute=True)
+    finally:
+        runtime.shutdown()
 
 
 def test_estimators_agree_in_distribution():

@@ -444,9 +444,9 @@ def test_corrupt_warm_slot_quarantined_not_propagated():
 def test_degradation_ladder_order_and_cumulative_config():
     """The port's ladder is the JAX package's in its order, without the
     kernel → chained-ops rung (a kernel's failure must raise, never switch
-    to the plain version) and the mesh rung (no multi-device path yet);
-    each rung's gate stays off, cumulatively; past the bottom, no-op."""
-    struck = {"megakernel_to_chained", "mesh_to_single_device"}
+    to the plain version); each rung's gate stays off, cumulatively; past
+    the bottom, no-op."""
+    struck = {"megakernel_to_chained"}
     want = [(n, p) for n, p in jpol.DEGRADATION_LADDER if n not in struck]
     assert list(tpol.DEGRADATION_LADDER) == want
     cfg = tconfig.default_config()
@@ -457,6 +457,7 @@ def test_degradation_ladder_order_and_cumulative_config():
     assert ladder.steps == [n for n, _p in want] and ladder.exhausted
     assert cfg.decomp_device_pricing is False and cfg.sparse_ops is False
     assert cfg.lp_batch is False and cfg.decomp_batched_expand is False
+    assert cfg.dist_mesh is False
     assert cfg.pdhg_megakernel is None
     assert log.counters["robust_degrade_steps"] == len(want)
 
