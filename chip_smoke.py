@@ -122,7 +122,24 @@ Phases, each fatal on failure:
    build) and the LP kernel; the row-sharded face master on the flagship
    master against the two-sided kernel; and the instance sweep over
    ``sf_e_skewed_instance(seed=1..4)``, each instance bit for bit the
-   per-instance sampler on its noise rows.
+   per-instance sampler on its noise rows;
+11. the scenario models, churn and the request context, each path with its
+   launch counters zeroed just before it and read just after: the dropout
+   model on ``bench.py --scenarios``'s pool (``random_instance(n=60, k=8,
+   n_categories=2, seed=0)``, no-show U(0, 0.5)), audited by 65,536 draws,
+   its realized minimum above the attendance-blind naive re-draw's; on
+   ``example_small_like_instance()``; and on the flagship pool, where the
+   product type space falls back to the attendance-unaware LEXIMIN (the
+   main path: the two-sided kernel and the gather launch; its portfolio
+   bit for bit the defaults flagship's), audited under all three policies;
+   multi-assembly scheduling at R=3 on ``example_small_like_instance()``,
+   its round fleet one bucketed dispatch on the card, 1,000 drawn schedules
+   without a repeat, against the CPU; ``churn_bench``'s registry (n=100,000,
+   k=316) over the first 100 edits of its trail, delta against at most 8
+   from-scratch samples within 1e-3, the screen on the card against the
+   CPU; and the flagship under a ``RequestContext``, bit for bit the run
+   without one at a generous deadline, raising ``DeadlineExceeded`` from
+   inside the face loop at a tight one.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
 line, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -215,8 +232,11 @@ AGENT_BUDGET_S = 27.0
 SCREEN_CAPS = [512, 1024, 2048]
 SCREEN_MAX_ITERS = 24_576
 #: the stage-CG fallback on sf_b_skewed_instance(seed=1), forced by an
-#: acceptance bar the face loop cannot meet: its budget in all
-STAGE_CG_BUDGET_S = 120.0
+#: acceptance bar the face loop cannot meet: its budget in all. It finished
+#: its 12 stages in 83-85 s under the 120 s budget of PRs 5-10; 40 s since
+#: slice 11, whose phases need the time, so the run stops after its first
+#: stages (the fallback and at least one stage are held)
+STAGE_CG_BUDGET_S = 40.0
 #: the face loop's bar there, and its rounds: the loop realizes the sf_b
 #: profile exactly (at a bar of 1e-7 on the card in 9 rounds; ε = 0 from
 #: the host LP on the CPU), so only a bar no residual meets makes it stall;
@@ -251,6 +271,17 @@ MP_KEYS = ("mp_demoted_operands", "mp_lossy_skip")
 CKPT_ABORT = ("face_abort:0.3", 2012)
 #: faults_flagship's pdhg_nan schedule: fires at the first master only
 PDHG_NAN_FIRST = ("pdhg_nan:0.25", 270)
+#: Monte-Carlo draws of the scenario phases (``bench.py --scenarios``'s)
+SCENARIO_DRAWS = 65_536
+#: churn_nationwide's depth cuts of ``churn_bench``'s 1,000 edits and 6
+#: from-scratch samples per edit class (up to 30): the first 100 edits, at
+#: most 8 samples, at most 2 a class. Every quota or new-type edit re-runs
+#: the composition ladder, 3-7 s an edit on an NVIDIA H100 80GB HBM3 at
+#: 700 W: the first 200 edits took 220 s there, and the whole script
+#: 1,043 s of its 1,200 s limit
+CHURN_EDITS = 100
+CHURN_SCRATCH = 8
+CHURN_SCRATCH_PER_CLASS = 2
 
 
 def log(msg: str) -> None:
@@ -3482,6 +3513,483 @@ def households_phases(cfg, libs):
     return dict(hold=hold, n400=n400, n1200=n1200, agent=agent, xmin=xmin)
 
 
+# --- slice 11: the request context, the scenario models, churn ----------------------
+
+
+def _launches(libs) -> dict:
+    """Every kernel's launches since the counters were zeroed, the gather's
+    bf16-value path among them and also apart."""
+    return dict({lib.name: lib.launches for lib in libs}, ell_gather_bf16=bf16_gathers())
+
+
+def _scenario_drop(n: int) -> np.ndarray:
+    """``bench.py --scenarios``'s attendance law: no-show U(0, 0.5) drawn
+    from ``numpy.random.default_rng(0)``."""
+    return np.random.default_rng(0).uniform(0.0, 0.5, size=n)
+
+
+def _blind_baseline(blind, aware, dense_host):
+    """The naive re-draw baseline of ``bench.py:2107-2121``: the
+    attendance-blind LEXIMIN portfolio with the aware run's attendance."""
+    from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
+
+    class Blind:
+        committees = blind.committees
+        probabilities = blind.probabilities
+        attendance = aware.attendance
+        type_id = TypeReduction(dense_host).type_id
+        covered = blind.covered
+
+    return Blind()
+
+
+def scenario_dropout_bench_phase(cfg, libs):
+    """``bench.py --scenarios``'s dropout row (``bench.py:2055-2150``) on the
+    card: ``random_instance(n=60, k=8, n_categories=2, seed=0)``, no-show
+    U(0, 0.5), the dropout-aware LEXIMIN with the ``type`` policy against
+    the attendance-blind LEXIMIN with the ``naive`` re-draw, both audited by
+    65,536 Monte-Carlo draws on the card. Holds the contract and the aware
+    realized minimum above the naive baseline's."""
+    import torch
+
+    from citizensassemblies_tpu_torch.core.generator import random_instance
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin
+    from citizensassemblies_tpu_torch.scenarios import find_distribution_dropout
+    from citizensassemblies_tpu_torch.scenarios.dropout import evaluate_realization
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    inst = random_instance(n=60, k=8, n_categories=2, seed=0)
+    dense, space = featurize(inst, device="cuda")
+    host, _ = featurize(inst, device="cpu")
+    cfg = cfg.replace(scenario_mc_draws=SCENARIO_DRAWS)
+    drop = _scenario_drop(dense.n)
+    for lib in libs:
+        lib.reset_counts()
+    log = RunLog(echo=False)
+    t0 = time.perf_counter()
+    aware = find_distribution_dropout(dense, space, dropout=drop, cfg=cfg, log=log)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _launches(libs)
+    blind = find_distribution_leximin(dense, space, cfg=cfg)
+    t1 = time.perf_counter()
+    ours = evaluate_realization(aware, dense, draws=SCENARIO_DRAWS, policy="type", seed=0)
+    naive = evaluate_realization(_blind_baseline(blind, aware, host), dense,
+                                 draws=SCENARIO_DRAWS, policy="naive", seed=0)
+    mc_s = time.perf_counter() - t1
+    audit = aware.scenario_audit
+    rec = dict(
+        phase="scenario_dropout_bench", n=dense.n, k=dense.k, seconds=secs, mc_seconds_two=mc_s,
+        buckets=audit["buckets"], product_types=audit["types"], fallback=audit.get("fallback"),
+        contract_ok=bool(aware.contract_ok), realization_dev=aware.realization_dev,
+        certified_min_realized=audit["certified_min_realized"], mc_aware_type=ours,
+        mc_blind_naive=naive, beats_naive_redraw=bool(ours["realized_min"] > naive["realized_min"]),
+        launches=launches, timers={k: log.timers.get(k, 0.0) for k in (
+            "scenario_leximin", "scenario_decompose")},
+    )
+    rec["ok"] = bool(aware.contract_ok and rec["beats_naive_redraw"] and clean(log.counters)
+                     and audit["mc"]["draws"] == SCENARIO_DRAWS)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def scenario_dropout_example_small_phase(cfg, libs):
+    """The dropout model on ``example_small_like_instance()`` (n=200,
+    k=20, the upstream ``example_small_20`` shape) at the bench's
+    attendance law, its audit at 65,536 draws; reports whether the product
+    type space stayed enumerable (the aware path) or fell back."""
+    import torch
+
+    from citizensassemblies_tpu_torch.core.generator import example_small_like_instance
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.scenarios import find_distribution_dropout
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    dense, space = featurize(example_small_like_instance(), device="cuda")
+    cfg = cfg.replace(scenario_mc_draws=SCENARIO_DRAWS)
+    for lib in libs:
+        lib.reset_counts()
+    log = RunLog(echo=False)
+    t0 = time.perf_counter()
+    d = find_distribution_dropout(dense, space, dropout=_scenario_drop(dense.n), cfg=cfg, log=log)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    audit = d.scenario_audit
+    rec = dict(
+        phase="scenario_dropout_example_small", n=dense.n, k=dense.k, seconds=secs,
+        path="fallback" if "fallback" in audit else "aware", fallback=audit.get("fallback"),
+        buckets=audit["buckets"], product_types=audit["types"], contract_ok=bool(d.contract_ok),
+        realization_dev=d.realization_dev, panels=int(len(d.probabilities)),
+        certified_min_realized=audit["certified_min_realized"], mc=audit["mc"],
+        launches=_launches(libs), timers={k: log.timers.get(k, 0.0) for k in (
+            "scenario_leximin", "scenario_decompose")},
+    )
+    rec["ok"] = bool(d.contract_ok and clean(log.counters)
+                     and audit["mc"]["draws"] == SCENARIO_DRAWS)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def scenario_dropout_flagship_phase(cfg, libs, leximin):
+    """The dropout model on ``sf_e_skewed_instance(seed=1)`` at the bench's
+    attendance law: T=814 types times the occupied buckets exceed
+    ``enum_max_types``, so it runs the attendance-unaware LEXIMIN (the main
+    path: its face loop launches the two-sided kernel and the gather) and
+    audits it with 65,536 draws; the other two policies are audited on the
+    same portfolio. Holds the contract within 1e-3, the fallback's
+    portfolio bit for bit the defaults flagship's, and both kernels
+    launched."""
+    import torch
+
+    from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.scenarios import find_distribution_dropout
+    from citizensassemblies_tpu_torch.scenarios.dropout import evaluate_realization
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    dense, space = featurize(sf_e_skewed_instance(seed=1), device="cuda")
+    cfg = cfg.replace(scenario_mc_draws=SCENARIO_DRAWS)
+    for lib in libs:
+        lib.reset_counts()
+    log = RunLog(echo=False)
+    t0 = time.perf_counter()
+    d = find_distribution_dropout(dense, space, dropout=_scenario_drop(dense.n), cfg=cfg, log=log)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _launches(libs)
+    audit = d.scenario_audit
+    policies = {cfg.scenario_replacement: audit["mc"]}
+    for policy in ("type", "naive", "none"):
+        if policy not in policies:
+            t1 = time.perf_counter()
+            policies[policy] = evaluate_realization(d, dense, draws=SCENARIO_DRAWS, policy=policy)
+            policies[policy]["seconds"] = time.perf_counter() - t1
+    linf = float(np.max(np.abs(d.allocation - d.fixed_probabilities)))
+    same = bool(
+        np.array_equal(d.committees, leximin.committees)
+        and np.array_equal(d.probabilities, leximin.probabilities)
+        and np.array_equal(d.allocation, leximin.allocation)
+    )
+    rec = dict(
+        phase="scenario_dropout_flagship", n=dense.n, k=dense.k, seconds=secs,
+        fallback=audit.get("fallback"), product_types=audit["types"], buckets=audit["buckets"],
+        contract_ok=bool(d.contract_ok), linf=linf, panels=int(len(d.probabilities)),
+        certified_min_realized=audit["certified_min_realized"],
+        policies={p: {k: v for k, v in r.items() if k in (
+            "realized_min", "realized_min_any", "quota_ok_rate", "fill_rate", "draws", "seconds")}
+            for p, r in policies.items()},
+        bit_identical_to_defaults=same, launches=launches,
+        decomp_rounds=int(log.counters.get("decomp_rounds", 0)),
+    )
+    rec["ok"] = bool(
+        d.contract_ok and linf <= E2E_CONTRACT and "fallback" in audit and same
+        and launches["two_sided_block"] > 0 and launches["ell_gather"] > 0
+        and all(r["draws"] == SCENARIO_DRAWS for r in policies.values()) and clean(log.counters)
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def scenario_multi_phase(cfg, libs):
+    """Multi-assembly scheduling on ``example_small_like_instance()`` at
+    R=3 on the card: its R-round fleet one bucketed ``solve_lp_batch``
+    dispatch there (``Config.lp_batch`` resolves on for CUDA), 1,000 drawn
+    schedules without a repeat, the pair gauge; the aggregate certificate
+    within 1e-6 of the same model on the CPU (whose fleet is the host LP)
+    and the allocation within the contract of it."""
+    from unittest import mock
+
+    import torch
+
+    from citizensassemblies_tpu_torch.core.generator import example_small_like_instance
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.scenarios import find_distribution_multi
+    from citizensassemblies_tpu_torch.solvers import batch_lp
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    inst = example_small_like_instance()
+    dense, space = featurize(inst, device="cuda")
+    host, host_space = featurize(inst, device="cpu")
+    solve = batch_lp.solve_lp_batch
+    fleets = []
+
+    def recorded(problems, cfg=None, log=None, warm_key=None, **kw):
+        before = log.counters.get("lp_batch_dispatches", 0)
+        sols = solve(problems, cfg, log, warm_key=warm_key, **kw)
+        fleets.append([warm_key, len(problems), log.counters["lp_batch_dispatches"] - before,
+                       str(kw.get("device"))])
+        return sols
+
+    for lib in libs:
+        lib.reset_counts()
+    log = RunLog(echo=False)
+    with mock.patch.object(batch_lp, "solve_lp_batch", recorded):
+        t0 = time.perf_counter()
+        m = find_distribution_multi(dense, space, rounds=3, cfg=cfg, log=log)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = _launches(libs)
+    repeats = 0
+    for seed in range(1000):
+        flat = m.realize(seed=seed).ravel()
+        repeats += int(flat.size - len(np.unique(flat)))
+    t1 = time.perf_counter()
+    ref = find_distribution_multi(host, host_space, rounds=3, cfg=cfg, device="cpu")
+    cpu_s = time.perf_counter() - t1
+    audit = m.scenario_audit
+    fleet = [f for f in fleets if f[0] == "scenario_multi"]
+    rec = dict(
+        phase="scenario_multi", n=dense.n, k=dense.k, rounds=3, seconds=secs, cpu_seconds=cpu_s,
+        fleet_backend=audit["fleet_backend"], fleet_calls=fleet, round_eps_max=audit["round_eps_max"],
+        contract_ok=bool(m.contract_ok), realization_dev=m.realization_dev,
+        schedules=1000, repeats=repeats, pair_max=m.pair_max, pair_uniform=m.pair_uniform,
+        pair_ratio=m.pair_ratio, panels_per_round=audit["panels_per_round"],
+        compositions=audit["compositions"], types=audit["types"],
+        certificate_vs_cpu=float(np.max(np.abs(m.fixed_probabilities - ref.fixed_probabilities))),
+        allocation_vs_cpu=float(np.max(np.abs(m.allocation - ref.allocation))),
+        cpu_round_eps_max=ref.scenario_audit["round_eps_max"], launches=launches,
+        lp_batch_dispatches=int(log.counters.get("lp_batch_dispatches", 0)),
+    )
+    rec["ok"] = bool(
+        m.contract_ok and repeats == 0 and audit["fleet_backend"] == "batch_lp"
+        and len(fleet) == 1 and fleet[0][1:3] == [3, 1] and fleet[0][3].startswith("cuda")
+        and rec["certificate_vs_cpu"] <= 1e-6 and rec["allocation_vs_cpu"] <= E2E_CONTRACT
+        and m.pair_ratio >= 1.0 - 1e-9 and clean(log.counters)
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def _type_linf(state_a, state_b) -> float:
+    """``churn_bench``'s type-value L∞ over the live types of ``state_b``
+    matched by feature key (``bench.py:1466-1486``)."""
+    ia = {tuple(int(v) for v in row): t for t, row in enumerate(state_a.system.type_feature)}
+    worst = 0.0
+    for t_b, row in enumerate(state_b.system.type_feature):
+        if state_b.system.msize[t_b] == 0:
+            continue
+        t_a = ia.get(tuple(int(v) for v in row))
+        if t_a is None:
+            return float("inf")
+        worst = max(worst, abs(float(state_a.type_values[t_a]) - float(state_b.type_values[t_b])))
+    return worst
+
+
+def churn_phase(cfg, libs):
+    """``churn_bench`` (``bench.py:1383-1460``) at its full size on the
+    card: ``nationwide_registry(n=100,000, k=316, seed=16)`` over one
+    8-region category, its seeded 1,000-edit trail cut to the first
+    ``CHURN_EDITS`` edits, the delta arm on every edit (the screen on the
+    card) and the from-scratch arm sampled per edit class up to
+    ``CHURN_SCRATCH`` samples in all. Holds the bench's bars: type-value
+    L∞ against scratch ≤ 1e-3 on every sample, every ``eps_bound`` within
+    the contract, at least one cache hit, the delta median ≥ 5× below the
+    scratch median; and the last state's screen on the card against the
+    CPU (mask equal, gaps within 1e-6)."""
+    from unittest import mock
+
+    from citizensassemblies_tpu_torch.data.registry import (
+        apply_edit,
+        churn_trail,
+        nationwide_registry,
+    )
+    from citizensassemblies_tpu_torch.solvers import batch_lp, delta
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    # the batched LP engine's share (the ladder's probe prescreen): calls
+    # and seconds, each ending in its readback
+    solve = batch_lp.solve_lp_batch
+    engine = {"calls": 0, "seconds": 0.0}
+
+    def timed_engine(*a, **kw):
+        t = time.perf_counter()
+        out = solve(*a, **kw)
+        engine["seconds"] += time.perf_counter() - t
+        engine["calls"] += 1
+        return out
+
+    patch = mock.patch.object(batch_lp, "solve_lp_batch", timed_engine)
+    patch.start()
+    for lib in libs:
+        lib.reset_counts()
+    t_phase = time.perf_counter()
+    reg = nationwide_registry(n=100_000, k=316, seed=16,
+                              categories=(("region", [f"r{i}" for i in range(8)]),),
+                              quota_slack=0.003)
+    trail = churn_trail(reg, 1000, seed=16, max_edit_agents=8, max_new_types=2, weights={
+        "agents_add": 0.36, "agents_drop": 0.34, "quota_relax": 0.10, "quota_tighten": 0.14,
+        "new_type": 0.06,
+    })[:CHURN_EDITS]
+    trail_s = time.perf_counter() - t_phase
+    log = RunLog(echo=False)
+
+    def scratch(r):
+        t0 = time.perf_counter()
+        st = delta.certify_base(r, cfg=cfg, log=log)
+        return time.perf_counter() - t0, st
+
+    base_s, state = scratch(reg)
+    modes = {"cache_hit": 0, "resume": 0, "full_ladder": 0, "fallback": 0}
+    delta_s, scratch_s, per_class = [], [], {}
+    worst_linf = worst_eps = 0.0
+    failures = []
+    cur = reg
+    for i, edit in enumerate(trail):
+        nxt = apply_edit(cur, edit)
+        t0 = time.perf_counter()
+        out = delta.recertify(state, edit, cur, cfg=cfg, log=log)
+        if out is not None:
+            dt = time.perf_counter() - t0
+            state = out.state
+            modes[out.cert["mode"]] += 1
+            worst_eps = max(worst_eps, float(out.cert["eps_bound"]))
+        else:
+            _s, state = scratch(nxt)
+            dt = time.perf_counter() - t0
+            modes["fallback"] += 1
+            if state is None:
+                failures.append(f"edit {i} ({edit.kind}): both arms failed")
+                break
+        delta_s.append(dt)
+        per_class.setdefault(edit.kind, []).append(dt)
+        if len(scratch_s) < CHURN_SCRATCH and sum(
+                1 for k, _ in scratch_s if k == edit.kind) < CHURN_SCRATCH_PER_CLASS:
+            s_t, s_state = scratch(nxt)
+            if s_state is None:
+                failures.append(f"edit {i} ({edit.kind}): from-scratch failed")
+            else:
+                scratch_s.append((edit.kind, s_t))
+                linf = _type_linf(state, s_state)
+                worst_linf = max(worst_linf, linf)
+                if linf > E2E_CONTRACT:
+                    failures.append(f"edit {i} ({edit.kind}): L∞ {linf:.2e}")
+        cur = nxt
+
+    def med(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2] if xs else float("nan")
+
+    patch.stop()
+    delta_med, scratch_med = med(delta_s), med([t for _, t in scratch_s])
+    # the last state's screen, the card against the CPU
+    sys_ = state.system
+    margin = cfg.delta_cert_margin
+    feas_c, gap_c = delta.screen_columns(state.pack, state.comps, sys_, state.certs, margin,
+                                         cfg=cfg, device="cuda")
+    feas_h, gap_h = delta.screen_columns(state.pack, state.comps, sys_, state.certs, margin,
+                                         cfg=cfg, device="cpu")
+    screen_gap = float(np.max(np.abs(gap_c - gap_h))) if gap_c.size else 0.0
+    rec = dict(
+        phase="churn_nationwide", n=reg.n, k=reg.k, edits=len(delta_s), trail_seconds=trail_s,
+        base_seconds=base_s, modes=modes, delta_median_s=delta_med, scratch_median_s=scratch_med,
+        scratch_samples=len(scratch_s), speedup=scratch_med / max(delta_med, 1e-9),
+        delta_total_s=sum(delta_s), lp_engine=engine,
+        per_class={k: dict(edits=len(v), median_s=med(v)) for k, v in sorted(per_class.items())},
+        worst_linf_vs_scratch=worst_linf, worst_eps_bound=worst_eps,
+        screen_dispatches=int(log.counters.get("delta_screen_dispatches", 0)),
+        screen_card_vs_cpu=dict(mask_equal=bool(np.array_equal(feas_c, feas_h)), gap=screen_gap,
+                                columns=int(len(state.comps)), stages=len(state.certs)),
+        final_types=int(sys_.T), final_columns=int(len(state.comps)),
+        launches=_launches(libs), seconds=time.perf_counter() - t_phase, failures=failures,
+    )
+    rec["ok"] = bool(
+        not failures and worst_linf <= E2E_CONTRACT and worst_eps <= E2E_CONTRACT
+        and modes["cache_hit"] >= 1 and rec["speedup"] >= 5.0
+        and rec["screen_card_vs_cpu"]["mask_equal"] and screen_gap <= 1e-6
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def deadline_flagship_phase(inst, cfg, libs, leximin):
+    """The flagship LEXIMIN at the defaults under a ``RequestContext``.
+    A generous deadline that records the elapsed time at each of the face
+    loop's per-round checks: bit for bit the defaults flagship run without
+    a context. Then a deadline set halfway between the generous run's
+    checks of rounds 1 and 2: it raises ``DeadlineExceeded`` from inside
+    the loop, with ``partial`` holding the rounds run and the best ε, after
+    the kernels launched."""
+    import torch
+
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin
+    from citizensassemblies_tpu_torch.robust.policy import Deadline, DeadlineExceeded
+    from citizensassemblies_tpu_torch.service import RequestContext
+
+    class Recording(Deadline):
+        def __init__(self, seconds):
+            super().__init__(seconds)
+            self.at = []
+
+        def check(self, where, log=None, partial=None):
+            self.at.append(self.elapsed())
+            return super().check(where, log=log, partial=partial)
+
+    dense, space = featurize(inst, device="cuda")
+    for lib in libs:
+        lib.reset_counts()
+    generous = Recording(1e9)
+    ctx = RequestContext.create(cfg=cfg, deadline=generous)
+    t0 = time.perf_counter()
+    dist = find_distribution_leximin(dense, space, ctx=ctx)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _launches(libs)
+    same = bool(
+        np.array_equal(dist.committees, leximin.committees)
+        and np.array_equal(dist.probabilities, leximin.probabilities)
+        and np.array_equal(dist.allocation, leximin.allocation)
+    )
+    checks = list(generous.at)
+    limit = (checks[1] + checks[2]) / 2 if len(checks) >= 3 else None
+    tight = dict(limit_s=limit)
+    if limit is not None:
+        for lib in libs:
+            lib.reset_counts()
+        tctx = RequestContext.create(cfg=cfg, deadline=Deadline(limit))
+        t1 = time.perf_counter()
+        try:
+            find_distribution_leximin(dense, space, ctx=tctx)
+            tight["raised"] = False
+        except DeadlineExceeded as exc:
+            torch.cuda.synchronize()
+            tight.update(raised=True, message=str(exc), partial=exc.partial)
+        tight.update(seconds=time.perf_counter() - t1, launches=_launches(libs),
+                     deadline_exceeded=int(tctx.log.counters.get("deadline_exceeded", 0)),
+                     decomp_rounds=int(tctx.log.counters.get("decomp_rounds", 0)))
+    partial = tight.get("partial") or {}
+    rec = dict(
+        phase="deadline_flagship", seconds=secs, rounds_checked=len(checks),
+        check_seconds=checks, generous_bit_identical=same, launches=launches,
+        contract_ok=bool(dist.contract_ok), tight=tight,
+    )
+    rec["ok"] = bool(
+        same and dist.contract_ok and launches["two_sided_block"] > 0 and tight.get("raised")
+        and set(partial) == {"decomp_rounds", "best_eps"}
+        and 1 <= partial["decomp_rounds"] < len(checks)
+        and partial["best_eps"] is not None and np.isfinite(partial["best_eps"])
+        and tight["deadline_exceeded"] == 1 and tight["launches"]["two_sided_block"] > 0
+        and clean(ctx.log.counters)
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def scenario_phases(cfg, libs, leximin):
+    """Slice 11's phases, in order; returns their records by name."""
+    from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
+
+    return dict(
+        dropout_bench=scenario_dropout_bench_phase(cfg, libs),
+        dropout_example_small=scenario_dropout_example_small_phase(cfg, libs),
+        dropout_flagship=scenario_dropout_flagship_phase(cfg, libs, leximin),
+        multi=scenario_multi_phase(cfg, libs),
+        churn=churn_phase(cfg, libs),
+        deadline=deadline_flagship_phase(sf_e_skewed_instance(seed=1), cfg, libs, leximin),
+    )
+
+
 def main() -> int:
     import torch
 
@@ -3601,6 +4109,13 @@ def main() -> int:
     # products are gather launches of the main path's
     distribution = distribution_phases(libs, lex_defaults, pack, MT, highs_ref)
     launches["ell_gather"] += distribution["dual"]["launches"]["ell_gather"]
+    # the request context, the scenario models and churn (queue A items 1-2):
+    # the dropout model's flagship fallback and the deadline run are the
+    # main path's LEXIMIN; every phase's launches count with the main path's
+    scenarios = scenario_phases(defaults_cfg, libs, lex_defaults)
+    for rec in scenarios.values():
+        for name, count in rec["launches"].items():
+            launches[name] += count
 
     def summary(name, rec, phase_recs, holds):
         return dict(
@@ -3614,7 +4129,7 @@ def main() -> int:
 
     gather_row = summary("ell_gather", gather, [gather, gather_dual, gather_xmin, gather_bf16],
                          [households["n1200"], households["xmin"], analysis["flagship"],
-                          distribution["dual"]])
+                          distribution["dual"], scenarios["dropout_flagship"]])
     # the bf16-value path of the same kernel, at XMIN's demoted pack
     gather_row.update(
         bf16_launches=launches["ell_gather_bf16"], bf16_ms=gather_bf16["ms"],
@@ -3624,7 +4139,8 @@ def main() -> int:
     kernels = [
         gather_row,
         summary("two_sided_block", b1, [b1, b3, bnan, screen],
-                [households["hold"], households["n1200"], analysis["flagship"]]),
+                [households["hold"], households["n1200"], analysis["flagship"],
+                 scenarios["dropout_flagship"], scenarios["deadline"]]),
         summary("lp_block", lp, [lp, lp_sf_b], [households["agent"]]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3633,7 +4149,8 @@ def main() -> int:
     failed = [
         r for r in (e2e, e2e_defaults, xmin, xmin_hold, l2_serial, mass, legacy, agent, agent_sf_b,
                     dense_graph, stage_cg, stage_cg_pricing, *households.values(), ckpt_face,
-                    ckpt_lex, faults, *analysis.values(), *distribution.values())
+                    ckpt_lex, faults, *analysis.values(), *distribution.values(),
+                    *scenarios.values())
         if not r["ok"]
     ]
     if failed:

@@ -31,6 +31,8 @@ import torch
 
 from citizensassemblies_tpu_torch.core.instance import DenseInstance, SelectionError, on_device
 from citizensassemblies_tpu_torch.ops.pairs import pair_matrix_from_panels
+from citizensassemblies_tpu_torch.service.context import resolve as resolve_context
+from citizensassemblies_tpu_torch.service.context import use_context
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -230,20 +232,24 @@ def legacy_probabilities(
     households: Optional[np.ndarray] = None,
     distribute: Optional[bool] = None,
     device: DeviceLike = None,
+    ctx=None,
 ) -> LegacyResult:
     """Estimate the LEGACY allocation from ``iterations`` accepted draws.
 
     Runs on ``device`` (CUDA unless the caller passes another; raises when
     CUDA is absent and no device was passed). Returns per-agent selection
     frequencies, the set of unique panels, and the pair co-selection matrix
-    normalized by the draw count.
+    normalized by the draw count. ``ctx`` (a ``service.RequestContext``,
+    default the ambient one) supplies the ``cfg`` the call is not given and
+    is ambient for the draws.
     """
-    cfg = cfg or default_config()
+    ctx, cfg, _log = resolve_context(ctx, cfg, None)
     dense = on_device(dense, resolve_device(device))
-    panels, draws = sample_feasible_panels(
-        dense, iterations, seed=seed, cfg=cfg, households=households,
-        distribute=distribute,
-    )
+    with use_context(ctx):
+        panels, draws = sample_feasible_panels(
+            dense, iterations, seed=seed, cfg=cfg, households=households,
+            distribute=distribute,
+        )
     n = dense.n
     denom = max(iterations, 1)
     counts = np.bincount(panels.ravel(), minlength=n)

@@ -47,6 +47,11 @@ targets before the face decomposition (``utils/checkpoint.py``); a run
 given the same path resumes from a checkpoint of the same problem, and a
 finished run removes the file. ``Config.fault_sites`` installs a fault
 injector for the call (``robust/inject.py``).
+
+**Request context** (``ctx=``, ``service/context.py``): the call resolves
+its ``cfg`` and ``log`` through it and runs with it ambient, so the face
+loop checks its ``deadline`` once a round and the fault sites consult its
+``injector``.
 """
 
 from __future__ import annotations
@@ -72,8 +77,10 @@ from citizensassemblies_tpu_torch.solvers.highs_backend import (
 )
 from citizensassemblies_tpu_torch.dist.runtime import effective_mesh
 from citizensassemblies_tpu_torch.robust import inject
+from citizensassemblies_tpu_torch.service.context import resolve as resolve_context
+from citizensassemblies_tpu_torch.service.context import use_context
 from citizensassemblies_tpu_torch.utils import checkpoint as ckpt
-from citizensassemblies_tpu_torch.utils.config import Config, default_config
+from citizensassemblies_tpu_torch.utils.config import Config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
 from citizensassemblies_tpu_torch.utils.logging import RunLog, format_counters, format_timers
 
@@ -649,6 +656,7 @@ def find_distribution_leximin(
     initial_panels: Optional[List[Tuple[int, ...]]] = None,
     final_stage: str = "lp",
     checkpoint_path: Optional[str] = None,
+    ctx=None,
 ) -> Distribution:
     """Compute the exact LEXIMIN distribution over feasible committees.
 
@@ -664,7 +672,10 @@ def find_distribution_leximin(
     saves the run's column-generation state there and resumes from a
     checkpoint of the same problem (see the module docstring); the file is
     removed on success. ``Config.fault_sites`` installs a fault injector
-    for the call.
+    for the call. ``ctx`` (a ``service.RequestContext``, default the
+    ambient one) supplies the ``cfg`` and ``log`` the call is not given and
+    is ambient for the solve: its ``deadline`` raises ``DeadlineExceeded``
+    from the face loop, its ``injector`` drives the fault sites.
 
     With households the type-space solve runs on the household quotient,
     as in the JAX package. Where that solve raises a ``SelectionError`` or
@@ -673,10 +684,10 @@ def find_distribution_leximin(
     failure among them, propagates (the JAX package falls back on any
     exception).
     """
-    cfg = cfg or default_config()
+    ctx, cfg, log = resolve_context(ctx, cfg, log)
     if final_stage not in ("lp", "l2"):
         raise ValueError(f"final_stage must be 'lp' or 'l2', not {final_stage!r}")
-    with inject.request_injector(cfg):
+    with use_context(ctx), inject.request_injector(cfg):
         return _leximin_impl(
             dense, space, cfg, log, device, households, initial_panels, final_stage,
             checkpoint_path,

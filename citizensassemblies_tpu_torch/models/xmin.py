@@ -34,7 +34,9 @@ from citizensassemblies_tpu_torch.models.leximin import (
 )
 from citizensassemblies_tpu_torch.solvers.qp import solve_final_primal_l2
 from citizensassemblies_tpu_torch.robust import inject
-from citizensassemblies_tpu_torch.utils.config import Config, default_config
+from citizensassemblies_tpu_torch.service.context import resolve as resolve_context
+from citizensassemblies_tpu_torch.service.context import use_context
+from citizensassemblies_tpu_torch.utils.config import Config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
 from citizensassemblies_tpu_torch.utils.logging import RunLog
 
@@ -47,6 +49,7 @@ def find_distribution_xmin(
     log: Optional[RunLog] = None,
     leximin: Optional[Distribution] = None,
     device: DeviceLike = None,
+    ctx=None,
 ) -> Distribution:
     """The XMIN distribution: leximin-optimal per-agent probabilities over an
     expanded, support-maximized portfolio, on ``device`` (CUDA unless the
@@ -57,12 +60,14 @@ def find_distribution_xmin(
     ``leximin`` supplies a precomputed LEXIMIN distribution for the same
     problem and configuration, skipping that solve (for one from the JAX
     package, ``interop.distribution_from_arrays``). ``Config.fault_sites``
-    installs a fault injector for the call."""
-    cfg = cfg or default_config()
+    installs a fault injector for the call. ``ctx`` (a
+    ``service.RequestContext``, default the ambient one) supplies the
+    ``cfg`` and ``log`` the call is not given and is ambient for the solve,
+    as in ``find_distribution_leximin``."""
+    ctx, cfg, log = resolve_context(ctx, cfg, log)
     dev = resolve_device(device)
     dense = on_device(dense, dev)
-    log = log if log is not None else RunLog(echo=False)
-    with inject.request_injector(cfg):
+    with use_context(ctx), inject.request_injector(cfg):
         return _xmin_impl(dense, space, cfg, households, log, leximin, dev)
 
 

@@ -14,11 +14,11 @@ site fires iff ``_hash_unit(seed, site, n)`` lies below the rate, the same
 function as the JAX package's, so the same spec and seed fire the same
 consultations in both packages, in every process.
 
-The injector is ambient. The model entry points install one built from
-their ``Config`` for the call (:func:`request_injector`, a context variable
-of this package's own, which the serving layer's request context will
-carry once it is ported); offline harnesses and tests install a process
-default with :func:`use_injector`. With none installed (the default,
+The injector is ambient. A request's own (``RequestContext.injector``,
+``service/context.py``) comes first; then the one the model entry points
+build from their ``Config`` for the call (:func:`request_injector`); then
+the process default that offline harnesses and tests install with
+:func:`use_injector`. With none installed (the default,
 ``fault_sites=""``) :func:`site` is a None check.
 """
 
@@ -173,7 +173,14 @@ def request_injector(cfg):
 
 
 def active_injector() -> Optional[FaultInjector]:
-    """The calling context's injector, else the process default, else None."""
+    """The ambient request context's injector (``service/context.py``),
+    else the one an entry point built from ``Config.fault_sites`` for the
+    call, else the process default, else None."""
+    from citizensassemblies_tpu_torch.service.context import current_context
+
+    ctx = current_context()
+    if ctx is not None and ctx.injector is not None:
+        return ctx.injector
     inj = _REQUEST.get()
     return inj if inj is not None else _DEFAULT
 

@@ -50,14 +50,18 @@ consulted here. Only an injected fault (``FaultInjected``) at
 (``robust_degrade_device_pricing``); any other error of the dispatch, a
 kernel's among them, propagates.
 
-Not in this package yet: the per-request deadline check (it needs the
-serving layer's request context).
+The per-request deadline (``RequestContext.deadline``, the context passed
+as ``ctx`` or else the ambient one, ``service/context.py``) is checked once
+a round, at the round's top: one host clock read, no device sync. Past it
+the loop raises ``DeadlineExceeded`` with ``partial={"decomp_rounds",
+"best_eps"}``, the rounds run and the best certified ε so far.
 """
 
 from __future__ import annotations
 
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
+from contextlib import ExitStack
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -71,6 +75,8 @@ from citizensassemblies_tpu_torch.robust.checkpoint import (
     FaceLoopState,
     FaceSubmit,
 )
+from citizensassemblies_tpu_torch.service.context import resolve as resolve_context
+from citizensassemblies_tpu_torch.service.context import use_context
 from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
 from citizensassemblies_tpu_torch.utils.config import default_config
 from citizensassemblies_tpu_torch.utils import device as _device
@@ -785,6 +791,7 @@ def realize_profile(
     use_pdhg: Optional[bool] = None,
     cfg=None,
     device: DeviceLike = None,
+    ctx=None,
 ) -> Tuple[np.ndarray, Optional[np.ndarray], float, int]:
     """Find compositions + probabilities with ``‖Mp − v‖∞ ≤ accept``.
 
@@ -797,14 +804,17 @@ def realize_profile(
     solve, then the host IPM) extracts the optimum. Aggressive pruning keeps
     every master at ≤ ``master_cap`` columns.
 
+    ``ctx`` (default the ambient ``service.RequestContext``) supplies the
+    ``cfg`` and ``log`` not given and the per-round ``deadline``.
+
     Returns ``(compositions int32 [C, T], probabilities float64 [C], eps,
     lp_solves)``.
     """
     from citizensassemblies_tpu_torch.solvers.cg_typespace import _decomp_lp
     from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack, sparse_enabled
 
-    cfg = cfg or default_config()
-    log = log or RunLog(echo=False)
+    ctx, cfg, log = resolve_context(ctx, cfg, log)
+    deadline = ctx.deadline if ctx is not None else None
     dev = resolve_device(device)
     T = reduction.T
     m = reduction.msize.astype(np.float64)
@@ -1145,11 +1155,22 @@ def realize_profile(
                 added += add(batch[i])
         return added
 
+    scope = ExitStack()
+    scope.enter_context(use_context(ctx))
     try:
         for rnd in range(start_round, max_rounds):
             t_round = time.time()
             if rnd > 0:
                 snapshot(rnd)
+            # the request's deadline: a host clock read at the round's top
+            if deadline is not None:
+                deadline.check(
+                    "face_decompose round", log=log,
+                    partial={
+                        "decomp_rounds": rnd,
+                        "best_eps": float(best[2]) if best is not None else None,
+                    },
+                )
             # the kill switch the checkpoint/resume contract is tested with
             inject.raise_if("face_abort", log)
             # stall detection on the running best: the best of the last 4
@@ -1399,3 +1420,4 @@ def realize_profile(
         return C_sup, p_sup, float(eps), lp_solves
     finally:
         pricer.close()
+        scope.close()

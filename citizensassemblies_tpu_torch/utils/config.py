@@ -144,6 +144,39 @@ class Config:
     #: run's device is CUDA, off on the CPU; ``True``/``False`` force.
     mixed_precision: Optional[bool] = None
 
+    # --- scenario models (``scenarios/``) ---------------------------------------
+    #: attendance buckets of the dropout model: no-show probabilities are
+    #: quantized into this many equal-width buckets, each a vacuous-quota
+    #: feature of an extra category, so the product type space multiplies
+    #: the type count by the occupied buckets (past ``enum_max_types`` the
+    #: model falls back to the attendance-unaware LEXIMIN).
+    scenario_dropout_buckets: int = 4
+    #: replacement policy of the realized-dropout evaluation: ``"type"``
+    #: refills a no-show's seat from the off-panel agents of its base type,
+    #: ``"naive"`` from all off-panel agents, ``"none"`` leaves it empty.
+    scenario_replacement: str = "type"
+    #: successive panels R of the multi-assembly model when the caller does
+    #: not pass ``rounds``.
+    scenario_rounds: int = 3
+    #: Monte-Carlo draws of the dropout model's realization audit
+    #: (``parallel/mc.dropout_realization_round``); 0 skips the audit.
+    scenario_mc_draws: int = 4_096
+
+    # --- churn re-certification (``solvers/delta.py``) ------------------------
+    #: delta re-certification of a revised registry, tri-state: ``False``
+    #: off (a revise runs the from-scratch solver), ``None`` on when a base
+    #: certificate is held, ``True`` as ``None`` but counting every miss as
+    #: ``delta_fallback``. Read by the serving layer.
+    delta_solve: Optional[bool] = None
+    #: largest edit the delta path takes, as a fraction of the pool size
+    #: (``edit.magnitude / n``); past it a revise runs from scratch.
+    delta_max_edit_frac: float = 0.05
+    #: slack of the dual-sensitivity cache certificate: a cache hit (no LP
+    #: solve) needs every newly admitted column priced at least this far
+    #: below each stage's support price and the pool-size drift bound under
+    #: it, inside the 1e-3 L∞ contract.
+    delta_cert_margin: float = 2.0e-4
+
     # --- fault tolerance ------------------------------------------------------
     #: fault-injection spec ``"site:rate,site:rate"`` over the sites of
     #: ``robust/inject.FAULT_SITES``; the model entry points install an

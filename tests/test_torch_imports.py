@@ -39,8 +39,11 @@ def _forbidden(name: str) -> bool:
 
 def test_every_module_imports_without_jax():
     names = _module_names()
-    assert "citizensassemblies_tpu_torch.kernels.pdhg_megakernel" in names
-    assert "citizensassemblies_tpu_torch.analysis.plots" in names
+    for name in (
+        "kernels.pdhg_megakernel", "analysis.plots", "service", "service.context", "scenarios",
+        "scenarios.dropout", "scenarios.multi", "data", "data.registry", "solvers.delta",
+    ):
+        assert f"citizensassemblies_tpu_torch.{name}" in names
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}:\n"
@@ -84,4 +87,11 @@ def test_chip_smoke_imports_no_jax():
     mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     mods += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
     assert "citizensassemblies_tpu_torch.models.leximin" in mods
+    # ``from package import module`` names the module too
+    named = mods + [
+        f"{n.module}.{a.name}" for n in ast.walk(tree)
+        if isinstance(n, ast.ImportFrom) and n.module for a in n.names
+    ]
+    for name in ("scenarios", "data.registry", "solvers.delta", "service"):
+        assert f"citizensassemblies_tpu_torch.{name}" in named
     assert not [m for m in mods if _forbidden(m)]

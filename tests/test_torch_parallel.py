@@ -2,9 +2,11 @@
 
 The JAX side runs on the conftest's 8-device virtual CPU mesh, as
 ``tests/test_parallel.py`` runs it. The port runs in-process (a one-rank
-gloo world) and on two spawned gloo worlds of 2 and 4 ranks
+gloo world) and on spawned gloo worlds of 2 and 4 ranks
 (``tests/torch_worlds.py``; the 4-rank world's portfolio matvec on a 2×2
-``(chains, agents)`` mesh). What is held, with its tolerance:
+``(chains, agents)`` mesh). Each concern has worlds of its own, each a
+module fixture under its own time limit, so a slow world fails only the
+tests that read it. What is held, with its tolerance:
 
 * sampler and Monte-Carlo round: every world size bit for bit the
   undistributed port, counts and pair matrix exactly a recount, LEGACY
@@ -79,14 +81,52 @@ def mesh1():
     trt.shutdown()
 
 
-@pytest.fixture(scope="module")
-def world2(tmp_path_factory):
-    return torch_worlds.run_world(2, "parallel", tmp_path_factory.mktemp("world2"), world=2)
+def _both(tmp_path_factory, job: str, **kwargs) -> dict:
+    """``job`` on a 2-rank and on a 4-rank world, each under its own limit."""
+    return {
+        n: torch_worlds.run_world(n, job, tmp_path_factory.mktemp(f"{job}{n}"), world=n, **kwargs)
+        for n in (2, 4)
+    }
 
 
 @pytest.fixture(scope="module")
-def world4(tmp_path_factory):
-    return torch_worlds.run_world(4, "parallel", tmp_path_factory.mktemp("world4"), world=4)
+def sampler_worlds(tmp_path_factory):
+    return _both(tmp_path_factory, "sampler")
+
+
+@pytest.fixture(scope="module")
+def allocation_worlds(tmp_path_factory):
+    return _both(tmp_path_factory, "allocation")
+
+
+@pytest.fixture(scope="module")
+def dropout_worlds(tmp_path_factory):
+    return _both(tmp_path_factory, "dropout", draws=DRAWS)
+
+
+@pytest.fixture(scope="module")
+def dual_ell_worlds(tmp_path_factory):
+    return _both(tmp_path_factory, "dual", route="ell")
+
+
+@pytest.fixture(scope="module")
+def dual_dense_worlds(tmp_path_factory):
+    return _both(tmp_path_factory, "dual", route="dense")
+
+
+@pytest.fixture(scope="module")
+def master_worlds(tmp_path_factory):
+    return _both(tmp_path_factory, "master")
+
+
+@pytest.fixture(scope="module")
+def sweep_worlds(tmp_path_factory):
+    return _both(tmp_path_factory, "sweep")
+
+
+@pytest.fixture(scope="module")
+def routed_world(tmp_path_factory):
+    return torch_worlds.run_world(2, "routed", tmp_path_factory.mktemp("routed2"), world=2)
 
 
 @pytest.fixture(scope="module")
@@ -105,8 +145,9 @@ def portfolio(td):
     return P, np.random.default_rng(0).dirichlet(np.ones(len(P)))
 
 
-def _worlds(world2, world4):
-    return [("2 ranks", world2), ("4 ranks", world4)]
+def _ranks(worlds):
+    """``(name, result)`` of every rank of every world, 2 ranks first."""
+    return [(f"rank {r} of {n}", res) for n, w in sorted(worlds.items()) for r, res in enumerate(w)]
 
 
 def test_the_pool_is_the_jax_pool(td, jd):
@@ -115,7 +156,7 @@ def test_the_pool_is_the_jax_pool(td, jd):
 
 
 @pytest.mark.parametrize("batch", [200, 203])
-def test_sample_panels_bit_identical_at_every_world_size(td, mesh1, world2, world4, batch):
+def test_sample_panels_bit_identical_at_every_world_size(td, mesh1, sampler_worlds, batch):
     want_p, want_ok = tleg.sample_panels_batch(
         td, torch.Generator().manual_seed(11), batch, distribute=False
     )
@@ -126,11 +167,10 @@ def test_sample_panels_bit_identical_at_every_world_size(td, mesh1, world2, worl
     np.testing.assert_array_equal(got_p.numpy(), want_p.numpy())
     np.testing.assert_array_equal(got_ok.numpy(), want_ok.numpy())
     assert log.counters.get("dist_placements") == 1 and "dist_reshards" not in log.counters
-    for name, world in _worlds(world2, world4):
-        for res in world:
-            p, ok = res[f"sample_{batch}"]
-            np.testing.assert_array_equal(p, want_p.numpy(), err_msg=name)
-            np.testing.assert_array_equal(ok, want_ok.numpy(), err_msg=name)
+    for name, res in _ranks(sampler_worlds):
+        p, ok = res[f"sample_{batch}"]
+        np.testing.assert_array_equal(p, want_p.numpy(), err_msg=name)
+        np.testing.assert_array_equal(ok, want_ok.numpy(), err_msg=name)
     assert want_ok.any()
 
 
@@ -144,14 +184,14 @@ def test_distribute_true_and_none_draw_the_undistributed_panels(td, mesh1):
 
 
 @pytest.mark.parametrize("ranks", [1, 2, 4])
-def test_mc_round_counts_and_pairs_are_exact(td, mesh1, world2, world4, ranks):
+def test_mc_round_counts_and_pairs_are_exact(td, mesh1, sampler_worlds, ranks):
     if ranks == 1:
         p, ok, counts, pair = (
             t.numpy() for t in tmc.distributed_mc_round(td, torch.Generator().manual_seed(3), mesh1, 16)
         )
         results = [(p, ok, counts, pair)]
     else:
-        results = [res["mc_round"] for res in (world2 if ranks == 2 else world4)]
+        results = [res["mc_round"] for res in sampler_worlds[ranks]]
     want_p, want_ok = tleg.sample_panels_batch(
         td, torch.Generator().manual_seed(3), 16 * ranks, distribute=False
     )
@@ -169,21 +209,21 @@ def test_mc_round_counts_and_pairs_are_exact(td, mesh1, world2, world4, ranks):
         assert counts.sum() == ok.sum() * td.k
 
 
-def test_legacy_estimator_distributed_equals_undistributed_and_jax(td, jd, world2):
+def test_legacy_estimator_distributed_equals_undistributed_and_jax(td, jd, sampler_worlds):
     N = 4000
     want = tleg.legacy_probabilities(td, iterations=N, seed=0, distribute=False, device="cpu")
-    for res in world2:
+    for _name, res in _ranks(sampler_worlds):
         np.testing.assert_array_equal(res["legacy"], want.allocation)
     jax_alloc = jleg.legacy_probabilities(jd, iterations=N, seed=0, distribute=True).allocation
     assert np.all(_five_sigma(want.allocation, jax_alloc, N))
 
 
-def test_distributed_allocation_within_1e6_of_float64(portfolio, mesh1, world2, world4):
+def test_distributed_allocation_within_1e6_of_float64(portfolio, mesh1, allocation_worlds):
     P, probs = portfolio
     P16, p16 = P[:16], probs[:16] / probs[:16].sum()
     want = P16.T.astype(np.float64) @ p16
     got = [tmc.distributed_allocation(P16, p16, mesh1).numpy()]
-    got += [res["allocation"] for _n, w in _worlds(world2, world4) for res in w]
+    got += [res for _name, res in _ranks(allocation_worlds)]
     jax_alloc = np.asarray(jmc.distributed_allocation(
         P16.astype(np.float32), p16.astype(np.float32), j_make_mesh(8, agents_axis=2)
     ))
@@ -194,7 +234,7 @@ def test_distributed_allocation_within_1e6_of_float64(portfolio, mesh1, world2, 
 
 
 @pytest.mark.parametrize("policy", POLICIES)
-def test_dropout_bit_identical_across_world_sizes(td, portfolio, mesh1, world2, world4, policy):
+def test_dropout_bit_identical_across_world_sizes(td, portfolio, mesh1, dropout_worlds, policy):
     P, probs = portfolio
     args = (P, probs, torch_worlds.attendance(td.n), torch_worlds.type_ids(td.A_np), td)
     plain = tmc.dropout_realization_round(*args, torch.Generator().manual_seed(4), DRAWS, policy,
@@ -203,7 +243,7 @@ def test_dropout_bit_identical_across_world_sizes(td, portfolio, mesh1, world2, 
                                         mesh=mesh1, chunk=1024)
     want = (plain.counts, plain.counts_valid, plain.quota_ok_rate, plain.fill_rate)
     got = [(one.counts, one.counts_valid, one.quota_ok_rate, one.fill_rate)]
-    got += [res["dropout"][policy] for _n, w in _worlds(world2, world4) for res in w]
+    got += [res[policy] for _name, res in _ranks(dropout_worlds)]
     for g in got:
         np.testing.assert_array_equal(g[0], want[0])
         np.testing.assert_array_equal(g[1], want[1])
@@ -267,7 +307,7 @@ def test_dropout_on_the_flagship_pool_against_jax(flagship_dropout, policy):
 
 
 @pytest.mark.parametrize("route,knob", [("ell", None), ("dense", False)])
-def test_sharded_dual_lp_matches_highs_and_jax(td, portfolio, mesh1, world2, world4, route, knob):
+def test_sharded_dual_lp_matches_highs_and_jax(request, td, portfolio, mesh1, route, knob):
     P, _ = portfolio
     fixed = np.full(td.n, -1.0)
     exact = solve_dual_lp(P, fixed)
@@ -280,7 +320,8 @@ def test_sharded_dual_lp_matches_highs_and_jax(td, portfolio, mesh1, world2, wor
     )
     assert st["route"] == route and st["iters"] == 512 * st["blocks"]
     sols = [(one.ok, one.objective, one.yhat, one.y)]
-    sols += [res["dual"][route][:4] for _n, w in _worlds(world2, world4) for res in w]
+    worlds = request.getfixturevalue(f"dual_{route}_worlds")
+    sols += [res[:4] for _name, res in _ranks(worlds)]
     for ok, obj, yhat, y in sols:
         assert ok
         assert abs(obj - exact.objective) < 1e-4 and abs(yhat - exact.yhat) < 1e-4
@@ -290,7 +331,7 @@ def test_sharded_dual_lp_matches_highs_and_jax(td, portfolio, mesh1, world2, wor
         assert np.abs(y - one.y).max() < 1e-5
 
 
-def test_sharded_master_realizes_the_fixture(mesh1, world2, world4):
+def test_sharded_master_realizes_the_fixture(mesh1, master_worlds):
     from citizensassemblies_tpu.solvers.compositions import enumerate_compositions
     from citizensassemblies_tpu.solvers.native_oracle import TypeReduction
 
@@ -308,7 +349,7 @@ def test_sharded_master_realizes_the_fixture(mesh1, world2, world4):
     # the aiming duals carry the rows of every rank, in rank order
     assert np.abs(w).sum() > 1e-3
     results = [(eps_real, float(p_norm.sum()), w, p_norm)]
-    results += [res["master"] for _n, wd in _worlds(world2, world4) for res in wd]
+    results += [res for _name, res in _ranks(master_worlds)]
     for eps, total, w_r, p_r in results:
         assert eps <= 5e-4, eps
         assert abs(total - 1.0) < 1e-6
@@ -317,21 +358,21 @@ def test_sharded_master_realizes_the_fixture(mesh1, world2, world4):
         assert np.abs(w_r - jw).max() < 1e-5 and np.abs(p_r - jp).max() < 1e-5
 
 
-def test_leximin_routes_its_dual_lp_through_the_sharded_solver(td, world2):
+def test_leximin_routes_its_dual_lp_through_the_sharded_solver(td, routed_world):
     host = find_distribution_leximin(
         td, cfg=default_config().replace(backend="highs", force_agent_space=True), device="cpu"
     )
-    for calls, alloc in (res["leximin"] for res in world2):
+    for calls, alloc in (res["leximin"] for res in routed_world):
         assert calls > 0, "sharded dual path never taken"
         np.testing.assert_allclose(alloc, host.allocation, atol=1e-3)
         np.testing.assert_allclose(np.sort(alloc), np.sort(host.allocation), atol=1e-3)
 
 
-def test_face_loop_routes_its_masters_through_the_sharded_master(mesh1, world2):
+def test_face_loop_routes_its_masters_through_the_sharded_master(mesh1, routed_world):
     """``master_shard_min_types=1`` on a 2-rank world: every master of the
     face loop is the sharded one, on every rank, with the same result,
     and the realized profile within 1e-3 of the single-device loop's."""
-    (eps0, c0, C0, prof0), (eps1, c1, C1, prof1) = (res["face"] for res in world2)
+    (eps0, c0, C0, prof0), (eps1, c1, C1, prof1) = (res["face"] for res in routed_world)
     for c in (c0, c1):
         assert c["decomp_master_sharded"] == c["decomp_rounds"] >= 2
         assert c["dist_mesh_devices"] == 2
@@ -393,7 +434,7 @@ def test_sweep_rejects_mixed_k():
         tsweep.pad_and_stack([d1, d2])
 
 
-def test_sweep_final_primal_eps_dealt_over_ranks(world2, world4):
+def test_sweep_final_primal_eps_dealt_over_ranks(sweep_worlds):
     pairs = torch_worlds.sweep_problems()
     Ps, ts = [a for a, _ in pairs], [b for _, b in pairs]
     log = RunLog(echo=False)
@@ -404,12 +445,10 @@ def test_sweep_final_primal_eps_dealt_over_ranks(world2, world4):
         _p_h, eps_h = solve_final_primal_lp(P, t)
         assert abs(p.sum() - 1.0) < 1e-9 and eps <= eps_h + 1e-4
         assert abs(eps - jeps) < 1e-4
-    for _n, world in _worlds(world2, world4):
-        for res in world:
-            dealt, counters = res["sweep_eps"]
-            # each bucket's lanes dealt in the declared bucket layout
-            assert counters["dist_placements"] == counters["lp_batch_dispatches"]
-            assert "dist_reshards" not in counters
-            for (p, eps), (pd, epsd) in zip(local, dealt):
-                np.testing.assert_array_equal(pd, p)
-                assert epsd == eps
+    for _name, (dealt, counters) in _ranks(sweep_worlds):
+        # each bucket's lanes dealt in the declared bucket layout
+        assert counters["dist_placements"] == counters["lp_batch_dispatches"]
+        assert "dist_reshards" not in counters
+        for (p, eps), (pd, epsd) in zip(local, dealt):
+            np.testing.assert_array_equal(pd, p)
+            assert epsd == eps

@@ -23,20 +23,35 @@ from pathlib import Path
 
 import numpy as np
 
-#: seconds a spawned world may take before it is killed and failed
-WORLD_TIMEOUT_S = 120.0
+#: seconds a spawned world of each job may take before it is killed and
+#: failed: about three times the slower of its 2- and 4-rank worlds'
+#: wall time measured beside six busy pytest workers on an 8-core machine
+#: (process start included), and never under 60 s
+WORLD_TIMEOUT_S = {
+    "dist": 120.0,
+    "sampler": 60.0,
+    "allocation": 60.0,
+    "dropout": 60.0,
+    "dual": 150.0,
+    "master": 120.0,
+    "sweep": 60.0,
+    "routed": 70.0,
+}
 
 #: the parity fixture of tests/test_parallel.py
 POOL = dict(n=48, k=6, n_categories=2, features_per_category=2, seed=0)
 
 
-def run_world(nprocs: int, job: str, tmp_path: Path, timeout: float = WORLD_TIMEOUT_S, **kwargs):
+def run_world(nprocs: int, job: str, tmp_path: Path, timeout: float | None = None, **kwargs):
     """Run ``JOBS[job](**kwargs)`` on every rank of a fresh ``nprocs``-rank
-    gloo world; returns the ranks' results in rank order."""
+    gloo world under ``timeout`` (default: the job's
+    :data:`WORLD_TIMEOUT_S`); returns the ranks' results in rank order."""
+    timeout = WORLD_TIMEOUT_S[job] if timeout is None else timeout
     ctx = mp.get_context("spawn")
     tmp_path = Path(tmp_path)
-    store = tmp_path / f"rdv_{job}_{nprocs}"
-    outs = [tmp_path / f"{job}_{nprocs}_r{r}.pkl" for r in range(nprocs)]
+    tag = "_".join([job, str(nprocs)] + [str(v) for v in kwargs.values()])
+    store = tmp_path / f"rdv_{tag}"
+    outs = [tmp_path / f"{tag}_r{r}.pkl" for r in range(nprocs)]
     procs = [
         ctx.Process(target=_child, args=(r, nprocs, str(store), job, kwargs, str(outs[r])))
         for r in range(nprocs)
@@ -230,17 +245,13 @@ def job_dist() -> dict:
     return out
 
 
-def job_parallel(world: int) -> dict:
-    """The chain-parallel Monte-Carlo, the dropout realization, the sharded
-    solvers, the sweep's LP fleet and (on two ranks) the routed LEXIMIN."""
+def job_sampler(world: int) -> dict:
+    """The chain-parallel sampler, the Monte-Carlo round and LEGACY."""
     import torch
 
-    from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin
     from citizensassemblies_tpu_torch.models.legacy import legacy_probabilities
-    from citizensassemblies_tpu_torch.parallel import mc, solver, sweep
-    from citizensassemblies_tpu_torch.parallel.mesh import default_mesh, make_mesh
-    from citizensassemblies_tpu_torch.utils.config import default_config
-    from citizensassemblies_tpu_torch.utils.logging import RunLog
+    from citizensassemblies_tpu_torch.parallel import mc
+    from citizensassemblies_tpu_torch.parallel.mesh import default_mesh
 
     dense = pool_dense()
     mesh = default_mesh()
@@ -251,55 +262,107 @@ def job_parallel(world: int) -> dict:
     p, ok, counts, pair = mc.distributed_mc_round(dense, torch.Generator().manual_seed(3), mesh, 16)
     out["mc_round"] = (p.numpy(), ok.numpy(), counts.numpy(), pair.numpy())
     out["legacy"] = legacy_probabilities(dense, iterations=4000, seed=0, device="cpu").allocation
+    return out
+
+
+def job_allocation(world: int) -> np.ndarray:
+    """The portfolio matvec, on a ``(chains, agents)`` mesh where the world
+    size allows it."""
+    from citizensassemblies_tpu_torch.parallel import mc
+    from citizensassemblies_tpu_torch.parallel.mesh import default_mesh, make_mesh
+
+    P = feasible_portfolio(pool_dense())
+    probs = np.random.default_rng(0).dirichlet(np.ones(len(P)))
+    mesh = make_mesh(world, agents_axis=2) if world % 2 == 0 else default_mesh()
+    return mc.distributed_allocation(P[:16], probs[:16] / probs[:16].sum(), mesh).numpy()
+
+
+def job_dropout(world: int, draws: int) -> dict:
+    """The dropout realization under every policy."""
+    import torch
+
+    from citizensassemblies_tpu_torch.parallel import mc
+    from citizensassemblies_tpu_torch.parallel.mesh import default_mesh
+
+    dense = pool_dense()
     P = feasible_portfolio(dense)
     probs = np.random.default_rng(0).dirichlet(np.ones(len(P)))
-    alloc_mesh = make_mesh(world, agents_axis=2) if world % 2 == 0 else mesh
-    out["allocation"] = mc.distributed_allocation(P[:16], probs[:16] / probs[:16].sum(),
-                                                  alloc_mesh).numpy()
-    out["dropout"] = {}
+    out = {}
     for policy in mc.DROPOUT_POLICIES:
         r = mc.dropout_realization_round(
             P, probs, attendance(dense.n), type_ids(dense.A_np), dense,
-            torch.Generator().manual_seed(4), 3000, policy, mesh=mesh, chunk=1024,
+            torch.Generator().manual_seed(4), draws, policy, mesh=default_mesh(), chunk=1024,
         )
-        out["dropout"][policy] = (r.counts, r.counts_valid, r.quota_ok_rate, r.fill_rate)
-    fixed = np.full(dense.n, -1.0)
-    out["dual"] = {}
-    for route, knob in (("ell", None), ("dense", False)):
-        st: dict = {}
-        sol = solver.solve_dual_lp_pdhg_sharded(
-            P, fixed, mesh, cfg=default_config().replace(sparse_ops=knob), stats=st
-        )
-        out["dual"][route] = (sol.ok, sol.objective, sol.yhat, sol.y, st)
+        out[policy] = (r.counts, r.counts_valid, r.quota_ok_rate, r.fill_rate)
+    return out
+
+
+def job_dual(world: int, route: str) -> tuple:
+    """The sharded dual LP on its ``"ell"`` or ``"dense"`` route."""
+    from citizensassemblies_tpu_torch.parallel import solver
+    from citizensassemblies_tpu_torch.parallel.mesh import default_mesh
+    from citizensassemblies_tpu_torch.utils.config import default_config
+
+    dense = pool_dense()
+    P = feasible_portfolio(dense)
+    st: dict = {}
+    sol = solver.solve_dual_lp_pdhg_sharded(
+        P, np.full(dense.n, -1.0), default_mesh(), stats=st,
+        cfg=default_config().replace(sparse_ops=None if route == "ell" else False),
+    )
+    return sol.ok, sol.objective, sol.yhat, sol.y, st
+
+
+def job_master(world: int) -> tuple:
+    """The sharded face master on :func:`master_fixture`."""
+    from citizensassemblies_tpu_torch.parallel import solver
+    from citizensassemblies_tpu_torch.parallel.mesh import default_mesh
+
     MT, v = master_fixture()
-    eps_real, w, p_norm, _eps_obj, _ok = solver.solve_decomp_master_sharded(MT, v, mesh, tol=1e-7)
-    out["master"] = (eps_real, float(p_norm.sum()), w, p_norm)
+    eps_real, w, p_norm, _eps_obj, _ok = solver.solve_decomp_master_sharded(
+        MT, v, default_mesh(), tol=1e-7
+    )
+    return eps_real, float(p_norm.sum()), w, p_norm
+
+
+def job_sweep(world: int) -> tuple:
+    """The sweep's LP fleet dealt over the ranks."""
+    from citizensassemblies_tpu_torch.parallel import sweep
+    from citizensassemblies_tpu_torch.utils.config import default_config
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
     pairs = sweep_problems()
     log = RunLog(echo=False)
     res = sweep.sweep_final_primal_eps([a for a, _ in pairs], [b for _, b in pairs],
                                        cfg=default_config(), log=log, device="cpu")
-    out["sweep_eps"] = ([(p_, e) for p_, e in res], dict(log.counters))
-    if world == 2:
-        from citizensassemblies_tpu_torch.parallel import solver as par_solver
+    return [(p_, e) for p_, e in res], dict(log.counters)
 
-        calls = {"n": 0}
-        orig = par_solver.solve_dual_lp_pdhg_sharded
 
-        def counting(*a, **k):
-            calls["n"] += 1
-            return orig(*a, **k)
+def job_routed(world: int) -> dict:
+    """The agent-space LEXIMIN with its dual LPs routed through the sharded
+    solver, and the face loop with its masters routed through the sharded
+    master."""
+    from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin
+    from citizensassemblies_tpu_torch.parallel import solver as par_solver
+    from citizensassemblies_tpu_torch.utils.config import default_config
 
-        par_solver.solve_dual_lp_pdhg_sharded = counting
-        try:
-            dist_ = find_distribution_leximin(
-                dense, cfg=default_config().replace(dual_shard_min_rows=1, force_agent_space=True),
-                device="cpu",
-            )
-        finally:
-            par_solver.solve_dual_lp_pdhg_sharded = orig
-        out["leximin"] = (calls["n"], dist_.allocation)
-        out["face"] = face_loop_sharded()
-    return out
+    calls = {"n": 0}
+    orig = par_solver.solve_dual_lp_pdhg_sharded
+
+    def counting(*a, **k):
+        calls["n"] += 1
+        return orig(*a, **k)
+
+    par_solver.solve_dual_lp_pdhg_sharded = counting
+    try:
+        dist_ = find_distribution_leximin(
+            pool_dense(),
+            cfg=default_config().replace(dual_shard_min_rows=1, force_agent_space=True),
+            device="cpu",
+        )
+    finally:
+        par_solver.solve_dual_lp_pdhg_sharded = orig
+    return {"leximin": (calls["n"], dist_.allocation), "face": face_loop_sharded()}
 
 
 def face_loop_sharded(max_rounds: int = 8):
@@ -331,4 +394,41 @@ def face_loop_sharded(max_rounds: int = 8):
     return eps, dict(log.counters), C, profile
 
 
-JOBS = {"dist": job_dist, "parallel": job_parallel}
+JOBS = {
+    "dist": job_dist,
+    "sampler": job_sampler,
+    "allocation": job_allocation,
+    "dropout": job_dropout,
+    "dual": job_dual,
+    "master": job_master,
+    "sweep": job_sweep,
+    "routed": job_routed,
+}
+
+
+def _time_worlds() -> None:
+    """Print the wall time of every world the tests spawn, one JSON line
+    each: ``python tests/torch_worlds.py`` (from the repo root)."""
+    import json
+    import tempfile
+
+    plan = [("dist", 4, {})] + [
+        (job, n, kw)
+        for job, kw in (("sampler", {}), ("allocation", {}), ("dropout", {"draws": 3000}),
+                        ("dual", {"route": "ell"}), ("dual", {"route": "dense"}),
+                        ("master", {}), ("sweep", {}))
+        for n in (2, 4)
+    ] + [("routed", 2, {})]
+    for job, n, kw in plan:
+        t0 = time.monotonic()
+        with tempfile.TemporaryDirectory() as tmp:
+            run_world(n, job, tmp, timeout=900.0, **({} if job == "dist" else {"world": n}), **kw)
+        print(json.dumps(dict(job=job, ranks=n, kwargs=kw, seconds=round(time.monotonic() - t0, 1),
+                              limit_s=WORLD_TIMEOUT_S[job])), flush=True)
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    _time_worlds()
