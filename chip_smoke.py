@@ -135,11 +135,26 @@ Phases, each fatal on failure:
    multi-assembly scheduling at R=3 on ``example_small_like_instance()``,
    its round fleet one bucketed dispatch on the card, 1,000 drawn schedules
    without a repeat, against the CPU; ``churn_bench``'s registry (n=100,000,
-   k=316) over the first 100 edits of its trail, delta against at most 8
+   k=316) over the first 30 edits of its trail, delta against at most 5
    from-scratch samples within 1e-3, the screen on the card against the
    CPU; and the flagship under a ``RequestContext``, bit for bit the run
    without one at a generous deadline, raising ``DeadlineExceeded`` from
-   inside the face loop at a tight one.
+   inside the face loop at a tight one;
+12. serving, each sub-phase with its launch counters zeroed just before it
+   and read just after: a ``SelectionService`` on the card at the defaults
+   with the sampling tracer, the memory ledger and the serve bench's SLO
+   spec running two flagship LEXIMIN requests side by side (the main path
+   twice, under the transfer guard at ``"disallow"``), each bit for bit
+   the defaults flagship, then LEGACY bit for bit ``legacy_flagship``,
+   then a repeat from the memo with no launch, the exported trace
+   schema-checked and the sync debug mode back at 0; revise requests over
+   the first edits of ``churn_bench``'s trail (n=100,000), their modes and
+   type values held against direct re-certification from the same base,
+   and with ``delta_solve=False`` bit for bit the from-scratch answer; the
+   first requests of the serve bench's mixed fleet through the
+   cross-request batcher against their serial twins; and one process of
+   the fleet bench's four driven open loop, bit for bit its serial
+   references.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
 line, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -233,10 +248,11 @@ SCREEN_CAPS = [512, 1024, 2048]
 SCREEN_MAX_ITERS = 24_576
 #: the stage-CG fallback on sf_b_skewed_instance(seed=1), forced by an
 #: acceptance bar the face loop cannot meet: its budget in all. It finished
-#: its 12 stages in 83-85 s under the 120 s budget of PRs 5-10; 40 s since
-#: slice 11, whose phases need the time, so the run stops after its first
-#: stages (the fallback and at least one stage are held)
-STAGE_CG_BUDGET_S = 40.0
+#: its 12 stages in 83-85 s under the 120 s budget of PRs 5-10; 40 s in
+#: slice 11 and 25 s since slice 12, whose phases need the time, so the
+#: run stops after its first stages (the fallback and at least one stage
+#: are held)
+STAGE_CG_BUDGET_S = 25.0
 #: the face loop's bar there, and its rounds: the loop realizes the sf_b
 #: profile exactly (at a bar of 1e-7 on the card in 9 rounds; ε = 0 from
 #: the host LP on the CPU), so only a bar no residual meets makes it stall;
@@ -274,13 +290,15 @@ PDHG_NAN_FIRST = ("pdhg_nan:0.25", 270)
 #: Monte-Carlo draws of the scenario phases (``bench.py --scenarios``'s)
 SCENARIO_DRAWS = 65_536
 #: churn_nationwide's depth cuts of ``churn_bench``'s 1,000 edits and 6
-#: from-scratch samples per edit class (up to 30): the first 100 edits, at
-#: most 8 samples, at most 2 a class. Every quota or new-type edit re-runs
-#: the composition ladder, 3-7 s an edit on an NVIDIA H100 80GB HBM3 at
-#: 700 W: the first 200 edits took 220 s there, and the whole script
-#: 1,043 s of its 1,200 s limit
-CHURN_EDITS = 100
-CHURN_SCRATCH = 8
+#: from-scratch samples per edit class (up to 30): the first 30 edits, at
+#: most 5 samples (about 6 s each), at most 2 a class. Every quota or
+#: new-type edit re-runs the composition ladder, 3-7 s an edit on an NVIDIA
+#: H100 80GB HBM3 at 700 W: the first 200 edits took 220 s there; with the
+#: serving phases the whole script took 1,159 s of its 1,200 s limit at 100
+#: edits and 8 samples (26 full ladders, 190 s) and 1,095 s at 50 (105 s);
+#: the first 30 edits hold 5 of the quota and new-type edits
+CHURN_EDITS = 30
+CHURN_SCRATCH = 5
 CHURN_SCRATCH_PER_CLASS = 2
 
 
@@ -1024,7 +1042,7 @@ def legacy_phase(inst):
     """LEGACY's 10,000-draw estimator on the flagship pool on the card:
     every accepted panel meets every quota, the allocation sums to k, the
     pair matrix is symmetric with a zero diagonal and rows summing to
-    (k − 1)·allocation."""
+    (k − 1)·allocation. Returns the record and the allocation."""
     from citizensassemblies_tpu_torch.core.instance import featurize
     from citizensassemblies_tpu_torch.models.legacy import legacy_probabilities
 
@@ -1057,7 +1075,7 @@ def legacy_phase(inst):
     print(json.dumps(rec), flush=True)
     if not rec["ok"]:
         raise SystemExit("LEGACY phase failed")
-    return rec
+    return rec, res.allocation
 
 
 def leximin_run(inst, device, cfg, households=None, initial_panels=None):
@@ -3990,6 +4008,419 @@ def scenario_phases(cfg, libs, leximin):
     )
 
 
+# --- slice 12: serving --------------------------------------------------------------
+
+#: the serve bench's SLO spec (``bench.py:1743``)
+SERVE_SLO_SPEC = "latency_p99:30s,error_rate:0.01"
+#: ``serve_mixed_fleet`` runs the first SERVE_FLEET_N of the serve bench's
+#: 60 requests (``bench.py:1785-1791``, shapes unchanged): the batched LP
+#: engine takes about a second a call on these pools, and the sub-phase
+#: must fit phase 12's budget
+SERVE_FLEET_N = 8
+SERVE_FLEET_ALL = 60
+#: ``serve_fleet_drive`` drives process 0 of the fleet bench's 4
+#: (``bench.py:3158-3240``: seed 20, 6 unique instances a tenant) over the
+#: first FLEET_DRIVE_REQUESTS of its 10,000 planned arrivals (a prefix of
+#: the same plan), to stay under 30 s
+FLEET_DRIVE_PROCESSES = 4
+FLEET_DRIVE_REQUESTS = 40
+FLEET_DRIVE_ALL = 10_000
+FLEET_DRIVE_SEED = 20
+FLEET_DRIVE_UNIQUE = 6
+#: revise requests over the first edits of ``churn_bench``'s trail
+REVISE_EDITS = 5
+REVISE_TOL = 1e-6
+#: the sojourn parts must explain the total within this share
+SOJOURN_GAP = 0.05
+
+
+def _sojourn_gap(audit) -> float:
+    soj = audit["sojourn"]
+    parts = soj["queue_wait_s"] + soj["prepare_s"] + soj["solve_s"] + soj["audit_s"]
+    return abs(soj["total_s"] - parts) / max(soj["total_s"], 1e-9)
+
+
+def _same_distribution(a, b) -> bool:
+    return bool(
+        np.array_equal(a.committees, b.committees)
+        and np.array_equal(a.probabilities, b.probabilities)
+        and np.array_equal(a.allocation, b.allocation)
+    )
+
+
+def _sync_mode() -> int:
+    import torch
+
+    return int(torch.cuda.get_sync_debug_mode()) if torch.cuda.is_available() else 0
+
+
+def serve_flagship_phase(cfg, libs, leximin, legacy_alloc, inst=None, device="cuda",
+                         legacy_iterations=10_000):
+    """The selection service on the flagship pool: a ``SelectionService`` at
+    the defaults with the sampling tracer, the memory ledger and the serve
+    bench's SLO spec, two workers. Two LEXIMIN requests of tenants ``a``
+    and ``b`` submitted together run side by side (the transfer guard at
+    ``"disallow"`` under concurrent launch windows); then LEGACY on the
+    same pool (10,000 draws, seed 0); then the first request once more.
+    Holds each LEXIMIN allocation bit for bit the defaults flagship's
+    (``leximin_sf_e_defaults``), LEGACY bit for bit ``legacy_flagship``'s,
+    the repeat served from the memo with no launch, every audit's contract
+    and sojourn decomposition, the exported trace's schema, and the sync
+    debug mode back at 0 with no window open."""
+    import torch
+
+    from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
+    from citizensassemblies_tpu_torch.obs import validate_chrome_trace
+    from citizensassemblies_tpu_torch.service.server import SelectionRequest, SelectionService
+    from citizensassemblies_tpu_torch.utils import guards
+
+    inst = inst if inst is not None else sf_e_skewed_instance(seed=1)
+    scfg = cfg.replace(obs_trace=True, obs_memory=True, obs_slo_spec=SERVE_SLO_SPEC,
+                       serve_admission_cap=2)
+    t_phase = time.perf_counter()
+    with SelectionService(scfg, device=device) as svc:
+        for lib in libs:
+            lib.reset_counts()
+        t0 = time.perf_counter()
+        chans = [svc.submit(SelectionRequest(instance=inst, tenant=t, request_id=f"flagship-{t}"))
+                 for t in ("a", "b")]
+        pair = [ch.result(timeout=600) for ch in chans]
+        pair_wall = time.perf_counter() - t0
+        pair_launches = _launches(libs)
+        for lib in libs:
+            lib.reset_counts()
+        legacy = svc.run(SelectionRequest(instance=inst, tenant="a", algorithm="legacy",
+                                          iterations=legacy_iterations, seed=0), timeout=600)
+        legacy_launches = _launches(libs)
+        for lib in libs:
+            lib.reset_counts()
+        repeat = svc.run(SelectionRequest(instance=inst, tenant="a"), timeout=600)
+        repeat_launches = _launches(libs)
+        doc = svc.export_traces()
+        slo = svc.slo.evaluate()
+        stats = svc.stats()
+    mode_after = _sync_mode()
+    gate = guards.GATE.state()
+    problems = validate_chrome_trace(doc)
+    requests = []
+    for res in pair + [legacy, repeat]:
+        a = res.audit
+        requests.append(dict(
+            request_id=res.request_id, tenant=res.tenant, algorithm=res.algorithm,
+            seconds=res.seconds, from_memo=res.from_memo, sojourn=a.get("sojourn"),
+            sojourn_gap=_sojourn_gap(a), contract_ok=a.get("contract_ok"),
+            spans=(a.get("obs") or {}).get("span_count"),
+            peak_bytes=(a.get("memory") or {}).get("high_watermark_bytes"),
+            memory_measured=(a.get("memory") or {}).get("measured"),
+            captures=a.get("xla_compiles"),
+            decomp_rounds=int(a["counters"].get("decomp_rounds", 0)),
+        ))
+    same = [_same_distribution(r.result, leximin) for r in pair]
+    legacy_same = bool(np.array_equal(legacy.allocation, legacy_alloc))
+    expected = {"two_sided_block": 2 * 8, "ell_gather": 2 * 328}
+    rec = dict(
+        phase="serve_flagship", n=int(len(leximin.allocation)), seconds=time.perf_counter() - t_phase,
+        pair_wall_s=pair_wall, pair_sum_s=sum(r.seconds for r in pair), requests=requests,
+        bit_identical_to_defaults=same, legacy_bit_identical=legacy_same,
+        launches=pair_launches, legacy_launches=legacy_launches, repeat_launches=repeat_launches,
+        expected_launches=expected, trace_events=len(doc["traceEvents"]),
+        trace_problems=problems[:5], slo_ok=slo["slo_ok"], sync_debug_mode_after=mode_after,
+        gate_after=gate, batcher=stats["batcher"],
+    )
+    rec["ok"] = bool(
+        all(same) and legacy_same and repeat.from_memo
+        and _same_distribution(repeat.result, leximin)
+        and not any(repeat_launches.values())
+        and all(pair_launches.get(k, 0) == v for k, v in expected.items())
+        and all(r.audit["contract_ok"] for r in pair)
+        and all(r["sojourn_gap"] <= SOJOURN_GAP for r in requests)
+        and all((r["spans"] or 0) > 0 for r in requests[:3])
+        and not problems and mode_after == 0 and gate["open"] == 0 and gate["syncs"] == 0
+        and all(clean(r.audit["counters"]) for r in pair)
+    )
+    print(json.dumps(rec, default=str), flush=True)
+    return rec
+
+
+def _churn_registry(n=100_000, k=316):
+    """``churn_bench``'s registry and trail (``bench.py:1383-1460``), as
+    ``churn_phase`` builds them."""
+    from citizensassemblies_tpu_torch.data.registry import churn_trail, nationwide_registry
+
+    reg = nationwide_registry(n=n, k=k, seed=16,
+                              categories=(("region", [f"r{i}" for i in range(8)]),),
+                              quota_slack=0.003)
+    trail = churn_trail(reg, 1000, seed=16, max_edit_agents=8, max_new_types=2, weights={
+        "agents_add": 0.36, "agents_drop": 0.34, "quota_relax": 0.10, "quota_tighten": 0.14,
+        "new_type": 0.06,
+    })
+    return reg, trail
+
+
+def serve_revise_churn_phase(cfg, libs, device="cuda", reg=None, trail=None):
+    """Revise requests through the service on ``churn_bench``'s registry
+    (n=100,000, k=316): a base LEXIMIN request, then one ``ReviseSpec``
+    request per edit for the first ``REVISE_EDITS`` edits of its trail. The
+    first revise finds a cold session: it is served from scratch and primes
+    the session with ``certify_base`` of the edited registry; each later
+    one is re-certified. Holds each re-certified answer's mode against the
+    direct ``recertify`` from the same primed base on the same edits
+    (``churn_nationwide``'s calls), and its per-agent type values within
+    1e-6; then, on a service with ``delta_solve=False``, the first edit's
+    revise bit for bit the cold service's from-scratch answer."""
+    from citizensassemblies_tpu_torch.data.registry import apply_edit
+    from citizensassemblies_tpu_torch.service import SelectionRequest, SelectionService
+    from citizensassemblies_tpu_torch.solvers import delta
+    from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
+    from citizensassemblies_tpu_torch.utils.checkpoint import problem_fingerprint
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    if reg is None:
+        reg, trail = _churn_registry()
+    edits = trail[:REVISE_EDITS]
+    t_phase = time.perf_counter()
+    for lib in libs:
+        lib.reset_counts()
+    regs = [reg]
+    for edit in edits:
+        regs.append(apply_edit(regs[-1], edit))
+    denses = [r.to_dense(device=device) for r in regs]
+    served = []
+    with SelectionService(cfg, device=device) as svc:
+        t0 = time.perf_counter()
+        base = svc.run(SelectionRequest(dense=denses[0][0], space=denses[0][1], tenant="registry"),
+                       timeout=900)
+        base_s = time.perf_counter() - t0
+        for i, edit in enumerate(edits):
+            t0 = time.perf_counter()
+            res = svc.run(SelectionRequest(
+                dense=denses[i + 1][0], space=denses[i + 1][1], tenant="registry",
+                revise=delta.ReviseSpec(edit=edit, reg_before=regs[i]),
+            ), timeout=900)
+            served.append((res, time.perf_counter() - t0))
+    launches = _launches(libs)
+    # the direct calls from the base the first revise primed
+    log = RunLog(echo=False)
+    fp1 = problem_fingerprint(denses[1][0], cfg, None)
+    state = delta.certify_base(regs[1], cfg=cfg, log=log, fingerprint=fp1, device=device)
+    checks = []
+    for i in range(1, len(edits)):
+        fp = problem_fingerprint(denses[i + 1][0], cfg, None)
+        out = delta.recertify(state, edits[i], regs[i], cfg=cfg, log=log, fingerprint=fp,
+                              device=device)
+        res = served[i][0]
+        cert = res.audit.get("delta_cert")
+        row = dict(edit=i, kind=edits[i].kind, served_mode=(cert or {}).get("mode"),
+                   seconds=served[i][1])
+        if out is None:
+            row.update(direct_mode=None, linf=None)
+        else:
+            state = out.state
+            red = TypeReduction(denses[i + 1][0])
+            ts = delta.project_to_reduction(out.state, red)
+            direct = ts.type_values[red.type_id]
+            row.update(direct_mode=out.cert["mode"],
+                       linf=float(np.max(np.abs(res.result.fixed_probabilities - direct))))
+        checks.append(row)
+    first, first_s = served[0]
+    with SelectionService(cfg.replace(delta_solve=False), device=device) as off_svc:
+        off = off_svc.run(SelectionRequest(
+            dense=denses[1][0], space=denses[1][1], tenant="registry",
+            revise=delta.ReviseSpec(edit=edits[0], reg_before=regs[0]),
+        ), timeout=900)
+    rec = dict(
+        phase="serve_revise_churn", n=reg.n, k=reg.k, edits=len(edits), base_seconds=base_s,
+        first=dict(seconds=first_s, fallback=int(first.audit["counters"].get("delta_fallback", 0)),
+                   delta_entries=first.audit["session"]["delta_entries"]),
+        revised=checks, delta_off_bit_identical=_same_distribution(off.result, first.result),
+        delta_off_touched_store=off.audit["session"]["delta_entries"], launches=launches,
+        seconds=time.perf_counter() - t_phase,
+    )
+    rec["ok"] = bool(
+        base.audit["contract_ok"] and rec["first"]["fallback"] == 1
+        and rec["first"]["delta_entries"] >= 1
+        and all(c["served_mode"] is not None and c["served_mode"] == c["direct_mode"]
+                and c["linf"] <= REVISE_TOL for c in checks)
+        and all(r.audit["contract_ok"] for r, _s in served)
+        and rec["delta_off_bit_identical"] and rec["delta_off_touched_store"] == 0
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def _serve_fleet_specs(count):
+    """The serve bench's fleet (``bench.py:1785-1791``): request i is
+    ``random_instance(n=24+8·(i%8), k=4+(i%4), n_categories=2, seed=i%7)``
+    from tenant ``i%3``."""
+    from citizensassemblies_tpu_torch.core.generator import random_instance
+
+    return [
+        (random_instance(n=24 + 8 * (i % 8), k=4 + (i % 4), n_categories=2, seed=i % 7),
+         f"tenant{i % 3}")
+        for i in range(count)
+    ]
+
+
+def serve_mixed_fleet_phase(cfg, libs, device="cuda", count=SERVE_FLEET_N):
+    """The serve bench's mixed fleet (``bench.py:1776-1900``) through the
+    service at its configuration (the batched engine on, an 8 ms batching
+    window, 8 workers, obs on): serial references first, then every
+    request submitted at once, then the last 4 again. Holds every served
+    allocation within 1e-3 of its serial twin, at least one fused dispatch,
+    more than one solve a dispatch, every sojourn explained within 5 %, and
+    the repeats served from the memo with no capture."""
+    import torch
+
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin
+    from citizensassemblies_tpu_torch.service import SelectionRequest, SelectionService
+    from citizensassemblies_tpu_torch.utils.guards import CompilationGuard
+
+    scfg = cfg.replace(lp_batch=True, serve_batch_window_ms=8.0, serve_admission_cap=8,
+                       obs_trace=True, obs_memory=True, obs_slo_spec=SERVE_SLO_SPEC)
+    specs = _serve_fleet_specs(count)
+    t_phase = time.perf_counter()
+    for lib in libs:
+        lib.reset_counts()
+    refs = []
+    t0 = time.perf_counter()
+    for inst, _tenant in specs:
+        d, s = featurize(inst, device=device)
+        refs.append(find_distribution_leximin(d, s, cfg=scfg, device=device).allocation)
+    serial_s = time.perf_counter() - t0
+    with SelectionService(scfg, device=device) as svc:
+        t0 = time.perf_counter()
+        subs = [(time.perf_counter(), svc.submit(SelectionRequest(instance=i, tenant=t)))
+                for i, t in specs]
+        results, lat = [], []
+        for t_sub, ch in subs:
+            results.append(ch.result(timeout=900))
+            lat.append(time.perf_counter() - t_sub)
+        serve_s = time.perf_counter() - t0
+        bstats = svc.batcher.stats()
+        with CompilationGuard(name="serve_warm") as warm_guard:
+            warm = [svc.run(SelectionRequest(instance=i, tenant=t), timeout=900)
+                    for i, t in specs[-4:]]
+        slo = svc.slo.evaluate()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    worst = max(float(np.max(np.abs(r.allocation - ref))) for r, ref in zip(results, refs))
+    lat_sorted = sorted(lat)
+
+    def pct(q):
+        return lat_sorted[min(len(lat_sorted) - 1, int(round(q * (len(lat_sorted) - 1))))]
+
+    rec = dict(
+        phase="serve_mixed_fleet", requests=count, of_bench_requests=SERVE_FLEET_ALL,
+        serial_seconds=serial_s, serve_seconds=serve_s, p50_latency_s=pct(0.5),
+        p99_latency_s=pct(0.99), instances_per_min=60.0 * count / max(serve_s, 1e-9),
+        solves_per_dispatch=bstats["solves"] / max(bstats["dispatches"], 1),
+        fused_dispatches=bstats["fused_dispatches"], batcher=bstats,
+        worst_linf_vs_serial=worst, bit_identical=sum(
+            1 for r, ref in zip(results, refs) if np.array_equal(r.allocation, ref)),
+        sojourn_gap_max=max(_sojourn_gap(r.audit) for r in results),
+        warm_from_memo=sum(1 for r in warm if r.from_memo),
+        # one-time work (captures, builds) of the repeats: on this thread and
+        # on the workers that served them (their audits' count)
+        warm_captures=warm_guard.count + sum(int(r.audit["xla_compiles"]) for r in warm),
+        slo_ok=slo["slo_ok"], launches=_launches(libs), seconds=time.perf_counter() - t_phase,
+    )
+    rec["ok"] = bool(
+        worst <= E2E_CONTRACT and bstats["fused_dispatches"] >= 1
+        and rec["solves_per_dispatch"] > 1.0 and rec["sojourn_gap_max"] <= SOJOURN_GAP
+        and rec["warm_from_memo"] == 4 and rec["warm_captures"] == 0
+        and all("memory" in r.audit for r in results)
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def serve_fleet_drive_phase(cfg, libs, device="cuda", n_requests=FLEET_DRIVE_REQUESTS):
+    """One ``FleetProcess`` in this process: process 0 of the fleet bench's
+    4 (``bench.py:3158-3240``) drives its share of ``plan_from_config`` at
+    ``fleet_offered_rate_hz`` open loop, on the card, after its serial
+    references; every served allocation bit for bit its reference."""
+    import torch
+
+    from citizensassemblies_tpu_torch.core.generator import random_instance
+    from citizensassemblies_tpu_torch.core.instance import featurize
+    from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin
+    from citizensassemblies_tpu_torch.service import (
+        FleetProcess,
+        SelectionRequest,
+        plan_from_config,
+    )
+
+    fcfg = cfg.replace(lp_batch=True, serve_batch_window_ms=8.0, serve_admission_cap=8,
+                       serve_queue_depth=max(n_requests, 64),
+                       obs_slo_spec="latency_p99:600s,error_rate:0.01")
+    tenants, plan = plan_from_config(fcfg, n_requests, seed=FLEET_DRIVE_SEED,
+                                     n_processes=FLEET_DRIVE_PROCESSES,
+                                     rate_hz=fcfg.fleet_offered_rate_hz)
+    mine = [a for a in plan if a.owner == 0]
+    tenant_ix = {t: i for i, t in enumerate(tenants)}
+
+    def spec_for(a):
+        ti, j = tenant_ix[a.tenant], a.index % FLEET_DRIVE_UNIQUE
+        return (a.tenant, j), random_instance(n=24 + 8 * ((ti + j) % 3), k=4 + ((ti + j) % 4),
+                                              n_categories=2, seed=(ti * 31 + j) % 97)
+
+    t_phase = time.perf_counter()
+    for lib in libs:
+        lib.reset_counts()
+    needed, items, key_of = {}, [], {}
+    for a in mine:
+        key, inst = spec_for(a)
+        needed.setdefault(key, inst)
+        key_of[a.index] = key
+        items.append((a, SelectionRequest(instance=inst, tenant=a.tenant)))
+    refs = {}
+    t0 = time.perf_counter()
+    for key in sorted(needed):
+        d, s = featurize(needed[key], device=device)
+        refs[key] = find_distribution_leximin(d, s, cfg=fcfg, device=device).allocation
+    serial_s = time.perf_counter() - t0
+    worst = {"linf": 0.0, "bit_identical": True, "checked": 0}
+
+    def check(a, res):
+        ref = refs[key_of[a.index]]
+        worst["checked"] += 1
+        worst["linf"] = max(worst["linf"], float(np.max(np.abs(res.allocation - ref))))
+        worst["bit_identical"] &= bool(np.array_equal(res.allocation, ref))
+
+    with FleetProcess(0, FLEET_DRIVE_PROCESSES, fcfg, device=device) as fp:
+        t0 = time.perf_counter()
+        rollup = fp.drive(items, timeout_s=900.0, on_result=check)
+        drive_s = time.perf_counter() - t0
+    if device != "cpu":
+        torch.cuda.synchronize()
+    rec = dict(
+        phase="serve_fleet_drive", processes=FLEET_DRIVE_PROCESSES, process=0,
+        planned=n_requests, of_bench_requests=FLEET_DRIVE_ALL, offered=len(mine),
+        unique=len(needed), rate_hz=fcfg.fleet_offered_rate_hz, serial_seconds=serial_s,
+        drive_seconds=drive_s, rollup={k: v for k, v in rollup.items() if k != "sojourns_s"},
+        checked=worst["checked"], worst_linf=worst["linf"], bit_identical=worst["bit_identical"],
+        launches=_launches(libs), seconds=time.perf_counter() - t_phase,
+    )
+    rec["ok"] = bool(
+        worst["bit_identical"] and worst["checked"] == len(mine) == rollup["completed"]
+        and rollup["failed"] == 0 and rollup["shed"] == 0 and rollup["admission_rejected"] == 0
+        and rollup["batcher"]["dist_reshards"] == 0
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def serving_phases(cfg, libs, leximin, legacy_alloc):
+    """Slice 12's phases, in order; returns their records by name."""
+    return dict(
+        flagship=serve_flagship_phase(cfg, libs, leximin, legacy_alloc),
+        revise=serve_revise_churn_phase(cfg, libs),
+        mixed=serve_mixed_fleet_phase(cfg, libs),
+        drive=serve_fleet_drive_phase(cfg, libs),
+    )
+
+
 def main() -> int:
     import torch
 
@@ -4068,7 +4499,7 @@ def main() -> int:
     l2_serial = l2_serial_phase(xmin_dist, lex_defaults, defaults_cfg)
     mass = mass_like_phase(defaults_cfg)
 
-    legacy = legacy_phase(sf_e_skewed_instance(seed=1))
+    legacy, legacy_alloc = legacy_phase(sf_e_skewed_instance(seed=1))
     agent, agent_dist, agent_cfg = agent_space_phase(
         skewed_instance(n=120, k=12, n_categories=3, seed=1), slice_cfg, "agent_space_skewed_120"
     )
@@ -4116,6 +4547,13 @@ def main() -> int:
     for rec in scenarios.values():
         for name, count in rec["launches"].items():
             launches[name] += count
+    # serving (queue A item 3): the service's two concurrent flagship
+    # requests are the main path's LEXIMIN twice; every serving phase's
+    # launches count with the main path's
+    serving = serving_phases(defaults_cfg, libs, lex_defaults, legacy_alloc)
+    for rec in serving.values():
+        for name, count in rec["launches"].items():
+            launches[name] += count
 
     def summary(name, rec, phase_recs, holds):
         return dict(
@@ -4129,7 +4567,7 @@ def main() -> int:
 
     gather_row = summary("ell_gather", gather, [gather, gather_dual, gather_xmin, gather_bf16],
                          [households["n1200"], households["xmin"], analysis["flagship"],
-                          distribution["dual"], scenarios["dropout_flagship"]])
+                          distribution["dual"], scenarios["dropout_flagship"], serving["flagship"]])
     # the bf16-value path of the same kernel, at XMIN's demoted pack
     gather_row.update(
         bf16_launches=launches["ell_gather_bf16"], bf16_ms=gather_bf16["ms"],
@@ -4140,7 +4578,7 @@ def main() -> int:
         gather_row,
         summary("two_sided_block", b1, [b1, b3, bnan, screen],
                 [households["hold"], households["n1200"], analysis["flagship"],
-                 scenarios["dropout_flagship"], scenarios["deadline"]]),
+                 scenarios["dropout_flagship"], scenarios["deadline"], serving["flagship"]]),
         summary("lp_block", lp, [lp, lp_sf_b], [households["agent"]]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4150,7 +4588,7 @@ def main() -> int:
         r for r in (e2e, e2e_defaults, xmin, xmin_hold, l2_serial, mass, legacy, agent, agent_sf_b,
                     dense_graph, stage_cg, stage_cg_pricing, *households.values(), ckpt_face,
                     ckpt_lex, faults, *analysis.values(), *distribution.values(),
-                    *scenarios.values())
+                    *scenarios.values(), *serving.values())
         if not r["ok"]
     ]
     if failed:

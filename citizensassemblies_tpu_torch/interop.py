@@ -15,11 +15,56 @@ from typing import Mapping, Tuple
 
 import numpy as np
 
-from citizensassemblies_tpu_torch.core.instance import DenseInstance, dense_instance
+from citizensassemblies_tpu_torch.core.instance import DenseInstance, Instance, dense_instance
+from citizensassemblies_tpu_torch.data.registry import Registry, RegistryEdit
 from citizensassemblies_tpu_torch.models.leximin import Distribution
+from citizensassemblies_tpu_torch.service.server import SelectionRequest
+from citizensassemblies_tpu_torch.solvers.delta import ReviseSpec
 from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
 from citizensassemblies_tpu_torch.utils.config import Config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike
+
+
+def registry_from_dict(values: Mapping) -> Registry:
+    """This package's :class:`~citizensassemblies_tpu_torch.data.registry.Registry`
+    from ``dataclasses.asdict`` of the JAX package's (numpy arrays and
+    tuples, taken as they are)."""
+    return Registry(**{f.name: values[f.name] for f in dataclasses.fields(Registry)})
+
+
+def revise_spec_from_dict(values: Mapping) -> ReviseSpec:
+    """This package's :class:`~citizensassemblies_tpu_torch.solvers.delta.ReviseSpec`
+    from ``dataclasses.asdict`` of the JAX package's: the edit's fields, the
+    pre-edit registry's arrays and the base fingerprint."""
+    return ReviseSpec(
+        edit=RegistryEdit(**dict(values["edit"])),
+        reg_before=registry_from_dict(values["reg_before"]),
+        base_fingerprint=str(values.get("base_fingerprint", "")),
+    )
+
+
+def request_from_dict(values: Mapping, device: DeviceLike = None) -> SelectionRequest:
+    """This package's ``service.SelectionRequest`` from ``dataclasses.asdict``
+    of the JAX package's. A pre-featurized request's dense instance arrives
+    as the dict of :func:`dense_from_arrays`'s arguments (``A``, ``qmin``,
+    ``qmax``, ``cat_of_feature``, ``k``, ``n_categories``) and is built on
+    ``device``; an ``instance`` (the host record of ``core.instance``, as a
+    dict) becomes this package's ``Instance``; ``cfg`` maps through
+    :func:`config_from_dict` and ``revise`` through
+    :func:`revise_spec_from_dict`."""
+    kw = {f.name: values[f.name] for f in dataclasses.fields(SelectionRequest) if f.name in values}
+    if isinstance(kw.get("instance"), Mapping):
+        kw["instance"] = Instance(**dict(kw["instance"]))
+    if kw.get("dense") is not None:
+        kw["dense"] = dense_from_arrays(**dict(kw["dense"]), device=device)
+    if kw.get("cfg") is not None:
+        kw["cfg"] = config_from_dict(kw["cfg"])
+    if kw.get("revise") is not None:
+        kw["revise"] = revise_spec_from_dict(kw["revise"])
+    for name in ("households", "dropout"):
+        if kw.get(name) is not None:
+            kw[name] = np.asarray(kw[name])
+    return SelectionRequest(**kw)
 
 
 def config_from_dict(values: Mapping) -> Config:

@@ -13,11 +13,15 @@ A launch failure is an error: :meth:`CudaLibrary.call` (and
 point returns a nonzero ``cudaError_t``.
 
 A wrapper called while a CUDA graph is captured launches nothing: its
-kernel runs at each replay. :func:`launch_counts` and
-:func:`move_captured_launches` let the capture take those calls out of the
-counters, and :func:`count_replay` adds them back at every replay. Each
-library counts its launches in all (``launches``) and per C entry point
-(``entry_launches``: the gather's float32 and bf16-value paths apart).
+kernel runs at each replay. A capture on a thread runs under
+:func:`capturing_launches`, which books that thread's wrapper calls into the
+capture's own tally instead of the counters (another thread's launches in
+the meantime are counted as launches), and :func:`count_replay` adds the
+tally at every replay. Each library counts its launches in all
+(``launches``) and per C entry point (``entry_launches``: the gather's
+float32 and bf16-value paths apart), under one lock: concurrent requests
+launch from their own threads. A library build counts as one-time work for
+the calling thread's ``utils/guards.CompilationGuard``.
 """
 
 from __future__ import annotations
@@ -27,9 +31,11 @@ import os
 import shutil
 import threading
 import time
+from contextlib import contextmanager
 from typing import Dict, List, Sequence
 
 from citizensassemblies_tpu_torch.utils import native_build
+from citizensassemblies_tpu_torch.utils.guards import note_compile
 
 CSRC = os.path.join(native_build.PKG_ROOT, "csrc")
 NVCC_FLAGS = [
@@ -53,6 +59,12 @@ def nvcc() -> str:
 
 #: every library of the package, in creation order
 LIBRARIES: List["CudaLibrary"] = []
+
+#: guards every library's launch counters
+_COUNT_LOCK = threading.Lock()
+
+#: the calling thread's open capture tally (library name → entry → calls)
+_CAPTURE = threading.local()
 
 
 class CudaLibrary:
@@ -79,9 +91,10 @@ class CudaLibrary:
         LIBRARIES.append(self)
 
     def reset_counts(self) -> None:
-        """Zero the launch counters (outside a graph capture)."""
-        self.launches = 0
-        self.entry_launches.clear()
+        """Zero the launch counters."""
+        with _COUNT_LOCK:
+            self.launches = 0
+            self.entry_launches.clear()
 
     def start_build(self):
         cmd = [nvcc()] + NVCC_FLAGS + [f"-I{CSRC}"]
@@ -102,14 +115,21 @@ class CudaLibrary:
                 path, log = native_build.finish_build(*self.start_build())
                 self.build_log = log or self.build_log
                 self._lib = self._load(path)
+                note_compile("cuda_library_builds")
             return self._lib
 
     def call(self, fname: str, *args) -> int:
         """Launch through C entry point ``fname`` and count the launch;
         raises on a nonzero CUDA error code."""
         rc = self.run(fname, *args)
-        self.launches += 1
-        self.entry_launches[fname] = self.entry_launches.get(fname, 0) + 1
+        tally = getattr(_CAPTURE, "tally", None)
+        if tally is not None:
+            entries = tally.setdefault(self.name, {})
+            entries[fname] = entries.get(fname, 0) + 1
+            return rc
+        with _COUNT_LOCK:
+            self.launches += 1
+            self.entry_launches[fname] = self.entry_launches.get(fname, 0) + 1
         return rc
 
     def run(self, fname: str, *args) -> int:
@@ -122,33 +142,27 @@ class CudaLibrary:
         return rc
 
 
-def launch_counts() -> List[Dict[str, int]]:
-    """Every library's launch counts per C entry point, in
-    :data:`LIBRARIES` order."""
-    return [dict(lib.entry_launches) for lib in LIBRARIES]
+@contextmanager
+def capturing_launches():
+    """Book the calling thread's wrapper calls in the scope (a graph
+    capture) into a tally instead of the launch counters; yields the tally
+    (library name → entry point → calls) for :func:`count_replay`."""
+    outer = getattr(_CAPTURE, "tally", None)
+    tally: Dict[str, Dict[str, int]] = {}
+    _CAPTURE.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = outer
 
 
-def move_captured_launches(before: List[Dict[str, int]]) -> List[Dict[str, int]]:
-    """The launches counted since ``before`` (:func:`launch_counts` taken
-    when a graph capture began), taken back out of the counters: during a
-    capture the wrappers only record their kernels. Returns them per
-    library and entry point, for :func:`count_replay`."""
-    captured = []
-    for lib, b in zip(LIBRARIES, before):
-        moved = {f: n - b.get(f, 0) for f, n in lib.entry_launches.items() if n != b.get(f, 0)}
-        for f, c in moved.items():
-            lib.entry_launches[f] -= c
-            lib.launches -= c
-        captured.append(moved)
-    return captured
-
-
-def count_replay(captured: List[Dict[str, int]]) -> None:
+def count_replay(captured: Dict[str, Dict[str, int]]) -> None:
     """Count the launches one replay of a captured graph makes."""
-    for lib, moved in zip(LIBRARIES, captured):
-        for f, c in moved.items():
-            lib.entry_launches[f] = lib.entry_launches.get(f, 0) + c
-            lib.launches += c
+    with _COUNT_LOCK:
+        for lib in LIBRARIES:
+            for f, c in captured.get(lib.name, {}).items():
+                lib.entry_launches[f] = lib.entry_launches.get(f, 0) + c
+                lib.launches += c
 
 
 def build_all(libs: List[CudaLibrary]) -> float:
@@ -164,6 +178,7 @@ def build_all(libs: List[CudaLibrary]) -> float:
         with lib._lock:
             lib.build_log = log
             lib._lib = lib._load(path)
+        note_compile("cuda_library_builds")
     return time.perf_counter() - t0
 
 

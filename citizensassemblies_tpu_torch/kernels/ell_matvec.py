@@ -23,6 +23,7 @@ import functools
 import torch
 
 from citizensassemblies_tpu_torch.kernels.cuda_lib import CudaLibrary, ptr, stream_of
+from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,9 +78,12 @@ def ell_gather_mv_plain(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor) -
 def ell_gather_mv(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Packed gather matvec; the kernel on CUDA tensors, the plain version
     on CPU tensors."""
-    if y.device.type != "cuda":
-        return ell_gather_mv_plain(idx, val, y)
-    return ell_gather_mv_cuda(idx, val, y)
+    with dispatch_span("kernels.ell_gather", cols=int(idx.shape[0])) as ds:
+        if y.device.type != "cuda":
+            ds.out = out = ell_gather_mv_plain(idx, val, y)
+        else:
+            ds.out = out = ell_gather_mv_cuda(idx, val, y)
+    return out
 
 
 def ell_gather_mv_cuda(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

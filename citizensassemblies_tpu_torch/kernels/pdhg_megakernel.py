@@ -69,6 +69,7 @@ import torch
 
 from citizensassemblies_tpu_torch.kernels.cuda_lib import CSRC, CudaLibrary, ptr, stream_of
 from citizensassemblies_tpu_torch.kernels.ell_matvec import ell_gather_mv, ell_gather_mv_plain
+from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
 from citizensassemblies_tpu_torch.utils import device as _device
@@ -698,11 +699,15 @@ def dispatch_two_sided(
     csr, plan = two_sided_launch_inputs(idx_np, val_np, v.shape[0], colmask.shape[0], v.device)
     idx, vals_s, pre, state = two_sided_setup(idx_np, val_np, v, colmask, x0, lam0, mu0, csr)
     kw = dict(max_iters=max_iters, check_every=check_every, sentinel=sentinel)
-    with no_implicit_transfers(cfg):
+    with dispatch_span(
+        "kernels.pdhg_megakernel_two_sided", cfg=cfg, log=log, lanes=int(colmask.shape[0]),
+        cols=int(colmask.shape[1]),
+    ) as ds, no_implicit_transfers(cfg):
         if plan is not None:
             out = two_sided_blocks_cuda(csr, plan, idx, vals_s, pre, state, tol, **kw)
         else:
             out = two_sided_blocks_plain(csr, idx, vals_s, pre, state, tol, **kw)
+        ds.out = out
     p, eps, l_lo, l_up, mu, it, res, flags = out
     if log is not None:
         log.count("megakernel_dispatches")
@@ -889,11 +894,14 @@ def dispatch_lp(
         csr,
     )
     kw = dict(max_iters=max_iters, check_every=check_every, sentinel=sentinel)
-    with no_implicit_transfers(cfg):
+    with dispatch_span(
+        "kernels.pdhg_megakernel_lp", cfg=cfg, log=log, nv=int(nv), m1=int(idx.shape[0]),
+    ) as ds, no_implicit_transfers(cfg):
         if plan is not None:
             out = lp_blocks_cuda(csr, plan, idx, pre, state, tol, **kw)
         else:
             out = lp_blocks_plain(csr, idx, pre, state, tol, **kw)
+        ds.out = out
     x, lam, mu, it, res, flags = out
     if log is not None:
         log.count("megakernel_dispatches")

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from citizensassemblies_tpu_torch.core.instance import DenseInstance, SelectionError, on_device
+from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.ops.pairs import pair_matrix_from_panels
 from citizensassemblies_tpu_torch.service.context import resolve as resolve_context
 from citizensassemblies_tpu_torch.service.context import use_context
@@ -181,7 +182,9 @@ def sample_panels_batch(
     def noise_at(_step):
         return gumbel(generator, (batch, n), dense.device)
 
-    return _sample_panels_kernel(dense, batch, noise_at, scores, households)
+    with dispatch_span("legacy.scan_sampler", cfg=cfg, log=log, chains=int(batch)) as ds:
+        ds.out = out = _sample_panels_kernel(dense, batch, noise_at, scores, households)
+    return out
 
 
 def sample_feasible_panels(

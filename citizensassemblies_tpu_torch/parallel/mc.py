@@ -35,6 +35,7 @@ from citizensassemblies_tpu_torch.core.instance import DenseInstance
 from citizensassemblies_tpu_torch.dist import partition as dist_partition
 from citizensassemblies_tpu_torch.dist.runtime import AXIS_AGENTS, AXIS_CHAINS
 from citizensassemblies_tpu_torch.models.legacy import _sample_panels_kernel, gumbel
+from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 
 #: replacement policies of the dropout realization (``scenarios/dropout``):
 #: "type" refills each no-show seat with a uniformly random off-panel agent of
@@ -291,23 +292,25 @@ def dropout_realization_round(
         hi = min(hi, draws)
     counts = torch.zeros(2, n, **f32)  # seated, seated on valid panels
     tallies = torch.zeros(2, dtype=torch.float64, device=dev)  # ok, filled
-    for c0 in range(0, draws, int(chunk)):
-        c1 = min(c0 + int(chunk), draws)
-        B = c1 - c0
-        u_pick = torch.rand(B, generator=generator, **f32)
-        u_att = torch.rand((B, n), generator=generator, **f32)
-        u_ref = None if policy == "none" else torch.rand((B, n), generator=generator, **f32)
-        a, b = max(c0, lo) - c0, min(c1, hi) - c0
-        if a >= b:
-            continue
-        seated, ok, filled = _dropout_draws(
-            Pm, cum, attend, tid, starts, A_f, qmin, qmax, T, u_pick[a:b], u_att[a:b],
-            None if u_ref is None else u_ref[a:b], policy,
-        )
-        counts[0] += seated.sum(dim=0)
-        counts[1] += (seated * ok[:, None].to(torch.float32)).sum(dim=0)
-        tallies[0] += ok.to(torch.float64).sum()
-        tallies[1] += filled.to(torch.float64).sum()
+    with dispatch_span("mc.dropout_realization", draws=draws, policy=policy) as ds:
+        for c0 in range(0, draws, int(chunk)):
+            c1 = min(c0 + int(chunk), draws)
+            B = c1 - c0
+            u_pick = torch.rand(B, generator=generator, **f32)
+            u_att = torch.rand((B, n), generator=generator, **f32)
+            u_ref = None if policy == "none" else torch.rand((B, n), generator=generator, **f32)
+            a, b = max(c0, lo) - c0, min(c1, hi) - c0
+            if a >= b:
+                continue
+            seated, ok, filled = _dropout_draws(
+                Pm, cum, attend, tid, starts, A_f, qmin, qmax, T, u_pick[a:b], u_att[a:b],
+                None if u_ref is None else u_ref[a:b], policy,
+            )
+            counts[0] += seated.sum(dim=0)
+            counts[1] += (seated * ok[:, None].to(torch.float32)).sum(dim=0)
+            tallies[0] += ok.to(torch.float64).sum()
+            tallies[1] += filled.to(torch.float64).sum()
+        ds.out = counts
     if mesh is not None:
         dist.all_reduce(counts)
         dist.all_reduce(tallies)

@@ -41,6 +41,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from citizensassemblies_tpu_torch.dist import partition as dist_partition
+from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.solvers.highs_backend import DualSolution
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
@@ -278,15 +279,19 @@ def solve_dual_lp_pdhg_sharded(
             idx_r, val_r, _nnz = ell_pack_rows(G)
             (idx_l, val_l, h_l), (c_, a_, b_) = _place(mesh, (idx_r, val_r, h), (c, a_row, b))
             stats["route"] = "ell"
-            x, _lam, _mu, res = sharded_ell_core(
-                idx_l, val_l, h_l, c_, a_, b_, tol, block_iters, max_blocks, stats, graph
-            )
+            with dispatch_span("parallel.sharded_dual_lp_ell", cfg=cfg, rows=int(rows)) as ds:
+                x, _lam, _mu, res = sharded_ell_core(
+                    idx_l, val_l, h_l, c_, a_, b_, tol, block_iters, max_blocks, stats, graph
+                )
+                ds.out = x
         else:
             (G_l, h_l), (c_, a_, b_) = _place(mesh, (G, h), (c, a_row, b))
             stats["route"] = "dense"
-            x, _lam, _mu, res = sharded_dense_core(
-                G_l, h_l, c_, a_, b_, tol, block_iters, max_blocks, stats, graph
-            )
+            with dispatch_span("parallel.sharded_dual_lp", cfg=cfg, rows=int(rows)) as ds:
+                x, _lam, _mu, res = sharded_dense_core(
+                    G_l, h_l, c_, a_, b_, tol, block_iters, max_blocks, stats, graph
+                )
+                ds.out = x
     stats["res"] = res
     x = x.cpu().numpy().astype(np.float64)
     return DualSolution(

@@ -29,6 +29,7 @@ import torch
 
 from citizensassemblies_tpu_torch.core.instance import DenseInstance
 from citizensassemblies_tpu_torch.models.legacy import _draw_panels, _sample_step, gumbel
+from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,8 +127,10 @@ def sweep_legacy_allocations(
     stacked, _n_real = pad_and_stack(denses)
     if generator is None:
         generator = torch.Generator(device=stacked.A.device).manual_seed(int(seed))
-    panels, ok = sweep_panels(stacked, int(chains_per_instance), generator)
-    alloc, rate = allocation_from_panels(panels, ok, stacked.shape[1])
+    with dispatch_span("sweep.alloc_core", instances=len(denses)) as ds:
+        panels, ok = sweep_panels(stacked, int(chains_per_instance), generator)
+        alloc, rate = allocation_from_panels(panels, ok, stacked.shape[1])
+        ds.out = alloc
     return (
         alloc.cpu().numpy().astype(np.float64),
         rate.cpu().numpy().astype(np.float64),

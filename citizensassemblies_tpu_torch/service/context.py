@@ -1,19 +1,20 @@
 """Per-request execution context.
 
 One selection request owns a :class:`RequestContext`: its ``Config`` and
-``RunLog``, its identity (tenant and request id), and the per-request
-robustness state (a wall-clock :class:`~citizensassemblies_tpu_torch.robust.
+``RunLog``, its identity (tenant and request id), its warm-slot store, its
+tenant session, the service's cross-request batcher, its tracer, and the
+per-request robustness state (a wall-clock :class:`~citizensassemblies_tpu_torch.robust.
 policy.Deadline`, a retry budget, a fault injector). :func:`use_context`
 makes it ambient for a scope through a ``contextvars.ContextVar``, so each
-thread (and each asyncio task) sees only its own request; deep call sites
-read it with :func:`current_context` (the face loop's deadline check, the
-fault sites' injector lookup), and the model entry points take it as
-``ctx=`` and resolve ``(ctx, cfg, log)`` with :func:`resolve`.
+thread (and each asyncio task) sees only its own request, and installs its
+tracer as the ambient one (``obs/trace.py``) the same way; deep call sites
+read it with :func:`current_context` (the batched LP engine's warm slots
+and batcher hand-off, the L2 stage's pack memo, the face loop's deadline
+check, the fault sites' injector lookup), and the model entry points take it
+as ``ctx=`` and resolve ``(ctx, cfg, log)`` with :func:`resolve`.
 
-The serving layer's own state (a warm-start slot store, a tenant session,
-a cross-request batcher, a tracer) has fields here too; nothing in the
-package sets them yet. This module imports no other module of the package
-beyond the config and the log.
+This module imports no other module of the package beyond the config, the
+log and (at a scope with a tracer) the tracer.
 """
 
 from __future__ import annotations
@@ -54,9 +55,12 @@ class RequestContext:
     a face-loop round and at the scenario models' stages, and raises
     ``DeadlineExceeded`` past it; ``retry`` is the request's retry budget;
     ``injector`` (``robust.inject.FaultInjector``) is consulted by every
-    fault site before the process default. ``warm_store``, ``session``,
-    ``batcher`` and ``tracer`` are the serving layer's and stay None until
-    it sets them.
+    fault site before the process default. ``warm_store`` is the request's
+    own warm-slot store of the batched LP engine
+    (``solvers/batch_lp.WarmSlotStore``), ``session`` its tenant's session
+    (``service/session.TenantSession``), ``batcher`` the service's
+    cross-request batcher and ``tracer`` its ``obs.trace.Tracer``; the
+    selection service sets them, and an offline context leaves them None.
     """
 
     cfg: Config
@@ -100,6 +104,13 @@ class RequestContext:
         )
 
 
+    def scoped_warm_key(self, base: str) -> str:
+        """A call site's warm-slot key (``"decomp_polish_screen"``) scoped by
+        this request's tenant and id, so two concurrent requests of one call
+        site never share warm iterates."""
+        return f"{self.tenant}/{self.request_id}/{base}"
+
+
 def current_context() -> Optional[RequestContext]:
     """The ambient context of the calling thread or task, or None."""
     return _ACTIVE.get()
@@ -107,15 +118,24 @@ def current_context() -> Optional[RequestContext]:
 
 @contextmanager
 def use_context(ctx: Optional[RequestContext]):
-    """Make ``ctx`` the ambient context for the scope; ``None`` is a
-    pass-through, so entry points wrap unconditionally."""
+    """Make ``ctx`` (and its tracer, if any) ambient for the scope; ``None``
+    is a pass-through, so entry points wrap unconditionally."""
     if ctx is None:
         yield None
         return
     token = _ACTIVE.set(ctx)
+    trace_token = None
+    if ctx.tracer is not None:
+        from citizensassemblies_tpu_torch.obs.trace import activate_tracer
+
+        trace_token = activate_tracer(ctx.tracer)
     try:
         yield ctx
     finally:
+        if trace_token is not None:
+            from citizensassemblies_tpu_torch.obs.trace import deactivate_tracer
+
+            deactivate_tracer(trace_token)
         _ACTIVE.reset(token)
 
 

@@ -18,7 +18,15 @@ padded instance with the serial dense chained PDHG (``lp_pdhg._pdhg_body``):
 * **warm-start slots keyed per caller** — ``warm_key`` stores each
   instance's (x, λ, μ) at its real size and re-pads it into whatever bucket
   the next call lands in, trailing structural variables (an ε slot) kept at
-  the end.
+  the end. The slots live in a :class:`WarmSlotStore`: one default store
+  for the offline path, and under a request context (``service/``) the
+  request's own store with the key scoped by tenant and request, so two
+  concurrent requests of one call site never share warm iterates;
+* **cross-request batching** — under a request context whose service
+  installed a batcher (``service/batcher.CrossRequestBatcher``), a call
+  hands its fleet to the batcher, which merges it with same-schedule
+  fleets of other requests on the same device into one engine call
+  (``defer=False`` is that call).
 
 The polish screen (:func:`solve_polish_screen_ell`) is the engine's sparse
 variant: nested support prefixes of one ELL pack as lanes of one two-sided
@@ -43,6 +51,7 @@ quarantine.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,7 +61,8 @@ from citizensassemblies_tpu_torch.robust import inject
 from citizensassemblies_tpu_torch.utils import device as _device
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
-from citizensassemblies_tpu_torch.utils.guards import no_implicit_transfers
+from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
+from citizensassemblies_tpu_torch.utils.guards import CompilationGuard, no_implicit_transfers
 from citizensassemblies_tpu_torch.utils.precision import demote_operator, operand_tensor
 
 
@@ -102,9 +112,68 @@ def lp_batch_enabled(cfg: Optional[Config], device) -> bool:
     return _device.on_accelerator(device)
 
 
-#: warm-start slots: (warm_key, position) → (x, λ, μ, tail_vars) at the
-#: instance's real sizes (host float64, so slots survive bucket changes)
-_WARM_SLOTS: Dict[Tuple[str, int], Tuple[np.ndarray, np.ndarray, np.ndarray, int]] = {}
+#: per-bucket dispatch, solve and capture counts since process start, under
+#: their lock: requests dispatch buckets from their own threads
+_BUCKET_STATS: Dict[str, Dict[str, int]] = {}
+_STATS_LOCK = threading.Lock()
+
+
+class WarmSlotStore:
+    """Warm-start slots: (warm_key, position) → (x, λ, μ, tail_vars) at the
+    instance's real sizes (host float64, so slots survive bucket changes).
+    Mutations take the store's lock."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._slots: Dict[Tuple[str, int], Tuple[np.ndarray, np.ndarray, np.ndarray, int]] = {}
+
+    def get(self, key: Tuple[str, int]):
+        with self._lock:
+            return self._slots.get(key)
+
+    def put(self, key: Tuple[str, int], value: Tuple[np.ndarray, np.ndarray, np.ndarray, int]) -> None:
+        with self._lock:
+            self._slots[key] = value
+
+    def clear(self, warm_key: Optional[str] = None) -> None:
+        with self._lock:
+            if warm_key is None:
+                self._slots.clear()
+                return
+            for k in [k for k in self._slots if k[0] == warm_key]:
+                del self._slots[k]
+
+    def slots(self, warm_key: str) -> Dict[int, tuple]:
+        """One caller's slots (position → slot), a copy."""
+        with self._lock:
+            return {k[1]: slot for k, slot in self._slots.items() if k[0] == warm_key}
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._slots)
+
+
+#: the offline path's slots; a request under a context never touches them
+_DEFAULT_WARM_STORE = WarmSlotStore()
+
+
+def _current_context():
+    """The ambient request context (imported at the call: the service
+    package imports the models, which import this module)."""
+    from citizensassemblies_tpu_torch.service.context import current_context
+
+    return current_context()
+
+
+def _resolve_warm(warm_key: Optional[str]):
+    """``(store, scoped_key)`` for a call: the ambient request's own store
+    (when it has one) with the key scoped by tenant and request, else the
+    default store and the key as given."""
+    ctx = _current_context()
+    store = ctx.warm_store if ctx is not None and ctx.warm_store is not None else _DEFAULT_WARM_STORE
+    if ctx is None or warm_key is None:
+        return store, warm_key
+    return store, ctx.scoped_warm_key(warm_key)
 
 
 def _bucket_key(insts: Sequence[BatchLP], cap: int) -> Tuple[int, int, int]:
@@ -140,24 +209,32 @@ def _repad_warm(
 
 
 def clear_warm_slots(warm_key: Optional[str] = None) -> None:
-    """Drop the engine's warm-start slots (all of them, or one caller's)."""
-    if warm_key is None:
-        _WARM_SLOTS.clear()
-        return
-    for k in [k for k in _WARM_SLOTS if k[0] == warm_key]:
-        del _WARM_SLOTS[k]
+    """Drop the engine's warm-start slots (all of them, or one caller's) in
+    the resolved store: under a request context, the request's own."""
+    store, scoped = _resolve_warm(warm_key)
+    store.clear(scoped)
 
 
 def warm_slots(warm_key: str) -> Dict[int, Tuple[np.ndarray, np.ndarray, np.ndarray, int]]:
-    """One caller's warm-start slots (position → slot), for a checkpoint."""
-    return {k[1]: slot for k, slot in _WARM_SLOTS.items() if k[0] == warm_key}
+    """One caller's warm-start slots (position → slot) in the resolved
+    store, for a checkpoint."""
+    store, scoped = _resolve_warm(warm_key)
+    return store.slots(scoped)
 
 
 def restore_warm_slots(warm_key: str, slots: Dict[int, tuple]) -> None:
-    """Replace one caller's warm-start slots with checkpointed ones."""
-    clear_warm_slots(warm_key)
+    """Replace one caller's warm-start slots in the resolved store with
+    checkpointed ones."""
+    store, scoped = _resolve_warm(warm_key)
+    store.clear(scoped)
     for pos, (x, lam, mu, tail) in slots.items():
-        _WARM_SLOTS[(warm_key, int(pos))] = (x, lam, mu, int(tail))
+        store.put((scoped, int(pos)), (x, lam, mu, int(tail)))
+
+
+def bucket_stats() -> Dict[str, Dict[str, int]]:
+    """Per-bucket dispatch, solve and capture counts since process start."""
+    with _STATS_LOCK:
+        return {k: dict(v) for k, v in _BUCKET_STATS.items()}
 
 
 def _book(lanes: int, log) -> None:
@@ -188,6 +265,8 @@ def solve_lp_batch(
     common_bucket: bool = False,
     device: DeviceLike = None,
     mesh=None,
+    defer: bool = True,
+    owners: Optional[Sequence] = None,
 ):
     """Solve N independent LPs, each padded into its shape bucket, on ``device``.
 
@@ -205,21 +284,41 @@ def solve_lp_batch(
     ``Config.dist_prepartition``): each rank solves its own lanes and the
     solutions are gathered back to every rank.
 
+    Under a request context whose service installed a batcher, the fleet
+    goes to ``ctx.batcher`` (``service/batcher.py``), which merges it with
+    other requests' fleets of the same schedule and device and comes back
+    here with ``defer=False``; mesh and shared-bucket calls keep their own
+    layouts. A fault or sentinel count without a ``log`` lands on the
+    ambient request's log. ``owners`` (the batcher's merged fleets) gives
+    each instance's request context: a lane's fault sites consult its
+    owner's injector and its fault and sentinel counts land on its owner's
+    log.
+
     Counters on ``log``: ``lp_batch_dispatches`` (buckets),
     ``lp_batch_solves`` (instances), ``lp_batch_warm_hits``.
     """
-    from citizensassemblies_tpu_torch.solvers.lp_pdhg import (
-        FLAG_POISONED,
-        LPSolution,
-        _host_resolve_lp,
-        _pdhg_body,
-        sentinels_enabled,
-    )
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import sentinels_enabled
 
     cfg = cfg or default_config()
     if not problems:
         return []
     dev = resolve_device(device)
+    ctx = _current_context()
+    if defer and mesh is None and not common_bucket and ctx is not None and ctx.batcher is not None:
+        return ctx.batcher.submit(
+            problems, ctx=ctx, cfg=cfg, log=log, warm_key=warm_key, tol=tol,
+            max_iters=max_iters, device=dev,
+        )
+    # fault and sentinel evidence of a call without a log (the batcher's
+    # merged dispatch) lands on the ambient request's log
+    fault_log = log if log is not None else (ctx.log if ctx is not None else None)
+
+    def owner_of(i):
+        owner = owners[i] if owners is not None else None
+        if owner is None:
+            return fault_log, None
+        return owner.log, owner.injector
+    warm_store, warm_key = _resolve_warm(warm_key)
     cap = max(int(cfg.lp_batch_bucket_max), _BUCKET_FLOOR)
     base_tol = float(tol if tol is not None else cfg.pdhg_tol)
     kw = dict(
@@ -237,7 +336,6 @@ def solve_lp_batch(
 
     out: List[Optional[LPSolution]] = [None] * len(problems)
     slots: Dict[int, tuple] = {}
-    t32 = dict(dtype=torch.float32, device=dev)
     dealt = mesh is not None and int(mesh.size()) > 1
     for (m1, m2, nv), idxs in groups.items():
         _book(len(idxs), log)
@@ -257,19 +355,20 @@ def solve_lp_batch(
             A[:m2i, :nvi], b[:m2i] = inst.A, inst.b
             x0, lam0, mu0 = np.zeros(nv, np.float32), np.zeros(m1, np.float32), np.zeros(m2, np.float32)
             warm = inst.warm
+            lane_log, lane_inj = owner_of(i)
             if warm is None and warm_key is not None:
-                slot = _WARM_SLOTS.get((warm_key, i))
+                slot = warm_store.get((warm_key, i))
                 if slot is not None:
                     warm = slot[:3]
                     if log is not None:
                         log.count("lp_batch_warm_hits")
-                    if inject.site("warm_slot_corrupt", log):
+                    if inject.site("warm_slot_corrupt", lane_log, inj=lane_inj):
                         # a corrupt slot must be quarantined by the lane's
                         # sentinel, not poison the bucket
                         bad = np.array(warm[0], dtype=np.float64)
                         bad[:1] = np.nan
                         warm = (bad, warm[1], warm[2])
-            if warm is None and inject.site("pdhg_nan", log):
+            if warm is None and inject.site("pdhg_nan", lane_log, inj=lane_inj):
                 x0[0] = np.nan  # one cold lane poisoned
             if warm is not None:
                 # re-pad at the instance's REAL sizes: the bucket padding
@@ -285,43 +384,19 @@ def solve_lp_batch(
             )
             for lane, op in zip(lanes, stacked):
                 lane[arg] = op
-        for i, (c, G, h, A, b, x0, lam0, mu0) in zip(idxs, lanes):
-            if i not in own:
-                continue
-            inst = problems[i]
-            nvi, m1i, m2i = inst.c.shape[0], inst.G.shape[0], inst.A.shape[0]
-            tol_i = float(inst.tol if inst.tol is not None else base_tol)
-            operands = (
-                torch.as_tensor(c, **t32), operand_tensor(G, dev), torch.as_tensor(h, **t32),
-                operand_tensor(A, dev), *(torch.as_tensor(a, **t32) for a in (b, x0, lam0, mu0)),
+        bkey = f"{m1}x{m2}x{nv}x{len(idxs)}"
+        with dispatch_span(
+            "batch_lp.vmapped_core", cfg=cfg, log=log, bucket=bkey, lanes=len(own),
+        ), CompilationGuard(name=f"lp_batch_{bkey}") as guard:
+            _solve_lanes(
+                problems, idxs, lanes, own, dev, base_tol, cfg, kw, owner_of, out, slots,
+                warm_key,
             )
-            with no_implicit_transfers(cfg):
-                x, lam, mu, it, res, flags = _pdhg_body(*operands, tol_i, **kw)
-            poisoned = bool(flags & FLAG_POISONED)
-            if poisoned:
-                # per-lane quarantine: re-solve THIS instance on the float64
-                # host path and do not write its warm slot
-                if log is not None:
-                    log.count("sentinel_quarantined")
-                host = _host_resolve_lp(inst.c, inst.G, inst.h, inst.A, inst.b)
-                if host is not None:
-                    if log is not None:
-                        log.count("sentinel_host_resolve")
-                    out[i] = host
-                    continue
-            x, lam, mu = _readback(x, lam, mu)
-            xi, li, mi = x[:nvi], lam[:m1i], mu[:m2i]
-            out[i] = LPSolution(
-                ok=bool(res <= tol_i * 4.0) and not poisoned,
-                x=xi,
-                lam=li,
-                mu=mi,
-                objective=float(np.asarray(inst.c, dtype=np.float64) @ xi),
-                iters=int(it),
-                kkt=float(res),
-            )
-            if warm_key is not None and not poisoned:
-                slots[i] = (xi, li, mi, int(inst.tail_vars))
+        with _STATS_LOCK:
+            stats = _BUCKET_STATS.setdefault(bkey, {"dispatches": 0, "solves": 0, "compiles": 0})
+            stats["dispatches"] += 1
+            stats["solves"] += len(own)
+            stats["compiles"] += guard.count
     if dealt:
         import torch.distributed as dist
 
@@ -334,8 +409,61 @@ def solve_lp_batch(
                 out[i] = sol
             slots.update(rank_slots)
     for i, slot in slots.items():
-        _WARM_SLOTS[(warm_key, i)] = slot
+        warm_store.put((warm_key, i), slot)
     return out
+
+
+def _solve_lanes(problems, idxs, lanes, own, dev, base_tol, cfg, kw, owner_of, out, slots,
+                 warm_key):
+    """Solve a bucket's own lanes one by one (the dense chained PDHG), into
+    ``out`` and ``slots``; a quarantined lane is re-solved on the host and
+    counted on its owner's log (``owner_of(i) -> (log, injector)``)."""
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import (
+        FLAG_POISONED,
+        LPSolution,
+        _host_resolve_lp,
+        _pdhg_body,
+    )
+
+    t32 = dict(dtype=torch.float32, device=dev)
+    for i, (c, G, h, A, b, x0, lam0, mu0) in zip(idxs, lanes):
+        if i not in own:
+            continue
+        inst = problems[i]
+        nvi, m1i, m2i = inst.c.shape[0], inst.G.shape[0], inst.A.shape[0]
+        tol_i = float(inst.tol if inst.tol is not None else base_tol)
+        operands = (
+            torch.as_tensor(c, **t32), operand_tensor(G, dev), torch.as_tensor(h, **t32),
+            operand_tensor(A, dev), *(torch.as_tensor(a, **t32) for a in (b, x0, lam0, mu0)),
+        )
+        with no_implicit_transfers(cfg):
+            x, lam, mu, it, res, flags = _pdhg_body(*operands, tol_i, **kw)
+        poisoned = bool(flags & FLAG_POISONED)
+        log = owner_of(i)[0]
+        if poisoned:
+            # per-lane quarantine: re-solve THIS instance on the float64
+            # host path and do not write its warm slot
+            if log is not None:
+                log.count("sentinel_quarantined")
+            host = _host_resolve_lp(inst.c, inst.G, inst.h, inst.A, inst.b)
+            if host is not None:
+                if log is not None:
+                    log.count("sentinel_host_resolve")
+                out[i] = host
+                continue
+        x, lam, mu = _readback(x, lam, mu)
+        xi, li, mi = x[:nvi], lam[:m1i], mu[:m2i]
+        out[i] = LPSolution(
+            ok=bool(res <= tol_i * 4.0) and not poisoned,
+            x=xi,
+            lam=li,
+            mu=mi,
+            objective=float(np.asarray(inst.c, dtype=np.float64) @ xi),
+            iters=int(it),
+            kkt=float(res),
+        )
+        if warm_key is not None and not poisoned:
+            slots[i] = (xi, li, mi, int(inst.tail_vars))
 
 
 def _own_lanes(lanes: int, mesh, cfg: Config, log) -> List[int]:
@@ -418,7 +546,9 @@ def solve_polish_screen_ell(
         torch.as_tensor(x0, **t32), torch.as_tensor(lam0, **t32),
         torch.as_tensor(mu0, **t32), torch.full((B,), float(tol), **t32),
     )
-    with no_implicit_transfers(cfg):
+    with dispatch_span(
+        "batch_lp.polish_screen_ell", cfg=cfg, log=log, bucket=f"{T}x{Cp}x{B}", lanes=B,
+    ) as ds, no_implicit_transfers(cfg):
         if fused:
             core_out = mk.dispatch_two_sided(idx_p, val_p, *lanes, log=log, cfg=cfg, **kw)
         else:
@@ -426,6 +556,7 @@ def solve_polish_screen_ell(
                 torch.as_tensor(idx_p, dtype=torch.int32, device=dev),
                 torch.as_tensor(val_p, **t32), *lanes, csr, **kw,
             )
+        ds.out = core_out
     x, lam, mu, it, res, flags = _readback(*core_out)
     _book(B, log)
     out = []

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from citizensassemblies_tpu_torch.data.registry import Registry, RegistryEdit
+from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.solvers.compositions import (
     StageCert,
     leximin_over_compositions,
@@ -225,6 +226,21 @@ class DeltaState:
     cert_drift: float = 0.0
 
 
+@dataclasses.dataclass(frozen=True)
+class ReviseSpec:
+    """The ``revise`` payload of a ``service.SelectionRequest``: one registry
+    edit against an identified base solve. ``base_fingerprint`` names the
+    tenant session's stored :class:`DeltaState` (empty: the fingerprint of
+    ``reg_before``); a mismatch falls back to the from-scratch solve rather
+    than re-certifying against the wrong portfolio. ``reg_before`` carries
+    the pre-edit registry, so drops project onto types without an O(n)
+    diff."""
+
+    edit: RegistryEdit
+    reg_before: Registry
+    base_fingerprint: str = ""
+
+
 @dataclasses.dataclass
 class DeltaOutcome:
     """One re-certification step: the successor state and the certificate
@@ -322,8 +338,12 @@ def screen_columns(
             upload(system.lo, dev, torch.float32), upload(system.hi, dev, torch.float32),
             upload(Y, dev), upload(mu, dev),
         )
-        with guarded_launch(dev):
-            out_d = _screen_core(*operands, k=int(system.k))
+        with dispatch_span(
+            "delta.screen", cfg=cfg, log=log, cols=int(C), stages=int(S_n),
+        ) as ds:
+            with guarded_launch(dev):
+                out_d = _screen_core(*operands, k=int(system.k))
+            ds.out = out_d
     log.count("delta_screen_dispatches")
     out = out_d.cpu().numpy()
     feas = (out[0] > 0.5) & _host_feasible(comps, system)

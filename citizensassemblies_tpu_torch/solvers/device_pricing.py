@@ -51,6 +51,7 @@ from citizensassemblies_tpu_torch.utils import device as _device
 from citizensassemblies_tpu_torch.utils.config import Config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device, upload
 from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
+from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.utils.logging import RunLog
 
 _NEG = -1e30
@@ -278,16 +279,21 @@ class DevicePricer:
         w_dev = upload(lane_w, self.device)
         f_dev = upload(lane_f, self.device)
         k = int(self.red.k)
-        with no_implicit_transfers(self.cfg), guarded_launch(self.device):
-            if self.exact:
-                comps, ok = exact_dp(
-                    self._feat_of[:, 0], self._msize, self._qmin, self._qmax, w_dev, f_dev, k
-                )
-            else:
-                comps, ok = greedy_lanes(
-                    self._feat_of, self._cat_of, self._msize, self._qmin, self._qmax,
-                    w_dev, f_dev, k, int(self.red.n_cats),
-                )
+        with dispatch_span(
+            "device_pricing.exact_dp" if self.exact else "device_pricing.greedy_lanes",
+            cfg=self.cfg, log=self.log, lanes=int(lane_w.shape[0]),
+        ) as ds:
+            with no_implicit_transfers(self.cfg), guarded_launch(self.device):
+                if self.exact:
+                    comps, ok = exact_dp(
+                        self._feat_of[:, 0], self._msize, self._qmin, self._qmax, w_dev, f_dev, k
+                    )
+                else:
+                    comps, ok = greedy_lanes(
+                        self._feat_of, self._cat_of, self._msize, self._qmin, self._qmax,
+                        w_dev, f_dev, k, int(self.red.n_cats),
+                    )
+            ds.out = (comps, ok)
         if self.log is not None:
             self.log.count("device_pricing_dispatches")
         return PricingHandle(comps=comps, ok=ok, tasks=list(tasks), lanes=lanes, exact=self.exact)

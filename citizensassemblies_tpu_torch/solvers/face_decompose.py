@@ -82,6 +82,7 @@ from citizensassemblies_tpu_torch.utils.config import default_config
 from citizensassemblies_tpu_torch.utils import device as _device
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device, upload
 from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
+from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.utils.logging import RunLog
 
 #: compositions per screening batch: ``realize_profile`` expands at most the
@@ -257,9 +258,11 @@ def _move_screen_dispatch(
         [up(feat_of[ti, ci]) for ci in leftover], [up(feat_of[tj, ci]) for ci in leftover],
         st["lf_donor"],
     )
-    with guarded_launch(device):
-        ok = _screen_feasible(*operands)
-        idx, total = _first_true(ok.reshape(-1), int(per_round_cap))
+    with dispatch_span("face_decompose.move_screen", pairs=int(len(ti))) as ds:
+        with guarded_launch(device):
+            ok = _screen_feasible(*operands)
+            idx, total = _first_true(ok.reshape(-1), int(per_round_cap))
+        ds.out = idx
     return idx, total, len(ti)
 
 
@@ -504,8 +507,10 @@ class _FusedScreen:
             st["lo_f"], st["hi_f"], self._m_t, self._mask, self._cand_di, self._cand_dj,
             st["lf_feat"], st["lf_donor"], self.cap, self.pool_cap, self.face_pairs,
         )
-        with no_implicit_transfers(self.cfg), guarded_launch(dev):
-            idx, _total, ti, tj = fused_screen_core(*operands)
+        with dispatch_span("face_decompose.fused_screen", cfg=self.cfg, rows=int(len(comps))) as ds:
+            with no_implicit_transfers(self.cfg), guarded_launch(dev):
+                idx, _total, ti, tj = fused_screen_core(*operands)
+            ds.out = idx
         self._pending = (idx, ti, tj, comps)
         return True
 

@@ -38,15 +38,17 @@ to quarantine.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from citizensassemblies_tpu_torch.robust import inject
+from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
-from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
+from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers, note_compile
 from citizensassemblies_tpu_torch.utils.precision import demote_operator, iterate_dtype, operand_tensor
 
 
@@ -410,10 +412,14 @@ def solve_two_sided_master_async(
     from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
 
     T = MT.shape[0]
-    return solve_two_sided_master_ell_async(
-        EllPack.from_rows(np.asarray(MT, np.float32).T, minor=T), v, cfg=cfg, warm=warm,
-        tol=tol, max_iters=max_iters, bucket=bucket, device=device, log=log,
-    )
+    with dispatch_span(
+        "lp_pdhg.two_sided_core", cfg=cfg, log=log, T=int(T), cols=int(MT.shape[1]),
+    ) as ds:
+        ds.out = handle = solve_two_sided_master_ell_async(
+            EllPack.from_rows(np.asarray(MT, np.float32).T, minor=T), v, cfg=cfg, warm=warm,
+            tol=tol, max_iters=max_iters, bucket=bucket, device=device, log=log,
+        )
+    return handle
 
 
 def solve_two_sided_master(MT, v, cfg=None, warm=None, tol=None, max_iters=None,
@@ -475,7 +481,9 @@ def solve_two_sided_master_ell_async(
         torch.full((1,), float(mu0), **f32),
         torch.full((1,), tol, **f32),
     )
-    with no_implicit_transfers(cfg):
+    with dispatch_span(
+        "lp_pdhg.two_sided_core_ell", cfg=cfg, log=log, T=T, cols=int(Cp),
+    ) as ds, no_implicit_transfers(cfg):
         if fused:
             # fused route: one kernel launch for the whole solve
             out = mk.dispatch_two_sided(
@@ -488,6 +496,7 @@ def solve_two_sided_master_ell_async(
                 operand_tensor(val_d, dev), *lanes, csr,
                 max_iters=mi, check_every=ce, sentinel=sent,
             )
+        ds.out = out
     return _handle(*(o[0] for o in out), Cp=Cp, T=T, tol=tol)
 
 
@@ -513,46 +522,74 @@ def solve_two_sided_master_ell(ell, v, cfg=None, warm=None, tol=None, max_iters=
 # inequality blocks above the ELL fill cutoff.
 
 
-#: one stream per device on which dense blocks are captured (a graph cannot
-#: be captured on the default stream), and whether it has run a block yet
+#: one stream per (thread, device) on which blocks are captured (a graph
+#: cannot be captured on the default stream), and whether it has run a
+#: block yet: the BLAS handle and workspace belong to a thread and a stream
 _CAPTURE_STREAMS: dict = {}
+
+#: one capture at a time in the process: captures are one-time work per
+#: shape, and a capture holds the caching allocator's capture pool
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _replayed(block: Callable, args: Tuple[torch.Tensor, ...]) -> Callable:
     """``block`` captured once into a CUDA graph over static copies of
     ``args``; the returned function copies its arguments in, replays the
-    graph on the current stream and returns clones of the outputs. The
-    first capture on a device runs the block once eagerly on the capture
-    stream first, so the BLAS handle and workspace of that stream exist
-    before any capture. The hand-written kernels' launch counters count the
-    captured launches at each replay, where they run, and not at the
-    capture (``kernels/cuda_lib.move_captured_launches``)."""
+    graph on the current stream and returns clones of the outputs, holding
+    the graph's own lock throughout, so two threads never share its static
+    buffers at once. The first capture of a thread on a device runs the
+    block once eagerly on the capture stream first, so the BLAS handle and
+    workspace of that stream exist before any capture. A capture takes the
+    process's capture lock and runs in ``thread_local`` capture mode, so
+    another thread's CUDA calls meanwhile neither break it nor raise; the
+    hand-written kernels' launches of the capture are booked to it alone
+    (``kernels/cuda_lib.capturing_launches``) and counted at each replay,
+    where they run. Each capture counts as one-time work
+    (``utils/guards.CompilationGuard``)."""
     from citizensassemblies_tpu_torch.kernels import cuda_lib
 
     dev = args[0].device
     static = tuple(a.clone() for a in args)
-    stream, warmed = _CAPTURE_STREAMS.get(dev, (None, False))
-    if stream is None:
-        stream = torch.cuda.Stream(device=dev)
-    stream.wait_stream(torch.cuda.current_stream(dev))
+    key = (threading.get_ident(), dev)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(stream):
-        if not warmed:
-            block(*static)
-        before = cuda_lib.launch_counts()
-        graph.capture_begin()
-        outs = block(*static)
-        graph.capture_end()
-        captured = cuda_lib.move_captured_launches(before)
-    _CAPTURE_STREAMS[dev] = (stream, True)
-    torch.cuda.current_stream(dev).wait_stream(stream)
+    with _CAPTURE_LOCK:
+        stream, warmed = _CAPTURE_STREAMS.get(key, (None, False))
+        if stream is None:
+            stream = torch.cuda.Stream(device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            if not warmed:
+                block(*static)
+            with cuda_lib.capturing_launches() as captured:
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    outs = block(*static)
+                finally:
+                    # a failed block still ends the capture, so the stream
+                    # and the allocator leave capture mode
+                    graph.capture_end()
+        _CAPTURE_STREAMS[key] = (stream, True)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+    note_compile("cuda_graph_captures")
+    return _replay_closure(static, outs, graph.replay, captured)
+
+
+def _replay_closure(static, outs, replay: Callable, captured) -> Callable:
+    """The function that runs a captured graph: copy the arguments into its
+    ``static`` inputs, ``replay()``, count the ``captured`` launches and
+    return clones of its ``outs``, all under the graph's own lock, so two
+    threads never share its static buffers at once."""
+    from citizensassemblies_tpu_torch.kernels import cuda_lib
+
+    lock = threading.Lock()
 
     def run(*a):
-        for s, v in zip(static, a):
-            s.copy_(v)
-        graph.replay()
-        cuda_lib.count_replay(captured)
-        return tuple(o.clone() for o in outs)
+        with lock:
+            for s, v in zip(static, a):
+                s.copy_(v)
+            replay()
+            cuda_lib.count_replay(captured)
+            return tuple(o.clone() for o in outs)
 
     return run
 
@@ -831,8 +868,10 @@ def solve_lp(c, G, h, A, b, cfg: Optional[Config] = None, warm=None, tol: Option
     )
     c_, h_, b_ = (torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, h, b))
     G_t, A_t = operand_tensor(G_d, dev), operand_tensor(A_d, dev)
-    with no_implicit_transfers(cfg):
-        out = _pdhg_body(
+    with dispatch_span(
+        "lp_pdhg.pdhg_core", cfg=cfg, log=log, nv=int(nv), m1=int(m1), m2=int(m2),
+    ) as ds, no_implicit_transfers(cfg):
+        ds.out = out = _pdhg_body(
             c_, G_t, h_, A_t, b_,
             x0, lam0, mu0, tol, max_iters=int(cfg.pdhg_max_iters),
             check_every=int(cfg.pdhg_check_every), sentinel=sentinels_enabled(cfg),
@@ -861,11 +900,12 @@ def solve_lp_ell(c, ell, h, A, b, cfg: Optional[Config] = None, warm=None, tol: 
     )
     kw = dict(max_iters=int(cfg.pdhg_max_iters), check_every=int(cfg.pdhg_check_every),
               sentinel=sentinels_enabled(cfg))
+    span = dispatch_span("lp_pdhg.pdhg_core_ell", cfg=cfg, log=log, nv=nv, m1=m1, m2=int(m2))
     if mk.lp_megakernel_mode(cfg, nv, m1, m2, dev, log=log) == "fused":
         # fused route: one kernel launch for the whole solve
-        with no_implicit_transfers(cfg):
-            out = mk.dispatch_lp(c, ell.idx, val_d, h, A_d, b, x0, lam0, mu0, tol,
-                                 device=dev, log=log, cfg=cfg, **kw)
+        with span as ds, no_implicit_transfers(cfg):
+            ds.out = out = mk.dispatch_lp(c, ell.idx, val_d, h, A_d, b, x0, lam0, mu0, tol,
+                                          device=dev, log=log, cfg=cfg, **kw)
     else:
         f32 = dict(dtype=torch.float32, device=dev)
         csr = mk.csr_to_device(ell.idx, ell.val, nv, dev)
@@ -874,8 +914,10 @@ def solve_lp_ell(c, ell, h, A, b, cfg: Optional[Config] = None, warm=None, tol: 
         )
         idx = torch.as_tensor(ell.idx, dtype=torch.int32, device=dev)
         val_t, A_t = operand_tensor(val_d, dev), operand_tensor(A_d, dev)
-        with no_implicit_transfers(cfg):
-            out = _pdhg_body_ell(c_, idx, val_t, h_, A_t, b_, x0_, lam0_, mu0_, tol, csr, **kw)
+        with span as ds, no_implicit_transfers(cfg):
+            ds.out = out = _pdhg_body_ell(
+                c_, idx, val_t, h_, A_t, b_, x0_, lam0_, mu0_, tol, csr, **kw
+            )
     return _finish_lp(c, lambda: ell_unpack_rows(ell.idx, ell.val, nv), h, A, b, out, tol, log)
 
 

@@ -64,6 +64,7 @@ from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_gather_mv, ell_s
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device, upload
 from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
+from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.utils.logging import RunLog
 from citizensassemblies_tpu_torch.utils.memo import LRU
 from citizensassemblies_tpu_torch.utils.precision import demote_operator, iterate_dtype
@@ -488,7 +489,10 @@ def solve_final_primal_l2(
     ``l2_ascent_iters``); otherwise ``l2_eps_pdhg`` and ``l2_dual_ascent``.
     Without a donor, the host ``l2_eps_lp`` and the ascent. The ELL pack
     and its agent-major CSR are built once a call (timer ``sparse_pack``)
-    when ``Config.sparse_ops`` routes the portfolio sparse."""
+    when ``Config.sparse_ops`` routes the portfolio sparse; under a request
+    context with a tenant session the pack comes from the session's pack
+    memo when the same portfolio was packed before
+    (``session_pack_hit``)."""
     from citizensassemblies_tpu_torch.solvers.batch_lp import lp_batch_enabled
     from citizensassemblies_tpu_torch.solvers.lp_pdhg import FLAG_POISONED, sentinels_enabled
     from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack, sparse_enabled
@@ -509,9 +513,25 @@ def solve_final_primal_l2(
     ell = csr = None
     if sparse_enabled(cfg, p_fill):
         from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_to_device
+        from citizensassemblies_tpu_torch.service.context import current_context
 
+        # the tenant session's pack memo (service layer): a repeat solve over
+        # the same portfolio reuses its pack (content-hashed, LRU-capped per
+        # tenant; a failed request's teardown rolls back the packs it wrote)
+        ctx = current_context()
+        pack_key = None
+        if ctx is not None and ctx.session is not None:
+            import hashlib
+
+            pack_key = "ell:" + hashlib.sha256(Pnp.tobytes()).hexdigest()
+            ell = ctx.session.pack_get(pack_key)
+            if ell is not None:
+                log.count("session_pack_hit")
         with log.timer("sparse_pack"):
-            ell = EllPack.from_rows(Pnp.astype(np.float32))
+            if ell is None:
+                ell = EllPack.from_rows(Pnp.astype(np.float32))
+                if pack_key is not None:
+                    ctx.session.pack_put(pack_key, ell, request_id=ctx.request_id)
             # the agent-major transpose goes up before any other device work
             # of the call: a copy from pageable memory waits for the stream
             csr = csr_to_device(ell.idx, ell.val, n, dev)
@@ -552,9 +572,12 @@ def solve_final_primal_l2(
                     val_t = upload(demote_operator(
                         ell.val, cfg, core="qp.l2_fused_core_ell", arg=1, log=log, device=dev
                     ), dev)
-                    with no_implicit_transfers(cfg):
-                        out = core(idx_t, val_t, tj, dj, margin, ANCHOR_TOL, ASCENT_TOL, csr,
-                                   log=log)
+                    with dispatch_span(
+                        "qp.l2_fused_core_ell", cfg=cfg, log=log, rows=int(idx_t.shape[0]),
+                    ) as ds, no_implicit_transfers(cfg):
+                        ds.out = out = core(
+                            idx_t, val_t, tj, dj, margin, ANCHOR_TOL, ASCENT_TOL, csr, log=log
+                        )
                 else:
                     core = _get_l2_fused_core(
                         ANCHOR_ITERS, check_every, L2_CHUNK, max_chunks, sentinel=sent
@@ -563,8 +586,10 @@ def solve_final_primal_l2(
                         np.asarray(P, np.float32), cfg, core="qp.l2_fused_core", arg=0, log=log,
                         device=dev,
                     ), dev)
-                    with no_implicit_transfers(cfg):
-                        out = core(Pj, tj, dj, margin, ANCHOR_TOL, ASCENT_TOL, log=log)
+                    with dispatch_span(
+                        "qp.l2_fused_core", cfg=cfg, log=log, rows=int(Pj.shape[0]),
+                    ) as ds, no_implicit_transfers(cfg):
+                        ds.out = out = core(Pj, tj, dj, margin, ANCHOR_TOL, ASCENT_TOL, log=log)
                 fused_p = out[0].cpu().numpy().astype(np.float64)
                 p_floor = np.clip(out[1].cpu().numpy().astype(np.float64), 0.0, 1.0)
             log.count("lp_batch_l2_fused")
@@ -620,13 +645,18 @@ def solve_final_primal_l2(
             eps_dev = torch.tensor(eps, dtype=torch.float32, device=dev)
             step_dev = torch.tensor(1.0 / L, dtype=torch.float32, device=dev)
             lam0 = torch.zeros(2 * n, dtype=torch.float32, device=dev)
-            with no_implicit_transfers(cfg):
+            span = dispatch_span(
+                "qp.l2_dual_ascent_ell" if ell is not None else "qp.l2_dual_ascent",
+                cfg=cfg, log=log, iters=int(iters),
+            )
+            with span as ds, no_implicit_transfers(cfg):
                 if ell is not None:
                     p, _lam = _min_norm_dual_ascent_ell(
                         idx_t, val_t, tj, eps_dev, step_dev, lam0, iters, csr=csr
                     )
                 else:
                     p, _lam = _min_norm_dual_ascent(Pj, tj, eps_dev, step_dev, lam0, iters)
+                ds.out = p
             p = p.cpu().numpy().astype(np.float64)
     p = np.clip(p, 0.0, 1.0)
     s = p.sum()

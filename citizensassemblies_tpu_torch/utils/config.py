@@ -229,6 +229,72 @@ class Config:
     #: synchronisation inside the scope an error, ``"log"`` a warning,
     #: ``"off"`` removes the scope.
     transfer_guard: str = "disallow"
+    #: offered request rate (requests/second, whole fleet) of the open-loop
+    #: fleet drive: seeded Poisson arrivals submitted on schedule whatever
+    #: the completions (``service/fleet.py``).
+    fleet_offered_rate_hz: float = 250.0
+    #: distinct tenants of the fleet's synthetic workload, each routed to
+    #: its owning process by rendezvous hashing.
+    fleet_tenants: int = 8
+
+    # --- selection service (``service/``) --------------------------------------
+    #: in-flight (admitted, unfinished) requests a ``SelectionService``
+    #: holds; ``submit`` raises ``AdmissionError`` past it.
+    serve_queue_depth: int = 256
+    #: worker threads of a service: the requests running at once.
+    serve_admission_cap: int = 8
+    #: milliseconds the cross-request batcher's group leader holds its
+    #: window open for other requests' LP fleets; 0 dispatches every fleet
+    #: alone.
+    serve_batch_window_ms: float = 4.0
+    #: entries in each of a tenant session's LRU stores (warm-slot stores,
+    #: result memos, packs, delta certificates).
+    serve_tenant_memo_cap: int = 8
+    #: per-request wall-clock deadline (seconds); 0 disables it.
+    serve_deadline_s: float = 0.0
+    #: transient-fault retries per request, each after an exponential
+    #: backoff from ``serve_retry_backoff_s`` and one rung down the
+    #: degradation ladder.
+    serve_retry_max: int = 2
+    serve_retry_backoff_s: float = 0.05
+    #: non-terminal events a ``ResultChannel`` retains (past it they are
+    #: dropped and counted; the terminal event is always kept).
+    serve_channel_cap: int = 1024
+    #: arm the SLO load policy (``obs/slo.SloLoadPolicy``) on a service with
+    #: an SLO spec: sustained fast-window burn sheds admissions and walks
+    #: the service's degradation ladder; recovery re-arms.
+    serve_shed: bool = False
+    #: fast-window burn at or above which the policy sheds and descends.
+    serve_shed_burn: float = 2.0
+    #: fast-window burn at or below which every objective must sit for the
+    #: policy to re-arm.
+    serve_shed_recover: float = 0.5
+    #: the policy's fast window (seconds).
+    serve_shed_window_s: float = 60.0
+    #: deepest ladder rung the load policy may walk.
+    serve_shed_max_rungs: int = 3
+
+    # --- observability (``obs/``) -----------------------------------------------
+    #: span tracing, tri-state: ``False`` hard off (the dispatch spans are
+    #: inert even under a tracer), ``None`` spans record whenever a tracer is
+    #: installed (host-side dispatch windows), ``True`` the service gives
+    #: each request a sampling tracer whose dispatch spans wait for the
+    #: device.
+    obs_trace: Optional[bool] = None
+    #: seconds between the service's metrics snapshots streamed into every
+    #: open channel; 0 disables the snapshot thread.
+    obs_metrics_interval_s: float = 0.0
+    #: label sets per metrics instrument before new ones fold into one
+    #: overflow series.
+    obs_max_label_sets: int = 64
+    #: device-memory ledger, tri-state like ``obs_trace``: ``False`` hard
+    #: off, ``None`` snapshots whenever a ledger is installed, ``True`` the
+    #: service gives each request a ledger and stamps its ``memory`` block.
+    obs_memory: Optional[bool] = None
+    #: serving SLOs, e.g. ``"latency_p99:20s,error_rate:0.01"``
+    #: (``tenant/objective:target`` overrides per tenant); empty disables
+    #: the SLO engine.
+    obs_slo_spec: str = ""
 
     # --- backends -------------------------------------------------------------
     #: LP engine of the agent-space CG: "jax" solves the dual LPs by PDHG on

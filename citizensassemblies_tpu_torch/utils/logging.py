@@ -3,8 +3,17 @@
 ``RunLog`` collects the algorithm's human-readable progress lines (returned
 in ``Distribution.output_lines``) and three metric channels: counters
 accumulate, gauges are latest-wins in the same namespace, timers accumulate
-seconds. Solver code mutates one RunLog from the main thread and from the
-anchor-pricer worker thread, so every mutation takes the instance lock.
+seconds. The channels live in a typed
+:class:`~citizensassemblies_tpu_torch.obs.metrics.MetricsRegistry` (the one
+the service renders as Prometheus text), and :attr:`RunLog.counters` and
+:attr:`RunLog.timers` return the same flat dicts as copies taken under the
+registry's lock: solver code mutates one RunLog from the main thread, the
+anchor-pricer worker and (in the service) several requests' threads.
+
+With a tracer active (``self.tracer``, which the service sets so worker
+threads holding the request's log attribute to it, or the ambient one of
+``obs.trace.use_tracer``) every :meth:`RunLog.timer` also records a span of
+the same name; without one it is the plain clock read.
 
 ``analyze_instance`` tees its report to the console and to
 ``<out_dir>/<name>_<k>_statistics.txt`` through :func:`tee_file` and
@@ -18,7 +27,9 @@ import threading
 import time
 from contextlib import contextmanager
 from pathlib import Path
-from typing import IO, Dict, List, Optional
+from typing import IO, List, Optional
+
+from citizensassemblies_tpu_torch.obs.metrics import MetricsRegistry
 
 
 class RunLog:
@@ -29,8 +40,12 @@ class RunLog:
         self.lines: List[str] = []
         self.echo = echo
         self.file = file
-        self._counters: Dict[str, float] = {}
-        self._timers: Dict[str, float] = {}
+        #: the typed registry behind count, gauge and timer
+        self.metrics = MetricsRegistry()
+        #: the request's ``obs.trace.Tracer`` (set by the service), so spans
+        #: of worker threads holding this log attribute to it; None: only
+        #: an ambient tracer records
+        self.tracer = None
         self._mutex = threading.Lock()
 
     def emit(self, message: str) -> str:
@@ -53,32 +68,35 @@ class RunLog:
             self.lines.append(msg)
 
     def count(self, name: str, inc: int = 1) -> None:
-        with self._mutex:
-            self._counters[name] = self._counters.get(name, 0) + inc
+        self.metrics.counter(name).inc(inc)
 
     def gauge(self, name: str, value) -> None:
-        with self._mutex:
-            self._counters[name] = value
+        self.metrics.gauge(name).set(value)
 
     @contextmanager
     def timer(self, name: str):
+        """Accumulating phase timer; records a span of the same name when a
+        tracer is active."""
+        from citizensassemblies_tpu_torch.obs.trace import _resolve
+
+        tracer = _resolve(self)
+        sp = tracer.begin(name, stacked=True) if tracer is not None else None
         t0 = time.perf_counter()
         try:
             yield
         finally:
             dt = time.perf_counter() - t0
-            with self._mutex:
-                self._timers[name] = self._timers.get(name, 0.0) + dt
+            if tracer is not None:
+                tracer.end(sp)
+            self.metrics.timer(name).observe(dt)
 
     @property
     def counters(self) -> dict:
-        with self._mutex:
-            return dict(self._counters)
+        return self.metrics.flat_counters()
 
     @property
     def timers(self) -> dict:
-        with self._mutex:
-            return dict(self._timers)
+        return self.metrics.flat_timers()
 
 
 def format_timers(timers: dict) -> str:

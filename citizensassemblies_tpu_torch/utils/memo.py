@@ -11,8 +11,9 @@ Eviction attribution: every LRU entry carries an OWNER (default: the cache's
 own name), and evictions are counted both process-wide and per owner
 (:func:`memo_evictions_by_owner`). A caller that caps per-tenant state in
 its own LRUs inserts with ``owner="tenant:<name>"``, so an eviction says
-WHOSE entry went. Counters are lock-guarded: concurrent callers evict from
-shared caches on their own threads.
+WHOSE entry went. Counters are lock-guarded, and each LRU's operations
+take its own lock: concurrent requests read and fill the shared caches (the
+fused L2 cores) and a tenant's session stores from their own threads.
 """
 
 from __future__ import annotations
@@ -73,59 +74,74 @@ class LRU:
         self.name = name
         self._d: "OrderedDict[Any, Any]" = OrderedDict()
         self._owners: Dict[Any, str] = {}
+        self._lock = threading.RLock()
         self.evictions = 0
         with _EVICTION_LOCK:
             _INSTANCES.add(self)
 
     def get(self, key, default: Optional[Any] = None):
-        try:
-            self._d.move_to_end(key)
-        except KeyError:
-            return default
-        return self._d[key]
+        with self._lock:
+            try:
+                self._d.move_to_end(key)
+            except KeyError:
+                return default
+            return self._d[key]
 
     def __getitem__(self, key):
-        self._d.move_to_end(key)
-        return self._d[key]
+        with self._lock:
+            self._d.move_to_end(key)
+            return self._d[key]
 
     def put(self, key, value, owner: Optional[str] = None) -> None:
         """Insert with an explicit OWNER attribution for eviction accounting.
         ``lru[key] = value`` is equivalent with ``owner=None`` — the eviction
         then counts against the cache's own name."""
         global _EVICTIONS
-        if key in self._d:
-            self._d.move_to_end(key)
-        self._d[key] = value
-        if owner is not None:
-            self._owners[key] = owner
-        else:
-            self._owners.pop(key, None)
-        while len(self._d) > self.cap:
-            old_key, _ = self._d.popitem(last=False)
-            old_owner = self._owners.pop(old_key, None) or self.name or "unnamed"
-            self.evictions += 1
-            with _EVICTION_LOCK:
-                _EVICTIONS += 1
-                _EVICTIONS_BY_OWNER[old_owner] = _EVICTIONS_BY_OWNER.get(old_owner, 0) + 1
+        with self._lock:
+            if key in self._d:
+                self._d.move_to_end(key)
+            self._d[key] = value
+            if owner is not None:
+                self._owners[key] = owner
+            else:
+                self._owners.pop(key, None)
+            while len(self._d) > self.cap:
+                old_key, _ = self._d.popitem(last=False)
+                old_owner = self._owners.pop(old_key, None) or self.name or "unnamed"
+                self.evictions += 1
+                with _EVICTION_LOCK:
+                    _EVICTIONS += 1
+                    _EVICTIONS_BY_OWNER[old_owner] = _EVICTIONS_BY_OWNER.get(old_owner, 0) + 1
 
     def __setitem__(self, key, value) -> None:
         self.put(key, value)
 
     def __contains__(self, key) -> bool:
-        return key in self._d
+        with self._lock:
+            return key in self._d
 
     def __len__(self) -> int:
-        return len(self._d)
+        with self._lock:
+            return len(self._d)
 
     def __iter__(self) -> Iterator:
-        return iter(list(self._d))
+        with self._lock:
+            return iter(list(self._d))
+
+    def owned_items(self) -> List[tuple]:
+        """``(owner, value)`` of every entry (a snapshot): the entry's owner
+        tag, else the cache's name."""
+        with self._lock:
+            return [(self._owners.get(k) or self.name or "unnamed", v) for k, v in self._d.items()]
 
     def pop(self, key, default: Optional[Any] = None):
         """Remove and return one entry WITHOUT counting an eviction — a
         deliberate removal is not cache pressure."""
-        self._owners.pop(key, None)
-        return self._d.pop(key, default)
+        with self._lock:
+            self._owners.pop(key, None)
+            return self._d.pop(key, default)
 
     def clear(self) -> None:
-        self._d.clear()
-        self._owners.clear()
+        with self._lock:
+            self._d.clear()
+            self._owners.clear()

@@ -135,12 +135,31 @@ def test_teardown_rolls_back_only_what_is_set():
 
 
 def test_use_context_imports_no_obs_module():
-    import sys
+    """The context module imports no obs module at its top (the obs layer
+    reads the context, not the reverse). Since the serving slice a
+    context's tracer is the ambient tracer of its scope, as in the JAX
+    package, and a context without one leaves the ambient tracer alone."""
+    import ast
+    import inspect
 
-    with use_context(RequestContext.create(tracer=object())):
-        pass
-    assert not [m for m in sys.modules if m.startswith("citizensassemblies_tpu_torch.obs")]
-    assert "obs" not in tctx.use_context.__code__.co_names
+    from citizensassemblies_tpu.obs.trace import Tracer as JTracer
+    from citizensassemblies_tpu.obs.trace import current_tracer as j_current_tracer
+
+    from citizensassemblies_tpu_torch.obs.trace import Tracer, current_tracer
+
+    top = ast.parse(inspect.getsource(tctx)).body
+    assert not [
+        n.module for n in top
+        if isinstance(n, ast.ImportFrom) and n.module and ".obs" in n.module
+    ]
+    tr, jtr = Tracer(name="t"), JTracer(name="t")
+    with use_context(RequestContext.create(tracer=tr)):
+        assert current_tracer() is tr
+    with jctx.use_context(jctx.RequestContext.create(tracer=jtr)):
+        assert j_current_tracer() is jtr
+    assert current_tracer() is None and j_current_tracer() is None
+    with use_context(RequestContext.create()):
+        assert current_tracer() is None
 
 
 # --- the injector ---------------------------------------------------------------

@@ -42,6 +42,8 @@ def test_every_module_imports_without_jax():
     for name in (
         "kernels.pdhg_megakernel", "analysis.plots", "service", "service.context", "scenarios",
         "scenarios.dropout", "scenarios.multi", "data", "data.registry", "solvers.delta",
+        "service.session", "service.batcher", "service.server", "service.fleet", "obs",
+        "obs.metrics", "obs.trace", "obs.hooks", "obs.memory", "obs.slo", "obs.catalog",
     ):
         assert f"citizensassemblies_tpu_torch.{name}" in names
     code = (
@@ -92,6 +94,6 @@ def test_chip_smoke_imports_no_jax():
         f"{n.module}.{a.name}" for n in ast.walk(tree)
         if isinstance(n, ast.ImportFrom) and n.module for a in n.names
     ]
-    for name in ("scenarios", "data.registry", "solvers.delta", "service"):
+    for name in ("scenarios", "data.registry", "solvers.delta", "service", "service.server", "obs"):
         assert f"citizensassemblies_tpu_torch.{name}" in named
     assert not [m for m in mods if _forbidden(m)]
