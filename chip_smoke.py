@@ -154,7 +154,26 @@ Phases, each fatal on failure:
    first requests of the serve bench's mixed fleet through the
    cross-request batcher against their serial twins; and one process of
    the fleet bench's four driven open loop, bit for bit its serial
-   references.
+   references;
+13. the graph store, the roofline join and profiling: ``python -m
+   citizensassemblies_tpu_torch.aot build`` in a child process (the
+   coldboot request class and the bucket lattice recorded through a real
+   service), ``serve_flagship`` of phase 12 run under the store's recorder
+   with its full-width signatures written into the same artifact; two
+   fresh child processes of this script, one booted from that artifact and
+   one with ``aot_cache=False``, each serving ``COLDBOOT_SPEC`` and then
+   the flagship at the defaults (seconds from spawn to the first result,
+   captures and builds in each serve window, the ``aot`` stamp, peak
+   device bytes; the flagship bit for bit in both and the parent's; the
+   cached child's captures equal to its store misses and at most the cold
+   child's); stored graphs replayed for a second instance of their
+   signature (``batch_lp.vmapped``, the fused L2 core) bit for bit that
+   instance's fresh capture; ``obs/roofline.roofline_join`` over
+   ``serve_flagship``'s sampled spans (no miss, no share of the card's
+   peaks above 1, the kernel rows the kernels line's bound formulas); a
+   ``torch.profiler`` trace (``utils/profiling``) of one B=1 two-sided
+   solve naming the kernel and its ``annotate`` range, and the trace CLI
+   on ``serve_flagship``'s exported trace.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
 line, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -171,11 +190,6 @@ import sys
 import time
 
 import numpy as np
-
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
-#: outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
 
 #: the JAX package's Pallas kernel each CUDA kernel replaces
 REPLACES = {
@@ -290,15 +304,16 @@ PDHG_NAN_FIRST = ("pdhg_nan:0.25", 270)
 #: Monte-Carlo draws of the scenario phases (``bench.py --scenarios``'s)
 SCENARIO_DRAWS = 65_536
 #: churn_nationwide's depth cuts of ``churn_bench``'s 1,000 edits and 6
-#: from-scratch samples per edit class (up to 30): the first 30 edits, at
-#: most 5 samples (about 6 s each), at most 2 a class. Every quota or
+#: from-scratch samples per edit class (up to 30): the first 15 edits, at
+#: most 3 samples (about 6 s each), at most 2 a class. Every quota or
 #: new-type edit re-runs the composition ladder, 3-7 s an edit on an NVIDIA
 #: H100 80GB HBM3 at 700 W: the first 200 edits took 220 s there; with the
 #: serving phases the whole script took 1,159 s of its 1,200 s limit at 100
-#: edits and 8 samples (26 full ladders, 190 s) and 1,095 s at 50 (105 s);
-#: the first 30 edits hold 5 of the quota and new-type edits
-CHURN_EDITS = 30
-CHURN_SCRATCH = 5
+#: edits and 8 samples (26 full ladders, 190 s), 1,095 s at 50 (105 s) and
+#: 994.5 s at 30 edits and 5 samples (60.9 s); 15 edits and 3 samples make
+#: room for phase 13 (the graph store's child processes)
+CHURN_EDITS = 15
+CHURN_SCRATCH = 3
 CHURN_SCRATCH_PER_CLASS = 2
 
 
@@ -473,11 +488,12 @@ def gather_phase(pack, rows=6144, label="gather"):
     lib_err = float((torch.sparse.mm(csr, ycol)[:, 0] - z).abs().max())
     library_ms, library_call_ms = timed(lambda: torch.sparse.mm(csr, ycol), reps=200, warmup=10)
     # each input read once (the padded pack, y), the output written once,
-    # at the HBM rate: the bound of the flushed time. The hot time (ms)
-    # reads a pack that fits the 50 MB L2 from the L2 and may fall below it
-    nbytes = C * kp * 8 + T * 4 + C * 4
-    flops = 2 * C * kp
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
+    # at the HBM rate (obs/roofline.gather_cost): the bound of the flushed
+    # time. The hot time (ms) reads a pack that fits the 50 MB L2 from the
+    # L2 and may fall below it
+    from citizensassemblies_tpu_torch.obs import roofline
+
+    bound_ms, _by = roofline.bound(roofline.gather_cost(C, kp, T))
     rec = dict(
         phase=label, name="ell_gather", replaces=REPLACES["ell_gather"],
         shape=dict(C=C, k_pad=kp, T=T, lanes=[1, 3]),
@@ -536,10 +552,10 @@ def gather_bf16_phase(pack, label="gather_xmin_bf16"):
     plain_ms, plain_call_ms = timed(lambda: em.ell_gather_mv_plain(idx, val16, y), reps=200, warmup=10)
     # each input read once (int32 indices, bf16 values, y), the output
     # written once, at the HBM rate: the bound of the flushed time
-    nbytes = C * kp * 6 + T * 4 + C * 4
-    flops = 2 * C * kp
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
-    f32_bound_ms = 1e3 * max((C * kp * 8 + T * 4 + C * 4) / HBM_BYTES_PER_S, flops / F32_FLOPS)
+    from citizensassemblies_tpu_torch.obs import roofline
+
+    bound_ms, _by = roofline.bound(roofline.gather_cost(C, kp, T, value_bytes=2))
+    f32_bound_ms, _by = roofline.bound(roofline.gather_cost(C, kp, T))
     rec = dict(
         phase=label, name="ell_gather", entry="ell_gather_bf16_launch",
         replaces=REPLACES["ell_gather"], shape=dict(C=C, k_pad=kp, T=T, lanes=[1, 3]),
@@ -600,21 +616,13 @@ def _solve_lanes(pack, MT, caps, nan_lane=None, max_iters=SOLVE_MAX_ITERS):
 
 def two_sided_bound(C, kp, T, nnz, B, iters, check_every):
     """``(bound_ms, bound_by, iter_bytes_ms)`` of a B-lane two-sided solve
-    that took ``iters`` per lane: the least the card could take, each input
-    read once (the shared indices, every lane's values, the lane vectors)
-    and each output written once, against the float32 operations the
-    iterations need (per iteration and per KKT evaluation, two a block,
-    both matvec directions over the nonzeros, a multiply and an add each,
-    and about ten operations per entry of the C- and T-length vectors); and
-    the pack read once per evaluation in both layouts (row-major C*kp*8
-    bytes, type-major nnz*8 bytes)."""
-    nbytes = C * kp * 4 * (1 + B) + B * (4 * C + 6 * T) * 4
-    evals = sum(int(i) + 2 * (int(i) // check_every) for i in iters)
-    flops = evals * (4 * nnz + 10 * (C + 2 * T))
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations"
-    iter_bytes_ms = 1e3 * evals * (C * kp * 8 + nnz * 8) / HBM_BYTES_PER_S
-    return bound_ms, bound_by, iter_bytes_ms
+    that took ``iters`` per lane (``obs/roofline.two_sided_cost``): the
+    least the card could take, and the time to read the pack once per
+    evaluation in both layouts."""
+    from citizensassemblies_tpu_torch.obs import roofline
+
+    cost = roofline.two_sided_cost(C, kp, T, nnz, B, [int(i) for i in iters], check_every)
+    return roofline.bound(cost) + (roofline.stream_ms(cost),)
 
 
 def solve_phase(pack, MT, caps, label, nan_lane=None, clean=None, repeat=False):
@@ -866,19 +874,13 @@ def lp_close(r, x_tol=LP_X_TOL):
 
 def lp_bound(m1, kp, nv, nnz, iters):
     """``(bound_ms, bound_by, iter_bytes_ms)`` of an LP solve of ``iters``
-    iterations: each input read once (the pack, c, h, A, b, the warm start)
-    and each output written once, against the float32 operations the
-    iterations need (per iteration and per KKT evaluation, two a block of
-    128, both matvec directions over the nonzeros and about ten operations
-    per entry of the nv- and m1-length vectors); and the time to read the
-    pack from HBM once an evaluation, both layouts (row-major m1*kp*8
-    bytes, variable-major nnz*8 bytes)."""
-    nbytes = m1 * kp * 8 + (4 * nv + 3 * m1 + 2 * nv + 4) * 4
-    evals = iters + 2 * (iters // 128)
-    flops = evals * (4 * nnz + 10 * (nv + m1))
-    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS)
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS else "operations"
-    return bound_ms, bound_by, 1e3 * evals * (m1 * kp * 8 + nnz * 8) / HBM_BYTES_PER_S
+    iterations, blocks of 128 (``obs/roofline.lp_cost``): the least the
+    card could take, and the time to read the pack from HBM once an
+    evaluation, both layouts."""
+    from citizensassemblies_tpu_torch.obs import roofline
+
+    cost = roofline.lp_cost(m1, kp, nv, nnz, int(iters), 128)
+    return roofline.bound(cost) + (roofline.stream_ms(cost),)
 
 
 def lp_path_solve(inputs):
@@ -4027,8 +4029,10 @@ FLEET_DRIVE_REQUESTS = 40
 FLEET_DRIVE_ALL = 10_000
 FLEET_DRIVE_SEED = 20
 FLEET_DRIVE_UNIQUE = 6
-#: revise requests over the first edits of ``churn_bench``'s trail
-REVISE_EDITS = 5
+#: revise requests over the first edits of ``churn_bench``'s trail (5
+#: until phase 13 needed the room: 56.6 s at 5 on an NVIDIA H100 80GB HBM3
+#: at 700 W)
+REVISE_EDITS = 3
 REVISE_TOL = 1e-6
 #: the sojourn parts must explain the total within this share
 SOJOURN_GAP = 0.05
@@ -4055,7 +4059,7 @@ def _sync_mode() -> int:
 
 
 def serve_flagship_phase(cfg, libs, leximin, legacy_alloc, inst=None, device="cuda",
-                         legacy_iterations=10_000):
+                         legacy_iterations=10_000, keep=None):
     """The selection service on the flagship pool: a ``SelectionService`` at
     the defaults with the sampling tracer, the memory ledger and the serve
     bench's SLO spec, two workers. Two LEXIMIN requests of tenants ``a``
@@ -4066,7 +4070,8 @@ def serve_flagship_phase(cfg, libs, leximin, legacy_alloc, inst=None, device="cu
     (``leximin_sf_e_defaults``), LEGACY bit for bit ``legacy_flagship``'s,
     the repeat served from the memo with no launch, every audit's contract
     and sojourn decomposition, the exported trace's schema, and the sync
-    debug mode back at 0 with no window open."""
+    debug mode back at 0 with no window open. ``keep`` (a dict) receives
+    the requests' tracers and the exported trace document."""
     import torch
 
     from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
@@ -4099,6 +4104,8 @@ def serve_flagship_phase(cfg, libs, leximin, legacy_alloc, inst=None, device="cu
         doc = svc.export_traces()
         slo = svc.slo.evaluate()
         stats = svc.stats()
+        if keep is not None:
+            keep.update(tracers=svc.tracers(), trace_doc=doc)
     mode_after = _sync_mode()
     gate = guards.GATE.state()
     problems = validate_chrome_trace(doc)
@@ -4268,13 +4275,18 @@ def serve_mixed_fleet_phase(cfg, libs, device="cuda", count=SERVE_FLEET_N):
     request submitted at once, then the last 4 again. Holds every served
     allocation within 1e-3 of its serial twin, at least one fused dispatch,
     more than one solve a dispatch, every sojourn explained within 5 %, and
-    the repeats served from the memo with no capture."""
+    the repeats served from the memo with no capture. Records the graph
+    captures of the process during the serial references and during the
+    served pass (the graph store reuses one per signature)."""
     import torch
 
     from citizensassemblies_tpu_torch.core.instance import featurize
     from citizensassemblies_tpu_torch.models.leximin import find_distribution_leximin
     from citizensassemblies_tpu_torch.service import SelectionRequest, SelectionService
-    from citizensassemblies_tpu_torch.utils.guards import CompilationGuard
+    from citizensassemblies_tpu_torch.utils.guards import CompilationGuard, one_time_work
+
+    def captures():
+        return one_time_work().get("cuda_graph_captures", 0)
 
     scfg = cfg.replace(lp_batch=True, serve_batch_window_ms=8.0, serve_admission_cap=8,
                        obs_trace=True, obs_memory=True, obs_slo_spec=SERVE_SLO_SPEC)
@@ -4284,12 +4296,15 @@ def serve_mixed_fleet_phase(cfg, libs, device="cuda", count=SERVE_FLEET_N):
         lib.reset_counts()
     refs = []
     t0 = time.perf_counter()
+    c0 = captures()
     for inst, _tenant in specs:
         d, s = featurize(inst, device=device)
         refs.append(find_distribution_leximin(d, s, cfg=scfg, device=device).allocation)
     serial_s = time.perf_counter() - t0
+    serial_captures = captures() - c0
     with SelectionService(scfg, device=device) as svc:
         t0 = time.perf_counter()
+        c0 = captures()
         subs = [(time.perf_counter(), svc.submit(SelectionRequest(instance=i, tenant=t)))
                 for i, t in specs]
         results, lat = [], []
@@ -4297,6 +4312,7 @@ def serve_mixed_fleet_phase(cfg, libs, device="cuda", count=SERVE_FLEET_N):
             results.append(ch.result(timeout=900))
             lat.append(time.perf_counter() - t_sub)
         serve_s = time.perf_counter() - t0
+        serve_captures = captures() - c0
         bstats = svc.batcher.stats()
         with CompilationGuard(name="serve_warm") as warm_guard:
             warm = [svc.run(SelectionRequest(instance=i, tenant=t), timeout=900)
@@ -4323,6 +4339,7 @@ def serve_mixed_fleet_phase(cfg, libs, device="cuda", count=SERVE_FLEET_N):
         # one-time work (captures, builds) of the repeats: on this thread and
         # on the workers that served them (their audits' count)
         warm_captures=warm_guard.count + sum(int(r.audit["xla_compiles"]) for r in warm),
+        serial_captures=serial_captures, serve_captures=serve_captures,
         slo_ok=slo["slo_ok"], launches=_launches(libs), seconds=time.perf_counter() - t_phase,
     )
     rec["ok"] = bool(
@@ -4411,14 +4428,378 @@ def serve_fleet_drive_phase(cfg, libs, device="cuda", n_requests=FLEET_DRIVE_REQ
     return rec
 
 
-def serving_phases(cfg, libs, leximin, legacy_alloc):
-    """Slice 12's phases, in order; returns their records by name."""
+def serving_phases(cfg, libs, leximin, legacy_alloc, store_path=None, keep=None):
+    """Slice 12's phases, in order; returns their records by name. With
+    ``store_path``, ``serve_flagship`` runs under a graph-store recorder
+    and its full-width signatures join the artifact there (phase 13's
+    ``aot_build``); ``keep`` receives its tracers and trace."""
+    from citizensassemblies_tpu_torch import aot
+
+    rec = aot.Recorder() if store_path else None
+    aot.install_recorder(rec)
+    try:
+        flagship = serve_flagship_phase(cfg, libs, leximin, legacy_alloc, keep=keep)
+    finally:
+        aot.install_recorder(None)
+    if store_path:
+        from citizensassemblies_tpu_torch.aot.build import write_recorded
+
+        with open(store_path) as fh:
+            built = json.load(fh)
+        report = write_recorded(
+            store_path, rec, device="cuda",
+            entries={(e["family"], e["sig"]): e for e in built["entries"]},
+            workload=dict(built.get("workload", {}), serve_flagship=True),
+        )
+        flagship["store_entries_added"] = len(rec.entries)
+        flagship["store_report"] = {k: report[k] for k in ("entries", "families", "sha")}
+        print(json.dumps(dict(phase="aot_build_flagship", recorded=len(rec.entries),
+                              entries=report["entries"], skipped=len(report["skipped"]),
+                              families=report["families"])), flush=True)
     return dict(
-        flagship=serve_flagship_phase(cfg, libs, leximin, legacy_alloc),
+        flagship=flagship,
         revise=serve_revise_churn_phase(cfg, libs),
         mixed=serve_mixed_fleet_phase(cfg, libs),
         drive=serve_fleet_drive_phase(cfg, libs),
     )
+
+
+# --- slice 13: the graph store, the roofline join, profiling ----------------------
+
+#: the repository root (the working directory of the phase's child processes)
+REPO = os.path.dirname(os.path.abspath(__file__))
+#: the coldboot children's wall-clock limit
+COLDBOOT_CHILD_TIMEOUT_S = 300
+
+
+def _json_tail(text: str):
+    """The JSON document that starts at the first line opening with ``{``."""
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        if line.startswith("{"):
+            return json.loads("\n".join(lines[i:]))
+    raise ValueError("no JSON document in the output")
+
+
+def aot_build_phase(tmp):
+    """``python -m citizensassemblies_tpu_torch.aot build`` in a child
+    process into ``tmp``: every kernel library built (here: loaded, the
+    parent built them), the coldboot request served through a real service
+    and the bucket lattice swept under the recorder, each recorded graph
+    captured once on zero operands, the artifact written. Returns the
+    record and the artifact's path."""
+    path = os.path.join(tmp, "graph_store.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "citizensassemblies_tpu_torch.aot", "build", "--out", path],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+    )
+    seconds = time.perf_counter() - t0
+    try:
+        report = _json_tail(proc.stdout)
+    except ValueError:
+        report = {}
+    rec = dict(
+        phase="aot_build", seconds=seconds, rc=proc.returncode, entries=report.get("entries"),
+        families=report.get("families"), skipped=report.get("skipped"),
+        libraries=report.get("libraries"), lattice_buckets=report.get("lattice_buckets"),
+        requests_served=report.get("requests_served"), record_s=report.get("record_s"),
+        capture_check_s=report.get("compile_serialize_s"),
+        manifest_unwrapped=report.get("manifest_unwrapped"), sha=report.get("sha"),
+    )
+    rec["ok"] = bool(
+        proc.returncode == 0 and (report.get("entries") or 0) > 0 and not report.get("skipped")
+        and len(report.get("libraries") or {}) == 3
+        and any(f.startswith("batch_lp.vmapped[") for f in report.get("families") or [])
+    )
+    if not rec["ok"]:
+        log(proc.stderr[-4000:])
+    print(json.dumps(rec), flush=True)
+    return rec, path
+
+
+def coldboot_child(mode: str, path: str, t_spawn: str) -> int:
+    """One coldboot child (``chip_smoke.py --coldboot-child MODE PATH T``):
+    a ``SelectionService`` booted with the graph store (``cached``) or with
+    ``aot_cache=False`` (``cold``) serves ``COLDBOOT_SPEC``, then the
+    flagship at the defaults. Prints one JSON line: the seconds from the
+    parent's spawn to the first result, each serve window's captures,
+    library builds and store misses, the ``aot`` stamp, the peak device
+    bytes and both allocations."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 2
+    t0 = float(t_spawn)
+    from citizensassemblies_tpu_torch.aot.build import coldboot_config, flagship_instance
+    from citizensassemblies_tpu_torch.core.generator import sf_e_skewed_instance
+    from citizensassemblies_tpu_torch.service import SelectionRequest, SelectionService
+    from citizensassemblies_tpu_torch.utils.config import default_config
+    from citizensassemblies_tpu_torch.utils.guards import one_time_work
+
+    t_import = time.time() - t0
+    cfg = default_config().replace(aot_cache=(mode == "cached") or False, aot_cache_path=path)
+    windows = []
+    with SelectionService(cfg, device="cuda") as svc:
+        t_boot = time.time() - t0
+        stamp0 = svc.aot_store.stamp() if svc.aot_store is not None else {}
+        results = []
+        for name, req in (
+            ("coldboot", SelectionRequest(instance=flagship_instance(), tenant="coldboot",
+                                          cfg=coldboot_config(cfg))),
+            ("flagship", SelectionRequest(instance=sf_e_skewed_instance(seed=1), tenant="flagship")),
+        ):
+            work0 = one_time_work()
+            miss0 = svc.aot_store.stamp()["misses"] if svc.aot_store is not None else 0
+            w0 = time.time()
+            res = svc.run(req, timeout=COLDBOOT_CHILD_TIMEOUT_S)
+            work1 = one_time_work()
+            windows.append(dict(
+                window=name, seconds=time.time() - w0, since_spawn_s=time.time() - t0,
+                captures=work1.get("cuda_graph_captures", 0) - work0.get("cuda_graph_captures", 0),
+                builds=work1.get("cuda_library_builds", 0) - work0.get("cuda_library_builds", 0),
+                misses=(svc.aot_store.stamp()["misses"] - miss0) if svc.aot_store is not None else None,
+                contract_ok=res.audit.get("contract_ok"),
+            ))
+            results.append(res)
+        stamp = svc.aot_store.stamp() if svc.aot_store is not None else None
+    print(json.dumps(dict(
+        mode=mode, import_s=t_import, boot_s=t_boot, first_result_s=windows[0]["since_spawn_s"],
+        windows=windows, aot_at_boot=stamp0, aot=stamp,
+        peak_bytes=int(torch.cuda.max_memory_allocated()),
+        alloc_coldboot=np.asarray(results[0].allocation, np.float64).tolist(),
+        alloc_flagship=np.asarray(results[1].allocation, np.float64).tolist(),
+    )), flush=True)
+    return 0
+
+
+def coldboot_phase(path, leximin):
+    """Two fresh child processes of this script, the store's (``cached``)
+    and one with ``aot_cache=False`` (``cold``), each serving
+    ``COLDBOOT_SPEC`` and then the flagship at the defaults. Holds both
+    flagship allocations bit for bit each other's and the defaults
+    flagship's, the coldboot allocations each other's, and the cached
+    child's serve-window captures equal to its store misses and at most
+    the cold child's."""
+    children = {}
+    for mode in ("cold", "cached"):
+        t_spawn = time.time()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--coldboot-child", mode, path,
+             repr(t_spawn)],
+            cwd=REPO, capture_output=True, text=True, timeout=2 * COLDBOOT_CHILD_TIMEOUT_S,
+        )
+        try:
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+        except (ValueError, IndexError):
+            out = {}
+            log(proc.stderr[-4000:])
+        out["rc"] = proc.returncode
+        out["wall_s"] = time.time() - t_spawn
+        children[mode] = out
+    cold, cached = children["cold"], children["cached"]
+    have = all(c.get("rc") == 0 and "alloc_flagship" in c for c in (cold, cached))
+    flag_same = have and all(
+        np.array_equal(np.asarray(c["alloc_flagship"]), leximin.allocation) for c in (cold, cached)
+    )
+    coldboot_same = have and np.array_equal(np.asarray(cold["alloc_coldboot"]),
+                                            np.asarray(cached["alloc_coldboot"]))
+    summary = {}
+    for mode, c in children.items():
+        summary[mode] = dict(
+            rc=c.get("rc"), wall_s=c.get("wall_s"), import_s=c.get("import_s"),
+            boot_s=c.get("boot_s"), first_result_s=c.get("first_result_s"),
+            windows=c.get("windows"), aot=c.get("aot"), aot_at_boot=c.get("aot_at_boot"),
+            peak_bytes=c.get("peak_bytes"),
+        )
+    rec = dict(phase="coldboot_flagship", children=summary, flagship_bit_identical=flag_same,
+               coldboot_bit_identical=coldboot_same)
+    rec["ok"] = bool(
+        have and flag_same and coldboot_same
+        and cached["aot"] and cached["aot"]["status"] == "ok" and cached["aot"]["prewarmed"] > 0
+        and cold["aot"] is None
+        and all(w["captures"] == w["misses"] for w in cached["windows"])
+        and all(a["captures"] <= b["captures"] for a, b in zip(cached["windows"], cold["windows"]))
+        and all(w["contract_ok"] for c in (cold, cached) for w in c["windows"])
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def graph_store_reuse_phase():
+    """Stored graphs replayed for a second instance of their signature, on
+    the card: for ``batch_lp.vmapped`` (two different small-pool LPs in one
+    bucket) and for the fused L2 core (two portfolios of one shape), solve
+    A (a capture), then B (a replay of A's graph with B's operands copied
+    in, counted a hit), then clear the store and solve B fresh (a capture):
+    B must equal B fresh bit for bit."""
+    from citizensassemblies_tpu_torch.aot import store as gstore
+    from citizensassemblies_tpu_torch.solvers.batch_lp import BatchLP, solve_lp_batch
+    from citizensassemblies_tpu_torch.solvers.qp import solve_final_primal_l2
+    from citizensassemblies_tpu_torch.utils.config import default_config
+    from citizensassemblies_tpu_torch.utils.memo import live_caches
+
+    cfg = default_config().replace(lp_batch=True)
+
+    def clear():
+        for cache in live_caches():
+            if cache.name == "aot_graphs":
+                cache.clear()
+
+    def lp(seed):
+        rng = np.random.default_rng(seed)
+        return BatchLP(c=rng.uniform(-1, 1, 60), G=rng.uniform(-1, 1, (40, 60)),
+                       h=rng.uniform(0.5, 1.5, 40), A=np.ones((1, 60)), b=np.ones(1))
+
+    def l2(seed):
+        rng = np.random.default_rng(100 + seed)
+        P = np.zeros((1024, 256))
+        for row in range(1024):
+            P[row, rng.choice(256, 16, replace=False)] = 1.0
+        target = P.T @ rng.dirichlet(np.ones(1024))
+        return solve_final_primal_l2(P, target, iters=4096, floor_donor=np.full(1024, 1 / 1024),
+                                     cfg=cfg, device="cuda")
+
+    def lp_solve(seed):
+        sol = solve_lp_batch([lp(seed)], cfg=cfg, defer=False, device="cuda")[0]
+        return (sol.x, sol.lam, sol.mu, np.array([sol.iters, sol.kkt]))
+
+    def l2_solve(seed):
+        p, eps = l2(seed)
+        return (p, np.array([eps]))
+
+    cases = []
+    for name, solve in (("batch_lp.vmapped", lp_solve), ("qp.l2_fused", l2_solve)):
+        clear()
+        store = gstore.ExecStore(sha="graph_store_reuse")
+        gstore.install_store(store)
+        try:
+            a = solve(0)
+            after_a = store.stamp()
+            b = solve(1)
+            after_b = store.stamp()
+            clear()
+            b_fresh = solve(1)
+        finally:
+            gstore.install_store(None)
+        same = all(np.array_equal(x, y) for x, y in zip(b, b_fresh))
+        differs = not all(np.array_equal(x, y) for x, y in zip(a, b))
+        cases.append(dict(
+            family=name, misses_a=after_a["misses"], hits_b=after_b["hits"] - after_a["hits"],
+            misses_b=after_b["misses"] - after_a["misses"], bit_identical=same,
+            instances_differ=differs,
+        ))
+    clear()
+    rec = dict(phase="graph_store_reuse", cases=cases)
+    rec["ok"] = all(c["bit_identical"] and c["instances_differ"] and c["misses_a"] >= 1
+                    and c["hits_b"] >= 1 and c["misses_b"] == 0 for c in cases)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def roofline_phase(tracers):
+    """``obs/roofline.roofline_join`` over ``serve_flagship``'s sampling
+    tracers: no join miss, every achieved share of the card's HBM and
+    float32 peaks at most 1, and the kernels' rows the bound formulas of
+    the kernels line (``obs/roofline.gather_cost``, ``two_sided_cost``,
+    ``lp_cost``) summed over their spans' own shapes."""
+    from citizensassemblies_tpu_torch.obs import roofline
+
+    report = roofline.roofline_join(tracers)
+    formulas = {
+        "kernels.ell_gather": lambda a: roofline.gather_cost(
+            a["cols"], a["kp"], a["T"], a["lanes"], a["value_bytes"], a["lane_values"]),
+        "kernels.pdhg_megakernel_two_sided": lambda a: roofline.two_sided_cost(
+            a["cols"], a["kp"], a["T"], a["nnz"], a["lanes"], a["iters"].resolve(),
+            a["check_every"]),  # the iterations the solve took, read back now
+        "kernels.pdhg_megakernel_lp": lambda a: roofline.lp_cost(
+            a["m1"], a["kp"], a["nv"], a["nnz"], a["iters"], a["check_every"]),
+    }
+    kernel_rows = {}
+    for tracer in tracers:
+        for sp in tracer.spans():
+            if sp.name in formulas and sp.attrs.get("kind") == "dispatch" and sp.t1 is not None:
+                cost = formulas[sp.name](sp.attrs)
+                agg = kernel_rows.setdefault(sp.name, [0, 0.0, 0.0])
+                agg[0] += 1
+                agg[1] += cost.flops
+                agg[2] += cost.bytes
+    rows = {r.core: r for r in report.rows}
+    kernels = {}
+    for name, (calls, flops, nbytes) in kernel_rows.items():
+        row = rows.get(name)
+        kernels[name] = dict(
+            calls=calls, row_calls=getattr(row, "calls", None),
+            flops_per_call=flops / calls, bytes_per_call=nbytes / calls,
+            equal=bool(row is not None and row.calls == calls and row.flops == flops / calls
+                       and row.bytes == nbytes / calls),
+            bound_ms_per_call=roofline.bound(roofline.Cost(flops / calls, nbytes / calls))[0],
+        )
+    shares = {r.core: r.peak_shares() for r in report.rows}
+    rec = dict(
+        phase="roofline_flagship", misses=report.misses, unexecuted=report.unexecuted,
+        rows={r.core: dict(calls=r.calls, seconds=r.seconds, gflops_s=r.achieved_gflops_s,
+                           gbytes_s=r.achieved_gbytes_s, bound=r.bound, sampled=r.sampled,
+                           hbm_share=shares[r.core]["hbm"], f32_share=shares[r.core]["f32"])
+              for r in report.rows},
+        kernels=kernels, ridge=report.ridge_flops_per_byte,
+    )
+    rec["ok"] = bool(
+        report.ok and not report.misses
+        and all(s["hbm"] <= 1.0 and s["f32"] <= 1.0 for s in shares.values())
+        and {"kernels.ell_gather", "kernels.pdhg_megakernel_two_sided"} <= set(kernels)
+        and all(k["equal"] for k in kernels.values())
+    )
+    print(json.dumps(rec, default=str), flush=True)
+    return rec
+
+
+def profile_trace_phase(pack, MT, trace_doc):
+    """``utils/profiling.profiler_trace`` around one B=1 two-sided solve on
+    the flagship pack inside an ``annotate`` range: the exported Chrome
+    trace must name the kernel and the range. Then the trace CLI's
+    ``main`` on ``serve_flagship``'s exported trace (``--json``)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+    from citizensassemblies_tpu_torch.obs import __main__ as trace_cli
+    from citizensassemblies_tpu_torch.utils.profiling import annotate, profiler_trace
+
+    idx_np, val_np, lanes, kw = _solve_lanes(pack, MT, [6144])
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with profiler_trace(tmp) as prof:
+            with annotate("chip_smoke.two_sided_b1"):
+                out = mk.dispatch_two_sided(idx_np, val_np, *lanes, **kw)
+            torch.cuda.synchronize()
+        profile_s = time.perf_counter() - t0
+        with open(prof.trace_path) as fh:
+            doc = json.load(fh)
+        names = [str(e.get("name", "")) for e in doc.get("traceEvents", [])]
+        kernel_events = [n for n in names if "two_sided_solve_kernel" in n]
+        annotated = "chip_smoke.two_sided_b1" in names
+        path = os.path.join(tmp, "serve_flagship.json")
+        with open(path, "w") as fh:
+            json.dump(trace_doc, fh)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = trace_cli.main([path, "--json"])
+        report = json.loads(buf.getvalue())
+    rec = dict(
+        phase="profile_trace", profile_s=profile_s, trace_events=len(names),
+        kernel_events=len(kernel_events), annotated=annotated, iters=int(out[3][0]),
+        cli_rc=rc, cli_spans=report.get("spans"), cli_lanes=report.get("lanes"),
+        critical_path=[h["name"] for h in report.get("critical_path", [])][:6],
+        top_self_ms=sorted(((v["self_ms"], k) for k, v in report.get("self_times", {}).items()),
+                           reverse=True)[:5],
+    )
+    rec["ok"] = bool(kernel_events and annotated and rc == 0 and (report.get("spans") or 0) > 0)
+    print(json.dumps(rec), flush=True)
+    return rec
 
 
 def main() -> int:
@@ -4547,13 +4928,33 @@ def main() -> int:
     for rec in scenarios.values():
         for name, count in rec["launches"].items():
             launches[name] += count
+    # the graph store (queue A item 4): its artifact built by the CLI in a
+    # child process; serve_flagship then records its full-width signatures
+    # into it
+    import tempfile
+
+    store_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
+    store_build, store_path = aot_build_phase(store_dir.name)
     # serving (queue A item 3): the service's two concurrent flagship
     # requests are the main path's LEXIMIN twice; every serving phase's
     # launches count with the main path's
-    serving = serving_phases(defaults_cfg, libs, lex_defaults, legacy_alloc)
+    keep = {}
+    serving = serving_phases(defaults_cfg, libs, lex_defaults, legacy_alloc,
+                             store_path=store_path if store_build["ok"] else None, keep=keep)
     for rec in serving.values():
         for name, count in rec["launches"].items():
             launches[name] += count
+    # phase 13: cold and cached boots in child processes, stored graphs
+    # reused across instances, the roofline join of serve_flagship's spans,
+    # a profiler trace and the trace CLI
+    store_phases = dict(
+        build=store_build,
+        coldboot=coldboot_phase(store_path, lex_defaults),
+        reuse=graph_store_reuse_phase(),
+        roofline=roofline_phase(keep.get("tracers", [])),
+        profile=profile_trace_phase(pack, MT, keep.get("trace_doc", {"traceEvents": []})),
+    )
+    store_dir.cleanup()
 
     def summary(name, rec, phase_recs, holds):
         return dict(
@@ -4588,7 +4989,7 @@ def main() -> int:
         r for r in (e2e, e2e_defaults, xmin, xmin_hold, l2_serial, mass, legacy, agent, agent_sf_b,
                     dense_graph, stage_cg, stage_cg_pricing, *households.values(), ckpt_face,
                     ckpt_lex, faults, *analysis.values(), *distribution.values(),
-                    *scenarios.values(), *serving.values())
+                    *scenarios.values(), *serving.values(), *store_phases.values())
         if not r["ok"]
     ]
     if failed:
@@ -4605,4 +5006,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == "--coldboot-child":
+        sys.exit(coldboot_child(*sys.argv[2:]))
     sys.exit(main())

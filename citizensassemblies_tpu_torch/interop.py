@@ -67,11 +67,17 @@ def request_from_dict(values: Mapping, device: DeviceLike = None) -> SelectionRe
     return SelectionRequest(**kw)
 
 
+#: fields that describe the machine, not the run: this package keeps its own
+#: value (the card's float32 ridge, not the JAX package's CPU-class one)
+CARD_FIELDS = frozenset({"obs_roofline_ridge"})
+
+
 def config_from_dict(values: Mapping) -> Config:
     """This package's :class:`Config` from a field dict of the JAX package's
-    ``Config``: the fields both carry are copied, the others are dropped
-    (they belong to modules this package does not have yet)."""
-    names = {f.name for f in dataclasses.fields(Config)}
+    ``Config``: the fields both carry are copied, except
+    :data:`CARD_FIELDS`; the others are dropped (they belong to modules
+    this package does not have yet)."""
+    names = {f.name for f in dataclasses.fields(Config)} - CARD_FIELDS
     return Config(**{k: v for k, v in values.items() if k in names})
 
 

@@ -96,9 +96,16 @@ class CudaLibrary:
             self.launches = 0
             self.entry_launches.clear()
 
+    def _cmd(self) -> List[str]:
+        return [nvcc()] + NVCC_FLAGS + [f"-I{CSRC}"]
+
     def start_build(self):
-        cmd = [nvcc()] + NVCC_FLAGS + [f"-I{CSRC}"]
-        return native_build.start_build(self.name, [self.source], cmd, self.headers)
+        return native_build.start_build(self.name, [self.source], self._cmd(), self.headers)
+
+    def library_path(self) -> str:
+        """The content-hashed file this checkout's build of the library has
+        (raises without ``nvcc``)."""
+        return native_build.library_path(self.name, [self.source] + self.headers, self._cmd())
 
     def _load(self, path: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(path)

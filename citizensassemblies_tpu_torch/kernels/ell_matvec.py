@@ -78,7 +78,11 @@ def ell_gather_mv_plain(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor) -
 def ell_gather_mv(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Packed gather matvec; the kernel on CUDA tensors, the plain version
     on CPU tensors."""
-    with dispatch_span("kernels.ell_gather", cols=int(idx.shape[0])) as ds:
+    with dispatch_span(
+        "kernels.ell_gather", cols=int(idx.shape[0]), kp=int(idx.shape[1]), T=int(y.shape[-1]),
+        lanes=int(y.shape[0]) if y.dim() == 2 else 1, value_bytes=int(val.element_size()),
+        lane_values=val.dim() == 3,
+    ) as ds:
         if y.device.type != "cuda":
             ds.out = out = ell_gather_mv_plain(idx, val, y)
         else:

@@ -70,6 +70,7 @@ import torch
 from citizensassemblies_tpu_torch.kernels.cuda_lib import CSRC, CudaLibrary, ptr, stream_of
 from citizensassemblies_tpu_torch.kernels.ell_matvec import ell_gather_mv, ell_gather_mv_plain
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
+from citizensassemblies_tpu_torch.obs.trace import DeviceValue
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
 from citizensassemblies_tpu_torch.utils import device as _device
@@ -483,6 +484,34 @@ def two_sided_prelude(idx: torch.Tensor, val: torch.Tensor, v: torch.Tensor, col
     return pre, vals_s
 
 
+def csr_forward_operands(csr, vals_s: torch.Tensor):
+    """The tensors :func:`csr_forward` reads: ``(vals_t [B, nnz], colT,
+    offsets [B·T + 1])``."""
+    perm, rowptr, colT = csr
+    B = vals_s.shape[0]
+    nnz = perm.shape[0]
+    vals_t = vals_s.reshape(B, -1)[:, perm].contiguous()  # [B, nnz]
+    lane = torch.arange(B, dtype=torch.int64, device=rowptr.device)[:, None] * nnz
+    offsets = torch.cat([
+        (rowptr[None, :-1].to(torch.int64) + lane).reshape(-1),
+        torch.full((1,), B * nnz, dtype=torch.int64, device=rowptr.device),
+    ])
+    return vals_t, colT, offsets
+
+
+def csr_forward_from(vals_t: torch.Tensor, colT: torch.Tensor, offsets: torch.Tensor):
+    """:func:`csr_forward` over its :func:`csr_forward_operands`."""
+    B = vals_t.shape[0]
+    T = (offsets.shape[0] - 1) // B
+
+    def forward(p):
+        return torch.segment_reduce(
+            (vals_t * p[:, colT]).reshape(-1), "sum", offsets=offsets, axis=0, unsafe=True
+        ).view(B, T)
+
+    return forward
+
+
 def csr_forward(csr, vals_s: torch.Tensor):
     """The forward product ``u[b, t] = Σ_{c,s: idx[c,s]=t} vals_s[b,c,s]·p[b,c]``
     as a function of ``p [B, C]``, summed per type in column order over the
@@ -494,23 +523,30 @@ def csr_forward(csr, vals_s: torch.Tensor):
     way on an NVIDIA H100 80GB HBM3 at 700 W, ``chip_qp_probe.py``. On the
     CPU both sum in the same order, bit for bit.) ``vals_s`` is
     ``[B, C, k_pad]``."""
-    perm, rowptr, colT = csr
-    B = vals_s.shape[0]
-    T = rowptr.shape[0] - 1
-    nnz = perm.shape[0]
-    vals_t = vals_s.reshape(B, -1)[:, perm].contiguous()  # [B, nnz]
-    lane = torch.arange(B, dtype=torch.int64, device=rowptr.device)[:, None] * nnz
-    offsets = torch.cat([
-        (rowptr[None, :-1].to(torch.int64) + lane).reshape(-1),
-        torch.full((1,), B * nnz, dtype=torch.int64, device=rowptr.device),
-    ])
+    return csr_forward_from(*csr_forward_operands(csr, vals_s))
 
-    def forward(p):
-        return torch.segment_reduce(
-            (vals_t * p[:, colT]).reshape(-1), "sum", offsets=offsets, axis=0, unsafe=True
-        ).view(B, T)
 
-    return forward
+def ell_operator_tensors(idx, vals_s, pre, csr):
+    """Every tensor the two-sided operator pair reads: ``(idx, vals_s,
+    vals_t, colT, offsets, e_col, a_row)`` (:func:`csr_forward_operands`)."""
+    return (idx, vals_s) + csr_forward_operands(csr, vals_s) + (pre.e_col, pre.a_row)
+
+
+def ell_operators_from(idx, vals_s, vals_t, colT, offsets, e_col, a_row, gather=ell_gather_mv):
+    """:func:`ell_operators` over its :func:`ell_operator_tensors`."""
+    forward = csr_forward_from(vals_t, colT, offsets)
+
+    def K_apply(p, eps):
+        u = forward(p)
+        ec = e_col * eps[:, None]
+        return -u - ec, u - ec, (a_row * p).sum(1)
+
+    def KT_apply(l_lo, l_up, mu):
+        g_p = gather(idx, vals_s, l_up - l_lo) + mu[:, None] * a_row
+        g_e = -(e_col * (l_lo + l_up)).sum(1)
+        return g_p, g_e
+
+    return K_apply, KT_apply
 
 
 def ell_operators(idx, vals_s, pre, csr, gather=ell_gather_mv):
@@ -519,19 +555,7 @@ def ell_operators(idx, vals_s, pre, csr, gather=ell_gather_mv):
     -> (g_p, g_e)``. ``gather`` is the kernel wrapper (CUDA) by default; the
     forward product is :func:`csr_forward` over ``csr`` (the pack's
     :func:`csr_transpose` on the device)."""
-    forward = csr_forward(csr, vals_s)
-
-    def K_apply(p, eps):
-        u = forward(p)
-        ec = pre.e_col * eps[:, None]
-        return -u - ec, u - ec, (pre.a_row * p).sum(1)
-
-    def KT_apply(l_lo, l_up, mu):
-        g_p = gather(idx, vals_s, l_up - l_lo) + mu[:, None] * pre.a_row
-        g_e = -(pre.e_col * (l_lo + l_up)).sum(1)
-        return g_p, g_e
-
-    return K_apply, KT_apply
+    return ell_operators_from(*ell_operator_tensors(idx, vals_s, pre, csr), gather=gather)
 
 
 def two_sided_blocks_plain(csr, idx, vals_s, pre, state, tol, *, max_iters, check_every, sentinel):
@@ -701,13 +725,15 @@ def dispatch_two_sided(
     kw = dict(max_iters=max_iters, check_every=check_every, sentinel=sentinel)
     with dispatch_span(
         "kernels.pdhg_megakernel_two_sided", cfg=cfg, log=log, lanes=int(colmask.shape[0]),
-        cols=int(colmask.shape[1]),
+        cols=int(colmask.shape[1]), kp=int(idx.shape[1]), T=int(v.shape[0]),
+        nnz=int(csr[0].shape[0]), check_every=int(check_every),
     ) as ds, no_implicit_transfers(cfg):
         if plan is not None:
             out = two_sided_blocks_cuda(csr, plan, idx, vals_s, pre, state, tol, **kw)
         else:
             out = two_sided_blocks_plain(csr, idx, vals_s, pre, state, tol, **kw)
         ds.out = out
+        ds.note(iters=DeviceValue(out[5]))
     p, eps, l_lo, l_up, mu, it, res, flags = out
     if log is not None:
         log.count("megakernel_dispatches")
@@ -756,8 +782,18 @@ def lp_operators(idx, vals_s, csr, gather=ell_gather_mv):
     variable's products summed in row order by ``torch.segment_reduce``: a
     fixed order with no atomics, so an iteration count depends on the
     inputs alone, on the card as on the host."""
+    return lp_operators_from(*lp_operator_tensors(idx, vals_s, csr), gather=gather)
+
+
+def lp_operator_tensors(idx, vals_s, csr):
+    """Every tensor :func:`lp_operators` reads: ``(idx, vals_s, vals_t,
+    rowT, rowptr)``."""
     perm, rowptr, rowT = csr
-    vals_t = vals_s.reshape(-1)[perm]
+    return idx, vals_s, vals_s.reshape(-1)[perm], rowT, rowptr
+
+
+def lp_operators_from(idx, vals_s, vals_t, rowT, rowptr, gather=ell_gather_mv):
+    """:func:`lp_operators` over its :func:`lp_operator_tensors`."""
 
     def G_rmv(y):
         # unsafe: the CSR's offsets are valid by construction, and the
@@ -896,6 +932,8 @@ def dispatch_lp(
     kw = dict(max_iters=max_iters, check_every=check_every, sentinel=sentinel)
     with dispatch_span(
         "kernels.pdhg_megakernel_lp", cfg=cfg, log=log, nv=int(nv), m1=int(idx.shape[0]),
+        m2=int(np.shape(A)[0]), kp=int(idx.shape[1]), nnz=int(csr[0].shape[0]),
+        check_every=int(check_every),
     ) as ds, no_implicit_transfers(cfg):
         if plan is not None:
             out = lp_blocks_cuda(csr, plan, idx, pre, state, tol, **kw)
@@ -903,6 +941,7 @@ def dispatch_lp(
             out = lp_blocks_plain(csr, idx, pre, state, tol, **kw)
         ds.out = out
     x, lam, mu, it, res, flags = out
+    ds.note(iters=int(it))
     if log is not None:
         log.count("megakernel_dispatches")
         log.count("megakernel_lanes")

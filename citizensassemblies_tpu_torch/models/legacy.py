@@ -182,7 +182,9 @@ def sample_panels_batch(
     def noise_at(_step):
         return gumbel(generator, (batch, n), dense.device)
 
-    with dispatch_span("legacy.scan_sampler", cfg=cfg, log=log, chains=int(batch)) as ds:
+    with dispatch_span(
+        "legacy.scan_sampler", cfg=cfg, log=log, chains=int(batch), n=int(dense.n),
+    ) as ds:
         ds.out = out = _sample_panels_kernel(dense, batch, noise_at, scores, households)
     return out
 

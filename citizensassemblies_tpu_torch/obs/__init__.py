@@ -16,10 +16,13 @@ imports nothing of the JAX package):
   allocator and the LRU registry, tri-stated by ``Config.obs_memory``;
 * ``obs.slo`` — the SLO engine (``Config.obs_slo_spec``) with multi-window
   burn rates, breach transitions and the load policy;
-* ``obs.catalog`` — the metric-series catalogue.
-
-The JAX package's roofline join, bench trend gate and trace CLI come with
-ROADMAP queue A item 4.
+* ``obs.catalog`` — the metric-series catalogue;
+* ``obs.roofline`` — the join of dispatch spans to the work they did (cost
+  functions the port owns, at the card's peaks and ridge);
+* ``obs.trend`` — the trend gate over a series of bench records (a
+  stdlib copy of the JAX package's);
+* ``python -m citizensassemblies_tpu_torch.obs`` — the offline trace CLI
+  (critical path, self times, fusion timeline, ``--diff``).
 """
 
 from citizensassemblies_tpu_torch.obs.catalog import (
@@ -40,9 +43,17 @@ from citizensassemblies_tpu_torch.obs.metrics import (
     format_counters,
     format_timers,
 )
+from citizensassemblies_tpu_torch.obs.roofline import (
+    ROOFLINE_SCHEMA_VERSION,
+    RooflineReport,
+    RooflineRow,
+    dispatch_totals,
+    roofline_join,
+)
 from citizensassemblies_tpu_torch.obs.slo import SloEngine, SloLoadPolicy, parse_slo_spec
 from citizensassemblies_tpu_torch.obs.trace import (
     TRACE_SCHEMA_VERSION,
+    DeviceValue,
     Span,
     Tracer,
     begin_span,
@@ -54,6 +65,7 @@ from citizensassemblies_tpu_torch.obs.trace import (
     use_tracer,
     validate_chrome_trace,
 )
+from citizensassemblies_tpu_torch.obs.trend import TrendReport, TrendRow, collect_series, trend_gate
 
 __all__ = [
     "DispatchScope",
@@ -83,4 +95,14 @@ __all__ = [
     "SloEngine",
     "SloLoadPolicy",
     "parse_slo_spec",
+    "DeviceValue",
+    "ROOFLINE_SCHEMA_VERSION",
+    "RooflineReport",
+    "RooflineRow",
+    "dispatch_totals",
+    "roofline_join",
+    "TrendReport",
+    "TrendRow",
+    "collect_series",
+    "trend_gate",
 ]

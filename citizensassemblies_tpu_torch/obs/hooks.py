@@ -37,12 +37,20 @@ from citizensassemblies_tpu_torch.obs.trace import _resolve
 
 class DispatchScope:
     """Mutable slot the caller parks its device outputs in; the hook waits
-    for them at scope exit in sampling mode."""
+    for them at scope exit in sampling mode. :meth:`note` adds attributes
+    to the recorded span, also after the scope closed (the iterations a
+    solve took, once its caller reads them back)."""
 
-    __slots__ = ("out",)
+    __slots__ = ("out", "span")
 
     def __init__(self):
         self.out = None
+        self.span = None
+
+    def note(self, **attrs) -> None:
+        """Set ``attrs`` on the recorded span (a no-op when none records)."""
+        if self.span is not None:
+            self.span.attrs.update(attrs)
 
 
 #: shared inert scope handed out when tracing is off — callers only ever
@@ -129,6 +137,7 @@ def dispatch_span(name: str, cfg=None, log=None, **attrs):
 
     attrs.setdefault("host", host_lane())
     with tr.span(name, kind="dispatch", **attrs) as sp:
+        scope.span = sp
         yield scope
         if tr.sample_device and scope.out is not None and _wait_for(scope.out):
             if sp is not None:

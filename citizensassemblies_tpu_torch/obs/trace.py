@@ -217,9 +217,35 @@ class Tracer:
         return events
 
 
+class DeviceValue:
+    """A span attribute that lives on the device until it is read: the
+    iterations a fused solve took, say, which its caller does not read back
+    at dispatch. :meth:`resolve` reads it (a legal sync, outside every
+    launch window) as a Python list; the Chrome export and the roofline
+    join resolve it, after the work is done."""
+
+    __slots__ = ("tensor",)
+
+    def __init__(self, tensor):
+        self.tensor = tensor.detach()
+
+    def resolve(self) -> list:
+        from citizensassemblies_tpu_torch.utils.guards import readback
+
+        with readback():
+            return self.tensor.reshape(-1).tolist()
+
+    def __repr__(self) -> str:
+        return f"DeviceValue(shape={tuple(self.tensor.shape)})"
+
+
 def _jsonable(v):
+    if isinstance(v, DeviceValue):
+        v = v.resolve()
     if isinstance(v, (str, int, float, bool)) or v is None:
         return v
+    if isinstance(v, (list, tuple)) and all(isinstance(x, (int, float)) for x in v):
+        return list(v)
     return str(v)
 
 

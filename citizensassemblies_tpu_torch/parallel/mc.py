@@ -292,7 +292,9 @@ def dropout_realization_round(
         hi = min(hi, draws)
     counts = torch.zeros(2, n, **f32)  # seated, seated on valid panels
     tallies = torch.zeros(2, dtype=torch.float64, device=dev)  # ok, filled
-    with dispatch_span("mc.dropout_realization", draws=draws, policy=policy) as ds:
+    with dispatch_span(
+        "mc.dropout_realization", draws=draws, policy=policy, k=int(dense.k),
+    ) as ds:
         for c0 in range(0, draws, int(chunk)):
             c1 = min(c0 + int(chunk), draws)
             B = c1 - c0

@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from citizensassemblies_tpu_torch.aot.store import SeededGraph, register_block
 from citizensassemblies_tpu_torch.dist import partition as dist_partition
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.solvers.highs_backend import DualSolution
@@ -54,29 +55,83 @@ def _rsqrt_norm(m: torch.Tensor) -> torch.Tensor:
     return torch.where(m > 0, torch.sqrt(torch.clamp_min(m, 1e-10)), torch.ones_like(m))
 
 
+def _all_reduced(G_rmv_local: Apply) -> Apply:
+    def G_rmv(y):
+        g = G_rmv_local(y)
+        dist.all_reduce(g)
+        return g
+
+    return G_rmv
+
+
+def _sharded_block(G_mv: Apply, G_rmv_local: Apply, hs_l, cs, as_row, bs, tau, sigma,
+                   block_iters: int):
+    """One block of the sharded PDHG: ``block_iters`` iterations, the
+    transposed product summed over the world each iteration."""
+    G_rmv = _all_reduced(G_rmv_local)
+
+    def block(x, lam_l, mu):
+        xs, ls, ms = torch.zeros_like(x), torch.zeros_like(lam_l), torch.zeros_like(mu)
+        for _ in range(block_iters):
+            grad = cs + G_rmv(lam_l) + as_row * mu[0]
+            x_new = torch.clamp_min(x - tau * grad, 0.0)
+            xb = 2.0 * x_new - x
+            lam_l = torch.clamp_min(lam_l + sigma * (G_mv(xb) - hs_l), 0.0)
+            mu = mu + sigma * ((as_row @ xb)[None] - bs)
+            x = x_new
+            xs, ls, ms = xs + x, ls + lam_l, ms + mu
+        return x, lam_l, mu, xs, ls, ms
+
+    return block
+
+
+@register_block("parallel.sharded_block_dense", collective=True)
+def _sharded_dense_factory(block_iters: int):
+    """The graph store's block factory of a dense sharded block over ``(Gs,
+    Gs_t, hs_l, cs, as_row, bs, tau, sigma)``."""
+
+    def make(Gs, Gs_t, hs_l, cs, as_row, bs, tau, sigma):
+        return _sharded_block(lambda x: Gs @ x, lambda y: Gs_t @ y, hs_l, cs, as_row, bs, tau,
+                              sigma, int(block_iters))
+
+    return make
+
+
+@register_block("parallel.sharded_block_ell", collective=True)
+def _sharded_ell_factory(block_iters: int):
+    """The graph store's block factory of an ELL sharded block over the shard's
+    ``kernels/pdhg_megakernel.lp_operator_tensors`` and ``(hs_l, cs,
+    as_row, bs, tau, sigma)``."""
+
+    def make(idx, vals_s, vals_t, rowT, rowptr, hs_l, cs, as_row, bs, tau, sigma):
+        from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import lp_operators_from
+
+        G_mv, G_rmv_local = lp_operators_from(idx, vals_s, vals_t, rowT, rowptr)
+        return _sharded_block(G_mv, G_rmv_local, hs_l, cs, as_row, bs, tau, sigma,
+                              int(block_iters))
+
+    return make
+
+
 def _sharded_pdhg(G_mv: Apply, G_rmv_local: Apply, hs_l, cs, as_row, bs, tol: float,
                   block_iters: int, max_blocks: int, stats: Optional[dict] = None,
-                  graph: Optional[bool] = None):
+                  graph: Optional[bool] = None, seed=None):
     """The restart-to-average PDHG of the sharded cores in scaled
     coordinates: ``G_mv`` the local rows' product, ``G_rmv_local`` the local
     transposed product (summed over the world here). With ``graph``
     (default: on CUDA tensors) a solve that reaches its second block
-    captures the block's ``block_iters`` iterations, collectives included,
-    into a CUDA graph and replays it from then on
-    (``lp_pdhg._replayed``: the same kernels in the same order). Returns the
-    scaled ``(x, lam_l, mu, res)``; ``stats`` receives ``blocks``,
-    ``iters`` and ``graph``."""
-    from citizensassemblies_tpu_torch.solvers.lp_pdhg import _replayed
+    replays the block's ``block_iters`` iterations, collectives included,
+    as a CUDA graph from the graph store (``aot/store.py``: the same
+    kernels in the same order; ``seed`` is ``(family, factory, operator
+    tensors)``). Returns the scaled ``(x, lam_l, mu, res)``; ``stats``
+    receives ``blocks``, ``iters`` and ``graph``."""
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import _prepare
 
     dev = cs.device
     f32 = dict(dtype=torch.float32, device=dev)
     nv = cs.shape[0]
     m_l = hs_l.shape[0]
-
-    def G_rmv(y):
-        g = G_rmv_local(y)
-        dist.all_reduce(g)
-        return g
+    G_rmv = _all_reduced(G_rmv_local)
 
     # ---- ‖K‖₂ power estimate over the world --------------------------------
     v = torch.ones(nv, **f32) / np.sqrt(np.float32(nv))
@@ -105,29 +160,24 @@ def _sharded_pdhg(G_mv: Apply, G_rmv_local: Apply, hs_l, cs, as_row, bs, tol: fl
         gap = torch.abs(pobj - dobj)
         return (pri + dua) / scale + gap / (1.0 + torch.abs(pobj) + torch.abs(dobj))
 
-    def block(x, lam_l, mu):
-        xs, ls, ms = torch.zeros_like(x), torch.zeros_like(lam_l), torch.zeros_like(mu)
-        for _ in range(block_iters):
-            grad = cs + G_rmv(lam_l) + as_row * mu[0]
-            x_new = torch.clamp_min(x - tau * grad, 0.0)
-            xb = 2.0 * x_new - x
-            lam_l = torch.clamp_min(lam_l + sigma * (G_mv(xb) - hs_l), 0.0)
-            mu = mu + sigma * ((as_row @ xb)[None] - bs)
-            x = x_new
-            xs, ls, ms = xs + x, ls + lam_l, ms + mu
-        return x, lam_l, mu, xs, ls, ms
-
     x = torch.zeros(nv, **f32)
     lam_l = torch.zeros(m_l, **f32)
     mu = torch.zeros(1, **f32)
     xa, la, ma = x, lam_l, mu
     inv = 1.0 / block_iters
     graph = cs.is_cuda if graph is None else graph
-    run = block
+    run = block = _sharded_block(G_mv, G_rmv_local, hs_l, cs, as_row, bs, tau, sigma, block_iters)
+    if graph and seed is None:
+        raise ValueError("a graph-replayed solve takes its operands (seed=)")
+    if seed is not None:
+        family, factory, op_tensors = seed
+        run = SeededGraph(
+            family, factory, {"block_iters": int(block_iters)},
+            tuple(op_tensors) + (hs_l, cs, as_row, bs, tau, sigma), eager=block, graph=graph,
+        )
     it, res = 0, float("inf")
     while res > tol and it < max_blocks:
-        if graph and it == 1:
-            run = _replayed(block, (x, lam_l, mu))
+        _prepare(run, x, lam_l, mu)
         with guarded_launch(dev):
             x, lam_l, mu, xs, ls, ms = run(x, lam_l, mu)
             xa = (xa + xs * inv) * 0.5
@@ -146,6 +196,12 @@ def _sharded_pdhg(G_mv: Apply, G_rmv_local: Apply, hs_l, cs, as_row, bs, tol: fl
     if stats is not None:
         stats.update(blocks=it, iters=it * block_iters, graph=bool(graph))
     return x, lam_l, mu, res
+
+
+def _family(name: str, block_iters: int, max_blocks: int) -> str:
+    """The store family of a sharded core: its world size rides the name,
+    so a graph captured on one world never serves another."""
+    return f"parallel.{name}[{dist.get_world_size()},{int(block_iters)},{int(max_blocks)}]"
 
 
 def _ruiz(absrow_max: Callable, abscol_max_local: Callable, a_row, m_l: int, nv: int, dev):
@@ -182,6 +238,8 @@ def sharded_dense_core(G_l, h_l, c, a_row, b, tol: float, block_iters: int, max_
     x, lam_l, mu, res = _sharded_pdhg(
         lambda x: Gs @ x, lambda y: Gs_t @ y, h_l * d_r, c * d_c, a_row * d_c, b, tol,
         block_iters, max_blocks, stats, graph,
+        seed=(_family("sharded", block_iters, max_blocks), "parallel.sharded_block_dense",
+              (Gs, Gs_t)),
     )
     return x * d_c, lam_l * d_r, mu, res
 
@@ -195,7 +253,11 @@ def sharded_ell_core(idx_l, val_l, h_l, c, a_row, b, tol: float, block_iters: in
     summed in row order (``kernels/pdhg_megakernel.lp_operators``, no
     atomics, so a solve repeats bit for bit), the Ruiz column maxima a
     per-variable amax over the slots."""
-    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_to_device, lp_operators
+    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import (
+        csr_to_device,
+        lp_operator_tensors,
+        lp_operators_from,
+    )
     from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_row_absmax
 
     nv = c.shape[0]
@@ -210,10 +272,12 @@ def sharded_ell_core(idx_l, val_l, h_l, c, a_row, b, tol: float, block_iters: in
         a_row, idx_l.shape[0], nv, dev,
     )
     vals_s = (val_l * d_r[:, None] * d_c[idx64]).contiguous()
-    G_mv, G_rmv_local = lp_operators(idx_l, vals_s, csr)
+    ops = lp_operator_tensors(idx_l, vals_s, csr)
+    G_mv, G_rmv_local = lp_operators_from(*ops)
     x, lam_l, mu, res = _sharded_pdhg(
         G_mv, G_rmv_local, h_l * d_r, c * d_c, a_row * d_c, b, tol, block_iters, max_blocks,
         stats, graph,
+        seed=(_family("sharded_ell", block_iters, max_blocks), "parallel.sharded_block_ell", ops),
     )
     return x * d_c, lam_l * d_r, mu, res
 
@@ -279,7 +343,10 @@ def solve_dual_lp_pdhg_sharded(
             idx_r, val_r, _nnz = ell_pack_rows(G)
             (idx_l, val_l, h_l), (c_, a_, b_) = _place(mesh, (idx_r, val_r, h), (c, a_row, b))
             stats["route"] = "ell"
-            with dispatch_span("parallel.sharded_dual_lp_ell", cfg=cfg, rows=int(rows)) as ds:
+            with dispatch_span(
+                "parallel.sharded_dual_lp_ell", cfg=cfg, rows=int(rows) // ndev,
+                kp=int(idx_r.shape[1]),
+            ) as ds:
                 x, _lam, _mu, res = sharded_ell_core(
                     idx_l, val_l, h_l, c_, a_, b_, tol, block_iters, max_blocks, stats, graph
                 )
@@ -287,7 +354,9 @@ def solve_dual_lp_pdhg_sharded(
         else:
             (G_l, h_l), (c_, a_, b_) = _place(mesh, (G, h), (c, a_row, b))
             stats["route"] = "dense"
-            with dispatch_span("parallel.sharded_dual_lp", cfg=cfg, rows=int(rows)) as ds:
+            with dispatch_span(
+                "parallel.sharded_dual_lp", cfg=cfg, rows=int(rows) // ndev, nv=int(n + 1),
+            ) as ds:
                 x, _lam, _mu, res = sharded_dense_core(
                     G_l, h_l, c_, a_, b_, tol, block_iters, max_blocks, stats, graph
                 )

@@ -127,7 +127,10 @@ def sweep_legacy_allocations(
     stacked, _n_real = pad_and_stack(denses)
     if generator is None:
         generator = torch.Generator(device=stacked.A.device).manual_seed(int(seed))
-    with dispatch_span("sweep.alloc_core", instances=len(denses)) as ds:
+    with dispatch_span(
+        "sweep.alloc_core", instances=len(denses), chains=int(chains_per_instance),
+        n=int(stacked.shape[1]),
+    ) as ds:
         panels, ok = sweep_panels(stacked, int(chains_per_instance), generator)
         alloc, rate = allocation_from_panels(panels, ok, stacked.shape[1])
         ds.out = alloc

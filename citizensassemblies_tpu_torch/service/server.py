@@ -34,11 +34,13 @@ under ``utils/guards.shared_device``, so a legal sync of one request never
 meets another's launch window. Batchable LP fleets of different requests
 fuse through the batcher into shared engine calls.
 
-The JAX package's service also boots an ahead-of-time executable store and
-prewarms it per tenant; the port has no such store yet (ROADMAP queue A
-item 4), so it behaves as the JAX package's does when that store finds no
-cache: no ``aot`` key in the audit and no prewarm thread. The audit's
-``xla_compiles`` key counts the port's one-time work per shape instead
+Cold start: the service boots the graph store (``aot/``) under the
+tri-state ``Config.aot_cache`` at construction (its kernel libraries
+loaded, its recorded graphs captured), prewarms the ``batch_lp.`` families
+on each tenant's first admission off-thread (``Config.aot_prewarm``), sets
+the gauges ``aot_cache_hit``/``miss``/``stale`` and ``aot_prewarmed`` and
+stamps ``audit["aot"]`` whenever a store is installed. The audit's
+``xla_compiles`` key counts the port's one-time work per shape
 (``utils/guards.CompilationGuard``: graph captures and kernel builds).
 """
 
@@ -267,6 +269,19 @@ class SelectionService:
             from citizensassemblies_tpu_torch.obs.slo import SloLoadPolicy
 
             self.load_policy = SloLoadPolicy(self.slo, self.cfg)
+        # --- the graph store (aot/) -------------------------------------------
+        #: tri-state Config.aot_cache: None loads an artifact when one exists
+        #: (missing → None, each shape's first solve captures), True fails
+        #: HERE when the artifact is absent or mismatched, False never loads.
+        #: submit() prewarms it on each tenant's first admission; _finish()
+        #: stamps its counters on every audit.
+        self.aot_store = None
+        if getattr(self.cfg, "aot_cache", None) is not False:
+            from citizensassemblies_tpu_torch.aot import boot
+
+            self.aot_store = boot(self.cfg, device=self.device)
+        self._prewarmed_tenants: set = set()
+        self._prewarm_threads: List[threading.Thread] = []
 
     # --- public API ---------------------------------------------------------
 
@@ -304,6 +319,7 @@ class SelectionService:
         with self._lock:
             self._channels[rid] = channel
         self._ensure_snapshot_loop()
+        self._maybe_prewarm(request.tenant, cfg)
         # the submission timestamp rides into the worker so the sojourn
         # decomposition can attribute queue wait (worker pickup − submit)
         fut = self._pool.submit(
@@ -316,6 +332,34 @@ class SelectionService:
     def run(self, request: SelectionRequest, timeout: Optional[float] = None):
         """Convenience: submit and block for the result."""
         return self.submit(request).result(timeout=timeout)
+
+    def _maybe_prewarm(self, tenant: str, cfg: Config) -> None:
+        """Prewarm on a tenant's FIRST admission: capture the store's
+        recorded ``batch_lp.`` graphs off-thread, so the buckets the
+        tenant's solves dispatch are captured before its request leaves the
+        queue (entries boot already captured are skipped). Tri-state
+        ``Config.aot_prewarm``: None and True warm whenever a store is
+        installed, False never. The thread runs under
+        ``utils/guards.shared_device`` like a worker; ``ExecStore.prewarm``
+        counts a failed capture stale and goes on."""
+        store = self.aot_store
+        if store is None or getattr(cfg, "aot_prewarm", None) is False:
+            return
+        with self._lock:
+            if tenant in self._prewarmed_tenants:
+                return
+            self._prewarmed_tenants.add(tenant)
+
+        def warm():
+            from citizensassemblies_tpu_torch.utils.guards import shared_device
+
+            with shared_device(self.device):
+                store.prewarm(families=("batch_lp.",), device=self.device)
+
+        thread = threading.Thread(target=warm, name=f"graph-store-prewarm-{tenant}", daemon=True)
+        with self._lock:
+            self._prewarm_threads.append(thread)
+        thread.start()
 
     def _shed(self, request: SelectionRequest) -> ResultChannel:
         """Typed load-shed rejection: the channel terminates immediately
@@ -420,6 +464,22 @@ class SelectionService:
                 help="LRU evictions attributed per owner",
                 labelnames=("owner",),
             ).labels(owner=owner).set(n)
+        # graph-store counters (cumulative process gauges): how much of the
+        # service's dispatch rides graphs captured before it was needed
+        if self.aot_store is not None:
+            aot = self.aot_store.stamp()
+            m.gauge(
+                "aot_cache_hit", help="graph replays served by a stored capture",
+            ).set(aot["hits"])
+            m.gauge(
+                "aot_cache_miss", help="graph signatures the store did not hold (captured)",
+            ).set(aot["misses"])
+            m.gauge(
+                "aot_cache_stale", help="store entries invalidated at load or prewarm",
+            ).set(aot["stale"])
+            m.gauge(
+                "aot_prewarmed", help="graphs captured by prewarming",
+            ).set(aot["prewarmed"])
         # load-policy state (cumulative process gauges)
         if self.load_policy is not None:
             ps = self.load_policy.stamp()
@@ -458,6 +518,12 @@ class SelectionService:
         dump ``bench.py --serve`` writes next to its row."""
         self._refresh_gauges()
         return self.metrics.render_prometheus()
+
+    def tracers(self) -> List[Any]:
+        """The retained per-request tracers (obs_trace=True requests), the
+        input of ``obs/roofline.roofline_join``."""
+        with self._lock:
+            return list(self._traces)
 
     def export_traces(self, path: Optional[str] = None) -> Dict[str, Any]:
         """Merge the retained per-request tracers (obs_trace=True requests)
@@ -507,6 +573,10 @@ class SelectionService:
             )
         if self._snap_thread is not None:
             self._snap_thread.join(timeout=5.0)
+        with self._lock:
+            warmers = list(self._prewarm_threads)
+        for thread in warmers:
+            thread.join(timeout=60.0)
 
     def __enter__(self) -> "SelectionService":
         return self
@@ -1138,6 +1208,9 @@ class SelectionService:
                 "batch_window_s": round(min(batch_window, solve), 4),
                 "audit_s": round(max(now - t_x1, 0.0), 4),
             }
+        # the graph store's serving counters
+        if self.aot_store is not None:
+            audit["aot"] = self.aot_store.stamp()
         # the memory ledger: the request's device-memory summary
         if ledger is not None:
             ledger.snapshot("request_end")

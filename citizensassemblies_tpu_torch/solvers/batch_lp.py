@@ -387,11 +387,12 @@ def solve_lp_batch(
         bkey = f"{m1}x{m2}x{nv}x{len(idxs)}"
         with dispatch_span(
             "batch_lp.vmapped_core", cfg=cfg, log=log, bucket=bkey, lanes=len(own),
-        ), CompilationGuard(name=f"lp_batch_{bkey}") as guard:
-            _solve_lanes(
+            check_every=kw["check_every"],
+        ) as ds, CompilationGuard(name=f"lp_batch_{bkey}") as guard:
+            ds.note(iters=_solve_lanes(
                 problems, idxs, lanes, own, dev, base_tol, cfg, kw, owner_of, out, slots,
                 warm_key,
-            )
+            ))
         with _STATS_LOCK:
             stats = _BUCKET_STATS.setdefault(bkey, {"dispatches": 0, "solves": 0, "compiles": 0})
             stats["dispatches"] += 1
@@ -417,7 +418,8 @@ def _solve_lanes(problems, idxs, lanes, own, dev, base_tol, cfg, kw, owner_of, o
                  warm_key):
     """Solve a bucket's own lanes one by one (the dense chained PDHG), into
     ``out`` and ``slots``; a quarantined lane is re-solved on the host and
-    counted on its owner's log (``owner_of(i) -> (log, injector)``)."""
+    counted on its owner's log (``owner_of(i) -> (log, injector)``).
+    Returns the iterations each solved lane took."""
     from citizensassemblies_tpu_torch.solvers.lp_pdhg import (
         FLAG_POISONED,
         LPSolution,
@@ -426,6 +428,10 @@ def _solve_lanes(problems, idxs, lanes, own, dev, base_tol, cfg, kw, owner_of, o
     )
 
     t32 = dict(dtype=torch.float32, device=dev)
+    # the JAX package's family of the batched core: the bucket shape rides
+    # the graph store's signature
+    family = f"batch_lp.vmapped[{kw['max_iters']},{kw['check_every']},{int(kw['sentinel'])}]"
+    iters = []
     for i, (c, G, h, A, b, x0, lam0, mu0) in zip(idxs, lanes):
         if i not in own:
             continue
@@ -437,7 +443,8 @@ def _solve_lanes(problems, idxs, lanes, own, dev, base_tol, cfg, kw, owner_of, o
             operand_tensor(A, dev), *(torch.as_tensor(a, **t32) for a in (b, x0, lam0, mu0)),
         )
         with no_implicit_transfers(cfg):
-            x, lam, mu, it, res, flags = _pdhg_body(*operands, tol_i, **kw)
+            x, lam, mu, it, res, flags = _pdhg_body(*operands, tol_i, family=family, **kw)
+        iters.append(int(it))
         poisoned = bool(flags & FLAG_POISONED)
         log = owner_of(i)[0]
         if poisoned:
@@ -464,6 +471,7 @@ def _solve_lanes(problems, idxs, lanes, own, dev, base_tol, cfg, kw, owner_of, o
         )
         if warm_key is not None and not poisoned:
             slots[i] = (xi, li, mi, int(inst.tail_vars))
+    return iters
 
 
 def _own_lanes(lanes: int, mesh, cfg: Config, log) -> List[int]:
@@ -548,6 +556,7 @@ def solve_polish_screen_ell(
     )
     with dispatch_span(
         "batch_lp.polish_screen_ell", cfg=cfg, log=log, bucket=f"{T}x{Cp}x{B}", lanes=B,
+        kp=int(idx_p.shape[1]), nnz=int(np.count_nonzero(val_p)), check_every=kw["check_every"],
     ) as ds, no_implicit_transfers(cfg):
         if fused:
             core_out = mk.dispatch_two_sided(idx_p, val_p, *lanes, log=log, cfg=cfg, **kw)
@@ -555,9 +564,11 @@ def solve_polish_screen_ell(
             core_out = _pdhg_two_sided_body_ell(
                 torch.as_tensor(idx_p, dtype=torch.int32, device=dev),
                 torch.as_tensor(val_p, **t32), *lanes, csr, **kw,
+                family=f"batch_lp.polish_ell[{kw['max_iters']},{kw['check_every']},{int(sent)}]",
             )
         ds.out = core_out
     x, lam, mu, it, res, flags = _readback(*core_out)
+    ds.note(iters=[int(i) for i in it])
     _book(B, log)
     out = []
     for lane in range(B):

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from citizensassemblies_tpu_torch.data.registry import Registry, RegistryEdit
+from citizensassemblies_tpu_torch.aot.store import note_eager
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.solvers.compositions import (
     StageCert,
@@ -338,6 +339,8 @@ def screen_columns(
             upload(system.lo, dev, torch.float32), upload(system.hi, dev, torch.float32),
             upload(Y, dev), upload(mu, dev),
         )
+        # an eager family: recorded for the graph store, no one-time work
+        note_eager("delta.screen", operands, {"k": int(system.k)})
         with dispatch_span(
             "delta.screen", cfg=cfg, log=log, cols=int(C), stages=int(S_n),
         ) as ds:

@@ -51,6 +51,7 @@ from citizensassemblies_tpu_torch.utils import device as _device
 from citizensassemblies_tpu_torch.utils.config import Config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device, upload
 from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
+from citizensassemblies_tpu_torch.aot.store import note_eager
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.utils.logging import RunLog
 
@@ -279,9 +280,12 @@ class DevicePricer:
         w_dev = upload(lane_w, self.device)
         f_dev = upload(lane_f, self.device)
         k = int(self.red.k)
+        # an eager family: recorded for the graph store, no one-time work
+        note_eager("device_pricing.dp" if self.exact else "device_pricing.greedy",
+                   (w_dev, f_dev), {"k": k})
         with dispatch_span(
             "device_pricing.exact_dp" if self.exact else "device_pricing.greedy_lanes",
-            cfg=self.cfg, log=self.log, lanes=int(lane_w.shape[0]),
+            cfg=self.cfg, log=self.log, lanes=int(lane_w.shape[0]), types=int(lane_w.shape[1]),
         ) as ds:
             with no_implicit_transfers(self.cfg), guarded_launch(self.device):
                 if self.exact:

@@ -82,6 +82,7 @@ from citizensassemblies_tpu_torch.utils.config import default_config
 from citizensassemblies_tpu_torch.utils import device as _device
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device, upload
 from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
+from citizensassemblies_tpu_torch.aot.store import note_eager
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.utils.logging import RunLog
 
@@ -258,6 +259,8 @@ def _move_screen_dispatch(
         [up(feat_of[ti, ci]) for ci in leftover], [up(feat_of[tj, ci]) for ci in leftover],
         st["lf_donor"],
     )
+    # an eager family: recorded for the graph store, no one-time work
+    note_eager("face_decompose.move_screen", operands[:13], {"cap": int(per_round_cap)})
     with dispatch_span("face_decompose.move_screen", pairs=int(len(ti))) as ds:
         with guarded_launch(device):
             ok = _screen_feasible(*operands)
@@ -507,6 +510,8 @@ class _FusedScreen:
             st["lo_f"], st["hi_f"], self._m_t, self._mask, self._cand_di, self._cand_dj,
             st["lf_feat"], st["lf_donor"], self.cap, self.pool_cap, self.face_pairs,
         )
+        note_eager("face_decompose.fused_screen", operands[:15],
+                   {"cap": self.cap, "pool_cap": self.pool_cap, "face_pairs": self.face_pairs})
         with dispatch_span("face_decompose.fused_screen", cfg=self.cfg, rows=int(len(comps))) as ds:
             with no_implicit_transfers(self.cfg), guarded_launch(dev):
                 idx, _total, ti, tj = fused_screen_core(*operands)

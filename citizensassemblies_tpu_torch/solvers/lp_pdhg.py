@@ -38,17 +38,18 @@ to quarantine.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from citizensassemblies_tpu_torch.aot.store import GraphEntry, SeededGraph, register_block
 from citizensassemblies_tpu_torch.robust import inject
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
+from citizensassemblies_tpu_torch.obs.trace import DeviceValue
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
-from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers, note_compile
+from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
 from citizensassemblies_tpu_torch.utils.precision import demote_operator, iterate_dtype, operand_tensor
 
 
@@ -89,10 +90,62 @@ def sentinels_enabled(cfg: Optional[Config]) -> bool:
 Apply = Callable[..., Tuple[torch.Tensor, ...]]
 
 
+def _two_sided_block(K_apply: Apply, KT_apply: Apply, cs_eps, hs_lo, hs_up, bs, check_every: int):
+    """One block of the two-sided master: ``check_every`` PDHG iterations
+    from ``(q, e, lo, up, m)`` at steps ``(tau, sigma)``, returning the last
+    iterate and the block's sums."""
+
+    def block(q, e, lo, up, m, tau, sigma):
+        ps = torch.zeros_like(q)
+        es = torch.zeros_like(e)
+        lls = torch.zeros_like(lo)
+        lus = torch.zeros_like(up)
+        ms = torch.zeros_like(m)
+        for _ in range(check_every):
+            g_p, g_e = KT_apply(lo, up, m)
+            q_new = torch.clamp_min(q - tau[:, None] * g_p, 0.0)
+            e_new = torch.clamp_min(e - tau * (g_e + cs_eps), 0.0)
+            qb = 2.0 * q_new - q
+            eb = 2.0 * e_new - e
+            r_lo, r_up, r_eq = K_apply(qb, eb)
+            lo = torch.clamp_min(lo + sigma[:, None] * (r_lo - hs_lo), 0.0)
+            up = torch.clamp_min(up + sigma[:, None] * (r_up - hs_up), 0.0)
+            m = m + sigma * (r_eq - bs)
+            q, e = q_new, e_new
+            ps, es, lls, lus, ms = ps + q, es + e, lls + lo, lus + up, ms + m
+        return q, e, lo, up, m, ps, es, lls, lus, ms
+
+    return block
+
+
+@register_block("lp_pdhg.two_sided_block")
+def _two_sided_block_factory(check_every: int, sentinel: bool = False):
+    """The two-sided block over the packed operator's tensors
+    (``kernels/pdhg_megakernel.ell_operator_tensors``) and the scaled
+    ``(cs_eps, hs_lo, hs_up, bs)``: the graph store's block factory."""
+
+    def make(idx, vals_s, vals_t, colT, offsets, e_col, a_row, cs_eps, hs_lo, hs_up, bs):
+        from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+        K_apply, KT_apply = mk.ell_operators_from(idx, vals_s, vals_t, colT, offsets, e_col, a_row)
+        return _two_sided_block(K_apply, KT_apply, cs_eps, hs_lo, hs_up, bs, int(check_every))
+
+    return make
+
+
+def _prepare(run, *args) -> None:
+    """Let a store-backed runner acquire its graph before the caller opens
+    the launch window (``aot/store.SeededGraph.prepare``)."""
+    prepare = getattr(run, "prepare", None)
+    if prepare is not None:
+        prepare(*args)
+
+
 def _two_sided_iterate(
     K_apply: Apply, KT_apply: Apply, cs_eps, hs_lo, hs_up, bs,
     p, eps, l_lo, l_up, mu, norm, scale, tol,
     max_iters: int, check_every: int, sentinel: bool = False, graph: Optional[bool] = None,
+    seed=None,
 ):
     """The restart-to-average PDHG block loop of the two-sided master,
     batched over lanes (leading axis B on every vector, ``[B]`` scalars),
@@ -103,10 +156,12 @@ def _two_sided_iterate(
     sentinel) it is not poisoned; a lane whose mask is clear keeps its state
     unchanged. The loop stops when no lane is active, which reads the masks
     on the host once per block. With ``graph`` (default: on CUDA tensors)
-    a solve that reaches its second block captures the block's
-    ``check_every`` iterations into a CUDA graph and replays it from then
-    on, as :func:`_lp_iterate` does. Returns the scaled ``(p, eps, l_lo,
-    l_up, mu, it, res, flags)``.
+    a solve that reaches its second block replays the block's
+    ``check_every`` iterations as a CUDA graph from the graph store
+    (``aot/store.py``), as :func:`_lp_iterate` does: ``seed`` is ``(family,
+    operands)``, the store family and the operator's tensors the block
+    reads (:func:`_two_sided_block_factory`). Returns the scaled ``(p, eps,
+    l_lo, l_up, mu, it, res, flags)``.
     """
     B = p.shape[0]
     dev = p.device
@@ -142,28 +197,16 @@ def _two_sided_iterate(
     def sel(mask, new, old):
         return torch.where(mask.reshape((B,) + (1,) * (new.dim() - 1)), new, old)
 
-    def block(q, e, lo, up, m, tau, sigma):
-        ps = torch.zeros_like(q)
-        es = torch.zeros_like(e)
-        lls = torch.zeros_like(lo)
-        lus = torch.zeros_like(up)
-        ms = torch.zeros_like(m)
-        for _ in range(check_every):
-            g_p, g_e = KT_apply(lo, up, m)
-            q_new = torch.clamp_min(q - tau[:, None] * g_p, 0.0)
-            e_new = torch.clamp_min(e - tau * (g_e + cs_eps), 0.0)
-            qb = 2.0 * q_new - q
-            eb = 2.0 * e_new - e
-            r_lo, r_up, r_eq = K_apply(qb, eb)
-            lo = torch.clamp_min(lo + sigma[:, None] * (r_lo - hs_lo), 0.0)
-            up = torch.clamp_min(up + sigma[:, None] * (r_up - hs_up), 0.0)
-            m = m + sigma * (r_eq - bs)
-            q, e = q_new, e_new
-            ps, es, lls, lus, ms = ps + q, es + e, lls + lo, lus + up, ms + m
-        return q, e, lo, up, m, ps, es, lls, lus, ms
-
-    run = block
-    blocks = 0
+    run = block = _two_sided_block(K_apply, KT_apply, cs_eps, hs_lo, hs_up, bs, check_every)
+    if graph and seed is None:
+        raise ValueError("a graph-replayed solve takes its operands (seed=)")
+    if seed is not None:
+        family, operands = seed
+        run = SeededGraph(
+            family, "lp_pdhg.two_sided_block",
+            {"check_every": int(check_every), "sentinel": bool(sentinel)},
+            tuple(operands) + (cs_eps, hs_lo, hs_up, bs), eager=block, graph=graph,
+        )
     while True:
         active = (res > tol) & (it < max_iters) & ~pois
         if not bool(active.any()):
@@ -171,9 +214,7 @@ def _two_sided_iterate(
         tau = 0.9 * omega / norm
         sigma = 0.9 / (omega * norm)
         p_in, e_in, ll_in, lu_in, mu_in = p, eps, l_lo, l_up, mu
-        if graph and blocks == 1:
-            run = _replayed(block, (p, eps, l_lo, l_up, mu, tau, sigma))
-        blocks += 1
+        _prepare(run, p, eps, l_lo, l_up, mu, tau, sigma)
         with guarded_launch(dev):
             q, e, lo, up, m, ps, es, lls, lus, ms = run(p, eps, l_lo, l_up, mu, tau, sigma)
         pa = (p_av + ps * inv) * 0.5
@@ -299,14 +340,14 @@ def unscale(pre: _TwoSidedScaled, p, eps, l_lo, l_up, mu):
 
 
 def _solve_scaled(pre, K_apply, KT_apply, x0, lam0, mu0, tol, max_iters, check_every, sentinel,
-                  graph: Optional[bool] = None):
+                  graph: Optional[bool] = None, seed=None):
     B, C = pre.d_c.shape
     norm = power_norm(K_apply, KT_apply, B, C, pre.d_c.device)
     p, eps, l_lo, l_up, mu = warm_scaled(pre, x0, lam0, mu0)
     p, eps, l_lo, l_up, mu, it, res, flags = _two_sided_iterate(
         K_apply, KT_apply, pre.cs_eps, pre.hs_lo, pre.hs_up, pre.bs,
         p, eps, l_lo, l_up, mu, norm, kkt_scale(pre), tol,
-        max_iters, check_every, sentinel=sentinel, graph=graph,
+        max_iters, check_every, sentinel=sentinel, graph=graph, seed=seed,
     )
     x_out, lam_out, mu_out = unscale(pre, p, eps, l_lo, l_up, mu)
     return x_out, lam_out, mu_out, it, res, flags
@@ -315,6 +356,7 @@ def _solve_scaled(pre, K_apply, KT_apply, x0, lam0, mu0, tol, max_iters, check_e
 def _pdhg_two_sided_body_ell(
     idx, val, v, colmask, x0, lam0, mu0, tol, csr,
     max_iters: int, check_every: int, sentinel: bool = False, graph: Optional[bool] = None,
+    family: str = "lp_pdhg.two_sided_core_ell",
 ):
     """The chained ELL route: the two-sided master over the packed columns
     ``idx``/``val`` ``[C, k_pad]`` (minor axis = the T types; ``csr`` their
@@ -323,13 +365,16 @@ def _pdhg_two_sided_body_ell(
     Same prelude as the fused route
     (``kernels/pdhg_megakernel.two_sided_prelude``), then
     :func:`_two_sided_iterate` with the packed matvecs, its blocks replayed
-    as a CUDA graph with ``graph`` (default: on CUDA tensors)."""
+    as a CUDA graph of the store's ``family`` with ``graph`` (default: on
+    CUDA tensors)."""
     from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
 
     pre, vals_s = mk.two_sided_prelude(idx, val, v, colmask)
-    K_apply, KT_apply = mk.ell_operators(idx, vals_s, pre, csr)
+    ops = mk.ell_operator_tensors(idx, vals_s, pre, csr)
+    K_apply, KT_apply = mk.ell_operators_from(*ops)
     return _solve_scaled(
-        pre, K_apply, KT_apply, x0, lam0, mu0, tol, max_iters, check_every, sentinel, graph=graph
+        pre, K_apply, KT_apply, x0, lam0, mu0, tol, max_iters, check_every, sentinel, graph=graph,
+        seed=(family, ops),
     )
 
 
@@ -483,6 +528,7 @@ def solve_two_sided_master_ell_async(
     )
     with dispatch_span(
         "lp_pdhg.two_sided_core_ell", cfg=cfg, log=log, T=T, cols=int(Cp),
+        kp=int(idx_p.shape[1]), nnz=int(np.count_nonzero(val_p)), lanes=1, check_every=ce,
     ) as ds, no_implicit_transfers(cfg):
         if fused:
             # fused route: one kernel launch for the whole solve
@@ -497,6 +543,7 @@ def solve_two_sided_master_ell_async(
                 max_iters=mi, check_every=ce, sentinel=sent,
             )
         ds.out = out
+        ds.note(iters=DeviceValue(out[3]))
     return _handle(*(o[0] for o in out), Cp=Cp, T=T, tol=tol)
 
 
@@ -522,93 +569,23 @@ def solve_two_sided_master_ell(ell, v, cfg=None, warm=None, tol=None, max_iters=
 # inequality blocks above the ELL fill cutoff.
 
 
-#: one stream per (thread, device) on which blocks are captured (a graph
-#: cannot be captured on the default stream), and whether it has run a
-#: block yet: the BLAS handle and workspace belong to a thread and a stream
-_CAPTURE_STREAMS: dict = {}
-
-#: one capture at a time in the process: captures are one-time work per
-#: shape, and a capture holds the caching allocator's capture pool
-_CAPTURE_LOCK = threading.Lock()
-
-
-def _replayed(block: Callable, args: Tuple[torch.Tensor, ...]) -> Callable:
-    """``block`` captured once into a CUDA graph over static copies of
-    ``args``; the returned function copies its arguments in, replays the
-    graph on the current stream and returns clones of the outputs, holding
-    the graph's own lock throughout, so two threads never share its static
-    buffers at once. The first capture of a thread on a device runs the
-    block once eagerly on the capture stream first, so the BLAS handle and
-    workspace of that stream exist before any capture. A capture takes the
-    process's capture lock and runs in ``thread_local`` capture mode, so
-    another thread's CUDA calls meanwhile neither break it nor raise; the
-    hand-written kernels' launches of the capture are booked to it alone
-    (``kernels/cuda_lib.capturing_launches``) and counted at each replay,
-    where they run. Each capture counts as one-time work
-    (``utils/guards.CompilationGuard``)."""
-    from citizensassemblies_tpu_torch.kernels import cuda_lib
-
-    dev = args[0].device
-    static = tuple(a.clone() for a in args)
-    key = (threading.get_ident(), dev)
-    graph = torch.cuda.CUDAGraph()
-    with _CAPTURE_LOCK:
-        stream, warmed = _CAPTURE_STREAMS.get(key, (None, False))
-        if stream is None:
-            stream = torch.cuda.Stream(device=dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            if not warmed:
-                block(*static)
-            with cuda_lib.capturing_launches() as captured:
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    outs = block(*static)
-                finally:
-                    # a failed block still ends the capture, so the stream
-                    # and the allocator leave capture mode
-                    graph.capture_end()
-        _CAPTURE_STREAMS[key] = (stream, True)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-    note_compile("cuda_graph_captures")
-    return _replay_closure(static, outs, graph.replay, captured)
-
-
 def _replay_closure(static, outs, replay: Callable, captured) -> Callable:
-    """The function that runs a captured graph: copy the arguments into its
-    ``static`` inputs, ``replay()``, count the ``captured`` launches and
-    return clones of its ``outs``, all under the graph's own lock, so two
-    threads never share its static buffers at once."""
-    from citizensassemblies_tpu_torch.kernels import cuda_lib
-
-    lock = threading.Lock()
+    """The function that runs a captured graph over argument buffers
+    ``static`` (no operands): copy the arguments in, ``replay()``, count the
+    ``captured`` launches and return clones of its ``outs``, under the
+    graph's own lock (``aot/store.GraphEntry``)."""
+    entry = GraphEntry((), static, outs, replay, captured)
 
     def run(*a):
-        with lock:
-            for s, v in zip(static, a):
-                s.copy_(v)
-            replay()
-            cuda_lib.count_replay(captured)
-            return tuple(o.clone() for o in outs)
+        return entry.run((), a)
 
     return run
 
 
-def _lp_iterate(
-    G_mv: Apply, G_rmv: Apply, As, cs, hs, bs, x, lam, mu, norm, scale, tol,
-    max_iters: int, check_every: int, sentinel: bool = False, graph: bool = False,
-):
-    """The restart-to-average PDHG block loop of the generic LP in scaled
-    coordinates, generic over ``G_mv(x) -> Gx`` and ``G_rmv(λ) -> Gᵀλ``
-    (``As`` is the dense scaled equality block). Runs blocks while ``res >
-    tol`` and ``it < max_iters`` and (with the sentinel) the solve is not
-    poisoned; reads the residual on the host once per block. With ``graph``
-    (CUDA tensors, matvecs of plain torch ops only) a solve that reaches its
-    second block captures the block's ``check_every`` iterations into a CUDA
-    graph and replays it from then on: the same kernels in the same order,
-    without a host launch per operation. Returns the scaled ``(x, lam, mu,
-    it, res, flags)`` with ``it``/``flags`` ints and ``res`` a float."""
-    tol32 = float(np.float32(tol))
+def _lp_block(G_mv: Apply, G_rmv: Apply, As, cs, hs, bs, check_every: int):
+    """One block of the generic LP: ``check_every`` PDHG iterations from
+    ``(q, y, m)`` at steps ``(tau, sigma)``, returning the last iterate and
+    the block's sums."""
 
     def block(q, y, m, tau, sigma):
         xs, ls, ms = torch.zeros_like(q), torch.zeros_like(y), torch.zeros_like(m)
@@ -621,6 +598,51 @@ def _lp_iterate(
             q = q_new
             xs, ls, ms = xs + q, ls + y, ms + m
         return q, y, m, xs, ls, ms
+
+    return block
+
+
+@register_block("lp_pdhg.lp_block_dense")
+def _lp_block_dense_factory(check_every: int, m1: int, sentinel: bool = False):
+    """The dense LP block over the scaled stacked ``Ks = [G; A]`` (rows
+    ``:m1`` the inequality block) and the scaled ``(cs, hs, bs)``: the graph
+    store's block factory."""
+
+    def make(Ks, cs, hs, bs):
+        Gs, As = Ks[: int(m1)], Ks[int(m1):]
+        return _lp_block(lambda q: Gs @ q, lambda y: Gs.t() @ y, As, cs, hs, bs, int(check_every))
+
+    return make
+
+
+def _lp_iterate(
+    G_mv: Apply, G_rmv: Apply, As, cs, hs, bs, x, lam, mu, norm, scale, tol,
+    max_iters: int, check_every: int, sentinel: bool = False, graph: bool = False, seed=None,
+):
+    """The restart-to-average PDHG block loop of the generic LP in scaled
+    coordinates, generic over ``G_mv(x) -> Gx`` and ``G_rmv(λ) -> Gᵀλ``
+    (``As`` is the dense scaled equality block). Runs blocks while ``res >
+    tol`` and ``it < max_iters`` and (with the sentinel) the solve is not
+    poisoned; reads the residual on the host once per block. With ``graph``
+    (CUDA tensors, matvecs of plain torch ops only) a solve that reaches its
+    second block replays the block's ``check_every`` iterations as a CUDA
+    graph from the graph store (``aot/store.py``): the same kernels in the
+    same order, without a host launch per operation. ``seed`` is
+    ``(family, (Ks, m1))``, the store family and the scaled stacked matrix
+    the dense block reads (:func:`_lp_block_dense_factory`). Returns the
+    scaled ``(x, lam, mu, it, res, flags)`` with ``it``/``flags`` ints and
+    ``res`` a float."""
+    tol32 = float(np.float32(tol))
+    run = block = _lp_block(G_mv, G_rmv, As, cs, hs, bs, check_every)
+    if graph and seed is None:
+        raise ValueError("a graph-replayed solve takes its operands (seed=)")
+    if seed is not None:
+        family, (Ks, m1) = seed
+        run = SeededGraph(
+            family, "lp_pdhg.lp_block_dense",
+            {"check_every": int(check_every), "m1": int(m1), "sentinel": bool(sentinel)},
+            (Ks, cs, hs, bs), eager=block, graph=graph,
+        )
 
     def kkt(x, lam, mu):
         pri_ineq = torch.clamp_min(G_mv(x) - hs, 0.0)
@@ -641,15 +663,11 @@ def _lp_iterate(
     best = float("inf")
     since = 0
     inv = 1.0 / check_every
-    run = block
-    blocks = 0
     while res > tol32 and it < max_iters and not pois:
         tau = 0.9 * omega / norm
         sigma = 0.9 / (omega * norm)
         x_in, lam_in, mu_in = x, lam, mu
-        if graph and blocks == 1:
-            run = _replayed(block, (x, lam, mu, tau, sigma))
-        blocks += 1
+        _prepare(run, x, lam, mu, tau, sigma)
         with guarded_launch(x.device):
             q, y, m, xs, ls, ms = run(x, lam, mu, tau, sigma)
         xa = (x_av + xs * inv) * 0.5
@@ -712,13 +730,14 @@ def _pdhg_body_ell(
 def _pdhg_body(
     c, G, h, A, b, x0, lam0, mu0, tol,
     max_iters: int, check_every: int, sentinel: bool = False, graph: Optional[bool] = None,
+    family: str = "lp_pdhg.pdhg_core",
 ):
     """The dense chained core of the generic LP (``G`` a dense ``[m1, nv]``
     tensor; ``G`` and ``A`` float32 or demoted bf16): Ruiz on the stacked
     ``[G; A]``, the power-iteration ‖K‖ and
     :func:`_lp_iterate` with dense matvecs, its blocks replayed as a CUDA
-    graph when ``graph`` (default: on CUDA tensors). Returns the unscaled
-    ``(x, lam, mu, it, res, flags)``."""
+    graph of the store's ``family`` when ``graph`` (default: on CUDA
+    tensors). Returns the unscaled ``(x, lam, mu, it, res, flags)``."""
     m1, nv = G.shape
     # a demoted bf16 G or A is widened exactly by the products with the
     # float32 scalings below: Ks and every matvec are float32
@@ -742,7 +761,7 @@ def _pdhg_body(
         lambda q: Gs @ q, lambda y: Gs.t() @ y, pre.As, pre.cs, pre.hs, pre.bs,
         *pre.warm(x0, lam0, mu0), norm, pre.kkt_scale(), tol,
         max_iters, check_every, sentinel=sentinel,
-        graph=K.is_cuda if graph is None else graph,
+        graph=K.is_cuda if graph is None else graph, seed=(family, (Ks, m1)),
     )
     return pre.unscale(*out[:3]) + out[3:]
 
@@ -870,12 +889,14 @@ def solve_lp(c, G, h, A, b, cfg: Optional[Config] = None, warm=None, tol: Option
     G_t, A_t = operand_tensor(G_d, dev), operand_tensor(A_d, dev)
     with dispatch_span(
         "lp_pdhg.pdhg_core", cfg=cfg, log=log, nv=int(nv), m1=int(m1), m2=int(m2),
+        check_every=int(cfg.pdhg_check_every),
     ) as ds, no_implicit_transfers(cfg):
         ds.out = out = _pdhg_body(
             c_, G_t, h_, A_t, b_,
             x0, lam0, mu0, tol, max_iters=int(cfg.pdhg_max_iters),
             check_every=int(cfg.pdhg_check_every), sentinel=sentinels_enabled(cfg),
         )
+        ds.note(iters=int(out[3]))
     return _finish_lp(c, lambda: G, h, A, b, out, tol, log)
 
 
@@ -900,7 +921,10 @@ def solve_lp_ell(c, ell, h, A, b, cfg: Optional[Config] = None, warm=None, tol: 
     )
     kw = dict(max_iters=int(cfg.pdhg_max_iters), check_every=int(cfg.pdhg_check_every),
               sentinel=sentinels_enabled(cfg))
-    span = dispatch_span("lp_pdhg.pdhg_core_ell", cfg=cfg, log=log, nv=nv, m1=m1, m2=int(m2))
+    span = dispatch_span(
+        "lp_pdhg.pdhg_core_ell", cfg=cfg, log=log, nv=nv, m1=m1, m2=int(m2),
+        kp=int(ell.k_pad), nnz=int(np.count_nonzero(ell.val)), check_every=kw["check_every"],
+    )
     if mk.lp_megakernel_mode(cfg, nv, m1, m2, dev, log=log) == "fused":
         # fused route: one kernel launch for the whole solve
         with span as ds, no_implicit_transfers(cfg):
@@ -918,6 +942,7 @@ def solve_lp_ell(c, ell, h, A, b, cfg: Optional[Config] = None, warm=None, tol: 
             ds.out = out = _pdhg_body_ell(
                 c_, idx, val_t, h_, A_t, b_, x0_, lam0_, mu0_, tol, csr, **kw
             )
+    ds.note(iters=int(out[3]))
     return _finish_lp(c, lambda: ell_unpack_rows(ell.idx, ell.val, nv), h, A, b, out, tol, log)
 
 

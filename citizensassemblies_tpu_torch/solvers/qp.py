@@ -59,6 +59,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from citizensassemblies_tpu_torch.aot.store import SeededGraph, register_block
 from citizensassemblies_tpu_torch.robust import inject
 from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_gather_mv, ell_scatter_mv
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
@@ -123,18 +124,25 @@ def project_simplex(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(v - theta, 0.0)
 
 
-def _ell_ops(idx, val, n: int, csr: Optional[Csr]):
-    """``(P·w, Pᵀp)`` over the packed rows: the gather, and the transpose
-    on CUDA tensors as a segment sum per agent in panel order over ``csr``,
-    the pack's agent-major CSR transpose
-    (``kernels/pdhg_megakernel.csr_to_device``, no atomics), on CPU tensors
-    by ``index_add_`` (``csr`` unused there)."""
-    if val.is_cuda:
-        from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_forward
+def _csr_tensors(val, csr: Optional[Csr]) -> Tuple[torch.Tensor, ...]:
+    """The tensors the CUDA transpose product reads
+    (``kernels/pdhg_megakernel.csr_forward_operands`` of one lane); none on
+    CPU tensors."""
+    if not val.is_cuda:
+        return ()
+    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_forward_operands
 
-        if csr is None:
-            raise ValueError("on CUDA the transpose product takes the agent-major CSR (csr=)")
-        forward = csr_forward(csr, val[None])
+    if csr is None:
+        raise ValueError("on CUDA the transpose product takes the agent-major CSR (csr=)")
+    return csr_forward_operands(csr, val[None])
+
+
+def _ell_ops_from(idx, val, n: int, csr_ops: Tuple[torch.Tensor, ...]):
+    """:func:`_ell_ops` over :func:`_csr_tensors`."""
+    if csr_ops:
+        from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_forward_from
+
+        forward = csr_forward_from(*csr_ops)
 
         def scatter(p):
             return forward(p[None])[0]
@@ -146,6 +154,15 @@ def _ell_ops(idx, val, n: int, csr: Optional[Csr]):
         return ell_gather_mv(idx, val, w)
 
     return gather, scatter
+
+
+def _ell_ops(idx, val, n: int, csr: Optional[Csr]):
+    """``(P·w, Pᵀp)`` over the packed rows: the gather, and the transpose
+    on CUDA tensors as a segment sum per agent in panel order over ``csr``,
+    the pack's agent-major CSR transpose
+    (``kernels/pdhg_megakernel.csr_to_device``, no atomics), on CPU tensors
+    by ``index_add_`` (``csr`` unused there)."""
+    return _ell_ops_from(idx, val, n, _csr_tensors(val, csr))
 
 
 def _ascent_step(p_of, alloc_of, t, eps, lr):
@@ -160,33 +177,93 @@ def _ascent_step(p_of, alloc_of, t, eps, lr):
     return step
 
 
-def _chunk_runner(step, chunk: int, lam, graph: bool):
-    """A function taking λ through ``chunk`` iterations of ``step``: op by
-    op, or with ``graph`` (CUDA tensors) captured once over ``lam``'s shape
-    into a CUDA graph and replayed (``lp_pdhg._replayed``), the same kernels
-    in the same order without a host launch for each, so the op-by-op
-    result bit for bit. Returns a 1-tuple."""
+def _chunk_block(step, chunk: int):
+    """λ through ``chunk`` iterations of ``step``; returns a 1-tuple."""
 
     def block(lam):
         for _ in range(chunk):
             lam = step(lam)
         return (lam,)
 
-    if not graph:
+    return block
+
+
+def _dense_ascent(P, t, eps, lr):
+    """``(p_of, step)`` of the two-sided dual ascent over a dense float32
+    ``P [C, n]``."""
+    n = P.shape[1]
+    PT = P.t()
+
+    def p_of(lam):
+        return project_simplex((P @ (lam[:n] - lam[n:])) / 2.0)
+
+    return p_of, _ascent_step(p_of, lambda p: PT @ p, t, eps, lr)
+
+
+def _ell_ascent(idx, val, csr_ops, t, eps, lr):
+    """``(p_of, step)`` of the two-sided dual ascent over the ELL pack
+    (``csr_ops``: :func:`_csr_tensors`)."""
+    n = t.shape[0]
+    gather, scatter = _ell_ops_from(idx, val, n, tuple(csr_ops))
+
+    def p_of(lam):
+        return project_simplex(gather(lam[:n] - lam[n:]) / 2.0)
+
+    return p_of, _ascent_step(p_of, scatter, t, eps, lr)
+
+
+@register_block("qp.ascent_dense")
+def _ascent_dense_factory(chunk: int):
+    """The graph store's block factory of a dense ascent chunk over ``(P, t, eps,
+    lr)``."""
+
+    def make(P, t, eps, lr):
+        return _chunk_block(_dense_ascent(P, t, eps, lr)[1], int(chunk))
+
+    return make
+
+
+@register_block("qp.ascent_ell")
+def _ascent_ell_factory(chunk: int):
+    """The graph store's block factory of an ELL ascent chunk over ``(idx, val,
+    *csr tensors, t, eps, lr)`` (no CSR tensors on the CPU)."""
+
+    def make(idx, val, *rest):
+        *csr_ops, t, eps, lr = rest
+        return _chunk_block(_ell_ascent(idx, val, csr_ops, t, eps, lr)[1], int(chunk))
+
+    return make
+
+
+def _chunk_runner(step, chunk: int, lam, graph: bool, seed=None):
+    """A function taking λ through ``chunk`` iterations of ``step``: op by
+    op, or with ``graph`` a replay of the graph store's CUDA graph of the
+    chunk (``aot/store.SeededGraph``; ``seed`` is ``(family, factory,
+    operands)``, the operands every tensor the chunk reads), the same kernels
+    in the same order without a host launch for each, so the op-by-op
+    result bit for bit. Returns a 1-tuple; a caller calls
+    ``lp_pdhg._prepare`` on it before each launch window."""
+    block = _chunk_block(step, chunk)
+    if seed is None:
+        if graph:
+            raise ValueError("a graph-replayed chunk takes its operands (seed=)")
         return block
-    from citizensassemblies_tpu_torch.solvers.lp_pdhg import _replayed
+    family, factory, operands = seed
+    return SeededGraph(family, factory, {"chunk": int(chunk)}, operands, eager=block,
+                       graph=graph, eager_calls=0)
 
-    return _replayed(block, (lam,))
 
-
-def _iterate(step, lam, iters: int, graph: bool):
+def _iterate(step, lam, iters: int, graph: bool, seed=None):
     """``iters`` iterations of ``step`` from ``lam`` with no convergence
     read: whole :data:`L2_CHUNK`-iteration chunks through
     :func:`_chunk_runner`, the rest op by op."""
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import _prepare
+
     chunks, rest = divmod(int(iters), L2_CHUNK)
     if chunks:
-        run = _chunk_runner(step, L2_CHUNK, lam, graph)
+        run = _chunk_runner(step, L2_CHUNK, lam, graph, seed)
         for _ in range(chunks):
+            _prepare(run, lam)
             with guarded_launch(lam.device):
                 (lam,) = run(lam)
     with guarded_launch(lam.device):
@@ -203,14 +280,9 @@ def _min_norm_dual_ascent(P, t, eps, lr, lam0, iters: int, graph: Optional[bool]
     the iterations in CUDA-graph chunks (:func:`_iterate`). A demoted bf16
     ``P`` is widened first. Returns ``(p, lam)``."""
     P = P.to(iterate_dtype(P.dtype))
-    n = P.shape[1]
-    PT = P.t()
-
-    def p_of(lam):
-        return project_simplex((P @ (lam[:n] - lam[n:])) / 2.0)
-
-    step = _ascent_step(p_of, lambda p: PT @ p, t, eps, lr)
-    lam = _iterate(step, lam0, iters, P.is_cuda if graph is None else graph)
+    p_of, step = _dense_ascent(P, t, eps, lr)
+    lam = _iterate(step, lam0, iters, P.is_cuda if graph is None else graph,
+                   seed=("qp.l2_dual_ascent", "qp.ascent_dense", (P, t, eps, lr)))
     return p_of(lam), lam
 
 
@@ -222,14 +294,10 @@ def _min_norm_dual_ascent_ell(idx, val, t, eps, lr, lam0, iters: int, csr: Optio
     ``csr`` is the pack's agent-major transpose, needed on CUDA. Same
     two-sided semantics, ``graph`` and return contract as the dense
     ascent."""
-    n = t.shape[0]
-    gather, scatter = _ell_ops(idx, val, n, csr)
-
-    def p_of(lam):
-        return project_simplex(gather(lam[:n] - lam[n:]) / 2.0)
-
-    step = _ascent_step(p_of, scatter, t, eps, lr)
-    lam = _iterate(step, lam0, iters, val.is_cuda if graph is None else graph)
+    csr_ops = _csr_tensors(val, csr)
+    p_of, step = _ell_ascent(idx, val, csr_ops, t, eps, lr)
+    lam = _iterate(step, lam0, iters, val.is_cuda if graph is None else graph,
+                   seed=("qp.l2_dual_ascent_ell", "qp.ascent_ell", (idx, val, *csr_ops, t, eps, lr)))
     return p_of(lam), lam
 
 
@@ -256,21 +324,25 @@ def _ell_power_norm(idx, val, n: int, iters: int = 40, csr: Optional[Csr] = None
 
 
 def _ascent_chunks(p_of, step, n: int, dev, chunk: int, max_chunks: int, ascent_tol,
-                   sentinel: bool, graph: bool = False):
+                   sentinel: bool, graph: bool = False, seed=None):
     """The fused cores' ascent from λ = 0: ``chunk`` iterations at a time
     until the spread iterate moves by at most ``ascent_tol`` over a chunk or
     ``max_chunks`` ran. The movement is read on the host once per chunk,
     nothing inside one. With the sentinel, a non-finite movement keeps the
     carry of the chunk before and stops flagged (bit 1). With ``graph``
     (CUDA tensors) each chunk is a replay of one captured CUDA graph
-    (:func:`_chunk_runner`). Returns ``(p, chunks, flags, replays)``."""
+    (:func:`_chunk_runner`, ``seed`` its store family, block factory and
+    operands). Returns ``(p, chunks, flags, replays)``."""
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import _prepare
+
     tol = float(np.float32(ascent_tol))
     replays = 0
     lam = torch.zeros(2 * n, dtype=torch.float32, device=dev)
     p = p_of(lam)
-    run = _chunk_runner(step, chunk, lam, graph)
+    run = _chunk_runner(step, chunk, lam, graph, seed)
     k, delta, flags = 0, float("inf"), 0
     while delta > tol and k < max_chunks:
+        _prepare(run, lam)
         with guarded_launch(dev):
             (lam_new,) = run(lam)
         replays += int(graph)
@@ -327,6 +399,7 @@ def _get_l2_fused_core(
     if core is not None:
         return core
     eps_iters, check_every, chunk, max_chunks, sentinel = key[:5]
+    family = "qp.l2_fused[" + ",".join(str(int(v)) for v in key[:5]) + "]"
 
     def fused(P, t, p_don, eps_margin, eps_tol, ascent_tol, log=None):
         from citizensassemblies_tpu_torch.solvers.lp_pdhg import _pdhg_body
@@ -349,21 +422,18 @@ def _get_l2_fused_core(
                 c, G, -t, A, torch.ones(1, **f32),
                 torch.zeros(C + 1, **f32), torch.zeros(n, **f32), torch.zeros(1, **f32),
                 float(eps_tol), max_iters=eps_iters, check_every=check_every, sentinel=sentinel,
-                graph=use_graph,
+                graph=use_graph, family=family + "/anchor",
             )
         # --- stage 2: ε-floor pick, donor vs anchor, on the device ----------
         p_floor, eps = _floor_pick(x[:C], lambda p: PT @ p, t, p_don, eps_margin)
         # --- stage 3: dual ascent, movement read once per chunk -------------
         sigma_sq = _power_norm(P) ** 2
         lr = 1.0 / torch.clamp_min(sigma_sq / 2.0, 1.0)
-
-        def p_of(lam):
-            return project_simplex((P @ (lam[:n] - lam[n:])) / 2.0)
-
-        step = _ascent_step(p_of, lambda p: PT @ p, t, eps, lr)
+        p_of, step = _dense_ascent(P, t, eps, lr)
         with log.timer("l2_ascent"):
             p, k, flags3, replays = _ascent_chunks(
                 p_of, step, n, dev, chunk, max_chunks, ascent_tol, sentinel, graph=use_graph,
+                seed=(family + "/ascent", "qp.ascent_dense", (P, t, eps, lr)),
             )
         log.gauge("l2_ascent_replays", replays)
         out = (p, p_floor, int(it_eps), k * chunk)
@@ -399,6 +469,7 @@ def _get_l2_fused_core_ell(
     if core is not None:
         return core
     eps_iters, check_every, chunk, max_chunks, sentinel = key[:5]
+    family = "qp.l2_fused_ell[" + ",".join(str(int(v)) for v in key[:5]) + "]"
 
     def fused(idx, val, t, p_don, eps_margin, eps_tol, ascent_tol, csr, log=None):
         from citizensassemblies_tpu_torch.solvers.lp_pdhg import _pdhg_two_sided_body_ell
@@ -416,23 +487,21 @@ def _get_l2_fused_core_ell(
                 torch.zeros((1, 2 * n), **f32), torch.zeros(1, **f32),
                 torch.full((1,), float(eps_tol), **f32), csr,
                 max_iters=eps_iters, check_every=check_every, sentinel=sentinel,
-                graph=use_graph,
+                graph=use_graph, family=family + "/anchor",
             )
             it_eps, flags1 = int(it[0]), int(flags[0])
-        gather, scatter = _ell_ops(idx, val, n, csr)
+        csr_ops = _csr_tensors(val, csr)
+        _gather, scatter = _ell_ops_from(idx, val, n, csr_ops)
         # --- stage 2: ε-floor pick, donor vs anchor, on the device ----------
         p_floor, eps = _floor_pick(x[0, :C], scatter, t, p_don, eps_margin)
         # --- stage 3: dual ascent, movement read once per chunk -------------
         sigma_sq = _ell_power_norm(idx, val, n, csr=csr) ** 2
         lr = 1.0 / torch.clamp_min(sigma_sq / 2.0, 1.0)
-
-        def p_of(lam):
-            return project_simplex(gather(lam[:n] - lam[n:]) / 2.0)
-
-        step = _ascent_step(p_of, scatter, t, eps, lr)
+        p_of, step = _ell_ascent(idx, val, csr_ops, t, eps, lr)
         with log.timer("l2_ascent"):
             p, k, flags3, replays = _ascent_chunks(
                 p_of, step, n, dev, chunk, max_chunks, ascent_tol, sentinel, graph=use_graph,
+                seed=(family + "/ascent", "qp.ascent_ell", (idx, val, *csr_ops, t, eps, lr)),
             )
         log.gauge("l2_ascent_replays", replays)
         out = (p, p_floor, it_eps, k * chunk)
@@ -574,6 +643,7 @@ def solve_final_primal_l2(
                     ), dev)
                     with dispatch_span(
                         "qp.l2_fused_core_ell", cfg=cfg, log=log, rows=int(idx_t.shape[0]),
+                        kp=int(idx_t.shape[1]), n=int(n),
                     ) as ds, no_implicit_transfers(cfg):
                         ds.out = out = core(
                             idx_t, val_t, tj, dj, margin, ANCHOR_TOL, ASCENT_TOL, csr, log=log
@@ -587,7 +657,7 @@ def solve_final_primal_l2(
                         device=dev,
                     ), dev)
                     with dispatch_span(
-                        "qp.l2_fused_core", cfg=cfg, log=log, rows=int(Pj.shape[0]),
+                        "qp.l2_fused_core", cfg=cfg, log=log, rows=int(Pj.shape[0]), n=int(n),
                     ) as ds, no_implicit_transfers(cfg):
                         ds.out = out = core(Pj, tj, dj, margin, ANCHOR_TOL, ASCENT_TOL, log=log)
                 fused_p = out[0].cpu().numpy().astype(np.float64)
@@ -647,7 +717,8 @@ def solve_final_primal_l2(
             lam0 = torch.zeros(2 * n, dtype=torch.float32, device=dev)
             span = dispatch_span(
                 "qp.l2_dual_ascent_ell" if ell is not None else "qp.l2_dual_ascent",
-                cfg=cfg, log=log, iters=int(iters),
+                cfg=cfg, log=log, iters=int(iters), rows=int(P.shape[0]), n=int(n),
+                **({"kp": int(ell.k_pad)} if ell is not None else {}),
             )
             with span as ds, no_implicit_transfers(cfg):
                 if ell is not None:

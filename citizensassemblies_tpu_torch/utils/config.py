@@ -295,6 +295,29 @@ class Config:
     #: (``tenant/objective:target`` overrides per tenant); empty disables
     #: the SLO engine.
     obs_slo_spec: str = ""
+    #: trend-gate tolerance (``obs/trend.py``): a row fails when its latest
+    #: value exceeds tol × the best earlier round.
+    obs_trend_tol: float = 1.75
+    #: machine-balance ridge (FLOPs per byte) of the roofline verdict
+    #: (``obs/roofline.py``): below it a core is bytes-bound, above it
+    #: compute-bound. The NVIDIA H100 80GB HBM3's float32 balance, 67e12
+    #: FLOP/s over 3.35e12 B/s (the JAX package's 10.0 is a CPU-class
+    #: balance, for its CI); ``interop.config_from_dict`` keeps this value.
+    obs_roofline_ridge: float = 20.0
+
+    # --- the CUDA-graph store (``aot/``) -----------------------------------------
+    #: tri-state: ``None`` loads the artifact when one exists, ``True``
+    #: requires it (a missing, unreadable or mismatched artifact raises at
+    #: boot), ``False`` installs no store and keeps every request of this
+    #: config store-blind (each solve captures its own graphs).
+    aot_cache: Optional[bool] = None
+    #: artifact path; "" resolves ``CITIZENS_AOT_CACHE``, then the per-user
+    #: default file.
+    aot_cache_path: str = ""
+    #: prewarm of the ``batch_lp.`` families on a tenant's first admission:
+    #: ``None`` whenever a store is installed, ``False`` never, ``True`` as
+    #: ``None`` (kept for the JAX package's symmetry).
+    aot_prewarm: Optional[bool] = None
 
     # --- backends -------------------------------------------------------------
     #: LP engine of the agent-space CG: "jax" solves the dual LPs by PDHG on

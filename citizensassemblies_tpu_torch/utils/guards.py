@@ -301,13 +301,27 @@ def shared_device(device=None):
 
 _COMPILE_TLS = threading.local()
 
+#: one-time work of the whole process per label, every thread's
+_ONE_TIME: Dict[str, int] = {}
+_ONE_TIME_LOCK = threading.Lock()
+
 
 def note_compile(label: str) -> None:
     """Count one piece of one-time work (a graph capture, a kernel library
-    build) against every :class:`CompilationGuard` open on this thread."""
+    build) against every :class:`CompilationGuard` open on this thread,
+    and in the process's tally (:func:`one_time_work`)."""
     for guard in getattr(_COMPILE_TLS, "guards", ()):
         guard.count += 1
         guard.by_name[label] = guard.by_name.get(label, 0) + 1
+    with _ONE_TIME_LOCK:
+        _ONE_TIME[label] = _ONE_TIME.get(label, 0) + 1
+
+
+def one_time_work() -> Dict[str, int]:
+    """The process's one-time work so far per label, on every thread (a
+    copy): a window's captures and builds are the difference of two."""
+    with _ONE_TIME_LOCK:
+        return dict(_ONE_TIME)
 
 
 class CompilationGuard:

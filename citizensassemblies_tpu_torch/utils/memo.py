@@ -128,6 +128,12 @@ class LRU:
         with self._lock:
             return iter(list(self._d))
 
+    def items(self) -> List[tuple]:
+        """``(key, value)`` of every entry, oldest first (a snapshot that
+        refreshes no recency)."""
+        with self._lock:
+            return list(self._d.items())
+
     def owned_items(self) -> List[tuple]:
         """``(owner, value)`` of every entry (a snapshot): the entry's owner
         tag, else the cache's name."""

@@ -44,6 +44,8 @@ def test_every_module_imports_without_jax():
         "scenarios.dropout", "scenarios.multi", "data", "data.registry", "solvers.delta",
         "service.session", "service.batcher", "service.server", "service.fleet", "obs",
         "obs.metrics", "obs.trace", "obs.hooks", "obs.memory", "obs.slo", "obs.catalog",
+        "aot", "aot.store", "aot.build", "aot.__main__", "obs.roofline", "obs.trend",
+        "obs.__main__", "utils.profiling",
     ):
         assert f"citizensassemblies_tpu_torch.{name}" in names
     code = (
@@ -94,6 +96,7 @@ def test_chip_smoke_imports_no_jax():
         f"{n.module}.{a.name}" for n in ast.walk(tree)
         if isinstance(n, ast.ImportFrom) and n.module for a in n.names
     ]
-    for name in ("scenarios", "data.registry", "solvers.delta", "service", "service.server", "obs"):
+    for name in ("scenarios", "data.registry", "solvers.delta", "service", "service.server", "obs",
+                 "aot", "obs.roofline", "utils.profiling"):
         assert f"citizensassemblies_tpu_torch.{name}" in named
     assert not [m for m in mods if _forbidden(m)]

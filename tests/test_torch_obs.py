@@ -8,8 +8,11 @@ exactly, SLO reports and breach streams equal exactly. The memory ledger
 reads the CUDA caching allocator, so on the CPU its byte counts are zeros
 with ``measured`` False (the JAX package reads live CPU arrays there); its
 series, stamp keys, leak verdicts and owner attribution are held. The
-roofline join, the trend gate, the trace CLI and the profiling re-exports
-come with ROADMAP queue A item 4.
+trace CLI gives the JAX CLI's analysis on the same document
+(``tests/test_obs.py:597``), the profiling re-exports are the port's
+renderers, and ``profiler_trace`` writes a Chrome trace naming an
+``annotate`` range. The roofline join and the trend gate are held in
+``tests/test_torch_roofline.py``.
 """
 
 import json
@@ -589,7 +592,17 @@ def _metrics_stream(service, request, cfg, instance_of, channel_cls):
         svc.shutdown()
 
 
-def test_service_metrics_stream_and_prometheus():
+def test_service_metrics_stream_and_prometheus(monkeypatch):
+    # the eviction gauges render every owner the process ever evicted: an
+    # earlier test of the worker (the fused L2 cores' LRU in
+    # test_torch_qp.py) would add a family the other package never saw, so
+    # both start from no eviction, as each does in a process of its own
+    from citizensassemblies_tpu.utils import memo as jmemo
+
+    from citizensassemblies_tpu_torch.utils import memo as tmemo
+
+    monkeypatch.setattr(jmemo, "_EVICTIONS_BY_OWNER", {})
+    monkeypatch.setattr(tmemo, "_EVICTIONS_BY_OWNER", {})
     kw = dict(obs_trace=True, obs_metrics_interval_s=0.02, serve_admission_cap=2)
     snaps, results, doc, text = _metrics_stream(
         lambda c: SelectionService(c, device="cpu"), SelectionRequest,
@@ -616,3 +629,91 @@ def test_service_metrics_stream_and_prometheus():
     assert families == jfamilies
     for r, jr in zip(results, jresults):
         assert float(np.abs(r.allocation - np.asarray(jr.allocation)).max()) <= 1e-3
+
+
+# --- the trace CLI and profiling ---------------------------------------------------
+
+
+def _write_trace(tmp_path, name: str, scale: float = 1.0) -> str:
+    """The two-lane synthetic Chrome trace of ``tests/test_obs.py``."""
+    ev = [
+        {"ph": "M", "name": "process_name", "pid": 1, "args": {"name": "req_A"}},
+        {"ph": "M", "name": "process_name", "pid": 2, "args": {"name": "req_B"}},
+    ]
+
+    def span(pid, sid, parent, nm, ts, dur):
+        ev.append({
+            "ph": "X", "pid": pid, "tid": 1, "name": nm, "ts": ts, "dur": dur,
+            "args": {"span_id": sid, "parent_id": parent},
+        })
+
+    span(1, 1, None, "request", 0.0, 1000.0 * scale)
+    span(1, 2, 1, "solve", 100.0, 800.0 * scale)
+    span(1, 3, 2, "pdhg", 200.0, 500.0 * scale)
+    span(1, 4, 1, "batch_window", 0.0, 90.0)
+    span(2, 5, None, "request", 10.0, 400.0)
+    span(2, 6, 5, "batch_window", 20.0, 80.0)
+    path = tmp_path / name
+    path.write_text(json.dumps({"traceEvents": ev}))
+    return str(path)
+
+
+def test_trace_cli_equals_jax(tmp_path, capsys):
+    from citizensassemblies_tpu.obs import __main__ as jcli
+
+    from citizensassemblies_tpu_torch.obs import __main__ as cli
+
+    a = _write_trace(tmp_path, "a.json", scale=1.0)
+    b = _write_trace(tmp_path, "b.json", scale=2.0)
+    report = cli.analyze(a)
+    assert report == jcli.analyze(a)
+    assert [h["name"] for h in report["critical_path"]] == ["request", "solve", "pdhg"]
+    assert report["self_times"]["request"]["self_ms"] == pytest.approx(0.43)
+    (cluster,) = report["fusion_timeline"]
+    assert cluster["fused"] is True and cluster["requests"] == ["req_A", "req_B"]
+    d = cli.diff(a, b)
+    assert d == jcli.diff(a, b) and d["phases"]["pdhg"]["ratio"] == pytest.approx(2.0)
+    for argv in ([a, "--json"], [a, "--diff", b, "--json"], [a]):
+        assert cli.main(argv) == 0
+        mine = capsys.readouterr().out
+        assert jcli.main(argv) == 0
+        assert mine == capsys.readouterr().out
+
+
+def test_trace_cli_reads_the_ports_export(tmp_path):
+    """The CLI on a trace the port's service exports: spans nest, and a
+    deferred device value (the iterations of a fused solve) exports as a
+    number list."""
+    from citizensassemblies_tpu_torch.obs import __main__ as cli
+    from citizensassemblies_tpu_torch.obs.trace import DeviceValue
+
+    tr = Tracer(name="req")
+    with use_tracer(tr):
+        with obs.trace.span("request"):
+            with dispatch_span("lp_pdhg.pdhg_core", nv=4, m1=2, m2=1, check_every=8) as ds:
+                ds.note(iters=DeviceValue(torch.tensor([16], dtype=torch.int32)))
+    path = tmp_path / "port.json"
+    doc = export_chrome_trace([tr], path=str(path))
+    assert validate_chrome_trace(doc) == []
+    (ev,) = [e for e in doc["traceEvents"] if e.get("name") == "lp_pdhg.pdhg_core"]
+    assert ev["args"]["iters"] == [16]
+    report = cli.analyze(str(path))
+    assert [h["name"] for h in report["critical_path"]] == ["request", "lp_pdhg.pdhg_core"]
+
+
+def test_profiling_reexports_and_profiler_trace(tmp_path):
+    from citizensassemblies_tpu_torch.obs.metrics import format_counters as fc
+    from citizensassemblies_tpu_torch.utils import profiling
+
+    assert profiling.format_counters is fc
+    assert profiling.format_timers({"a": 2.0, "b": 1.0}).startswith("phase times: a 2.00s")
+    with profiling.profiler_trace(None) as prof:
+        assert prof is None  # off: nothing profiled, nothing written
+    assert list(tmp_path.iterdir()) == []
+    with profiling.profiler_trace(str(tmp_path)) as prof:
+        with profiling.annotate("graph_store_probe"):
+            torch.ones(64).sum()
+    written = list(tmp_path.iterdir())
+    assert len(written) == 1 and str(written[0]) == prof.trace_path
+    trace = json.loads(written[0].read_text())
+    assert any(e.get("name") == "graph_store_probe" for e in trace["traceEvents"])
