@@ -173,7 +173,21 @@ Phases, each fatal on failure:
    peaks above 1, the kernel rows the kernels line's bound formulas); a
    ``torch.profiler`` trace (``utils/profiling``) of one B=1 two-sided
    solve naming the kernel and its ``annotate`` range, and the trace CLI
-   on ``serve_flagship``'s exported trace.
+   on ``serve_flagship``'s exported trace; the build's walk of the lint
+   registry records every core whose block the graph store replays
+   (``manifest_cores_recorded``);
+14. ``lint_card``: the lint package's AST rules over the port's own
+   sources (no finding; the suppressions counted); then every registered
+   core (``lint/registry.py``, the JAX package's 24 names) built on the
+   card, run once op by op and, where its block goes through the graph
+   store, captured there and replayed, and then once more inside an armed
+   ``guards.guarded_launch`` window under ``torch.profiler``: no
+   ``cudaStreamSynchronize``, ``cudaDeviceSynchronize`` or device-to-host
+   copy inside a core's call (the profiler's host trace, beyond what
+   ``torch.cuda.set_sync_debug_mode`` sees), each replay bit for bit its op
+   by op result, and each kernel core launching its own kernel, by the name
+   the profiler prints, as many times as its library's
+   ``entry_launches`` count, and no cuBLAS or cuSPARSE kernel in its launch.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
 line, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -4505,10 +4519,12 @@ def aot_build_phase(tmp):
         libraries=report.get("libraries"), lattice_buckets=report.get("lattice_buckets"),
         requests_served=report.get("requests_served"), record_s=report.get("record_s"),
         capture_check_s=report.get("compile_serialize_s"),
+        manifest_cores_recorded=report.get("manifest_cores_recorded"),
         manifest_unwrapped=report.get("manifest_unwrapped"), sha=report.get("sha"),
     )
     rec["ok"] = bool(
         proc.returncode == 0 and (report.get("entries") or 0) > 0 and not report.get("skipped")
+        and (report.get("manifest_cores_recorded") or 0) > 0
         and len(report.get("libraries") or {}) == 3
         and any(f.startswith("batch_lp.vmapped[") for f in report.get("families") or [])
     )
@@ -4802,6 +4818,185 @@ def profile_trace_phase(pack, MT, trace_doc):
     return rec
 
 
+# --- slice 14: the lint package on the card ----------------------------------------
+
+#: each kernel library's ``__global__`` functions, as the profiler names them
+KERNEL_FUNCTIONS = {
+    "ell_gather": ("ell_gather_kernel", "ell_gather_bf16_kernel"),
+    "two_sided_block": ("two_sided_solve_kernel",),
+    "lp_block": ("lp_solve_kernel",),
+}
+#: the registry's kernel cores and their libraries
+KERNEL_CORES = {
+    "kernels.pallas_ell_matvec": "ell_gather",
+    "kernels.pdhg_megakernel_two_sided": "two_sided_block",
+    "kernels.pdhg_megakernel_lp": "lp_block",
+}
+#: kernel-name marks of cuBLAS, cuSPARSE and CUTLASS kernels
+LIBRARY_KERNEL_MARKS = ("gemm", "gemv", "cublas", "cusparse", "cutlass", "xmma", "splitk")
+#: host calls that wait for the card
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cuStreamSynchronize",
+              "cuCtxSynchronize")
+#: phase 14's time limit (seconds)
+LINT_CARD_BUDGET_S = 60.0
+
+
+def _range_events(events, name):
+    """``(start, end)`` of the host range ``name`` in a Chrome trace."""
+    for e in events:
+        if e.get("name") == name and e.get("ph") == "X" and e.get("cat") in (
+                "user_annotation", "cpu_op", "python_function"):
+            return float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
+    return None
+
+
+def _window_profile(events, span):
+    """What a host range launched: the CUDA API calls inside it, the
+    syncs among them, the device-to-host copies and the kernels their
+    correlation ids name."""
+    if span is None:
+        return None
+    lo, hi = span
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver") and e.get("ph") == "X"
+             and lo <= float(e["ts"]) <= hi]
+    corr = {e.get("args", {}).get("correlation") for e in calls} - {None}
+    on_device = [e for e in events if e.get("args", {}).get("correlation") in corr]
+    return dict(
+        calls=len(calls),
+        syncs=sorted({e["name"] for e in calls if e["name"] in SYNC_CALLS}),
+        d2h=sorted({e["name"] for e in on_device if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]}
+                   | {e["name"] for e in calls if e["name"] in ("cudaMemcpy", "cuMemcpyDtoH_v2")}),
+        kernels=[e["name"] for e in on_device if e.get("cat") == "kernel"],
+    )
+
+
+def _where(exc) -> str:
+    """An exception and the port's innermost frames that raised it."""
+    import traceback
+
+    frames = [f"{os.path.relpath(f.filename, REPO)}:{f.lineno}" for f in traceback.extract_tb(exc.__traceback__)
+              if "citizensassemblies_tpu_torch" in f.filename]
+    return f"{exc!r} at {frames[-3:]}"
+
+
+def _outputs(out):
+    import torch
+
+    from citizensassemblies_tpu_torch.lint.ir import tensor_leaves
+
+    return [t for t in tensor_leaves(out) if isinstance(t, torch.Tensor)]
+
+
+def lint_card_phase(libs):
+    """Phase 14: the AST lint of the port's package, then every registered
+    core on the card (see the module docstring). One line with the cores,
+    the captures, the failures, the kernel names and the seconds."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from citizensassemblies_tpu_torch.aot import store as gstore
+    from citizensassemblies_tpu_torch.lint import lint_paths
+    from citizensassemblies_tpu_torch.lint.registry import collect
+    from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers, one_time_work
+
+    t0 = time.perf_counter()
+    report = lint_paths([Path(REPO) / "citizensassemblies_tpu_torch"], root=Path(REPO))
+    lint_s = time.perf_counter() - t0
+    had_world = dist.is_initialized()
+    failures, cases, warm_s = [], [], {}
+    captures0 = one_time_work().get("cuda_graph_captures", 0)
+    for entry in collect():
+        tc = time.perf_counter()
+        try:
+            case = entry.build(device="cuda")
+            # the op-by-op result (and, for a core without a graph site, its
+            # warm-up); a graph core is captured by a second call, outside
+            # every window
+            eager = _outputs(case.run())
+            if case.graph is not None:
+                case.run(graph=True)
+            torch.cuda.synchronize()
+            cases.append((entry.name, case, eager))
+        except Exception as exc:  # noqa: BLE001 - reported below
+            failures.append(f"{entry.name}: build or run: {_where(exc)}")
+        warm_s[entry.name] = round(time.perf_counter() - tc, 3)
+    captures = one_time_work().get("cuda_graph_captures", 0) - captures0
+    rows = {}
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for name, case, eager in cases:
+                before = {lib.name: lib.launches for lib in libs}
+                try:
+                    with no_implicit_transfers(mode="disallow"), guarded_launch("cuda"):
+                        with record_function(f"lint_card:{name}"):
+                            got = _outputs(case.run(graph=True) if case.graph else case.run())
+                except Exception as exc:  # noqa: BLE001 - a sync raises in the window
+                    failures.append(f"{name}: in the armed window: {_where(exc)}")
+                    continue
+                rows[name] = dict(
+                    launches={lib.name: lib.launches - before[lib.name] for lib in libs},
+                    replay_bitwise=(all(torch.equal(a, b) for a, b in zip(got, eager))
+                                    and len(got) == len(eager)) if case.graph else None,
+                    results=got,
+                )
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, "lint_card.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    profile_s = time.perf_counter() - t1
+    if not had_world and dist.is_initialized():
+        from citizensassemblies_tpu_torch.dist import runtime
+
+        runtime.shutdown()
+    runtime_events = sum(1 for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver"))
+    kernel_names = {}
+    for name, row in rows.items():
+        seen = _window_profile(events, _range_events(events, f"lint_card:{name}"))
+        if seen is None:
+            failures.append(f"{name}: its range is not in the profiler trace")
+            continue
+        if seen["syncs"] or seen["d2h"]:
+            failures.append(f"{name}: host syncs {seen['syncs']} / device-to-host copies {seen['d2h']}")
+        if row["replay_bitwise"] is False:
+            failures.append(f"{name}: the replay is not bit for bit the op-by-op result")
+        lib = KERNEL_CORES.get(name)
+        if lib is not None:
+            for other, fns in KERNEL_FUNCTIONS.items():
+                traced = sum(1 for k in seen["kernels"] if any(f in k for f in fns))
+                if traced != row["launches"][other]:
+                    failures.append(f"{name}: {traced} {other} kernels in the trace, "
+                                    f"{row['launches'][other]} counted")
+            launch = _window_profile(events, _range_events(events, f"{name}.launch")) or seen
+            own = [k for k in launch["kernels"] if any(f in k for f in KERNEL_FUNCTIONS[lib])]
+            library = [k for k in launch["kernels"] if any(m in k.lower() for m in LIBRARY_KERNEL_MARKS)]
+            kernel_names[name] = sorted(set(own))
+            if not own or row["launches"][lib] < 1:
+                failures.append(f"{name}: its kernel did not launch")
+            if library:
+                failures.append(f"{name}: library kernels in its launch: {sorted(set(library))[:4]}")
+    seconds = time.perf_counter() - t0
+    rec = dict(
+        phase="lint_card", seconds=seconds, lint_s=lint_s, profile_s=profile_s,
+        lint_violations=len(report.violations), lint_suppressed=report.suppressed,
+        lint_files=report.files, cores=len(rows), graph_cores=sum(1 for _n, c, _e in cases if c.graph),
+        captures=captures, runtime_events=runtime_events, kernel_names=kernel_names,
+        kernel_launches={n: rows[n]["launches"] for n in KERNEL_CORES if n in rows},
+        slowest_warm_s=sorted(warm_s.items(), key=lambda kv: -kv[1])[:5], failures=failures,
+    )
+    if not report.ok:
+        log("\n".join(v.render() for v in report.violations[:20]))
+    rec["ok"] = bool(report.ok and len(rows) == 24 and not failures and runtime_events > 0
+                     and seconds <= LINT_CARD_BUDGET_S)
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -4955,6 +5150,9 @@ def main() -> int:
         profile=profile_trace_phase(pack, MT, keep.get("trace_doc", {"traceEvents": []})),
     )
     store_dir.cleanup()
+    # phase 14: the lint package on the port's sources, every registered
+    # core on the card under the profiler
+    store_phases["lint_card"] = lint_card_phase(libs)
 
     def summary(name, rec, phase_recs, holds):
         return dict(

@@ -17,20 +17,26 @@ recorded keys are the signatures the serving path looks up:
    shape list, so the shapes the artifact was built at and the shapes boot
    warms cannot drift.
 
+3. **Manifest walk** — every core of the lint registry
+   (``lint/registry.collect``, the JAX package's 24 names) built on the
+   device and run once with ``graph=True``: a core whose block goes through
+   the graph store (``IRCase.graph``) records that block's signature, as
+   the JAX build records every ``aot_seeded`` core; the others (eager
+   cores, the kernel cores) are listed in ``manifest_unwrapped``. These
+   entries are saved tagged ``manifest``: a boot does not prewarm them.
+
 Every kernel library is built first (``kernels/cuda_lib.build_all``) and
 its hashed file name recorded. Each recorded graph entry is captured once
 on zero operands before it is written, as the boot will (a failure is
-listed under ``skipped``, never a build abort). The JAX package's build
-also walks its IR registry; that walk waits for the port's ``lint``
-package, so ``manifest_cores_recorded`` is 0 and ``manifest_unwrapped``
-says so.
+listed under ``skipped``, never a build abort); the collective blocks of
+the distributed cores are recorded but never prewarmed.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from citizensassemblies_tpu_torch.aot.store import (
     GRAPHS,
@@ -78,10 +84,6 @@ _LATTICE_SERVICE_EXTRA: Tuple[Tuple[int, int, int, int], ...] = (
     (8, 32, 16, 512),
     (16, 8, 8, 128),
 )
-
-#: what the registry walk of the JAX package's build becomes here
-_MANIFEST_NOTE = "lint.registry: the IR registry walk waits for the port's lint package"
-
 
 def lattice_points(profile: str = "smoke") -> Tuple[Tuple[int, int, int, int], ...]:
     if profile == "service":
@@ -158,6 +160,34 @@ def _record_flagship(cfg, profile: str, device) -> int:
     return len(specs)
 
 
+def record_manifest(rec: Recorder, device) -> Tuple[int, List[str]]:
+    """Run every registered core once on ``device`` with ``graph=True``
+    under ``rec``: the cores whose block the graph store replays record its
+    signature. Returns ``(recorded, unwrapped names)``. A one-rank world a
+    distributed core's build function starts is ended here."""
+    import torch.distributed as dist
+
+    from citizensassemblies_tpu_torch.lint.registry import build_cases
+
+    had_world = dist.is_initialized()
+    recorded, unwrapped = 0, []
+    try:
+        for name, case in build_cases(device=str(device)):
+            before = len(rec.entries)
+            if case.graph is not None:
+                case.run(graph=True)
+            if len(rec.entries) > before:
+                recorded += 1
+            else:
+                unwrapped.append(name)
+    finally:
+        if not had_world and dist.is_initialized():
+            from citizensassemblies_tpu_torch.dist import runtime
+
+            runtime.shutdown()
+    return recorded, unwrapped
+
+
 def build_cache(path: Optional[str] = None, profile: str = "smoke", cfg=None,
                 device=None) -> Dict[str, Any]:
     """Build the libraries, record, check each entry captures, save.
@@ -181,15 +211,23 @@ def build_cache(path: Optional[str] = None, profile: str = "smoke", cfg=None,
     try:
         served = _record_flagship(cfg, profile, dev)
         lattice = bucket_lattice_workload(cfg, profile, dev)
+        # the manifest walk records under a recorder of its own: its entries
+        # are the lint registry's small shapes, which no request dispatches,
+        # so they are saved tagged ``manifest`` and a boot does not capture
+        # them (a request that meets one captures it then, as a miss)
+        manifest = Recorder()
+        install_recorder(manifest)
+        manifest_recorded, manifest_unwrapped = record_manifest(manifest, dev)
     finally:
         install_recorder(None)
     record_s = time.time() - t0
-    report = write_recorded(path, rec, device=dev, workload={"profile": profile})
+    report = write_recorded(path, rec, device=dev, workload={"profile": profile},
+                            entries={k: dict(e, manifest=True) for k, e in manifest.entries.items()})
     report.update(
         profile=profile,
         requests_served=served,
-        manifest_cores_recorded=0,
-        manifest_unwrapped=[_MANIFEST_NOTE],
+        manifest_cores_recorded=manifest_recorded,
+        manifest_unwrapped=manifest_unwrapped,
         lattice_buckets=lattice["buckets"],
         record_s=round(record_s, 3),
     )
@@ -201,7 +239,9 @@ def build_cache(path: Optional[str] = None, profile: str = "smoke", cfg=None,
 def write_recorded(path: str, rec: Recorder, device=None, workload=None,
                    entries=None) -> Dict[str, Any]:
     """Capture each of the recorder's graph entries once on zero operands
-    (a failure is skipped), then save them, the eager entries and every
+    (a failure is skipped; the manifest walk's entries are kept
+    unchecked, as a boot does not capture them), then save them, the eager
+    entries and every
     kernel library's hashed name (``entries``: extra recorded entries to
     merge, e.g. an earlier artifact's). Returns the report's
     artifact-side keys."""
@@ -213,8 +253,9 @@ def write_recorded(path: str, rec: Recorder, device=None, workload=None,
     before = set(GRAPHS)
     t1 = time.time()
     check.prewarm(device=device)
+    # the manifest walk's entries are not prewarmed, so not checked here
     failed = {key for key, e in check._specs.items()
-              if e.get("kind") == "graph" and key not in GRAPHS}
+              if e.get("kind") == "graph" and not e.get("manifest") and key not in GRAPHS}
     compile_s = time.time() - t1
     for key in set(GRAPHS) - before:
         # the check's captures are not this process's serving graphs

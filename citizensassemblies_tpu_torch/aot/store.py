@@ -85,8 +85,10 @@ GRAPHS: LRU = LRU(cap=GRAPH_CAP, name="aot_graphs")
 #: allocator's capture pool
 CAPTURE_LOCK = threading.Lock()
 #: one side stream per (thread, device) on which blocks are captured (a
-#: graph cannot be captured on the default stream), and whether it has run
-#: a block yet: the BLAS handle and workspace belong to a thread and a stream
+#: graph cannot be captured on the default stream), and the block kinds
+#: (factory names) it has run: a kind's first run on a stream does one-time
+#: setup (the BLAS handle and workspace of the thread and stream, a
+#: library's first use) that must not fall inside a capture
 _CAPTURE_STREAMS: dict = {}
 
 #: block factories by name: ``factory(**statics)`` → ``make(*operands)`` →
@@ -311,10 +313,12 @@ def _pool_bytes(graph) -> int:
         return 0
 
 
-def capture(make: Callable, operands, args) -> GraphEntry:
+def capture(make: Callable, operands, args, kind: str = "") -> GraphEntry:
     """Capture ``make(*static operands)`` at ``args`` into a graph over
-    static copies (CUDA), or bind it to them (CPU). Counts one capture as
-    one-time work; a failed capture raises."""
+    static copies (CUDA), or bind it to them (CPU). The block runs once on
+    the capture stream first when its ``kind`` (the factory's name) has not
+    run there yet. Counts one capture as one-time work; a failed capture
+    raises."""
     import torch
 
     from citizensassemblies_tpu_torch.kernels import cuda_lib
@@ -335,12 +339,12 @@ def capture(make: Callable, operands, args) -> GraphEntry:
     key = (threading.get_ident(), dev)
     graph = torch.cuda.CUDAGraph()
     with CAPTURE_LOCK:
-        stream, warmed = _CAPTURE_STREAMS.get(key, (None, False))
+        stream, warmed = _CAPTURE_STREAMS.get(key, (None, frozenset()))
         if stream is None:
             stream = torch.cuda.Stream(device=dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            if not warmed:
+            if kind not in warmed:
                 block(*static_args)
             with cuda_lib.capturing_launches() as captured:
                 graph.capture_begin(capture_error_mode="thread_local")
@@ -350,7 +354,7 @@ def capture(make: Callable, operands, args) -> GraphEntry:
                     # a failed block still ends the capture, so the stream
                     # and the allocator leave capture mode
                     graph.capture_end()
-        _CAPTURE_STREAMS[key] = (stream, True)
+        _CAPTURE_STREAMS[key] = (stream, warmed | {kind})
         torch.cuda.current_stream(dev).wait_stream(stream)
     note_compile("cuda_graph_captures")
     entry = GraphEntry(static_ops, static_args, outs, graph.replay, captured, _pool_bytes(graph))
@@ -372,7 +376,7 @@ def acquire(family: str, factory: str, statics: Dict[str, Any], operands, args) 
     into the store (a miss); store-blind requests capture their own."""
     make = block_factory(factory)(**statics)
     if _ambient_gate_off():
-        return capture(make, operands, args)
+        return capture(make, operands, args, factory)
     key = (family, graph_signature(factory, statics, operands, args))
     store = _STORE
     entry = GRAPHS.get(key)
@@ -380,7 +384,7 @@ def acquire(family: str, factory: str, statics: Dict[str, Any], operands, args) 
         with _ACQUIRE_LOCK:
             entry = GRAPHS.get(key)
             if entry is None:
-                entry = capture(make, operands, args)
+                entry = capture(make, operands, args, factory)
                 GRAPHS.put(key, entry)
                 _trim()
                 if store is not None:
@@ -530,7 +534,9 @@ class ExecStore:
         """Capture every recorded graph entry (``families``: by family-name
         prefix) on zero operands into the process's store, off the launch
         counters; an entry already captured, an eager family, a collective
-        block or an entry whose device is not ``device``'s type is skipped,
+        block, an entry of the build's manifest walk (tagged ``manifest``:
+        the lint registry's small shapes, which no request dispatches) or
+        an entry whose device is not ``device``'s type is skipped,
         and one that fails to capture is counted stale. Returns the entries
         captured."""
         import torch
@@ -539,7 +545,7 @@ class ExecStore:
 
         touched = 0
         for (family, sig), spec in sorted(self._specs.items()):
-            if spec.get("kind") != "graph":
+            if spec.get("kind") != "graph" or spec.get("manifest"):
                 continue
             if families is not None and not any(family.startswith(p) for p in families):
                 continue
@@ -557,7 +563,7 @@ class ExecStore:
                     raise ValueError("a rebuilt signature differs from the recorded one")
                 make = block_factory(spec["factory"])(**spec["statics"])
                 with cuda_lib.capturing_launches():
-                    entry = capture(make, ops, args)
+                    entry = capture(make, ops, args, spec["factory"])
             except Exception:
                 self.bump("stale")
                 continue

@@ -23,7 +23,9 @@ import functools
 import torch
 
 from citizensassemblies_tpu_torch.kernels.cuda_lib import CudaLibrary, ptr, stream_of
+from citizensassemblies_tpu_torch.lint.registry import IRCase, register_ir_core
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
+from citizensassemblies_tpu_torch.utils.precision import demote_dtype
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -100,9 +102,9 @@ def ell_gather_mv_cuda(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor) ->
         raise ValueError(f"val shape {tuple(val.shape)} does not match idx {(C, kp)}")
     if val.dim() == 3 and (val.shape[0] != B or not batched):
         raise ValueError("a per-lane val needs a y with the same lane count")
-    if val.dtype not in (torch.float32, torch.bfloat16):
+    if val.dtype not in (torch.float32, demote_dtype()):
         raise ValueError(f"val must be float32 or bfloat16, not {val.dtype}")
-    bf16 = val.dtype == torch.bfloat16
+    bf16 = val.dtype == demote_dtype()
     for name, t, dt in (("idx", idx, torch.int32), ("val", val, val.dtype), ("y", Y, torch.float32)):
         if t.device != Y.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dt} tensor on {Y.device}")
@@ -122,3 +124,19 @@ def ell_gather_mv_cuda(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor) ->
         ptr(Y), ptr(out), B, T, C, kp, G, threads, stream_of(Y),
     )
     return out if batched else out[0]
+
+
+@register_ir_core("kernels.pallas_ell_matvec", span="kernels.ell_gather")
+def _ir_ell_gather(device="cpu") -> IRCase:
+    """The gather at the JAX registration's minimum-padded shape (256
+    packed rows of 16 slots over 128 minors, one lane): the kernel on a
+    CUDA device, its plain version on CPU tensors."""
+    import numpy as np
+
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    r = Seeded(21, device)
+    C, kp, T = 256, 16, 128
+    idx = np.sort(np.argsort(r.rng.random((C, T)), axis=1)[:, :kp], axis=1).astype(np.int32)
+    return IRCase(fn=ell_gather_mv, args=(r.t(idx), r.t(r.counts((C, kp), 3, 0.5)), r.f32((1, T))),
+                  device=str(device))

@@ -69,6 +69,7 @@ import torch
 
 from citizensassemblies_tpu_torch.kernels.cuda_lib import CSRC, CudaLibrary, ptr, stream_of
 from citizensassemblies_tpu_torch.kernels.ell_matvec import ell_gather_mv, ell_gather_mv_plain
+from citizensassemblies_tpu_torch.lint.registry import IRCase, register_ir_core
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.obs.trace import DeviceValue
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
@@ -855,6 +856,19 @@ def lp_launch_inputs(idx_np: np.ndarray, val_np, nv: int, m2: int, device,
     return tuple(torch.as_tensor(a, device=dev) for a in (perm, rowptr, rowT)), plan
 
 
+def fill_slots(scal: torch.Tensor, layout: Dict[str, int], values) -> None:
+    """Write ``(slot, value)`` pairs into the 1-D scalar block ``scal``
+    without a host sync: a python number by a fill on the device (an element
+    store ``scal[i] = x`` copies ``x`` from pageable host memory, which waits
+    for the card), a 0-d tensor by a device copy."""
+    for slot, val in values:
+        cell = scal[layout[slot]]
+        if isinstance(val, torch.Tensor):
+            cell.copy_(val)
+        else:
+            cell.fill_(float(val))
+
+
 def lp_blocks_cuda(csr, plan: LaunchPlan, idx, pre, state, tol, *, max_iters, check_every,
                    sentinel):
     """Launch the LP block kernel on the prelude's output; ``csr`` and
@@ -881,11 +895,10 @@ def lp_blocks_cuda(csr, plan: LaunchPlan, idx, pre, state, tol, *, max_iters, ch
     xk, lamk, muk = x.contiguous().clone(), lam.contiguous().clone(), mu.contiguous().clone()
     xav, lav, mav = xk.clone(), lamk.clone(), muk.clone()
     scal = torch.zeros(LP_LAYOUT["L_N"], dtype=torch.float32, device=dev)
-    for slot, val in (
+    fill_slots(scal, LP_LAYOUT, (
         ("L_RES", float("inf")), ("L_OMEGA", 1.0), ("L_BEST", float("inf")),
         ("L_NORM", norm), ("L_SCALE", scale), ("L_TOL", tol),
-    ):
-        scal[LP_LAYOUT[slot]] = val
+    ))
     iters = torch.zeros(1, dtype=torch.int32, device=dev)
     scratch = torch.empty(lp_scratch_floats(nv, m1, nb), dtype=torch.float32, device=dev)
     bar = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -946,3 +959,104 @@ def dispatch_lp(
         log.count("megakernel_dispatches")
         log.count("megakernel_lanes")
     return pre.unscale(x, lam, mu) + (int(it), float(res), int(flags))
+
+
+# --- registered cores (lint/registry.py) ----------------------------------------
+# A kernel core is the dispatch's device work: the prelude, then on a CUDA
+# device the kernel's one launch (its loop runs on the card) and on CPU tensors
+# one block of the plain version (what one launch window of the plain route
+# runs). The launch part runs under a profiler range of the core's name, so
+# ``chip_smoke.py`` can tell the kernel's launch from the prelude's work.
+# Shapes and P1 ranges are the JAX registrations'.
+
+
+def two_sided_kernel_core(idx, val, v, colmask, x0, lam0, mu0, tol, *, csr, plan, max_iters: int,
+                          check_every: int):
+    """:func:`dispatch_two_sided` on device tensors (``csr``/``plan``:
+    :func:`two_sided_launch_inputs`). Returns the unscaled ``(x, lam,
+    mu)``."""
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import (
+        _two_sided_block,
+        kkt_scale,
+        power_norm,
+        unscale,
+        warm_scaled,
+    )
+
+    pre, vals_s = two_sided_prelude(idx, val, v, colmask)
+    K_apply, KT_apply = ell_operators(idx, vals_s, pre, csr)
+    B, C = colmask.shape
+    norm = power_norm(K_apply, KT_apply, B, C, v.device)
+    state = warm_scaled(pre, x0, lam0, mu0) + (norm, kkt_scale(pre))
+    with torch.profiler.record_function("kernels.pdhg_megakernel_two_sided.launch"):
+        if plan is not None:
+            out = two_sided_blocks_cuda(csr, plan, idx, vals_s, pre, state, tol, max_iters=max_iters,
+                                        check_every=check_every, sentinel=False)
+        else:
+            Kp, KTp = ell_operators(idx, vals_s, pre, csr, gather=ell_gather_mv_plain)
+            block = _two_sided_block(Kp, KTp, pre.cs_eps, pre.hs_lo, pre.hs_up, pre.bs, int(check_every))
+            omega = torch.ones(B, dtype=torch.float32, device=v.device)
+            out = block(*state[:5], 0.9 * omega / norm, 0.9 / (omega * norm))
+    return unscale(pre, *out[:5])
+
+
+def lp_kernel_core(c, idx, val, h, A, b, x0, lam0, mu0, tol, *, csr, plan, max_iters: int,
+                   check_every: int):
+    """:func:`dispatch_lp` on device tensors (``csr``/``plan``:
+    :func:`lp_launch_inputs`). Returns the unscaled ``(x, lam, mu)``."""
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import _lp_block
+
+    pre, state = lp_setup(c, idx, val, h, A, b, x0, lam0, mu0, csr)
+    with torch.profiler.record_function("kernels.pdhg_megakernel_lp.launch"):
+        if plan is not None:
+            out = lp_blocks_cuda(csr, plan, idx, pre, state, tol, max_iters=max_iters,
+                                 check_every=check_every, sentinel=False)
+        else:
+            G_mv, G_rmv = lp_operators(idx, pre.vals_s, csr, gather=ell_gather_mv_plain)
+            block = _lp_block(G_mv, G_rmv, pre.As, pre.cs, pre.hs, pre.bs, int(check_every))
+            x, lam, mu, norm, _scale = state
+            omega = torch.ones((), dtype=torch.float32, device=x.device)
+            out = block(x, lam, mu, 0.9 * omega / norm, 0.9 / (omega * norm))
+    return pre.unscale(*out[:3])
+
+
+@register_ir_core("kernels.pdhg_megakernel_two_sided", dense_ref="batch_lp.polish_screen_ell",
+                  span="kernels.pdhg_megakernel_two_sided")
+def _ir_megakernel_two_sided(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+    from citizensassemblies_tpu_torch.lint.operands import TWO_SIDED_RANGES, ell_operands
+
+    r = Seeded(5, device)
+    B, T, C, kp = 4, 128, 256, 16
+    idx, val = ell_operands(r, C, T, kp)
+    csr, plan = two_sided_launch_inputs(idx, val, T, B, r.device)
+    return IRCase(
+        fn=two_sided_kernel_core,
+        args=(r.t(idx), r.t(val), r.f32(T), r.ones((B, C)), r.f32((B, C + 1)), r.f32((B, 2 * T)),
+              r.f32(B), r.full((B,), 1e-6)),
+        static=dict(csr=csr, plan=plan, max_iters=1024, check_every=128),
+        arg_ranges=TWO_SIDED_RANGES,
+        prec_demote=(1,),  # packed ELL values
+        device=str(device),
+    )
+
+
+@register_ir_core("kernels.pdhg_megakernel_lp", dense_ref="lp_pdhg.pdhg_core_ell",
+                  span="kernels.pdhg_megakernel_lp")
+def _ir_megakernel_lp(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+    from citizensassemblies_tpu_torch.lint.operands import LP_RANGES, RANGE_WIDE, ell_operands
+
+    r = Seeded(6, device)
+    nv, m1, m2, kp = 65, 64, 1, 8
+    idx, val = ell_operands(r, m1, nv, kp)
+    csr, plan = lp_launch_inputs(idx, val, nv, m2, r.device)
+    return IRCase(
+        fn=lp_kernel_core,
+        args=(r.f32(nv), r.t(idx), r.t(val), r.f32(m1), r.ones((m2, nv)), r.ones(m2), r.zeros(nv),
+              r.zeros(m1), r.zeros(m2), r.full((), 1e-6)),
+        static=dict(csr=csr, plan=plan, max_iters=1024, check_every=128),
+        arg_ranges=(RANGE_WIDE, None) + LP_RANGES[1:],
+        prec_demote=(2,),  # packed ELL values
+        device=str(device),
+    )

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from citizensassemblies_tpu_torch.core.instance import DenseInstance, SelectionError, on_device
+from citizensassemblies_tpu_torch.lint.registry import IRCase, register_ir_core
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.ops.pairs import pair_matrix_from_panels
 from citizensassemblies_tpu_torch.service.context import resolve as resolve_context
@@ -270,3 +271,38 @@ def legacy_probabilities(
         panels=panels,
         draws_attempted=draws,
     )
+
+
+# --- registered cores (lint/registry.py) ----------------------------------------
+
+
+def scan_sampler_core(dense: DenseInstance, *, B: int, seed: int):
+    """:func:`_sample_panels_kernel` with the noise of a fresh generator of
+    ``seed`` (:func:`sample_panels_batch`'s undistributed draw)."""
+    generator = torch.Generator(device=dense.device).manual_seed(int(seed))
+    return _sample_panels_kernel(dense, int(B), lambda _s: gumbel(generator, (int(B), dense.n),
+                                                                  dense.device))
+
+
+def seeded_pool(r, n: int, F: int, k: int, ncat: int = 3):
+    """A seeded pool for a build function (``r``: ``lint/operands.Seeded``): each
+    agent one feature per category, quotas around ``k``'s even split.
+    Returns host ``(A bool [n, F], qmin, qmax int32 [F], cat_of [F])``."""
+    per = F // ncat
+    A = np.zeros((n, F), bool)
+    for ci in range(ncat):
+        A[np.arange(n), ci * per + r.rng.integers(0, per, n)] = True
+    share = k / per
+    return (A, np.full(F, int(np.floor(share * 0.5)), np.int32),
+            np.full(F, int(np.ceil(share * 1.5)) + 1, np.int32), np.arange(F) // per)
+
+
+@register_ir_core("legacy.scan_sampler", span="legacy.scan_sampler")
+def _ir_scan_sampler(device="cpu") -> IRCase:
+    """The batch draw at 40 agents, 12 features, k = 6, 32 chains."""
+    from citizensassemblies_tpu_torch.interop import dense_from_arrays
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    A, qmin, qmax, cat = seeded_pool(Seeded(111, device), 40, 12, 6)
+    return IRCase(fn=scan_sampler_core, args=(dense_from_arrays(A, qmin, qmax, cat, 6, 3, device=device),),
+                  static=dict(B=32, seed=5), device=str(device))

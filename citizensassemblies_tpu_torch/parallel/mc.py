@@ -35,6 +35,7 @@ from citizensassemblies_tpu_torch.core.instance import DenseInstance
 from citizensassemblies_tpu_torch.dist import partition as dist_partition
 from citizensassemblies_tpu_torch.dist.runtime import AXIS_AGENTS, AXIS_CHAINS
 from citizensassemblies_tpu_torch.models.legacy import _sample_panels_kernel, gumbel
+from citizensassemblies_tpu_torch.lint.registry import IRCase, register_ir_core, register_spmd_core
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 
 #: replacement policies of the dropout realization (``scenarios/dropout``):
@@ -291,7 +292,9 @@ def dropout_realization_round(
         lo, hi = _local_chain_range(mesh, per * int(mesh.size()))
         hi = min(hi, draws)
     counts = torch.zeros(2, n, **f32)  # seated, seated on valid panels
-    tallies = torch.zeros(2, dtype=torch.float64, device=dev)  # ok, filled
+    # ok, filled: integer counts, exact in int64 (the float64 sums they
+    # replace were exact too, below 2**53)
+    tallies = torch.zeros(2, dtype=torch.int64, device=dev)
     with dispatch_span(
         "mc.dropout_realization", draws=draws, policy=policy, k=int(dense.k),
     ) as ds:
@@ -310,8 +313,8 @@ def dropout_realization_round(
             )
             counts[0] += seated.sum(dim=0)
             counts[1] += (seated * ok[:, None].to(torch.float32)).sum(dim=0)
-            tallies[0] += ok.to(torch.float64).sum()
-            tallies[1] += filled.to(torch.float64).sum()
+            tallies[0] += ok.to(torch.int64).sum()
+            tallies[1] += filled.to(torch.int64).sum()
         ds.out = counts
     if mesh is not None:
         dist.all_reduce(counts)
@@ -325,4 +328,70 @@ def dropout_realization_round(
         policy=policy,
         quota_ok_rate=ok_sum / max(draws, 1),
         fill_rate=filled_sum / max(draws, 1) / float(dense.k),
+    )
+
+
+# --- registered cores (lint/registry.py) ----------------------------------------
+# The IR core is one chunk's realization (:func:`_dropout_draws`, no host read);
+# the SPMD core the whole round over the swept world, ``scale`` chunks of
+# draws. The JAX registrations' shape: 64 draws over a 12-panel portfolio of
+# 40 agents with 6 quota features, the "type" policy.
+
+
+def dropout_core(Pm, cum, attend, type_id, starts, A_f, qmin, qmax, u_pick, u_att, u_ref, *, T: int,
+                 policy: str):
+    """:func:`_dropout_draws` with its integers as keywords."""
+    return _dropout_draws(Pm, cum, attend, type_id, starts, A_f, qmin, qmax, T, u_pick, u_att,
+                          u_ref, policy)
+
+
+def _dropout_case(r, C: int = 12, n: int = 40, F: int = 6):
+    """Seeded host operands: portfolio, probabilities, attendance, type ids
+    (sorted, 8 types) and the quota instance's ``(A, qmin, qmax)``."""
+    P = np.zeros((C, n), bool)
+    np.put_along_axis(P, np.argsort(r.rng.random((C, n)), axis=1)[:, :6], True, axis=1)
+    A = np.zeros((n, F), bool)
+    A[np.arange(n), r.rng.integers(0, F, n)] = True
+    type_id = np.sort(r.rng.integers(0, 8, n))
+    return (P, r.rng.uniform(0.5, 1.5, C), r.rng.uniform(0.6, 1.0, n), type_id, A,
+            np.zeros(F, np.int32), np.full(F, 6, np.int32))
+
+
+@register_ir_core("mc.dropout_realization", span="mc.dropout_realization")
+def _ir_dropout_realization(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    r = Seeded(51, device)
+    P, probs, attend, type_id, A, qmin, qmax = _dropout_case(r)
+    B, n = 64, P.shape[1]
+    T = int(type_id.max()) + 1
+    p = probs / probs.sum()
+    return IRCase(
+        fn=dropout_core,
+        args=(r.t(P), r.t(np.cumsum(p).astype(np.float32)), r.t(attend.astype(np.float32)),
+              r.t(type_id.astype(np.int64)), r.t(_type_segment_starts(type_id)),
+              r.t(A.astype(np.float32)), r.t(qmin.astype(np.float32)), r.t(qmax.astype(np.float32)),
+              r.f32(B), r.f32((B, n)), r.f32((B, n))),
+        static=dict(T=T, policy="type"), device=str(device),
+    )
+
+
+@register_spmd_core("mc.dropout_realization")
+def _spmd_dropout_realization(mesh, device="cpu", scale: int = 1) -> IRCase:
+    """Every rank draws each chunk's uniforms and realizes its own block of
+    draws; the counts and tallies are all-reduced once, after the chunks.
+    The operands are uploaded whole on every rank and the draws dealt by
+    rank (``_local_chain_range``), so no operand declares a role."""
+    from citizensassemblies_tpu_torch.interop import dense_from_arrays
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    r = Seeded(51, device)
+    P, probs, attend, type_id, A, qmin, qmax = _dropout_case(r)
+    dense = dense_from_arrays(A, qmin, qmax, np.arange(A.shape[1]) // 3, 6, 2, device=device)
+    chunk = 8 * int(mesh.size())
+    return IRCase(
+        fn=dropout_realization_round, args=(P, probs, attend, type_id, dense),
+        static=dict(generator=torch.Generator(device=device).manual_seed(7),
+                    draws=chunk * int(scale), policy="type", mesh=mesh, chunk=chunk),
+        device=str(device),
     )

@@ -42,10 +42,15 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from citizensassemblies_tpu_torch.aot.store import SeededGraph, register_block
 from citizensassemblies_tpu_torch.dist import partition as dist_partition
+from citizensassemblies_tpu_torch.lint.registry import IRCase, register_ir_core, register_spmd_core
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.solvers.highs_backend import DualSolution
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
-from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
+from citizensassemblies_tpu_torch.utils.guards import (
+    guarded_launch,
+    no_implicit_transfers,
+    readback,
+)
 
 Apply = Callable[[torch.Tensor], torch.Tensor]
 
@@ -132,17 +137,7 @@ def _sharded_pdhg(G_mv: Apply, G_rmv_local: Apply, hs_l, cs, as_row, bs, tol: fl
     nv = cs.shape[0]
     m_l = hs_l.shape[0]
     G_rmv = _all_reduced(G_rmv_local)
-
-    # ---- ‖K‖₂ power estimate over the world --------------------------------
-    v = torch.ones(nv, **f32) / np.sqrt(np.float32(nv))
-    for _ in range(24):
-        w = G_rmv(G_mv(v)) + as_row * (as_row @ v)
-        v = w / (torch.linalg.norm(w) + 1e-12)
-    norm = torch.sqrt(torch.linalg.norm(G_rmv(G_mv(v)) + as_row * (as_row @ v)) + 1e-12)
-    tau = sigma = 0.9 / norm
-    hsq = torch.sum(hs_l**2)
-    dist.all_reduce(hsq)
-    scale = 1.0 + torch.linalg.norm(cs) + torch.sqrt(hsq) + torch.abs(bs[0])
+    tau, sigma, scale = _sharded_steps(G_mv, G_rmv, hs_l, cs, as_row, bs)
 
     def kkt(x, lam_l, mu):
         # one packed reduction: [pri_l, λ·h, Gᵀλ]
@@ -191,11 +186,29 @@ def _sharded_pdhg(G_mv: Apply, G_rmv_local: Apply, hs_l, cs, as_row, bs, tol: fl
             mu = torch.where(better, ma, mu)
             r = torch.minimum(r_cur, r_avg)
         # the block's one host read
-        res = float(r)
+        with readback():
+            res = float(r)
         it += 1
     if stats is not None:
         stats.update(blocks=it, iters=it * block_iters, graph=bool(graph))
     return x, lam_l, mu, res
+
+
+def _sharded_steps(G_mv: Apply, G_rmv: Apply, hs_l, cs, as_row, bs):
+    """The sharded PDHG's steps and KKT scale: ‖K‖₂ by power iteration
+    over the world (``G_rmv`` summed over it). Returns ``(tau, sigma,
+    scale)``."""
+    nv = cs.shape[0]
+    v = torch.ones(nv, dtype=torch.float32, device=cs.device) / np.sqrt(np.float32(nv))
+    for _ in range(24):
+        w = G_rmv(G_mv(v)) + as_row * (as_row @ v)
+        v = w / (torch.linalg.norm(w) + 1e-12)
+    norm = torch.sqrt(torch.linalg.norm(G_rmv(G_mv(v)) + as_row * (as_row @ v)) + 1e-12)
+    tau = sigma = 0.9 / norm
+    hsq = torch.sum(hs_l**2)
+    dist.all_reduce(hsq)
+    scale = 1.0 + torch.linalg.norm(cs) + torch.sqrt(hsq) + torch.abs(bs[0])
+    return tau, sigma, scale
 
 
 def _family(name: str, block_iters: int, max_blocks: int) -> str:
@@ -255,24 +268,14 @@ def sharded_ell_core(idx_l, val_l, h_l, c, a_row, b, tol: float, block_iters: in
     per-variable amax over the slots."""
     from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import (
         csr_to_device,
-        lp_operator_tensors,
         lp_operators_from,
     )
-    from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_row_absmax
 
     nv = c.shape[0]
-    dev = idx_l.device
     # the shard's transpose, built once on the host from its positions
-    csr = csr_to_device(idx_l.cpu().numpy(), val_l.cpu().numpy(), nv, dev)
-    absV = val_l.abs()
-    idx64 = idx_l.to(torch.int64)
-    d_r, d_c = _ruiz(
-        lambda r, cc: (absV * r[:, None] * cc[idx64]).amax(dim=1),
-        lambda r, cc: ell_row_absmax(idx64, absV * r[:, None] * cc[idx64], nv),
-        a_row, idx_l.shape[0], nv, dev,
-    )
-    vals_s = (val_l * d_r[:, None] * d_c[idx64]).contiguous()
-    ops = lp_operator_tensors(idx_l, vals_s, csr)
+    with readback():
+        csr = csr_to_device(idx_l.cpu().numpy(), val_l.cpu().numpy(), nv, idx_l.device)
+    d_r, d_c, ops = _sharded_ell_scaled(idx_l, val_l, a_row, nv, csr)
     G_mv, G_rmv_local = lp_operators_from(*ops)
     x, lam_l, mu, res = _sharded_pdhg(
         G_mv, G_rmv_local, h_l * d_r, c * d_c, a_row * d_c, b, tol, block_iters, max_blocks,
@@ -280,6 +283,25 @@ def sharded_ell_core(idx_l, val_l, h_l, c, a_row, b, tol: float, block_iters: in
         seed=(_family("sharded_ell", block_iters, max_blocks), "parallel.sharded_block_ell", ops),
     )
     return x * d_c, lam_l * d_r, mu, res
+
+
+def _sharded_ell_scaled(idx_l, val_l, a_row, nv: int, csr):
+    """Ruiz on the ELL row shard (row maxima local, column maxima over the
+    world) and the scaled shard's operator tensors
+    (``kernels/pdhg_megakernel.lp_operator_tensors``). Returns ``(d_r, d_c,
+    ops)``."""
+    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import lp_operator_tensors
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_row_absmax
+
+    absV = val_l.abs()
+    idx64 = idx_l.to(torch.int64)
+    d_r, d_c = _ruiz(
+        lambda r, cc: (absV * r[:, None] * cc[idx64]).amax(dim=1),
+        lambda r, cc: ell_row_absmax(idx64, absV * r[:, None] * cc[idx64], nv),
+        a_row, idx_l.shape[0], nv, idx_l.device,
+    )
+    vals_s = (val_l * d_r[:, None] * d_c[idx64]).contiguous()
+    return d_r, d_c, lp_operator_tensors(idx_l, vals_s, csr)
 
 
 def _place(mesh: DeviceMesh, rows_arrays, rep_arrays) -> Tuple[list, list]:
@@ -430,3 +452,175 @@ def solve_decomp_master_sharded(
     eps_real = float(np.abs(MT @ p_norm - v).max())
     w = np.maximum(lam[:T], 0.0) - np.maximum(lam[T : 2 * T], 0.0)
     return eps_real, w, p_norm, float(x[C]), bool(res <= tol * 4.0)
+
+
+# --- registered cores (lint/registry.py) ----------------------------------------
+# The IR cores are a solve to its first host read (the scaling, the steps and
+# one block, through the graph store with ``graph=True``) on a one-rank
+# world, whatever the world size: the budgets must not depend on the host's
+# ranks. The SPMD cores are the whole hand-off and solve (``_place``, then a
+# fixed ``max_blocks`` blocks: fake collectives return no real sums, so a
+# solve to a tolerance might never end) at every swept world size.
+
+_IR_ROWS, _IR_NV, _IR_KP, _IR_BLOCK = 64, 33, 8, 128
+
+
+def sharded_first_block(G_l, h_l, c, a_row, b, tol, *, block_iters: int, graph: bool = False):
+    """:func:`sharded_dense_core` to its first host read. Returns the
+    unscaled ``(x, lam_l, mu)`` after one block."""
+    absG = G_l.abs()
+    d_r, d_c = _ruiz(
+        lambda r, cc: (r[:, None] * absG * cc[None, :]).amax(dim=1),
+        lambda r, cc: (r[:, None] * absG * cc[None, :]).amax(dim=0),
+        a_row, G_l.shape[0], c.shape[0], G_l.device,
+    )
+    Gs = d_r[:, None] * G_l * d_c[None, :]
+    Gs_t = Gs.t().contiguous()
+    x, lam_l, mu = _sharded_one_block(
+        lambda x: Gs @ x, lambda y: Gs_t @ y, h_l * d_r, c * d_c, a_row * d_c, b, block_iters,
+        graph, "sharded", "parallel.sharded_block_dense", (Gs, Gs_t),
+    )
+    return x * d_c, lam_l * d_r, mu
+
+
+def sharded_ell_first_block(idx_l, val_l, h_l, c, a_row, b, tol, *, csr, block_iters: int,
+                            graph: bool = False):
+    """:func:`sharded_ell_core` to its first host read (``csr`` the shard's
+    transpose, which the core builds on the host)."""
+    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import lp_operators_from
+
+    d_r, d_c, ops = _sharded_ell_scaled(idx_l, val_l, a_row, c.shape[0], csr)
+    G_mv, G_rmv_local = lp_operators_from(*ops)
+    x, lam_l, mu = _sharded_one_block(
+        G_mv, G_rmv_local, h_l * d_r, c * d_c, a_row * d_c, b, block_iters, graph,
+        "sharded_ell", "parallel.sharded_block_ell", ops,
+    )
+    return x * d_c, lam_l * d_r, mu
+
+
+def _sharded_one_block(G_mv, G_rmv_local, hs_l, cs, as_row, bs, block_iters: int, graph: bool,
+                       name: str, factory: str, op_tensors):
+    tau, sigma, _scale = _sharded_steps(G_mv, _all_reduced(G_rmv_local), hs_l, cs, as_row, bs)
+    f32 = dict(dtype=torch.float32, device=cs.device)
+    args = (torch.zeros(cs.shape[0], **f32), torch.zeros(hs_l.shape[0], **f32), torch.zeros(1, **f32))
+    if graph:
+        run = SeededGraph(_family(name, block_iters, 1), factory, {"block_iters": int(block_iters)},
+                          tuple(op_tensors) + (hs_l, cs, as_row, bs, tau, sigma))
+    else:
+        run = _sharded_block(G_mv, G_rmv_local, hs_l, cs, as_row, bs, tau, sigma, block_iters)
+    return run(*args)[:3]
+
+
+def sharded_dispatch(G, h, c, a_row, b, *, mesh, tol: float, block_iters: int, max_blocks: int):
+    """The dense sharded dual LP's hand-off and solve
+    (:func:`solve_dual_lp_pdhg_sharded` after building its rows): full
+    host operands on every rank, ``_place``, :func:`sharded_dense_core`."""
+    (G_l, h_l), (c_, a_, b_) = _place(mesh, (G, h), (c, a_row, b))
+    return sharded_dense_core(G_l, h_l, c_, a_, b_, tol, block_iters, max_blocks, graph=False)[:3]
+
+
+def sharded_ell_dispatch(idx, val, h, c, a_row, b, *, mesh, tol: float, block_iters: int,
+                         max_blocks: int):
+    """The ELL twin of :func:`sharded_dispatch`."""
+    (idx_l, val_l, h_l), (c_, a_, b_) = _place(mesh, (idx, val, h), (c, a_row, b))
+    return sharded_ell_core(idx_l, val_l, h_l, c_, a_, b_, tol, block_iters, max_blocks,
+                            graph=False)[:3]
+
+
+def _dual_rows(r, rows: int, nv: int):
+    """A seeded dual-LP row block ``[P | -1]`` of panel rows (k = 6 members
+    of nv - 1 agents), ``h = 0``, ``c``, ``a_row``, ``b`` as the dual LP
+    builds them (:func:`solve_dual_lp_pdhg_sharded`). Host arrays."""
+    n = nv - 1
+    G = np.zeros((rows, nv), np.float32)
+    members = np.argsort(r.rng.random((rows, n)), axis=1)[:, :6]
+    np.put_along_axis(G, members, 1.0, axis=1)
+    G[:, n] = -1.0
+    c = np.concatenate([-r.rng.uniform(0.0, 0.2, n), [1.0]]).astype(np.float32)
+    return G, np.zeros(rows, np.float32), c, np.concatenate([np.ones(n, np.float32), [0.0]]).astype(
+        np.float32), np.ones(1, np.float32)
+
+
+def _one_rank_world(device) -> None:
+    """A one-rank world on ``device`` when no process group runs (the IR
+    cores' collectives need one)."""
+    if not dist.is_initialized():
+        from citizensassemblies_tpu_torch.parallel.mesh import make_mesh
+
+        make_mesh(1, device=device)
+
+
+@register_ir_core("parallel.sharded_dual_lp", span="parallel.sharded_dual_lp")
+def _ir_sharded_dual_lp(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    _one_rank_world(device)
+    r = Seeded(41, device)
+    G, h, c, a_row, b = _dual_rows(r, _IR_ROWS, _IR_NV)
+    return IRCase(
+        fn=sharded_first_block, args=tuple(r.t(a) for a in (G, h, c, a_row, b)) + (1e-6,),
+        static=dict(block_iters=_IR_BLOCK, graph=False), device=str(device),
+        graph=f"parallel.sharded[1,{_IR_BLOCK},1]",
+    )
+
+
+@register_ir_core("parallel.sharded_dual_lp_ell", dense_ref="parallel.sharded_dual_lp",
+                  span="parallel.sharded_dual_lp_ell")
+def _ir_sharded_dual_lp_ell(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_to_device
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_pack_rows
+
+    _one_rank_world(device)
+    r = Seeded(42, device)
+    G, h, c, a_row, b = _dual_rows(r, _IR_ROWS, _IR_NV)
+    idx, val, _nnz = ell_pack_rows(G, _IR_KP)
+    return IRCase(
+        fn=sharded_ell_first_block,
+        args=tuple(r.t(a) for a in (idx, val, h, c, a_row, b)) + (1e-6,),
+        static=dict(block_iters=_IR_BLOCK, graph=False, csr=csr_to_device(idx, val, _IR_NV, r.device)),
+        device=str(device), graph=f"parallel.sharded_ell[1,{_IR_BLOCK},1]",
+    )
+
+
+#: the SPMD cases' block: ``scale`` blocks of this many iterations
+_SPMD_BLOCK = 16
+
+
+@register_spmd_core(
+    "parallel.sharded_dual_lp",
+    loop_collectives=(
+        "row-sharded GEMV: the per-iteration all-reduce of G^T lambda IS the algorithm, each "
+        "rank owns a row shard and the dual ascent direction is their sum (_sharded_block)"
+    ),
+)
+def _spmd_sharded_dual_lp(mesh, device="cpu", scale: int = 1) -> IRCase:
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    G, h, c, a_row, b = _dual_rows(Seeded(41, device), _IR_ROWS, _IR_NV)
+    return IRCase(
+        fn=sharded_dispatch, args=(G, h, c, a_row, b),
+        static=dict(mesh=mesh, tol=0.0, block_iters=_SPMD_BLOCK * int(scale), max_blocks=1),
+        arg_roles=("rows", "rows", "replicated", "replicated", "replicated"), device=str(device),
+    )
+
+
+@register_spmd_core(
+    "parallel.sharded_dual_lp_ell",
+    loop_collectives=(
+        "row-sharded ELL GEMV: the same per-iteration all-reduce as the dense twin, the sum over "
+        "row shards is the dual ascent step itself"
+    ),
+)
+def _spmd_sharded_dual_lp_ell(mesh, device="cpu", scale: int = 1) -> IRCase:
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_pack_rows
+
+    G, h, c, a_row, b = _dual_rows(Seeded(42, device), _IR_ROWS, _IR_NV)
+    idx, val, _nnz = ell_pack_rows(G, _IR_KP)
+    return IRCase(
+        fn=sharded_ell_dispatch, args=(idx, val, h, c, a_row, b),
+        static=dict(mesh=mesh, tol=0.0, block_iters=_SPMD_BLOCK * int(scale), max_blocks=1),
+        arg_roles=("rows", "rows", "rows", "replicated", "replicated", "replicated"),
+        device=str(device),
+    )

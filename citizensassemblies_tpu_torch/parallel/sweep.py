@@ -29,6 +29,7 @@ import torch
 
 from citizensassemblies_tpu_torch.core.instance import DenseInstance
 from citizensassemblies_tpu_torch.models.legacy import _draw_panels, _sample_step, gumbel
+from citizensassemblies_tpu_torch.lint.registry import IRCase, register_ir_core
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 
 
@@ -193,3 +194,30 @@ def sweep_final_primal_eps(
         deficit = np.asarray(t, dtype=np.float64) - P.T.astype(np.float64) @ p
         out.append((p, float(np.maximum(deficit, 0.0).max())))
     return out
+
+
+# --- registered cores (lint/registry.py) ----------------------------------------
+
+
+def sweep_core(A, qmin, qmax, n_real, *, k: int, B: int, seed: int):
+    """:func:`sweep_panels` over stacked operands, the noise from a fresh
+    generator of ``seed``."""
+    stacked = StackedInstances(A=A, qmin=qmin, qmax=qmax, n_real=n_real, k=int(k))
+    return sweep_panels(stacked, int(B), torch.Generator(device=A.device).manual_seed(int(seed)))
+
+
+@register_ir_core("sweep.alloc_core", span="sweep.alloc_core")
+def _ir_sweep_alloc_core(device="cpu") -> IRCase:
+    """Two padded instances at the sampler's small shape (40 agents, 12
+    features, k = 6, 32 chains each): the whole fleet as one draw."""
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+    from citizensassemblies_tpu_torch.models.legacy import seeded_pool
+
+    r = Seeded(101, device)
+    pools = [seeded_pool(r, 40, 12, 6) for _ in range(2)]
+    return IRCase(
+        fn=sweep_core,
+        args=(r.t(np.stack([p[0] for p in pools])), r.t(np.stack([p[1] for p in pools])),
+              r.t(np.stack([p[2] for p in pools])), r.t(np.array([40, 36]), torch.int64)),
+        static=dict(k=6, B=32, seed=3), device=str(device),
+    )

@@ -57,6 +57,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from citizensassemblies_tpu_torch.lint.registry import IRCase, register_ir_core, register_spmd_core
 from citizensassemblies_tpu_torch.robust import inject
 from citizensassemblies_tpu_torch.utils import device as _device
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
@@ -648,3 +649,106 @@ def final_primal_batch_lp(P: np.ndarray, target: np.ndarray, tol: Optional[float
     A = np.zeros((1, C + 1))
     A[0, :C] = 1.0
     return BatchLP(c=c, G=G, h=h, A=A, b=np.ones(1), tol=tol, tail_vars=1)
+
+
+# --- registered cores (lint/registry.py) ----------------------------------------
+# The engine solves a bucket's lanes one by one (:func:`_solve_lanes`), so the
+# vmapped core is each lane's dense core to its first host read, stacked; the
+# polish screen is the two-sided core over its lanes. Shapes are the JAX
+# registrations'.
+
+#: the JAX registrations' schedule (max_iters, check_every, sentinel)
+_IR_KW = (1024, 128, 0)
+
+
+def lanes_first_blocks(c, G, h, A, b, x0, lam0, mu0, tol, *, check_every: int,
+                       graph: bool = False):
+    """Each lane of a stacked bucket through the dense LP core to its first
+    host read (:func:`_solve_lanes`). Returns the stacked ``(x, lam,
+    mu)``."""
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import lp_first_block
+
+    family = "batch_lp.vmapped[" + ",".join(str(v) for v in _IR_KW) + "]"
+    outs = [
+        lp_first_block(*(a[i] for a in (c, G, h, A, b, x0, lam0, mu0, tol)),
+                       check_every=check_every, graph=graph, family=family)
+        for i in range(c.shape[0])
+    ]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def _ir_bucket(seed: int, device, B: int, nv: int, m1: int, m2: int, **extra) -> IRCase:
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+    from citizensassemblies_tpu_torch.lint.operands import dense_lp_operands
+
+    return IRCase(
+        fn=lanes_first_blocks, args=dense_lp_operands(Seeded(seed, device), nv, m1, m2, lanes=B),
+        static=dict(check_every=_IR_KW[1], graph=False), device=str(device),
+        graph="batch_lp.vmapped[" + ",".join(str(v) for v in _IR_KW) + "]", **extra,
+    )
+
+
+@register_ir_core("batch_lp.vmapped_core", span="batch_lp.vmapped_core")
+def _ir_batch_core(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.lint.operands import LP_RANGES
+
+    return _ir_bucket(61, device, 4, 65, 64, 1, arg_ranges=LP_RANGES,
+                      prec_demote=(1, 3))  # stacked G, A
+
+
+@register_ir_core(
+    "batch_lp.polish_screen_dense",
+    span_optout="IR comparator only: the dense polish screen dispatches through "
+    "solve_lp_batch, whose batch_lp.vmapped_core span covers it",
+)
+def _ir_polish_screen_dense(device="cpu") -> IRCase:
+    """The dense comparator of the ELL polish screen: the bucket core at the
+    stacked two-sided master's shape (4 lanes of a 128-type, 256-column
+    face: G is the dense ``[2T, C+1]`` block)."""
+    T, C = 128, 256
+    return _ir_bucket(62, device, 4, C + 1, 2 * T, 1)
+
+
+@register_ir_core("batch_lp.polish_screen_ell", dense_ref="batch_lp.polish_screen_dense",
+                  span="batch_lp.polish_screen_ell")
+def _ir_polish_screen_ell(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_to_device
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+    from citizensassemblies_tpu_torch.lint.operands import ell_operands, two_sided_lanes
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import two_sided_first_block
+
+    r = Seeded(63, device)
+    B, T, C, kp = 4, 128, 256, 16
+    idx, val = ell_operands(r, C, T, kp)
+    family = "batch_lp.polish_ell[" + ",".join(str(v) for v in _IR_KW) + "]"
+    return IRCase(
+        fn=two_sided_first_block, args=(r.t(idx), r.t(val)) + two_sided_lanes(r, T, C, B),
+        static=dict(check_every=_IR_KW[1], graph=False, family=family,
+                    csr=csr_to_device(idx, val, T, r.device)),
+        device=str(device), graph=family,
+    )
+
+
+def mesh_bucket(c, G, h, A, b, *, mesh, max_iters: int, device):
+    """A stacked bucket through the engine over ``mesh``: each rank solves
+    its own lanes (``_own_lanes``) for a fixed ``max_iters`` (``tol=0``) and
+    the solutions are gathered back to every rank."""
+    from citizensassemblies_tpu_torch.utils.config import default_config
+
+    problems = [BatchLP(c=c[i], G=G[i], h=h[i], A=A[i], b=b[i], tol=0.0) for i in range(len(c))]
+    return solve_lp_batch(problems, cfg=default_config(), max_iters=max_iters, device=device,
+                          mesh=mesh, defer=False)
+
+
+@register_spmd_core("batch_lp.vmapped_core")
+def _spmd_batch_core(mesh, device="cpu", scale: int = 1) -> IRCase:
+    """Eight lanes over the swept world. The port deals the lanes by rank
+    (their ids in the ``bucket`` layout) and hands each rank its own lanes'
+    operands whole, so no operand is placed and none declares a role."""
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+    from citizensassemblies_tpu_torch.lint.operands import dense_lp_operands
+
+    ops = [a.cpu().numpy() for a in dense_lp_operands(Seeded(64, "cpu"), 65, 64, 1, lanes=8)[:5]]
+    return IRCase(fn=mesh_bucket, args=tuple(ops),
+                  static=dict(mesh=mesh, max_iters=_IR_KW[1] * int(scale), device=device),
+                  device=str(device))

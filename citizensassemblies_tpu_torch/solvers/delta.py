@@ -43,6 +43,7 @@ import torch
 
 from citizensassemblies_tpu_torch.data.registry import Registry, RegistryEdit
 from citizensassemblies_tpu_torch.aot.store import note_eager
+from citizensassemblies_tpu_torch.lint.registry import IRCase, register_ir_core
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.solvers.compositions import (
     StageCert,
@@ -52,6 +53,7 @@ from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device, upload
 from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
 from citizensassemblies_tpu_torch.utils.logging import RunLog
+from citizensassemblies_tpu_torch.utils.precision import iterate_dtype
 
 #: the framework's hard L∞ exactness contract (``models/leximin.py``)
 CONTRACT_LINF = 1e-3
@@ -273,7 +275,7 @@ def _screen_core(idx, val, tfeat, minv, lo, hi, Y, mu, k: int):
     ok_cap = (val <= mv + 0.5).all(dim=1)
     ncat = tfeat.shape[1]
     feat = tfeat[idx64].reshape(C, P * ncat)  # [C, P·ncat]
-    counts = torch.zeros((C, lo.shape[0]), dtype=val.dtype, device=val.device)
+    counts = torch.zeros((C, lo.shape[0]), dtype=iterate_dtype(val.dtype), device=val.device)
     counts.scatter_add_(1, feat, val[:, :, None].expand(C, P, ncat).reshape(C, P * ncat))
     ok_band = ((counts >= lo[None, :] - 0.5) & (counts <= hi[None, :] + 0.5)).all(dim=1)
     feas = ok_k & ok_cap & ok_band
@@ -855,4 +857,28 @@ def project_to_reduction(state: DeltaState, reduction) -> Optional[_TypespaceShi
         lp_solves=int(state.lp_solves),
         stages=len(state.certs),
         coverable=comps.max(axis=0) > 0,
+    )
+
+
+# --- registered cores (lint/registry.py) ----------------------------------------
+
+
+@register_ir_core("delta.screen", span="delta.screen")
+def _ir_delta_screen(device="cpu") -> IRCase:
+    """The churn screen (a whole core: no host read) at the JAX
+    registration's shape: 64 columns of 8 ELL slots, 32 types over 3
+    categories, 12 quota cells, 4 stages, k = 8."""
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    r = Seeded(81, device)
+    C, P, T, ncat, per, S = 64, 8, 32, 3, 4, 4
+    idx = np.sort(np.argsort(r.rng.random((C, T)), axis=1)[:, :P], axis=1)
+    tfeat = np.stack([ci * per + r.rng.integers(0, per, T) for ci in range(ncat)], axis=1)
+    F = ncat * per
+    return IRCase(
+        fn=_screen_core,
+        args=(r.t(idx, torch.int32), r.t(r.counts((C, P), 2, 0.3)), r.t(tfeat, torch.int64),
+              r.t(r.counts(T, 3)), r.t(np.ones(F, np.float32)), r.t(np.full(F, 4.0, np.float32)),
+              r.f32((S, T)), r.f32(S)),
+        static=dict(k=8), device=str(device),
     )

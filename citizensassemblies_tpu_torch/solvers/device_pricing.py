@@ -52,6 +52,7 @@ from citizensassemblies_tpu_torch.utils.config import Config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device, upload
 from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
 from citizensassemblies_tpu_torch.aot.store import note_eager
+from citizensassemblies_tpu_torch.lint.registry import IRCase, register_ir_core
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.utils.logging import RunLog
 
@@ -356,3 +357,44 @@ class DevicePricer:
             best = int(np.argmax(vals))
             hits.append((i, comps[sl][best][None, :].astype(np.int16)))
         return hits, missed
+
+
+# --- registered cores (lint/registry.py) ----------------------------------------
+# Both pricers are whole cores (no host read). Shapes are the JAX
+# registrations'.
+
+
+@register_ir_core("device_pricing.greedy_lanes", span="device_pricing.greedy_lanes")
+def _ir_greedy_lanes(device="cpu") -> IRCase:
+    """The β-ladder greedy pricer at 8 lanes, 32 types, 12 features over 3
+    categories, k = 8 slots."""
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    r = Seeded(71, device)
+    B, T, ncat, per = 8, 32, 3, 4
+    feat_of = np.stack([ci * per + r.rng.integers(0, per, T) for ci in range(ncat)], axis=1)
+    F = ncat * per
+    return IRCase(
+        fn=greedy_lanes,
+        args=(r.t(feat_of, torch.int64), r.t(np.arange(F) // per, torch.int64),
+              r.ints(T, 4, lo=1), r.t(np.ones(F), torch.int32), r.t(np.full(F, 4), torch.int32),
+              r.f32((B, T), -1.0, 1.0), r.t(np.r_[-1, r.rng.integers(0, T, B - 1)], torch.int64)),
+        static=dict(k=8, ncat=ncat), device=str(device),
+    )
+
+
+@register_ir_core("device_pricing.exact_dp", span="device_pricing.exact_dp")
+def _ir_exact_dp(device="cpu") -> IRCase:
+    """The exact single-category DP at 4 lanes, 16 types, k = 8: the value
+    table over (type, slots used) and the backtrack."""
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    r = Seeded(72, device)
+    B, T = 4, 16
+    return IRCase(
+        fn=exact_dp,
+        args=(r.t(np.arange(T), torch.int64), r.ints(T, 4, lo=1), r.t(np.zeros(T), torch.int32),
+              r.t(np.full(T, 3), torch.int32), r.f32((B, T), -1.0, 1.0),
+              r.t(np.r_[-1, r.rng.integers(0, T, B - 1)], torch.int64)),
+        static=dict(k=8), device=str(device),
+    )

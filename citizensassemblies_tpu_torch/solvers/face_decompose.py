@@ -83,6 +83,7 @@ from citizensassemblies_tpu_torch.utils import device as _device
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device, upload
 from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
 from citizensassemblies_tpu_torch.aot.store import note_eager
+from citizensassemblies_tpu_torch.lint.registry import IRCase, register_ir_core
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.utils.logging import RunLog
 
@@ -1431,3 +1432,66 @@ def realize_profile(
     finally:
         pricer.close()
         scope.close()
+
+
+# --- registered cores (lint/registry.py) ----------------------------------------
+# Both screens are whole cores (no host read) at the JAX registrations'
+# shapes: 512 composition rows over 32 types and 40 features, one leftover
+# category.
+
+
+def move_screen_core(comps_i, counts_nb, lo_nb, hi_nb, counts_full, lo_f, hi_f, m_t, ti, tj, valid,
+                     need_sub, need_add, lf_ai, lf_aj, *, lf_donor, cap: int):
+    """:func:`_move_screen_dispatch`'s device work: the feasibility check
+    and its fixed-size nonzero."""
+    ok = _screen_feasible(comps_i, counts_nb, lo_nb, hi_nb, counts_full, lo_f, hi_f, m_t, ti, tj,
+                          valid, need_sub, need_add, lf_ai, lf_aj, lf_donor)
+    return _first_true(ok.reshape(-1), int(cap))
+
+
+def _screen_operands(r, rows: int = _SCREEN_ROWS, T: int = 32, F: int = 40):
+    i64 = torch.int64
+    comps = r.rng.integers(0, 3, (rows, T))
+    counts = r.rng.integers(0, 6, (rows, F))
+    return dict(
+        comps_i=r.t(comps, i64), counts_nb=r.t(counts, i64), lo_nb=r.t(np.ones(F), i64),
+        hi_nb=r.t(np.full(F, 5), i64), counts_full=r.t(counts, i64), lo_f=r.t(np.ones(F), i64),
+        hi_f=r.t(np.full(F, 5), i64), m_t=r.t(r.rng.integers(1, 4, T), i64),
+    )
+
+
+@register_ir_core("face_decompose.move_screen", span="face_decompose.move_screen")
+def _ir_move_screen(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    r = Seeded(91, device)
+    T, F, P = 32, 40, 4096
+    s = _screen_operands(r, T=T, F=F)
+    i64 = torch.int64
+    ti, tj = r.ints(P, T, dtype=i64), r.ints(P, T, dtype=i64)
+    return IRCase(
+        fn=move_screen_core,
+        args=tuple(s.values()) + (
+            ti, tj, ti != tj, r.ints(P, 1 << 20, dtype=i64), r.ints(P, 1 << 20, dtype=i64),
+            [r.ints(P, F, dtype=i64)], [r.ints(P, F, dtype=i64)],
+        ),
+        static=dict(lf_donor=[True], cap=P), device=str(device),
+    )
+
+
+@register_ir_core("face_decompose.fused_screen", span="face_decompose.fused_screen")
+def _ir_fused_screen(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    r = Seeded(92, device)
+    T, F, Q = 32, 40, 1024
+    s = _screen_operands(r, T=T, F=F)
+    i64 = torch.int64
+    return IRCase(
+        fn=fused_screen_core,
+        args=(r.f32(2 * T, -1.0, 1.0), r.t(r.counts(T, 3))) + tuple(s.values()) + (
+            r.ints(T, 1 << 20, dtype=i64), r.ints(Q, T, dtype=i64), r.ints(Q, T, dtype=i64),
+            [r.ints(T, F, dtype=i64)],
+        ),
+        static=dict(lf_donor=[True], cap=1024, pool_cap=8, face_pairs=64), device=str(device),
+    )

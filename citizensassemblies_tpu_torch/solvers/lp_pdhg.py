@@ -44,12 +44,25 @@ import numpy as np
 import torch
 
 from citizensassemblies_tpu_torch.aot.store import GraphEntry, SeededGraph, register_block
+from citizensassemblies_tpu_torch.lint.operands import (
+    LP_RANGES,
+    RANGE_WIDE,
+    TWO_SIDED_RANGES,
+    dense_lp_operands,
+    ell_operands,
+    two_sided_lanes,
+)
+from citizensassemblies_tpu_torch.lint.registry import IRCase, register_ir_core
 from citizensassemblies_tpu_torch.robust import inject
 from citizensassemblies_tpu_torch.obs.hooks import dispatch_span
 from citizensassemblies_tpu_torch.obs.trace import DeviceValue
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
 from citizensassemblies_tpu_torch.utils.device import DeviceLike, resolve_device
-from citizensassemblies_tpu_torch.utils.guards import guarded_launch, no_implicit_transfers
+from citizensassemblies_tpu_torch.utils.guards import (
+    guarded_launch,
+    no_implicit_transfers,
+    readback,
+)
 from citizensassemblies_tpu_torch.utils.precision import demote_operator, iterate_dtype, operand_tensor
 
 
@@ -209,7 +222,9 @@ def _two_sided_iterate(
         )
     while True:
         active = (res > tol) & (it < max_iters) & ~pois
-        if not bool(active.any()):
+        with readback():
+            done = not bool(active.any())
+        if done:
             break
         tau = 0.9 * omega / norm
         sigma = 0.9 / (omega * norm)
@@ -683,7 +698,8 @@ def _lp_iterate(
         moved = (dx > 1e-12) & (dy > 1e-12)
         omega_new = torch.sqrt(omega * torch.clamp(dy / torch.clamp_min(dx, 1e-12), 1e-4, 1e4))
         omega_out = torch.where(moved, torch.clamp(omega_new, 1.0 / 64.0, 64.0), omega)
-        res_new = float(res_t)
+        with readback():
+            res_new = float(res_t)
         # the sentinel rejects a block whose residual is not finite: the
         # carry stays at the block start and the solve is quarantined
         ok = not sentinel or bool(np.isfinite(res_new))
@@ -738,6 +754,21 @@ def _pdhg_body(
     :func:`_lp_iterate` with dense matvecs, its blocks replayed as a CUDA
     graph of the store's ``family`` when ``graph`` (default: on CUDA
     tensors). Returns the unscaled ``(x, lam, mu, it, res, flags)``."""
+    m1 = G.shape[0]
+    pre, Ks, state = _dense_lp_setup(c, G, h, A, b, x0, lam0, mu0)
+    Gs = Ks[:m1]
+    out = _lp_iterate(
+        lambda q: Gs @ q, lambda y: Gs.t() @ y, pre.As, pre.cs, pre.hs, pre.bs,
+        *state, tol, max_iters, check_every, sentinel=sentinel,
+        graph=Ks.is_cuda if graph is None else graph, seed=(family, (Ks, m1)),
+    )
+    return pre.unscale(*out[:3]) + out[3:]
+
+
+def _dense_lp_setup(c, G, h, A, b, x0, lam0, mu0):
+    """Everything before the dense LP's block loop: Ruiz on the stacked
+    ``[G; A]``, the power-iteration ‖K‖ and the scaled warm start. Returns
+    ``(pre, Ks, (x, lam, mu, norm, scale))``."""
     m1, nv = G.shape
     # a demoted bf16 G or A is widened exactly by the products with the
     # float32 scalings below: Ks and every matvec are float32
@@ -751,19 +782,12 @@ def _pdhg_body(
     Ks = d_r[:, None] * K * d_c[None, :]
     pre = LPScaled(d_r=d_r, d_c=d_c, vals_s=None, As=Ks[m1:], cs=c * d_c,
                    hs=h * d_r[:m1], bs=b * d_r[m1:])
-    Gs = Ks[:m1]
     v = torch.ones(nv, dtype=torch.float32, device=K.device) / np.sqrt(np.float32(nv))
     for _ in range(40):
         w = Ks.t() @ (Ks @ v)
         v = w / (torch.linalg.norm(w) + 1e-12)
     norm = torch.sqrt(torch.linalg.norm(Ks.t() @ (Ks @ v)) + 1e-12)
-    out = _lp_iterate(
-        lambda q: Gs @ q, lambda y: Gs.t() @ y, pre.As, pre.cs, pre.hs, pre.bs,
-        *pre.warm(x0, lam0, mu0), norm, pre.kkt_scale(), tol,
-        max_iters, check_every, sentinel=sentinel,
-        graph=K.is_cuda if graph is None else graph, seed=(family, (Ks, m1)),
-    )
-    return pre.unscale(*out[:3]) + out[3:]
+    return pre, Ks, pre.warm(x0, lam0, mu0) + (norm, pre.kkt_scale())
 
 
 @dataclasses.dataclass
@@ -1081,3 +1105,145 @@ def solve_stage_lp_pdhg(
     mu = float(sol.mu[0])
     p = sol.x[:C]
     return z, y, mu, p, sol.ok, (sol.x, sol.lam, sol.mu)
+
+
+# --- registered cores (lint/registry.py) ----------------------------------------
+# A core is the device work of one dispatch up to its first host read: the
+# prelude and the first block, the block through the graph store with
+# ``graph=True``. ``tol`` is read by the host loop after the block, so no core
+# reads it. Shapes and P1 ranges are the JAX registrations'.
+
+
+def first_runner(block, family: str, factory: str, statics, operands, graph: bool):
+    """``block``, or with ``graph`` its replay from the graph store."""
+    if not graph:
+        return block
+    return SeededGraph(family, factory, statics, operands)
+
+
+def lp_first_block(c, G, h, A, b, x0, lam0, mu0, tol, *, check_every: int, graph: bool = False,
+                   family: str = "lp_pdhg.pdhg_core"):
+    """The dense LP core (:func:`_pdhg_body`) to its first host read: the
+    prelude and one block from the warm start. Returns the unscaled
+    ``(x, lam, mu)`` after the block."""
+    m1 = G.shape[0]
+    pre, Ks, (x, lam, mu, norm, _scale) = _dense_lp_setup(c, G, h, A, b, x0, lam0, mu0)
+    Gs = Ks[:m1]
+    block = _lp_block(lambda q: Gs @ q, lambda y: Gs.t() @ y, pre.As, pre.cs, pre.hs, pre.bs,
+                      int(check_every))
+    run = first_runner(block, family, "lp_pdhg.lp_block_dense",
+                       {"check_every": int(check_every), "m1": int(m1), "sentinel": False},
+                       (Ks, pre.cs, pre.hs, pre.bs), graph)
+    omega = torch.ones((), dtype=torch.float32, device=x.device)
+    q, y, m = run(x, lam, mu, 0.9 * omega / norm, 0.9 / (omega * norm))[:3]
+    return pre.unscale(q, y, m)
+
+
+def _lp_ell_first_block(c, idx, val, h, A, b, x0, lam0, mu0, tol, *, csr, check_every: int):
+    """The ELL LP core (:func:`_pdhg_body_ell`, no graph site) to its first
+    host read."""
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    pre, (x, lam, mu, norm, _scale) = mk.lp_setup(c, idx, val, h, A, b, x0, lam0, mu0, csr)
+    G_mv, G_rmv = mk.lp_operators(idx, pre.vals_s, csr)
+    block = _lp_block(G_mv, G_rmv, pre.As, pre.cs, pre.hs, pre.bs, int(check_every))
+    omega = torch.ones((), dtype=torch.float32, device=x.device)
+    q, y, m = block(x, lam, mu, 0.9 * omega / norm, 0.9 / (omega * norm))[:3]
+    return pre.unscale(q, y, m)
+
+
+def two_sided_first_block(idx, val, v, colmask, x0, lam0, mu0, tol, *, csr, check_every: int,
+                          graph: bool = False, family: str = "lp_pdhg.two_sided_core_ell"):
+    """The two-sided ELL core (:func:`_pdhg_two_sided_body_ell`) to its
+    first host read: the prelude, ‖K‖, the scaled warm start and one block
+    over the lanes. Returns the unscaled ``(x, lam, mu)``."""
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    pre, vals_s = mk.two_sided_prelude(idx, val, v, colmask)
+    ops = mk.ell_operator_tensors(idx, vals_s, pre, csr)
+    K_apply, KT_apply = mk.ell_operators_from(*ops)
+    B, C = pre.d_c.shape
+    norm = power_norm(K_apply, KT_apply, B, C, v.device)
+    p, eps, l_lo, l_up, mu = warm_scaled(pre, x0, lam0, mu0)
+    block = _two_sided_block(K_apply, KT_apply, pre.cs_eps, pre.hs_lo, pre.hs_up, pre.bs,
+                             int(check_every))
+    run = first_runner(block, family, "lp_pdhg.two_sided_block",
+                       {"check_every": int(check_every), "sentinel": False},
+                       tuple(ops) + (pre.cs_eps, pre.hs_lo, pre.hs_up, pre.bs), graph)
+    omega = torch.ones(B, dtype=torch.float32, device=v.device)
+    q, e, lo, up, m = run(p, eps, l_lo, l_up, mu, 0.9 * omega / norm, 0.9 / (omega * norm))[:5]
+    return unscale(pre, q, e, lo, up, m)
+
+
+@register_ir_core("lp_pdhg.pdhg_core", span="lp_pdhg.pdhg_core")
+def _ir_pdhg_core(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    return IRCase(
+        fn=lp_first_block, args=dense_lp_operands(Seeded(11, device), 65, 64, 1),
+        static=dict(check_every=128, graph=False), arg_ranges=LP_RANGES,
+        prec_demote=(1, 3),  # G, A
+        device=str(device), graph="lp_pdhg.pdhg_core",
+    )
+
+
+@register_ir_core("lp_pdhg.pdhg_core_ell", dense_ref="lp_pdhg.pdhg_core", span="lp_pdhg.pdhg_core_ell")
+def _ir_pdhg_core_ell(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_to_device
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    r = Seeded(12, device)
+    nv, m1, m2, kp = 65, 64, 1, 8
+    idx, val = ell_operands(r, m1, nv, kp)
+    return IRCase(
+        fn=_lp_ell_first_block,
+        args=(r.f32(nv, -1.0, 1.0), r.t(idx), r.t(val), r.f32(m1, 0.5, 1.5), r.ones((m2, nv)),
+              r.ones(m2), r.zeros(nv), r.zeros(m1), r.zeros(m2), r.full((), 1e-6)),
+        static=dict(check_every=128, csr=csr_to_device(idx, val, nv, r.device)),
+        arg_ranges=(RANGE_WIDE, None) + LP_RANGES[1:],
+        prec_demote=(2, 4),  # ELL values, A
+        device=str(device),
+    )
+
+
+@register_ir_core("lp_pdhg.two_sided_core", span="lp_pdhg.two_sided_core")
+def _ir_two_sided_core(device="cpu") -> IRCase:
+    """The port packs the dense master by columns on the host
+    (:func:`solve_two_sided_master_async`) and solves the ELL master, so its
+    core is the ELL core at the dense master's fill: the JAX core's ``MT``
+    is the packed values (argument 1), its other arguments follow."""
+    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_to_device
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
+
+    r = Seeded(13, device)
+    T, C = 128, 256
+    idx, val = EllPack.from_rows(r.counts((C, T), 3, 0.9), minor=T).padded(C)
+    return IRCase(
+        fn=two_sided_first_block,
+        args=(r.t(idx), r.t(val)) + two_sided_lanes(r, T, C),
+        static=dict(check_every=128, graph=False, csr=csr_to_device(idx, val, T, r.device)),
+        arg_ranges=TWO_SIDED_RANGES,
+        prec_demote=(1,),  # MT, as its packed values
+        device=str(device), graph="lp_pdhg.two_sided_core_ell",
+        jax_args=(None, 0, 1, 2, 3, 4, 5, 6),
+    )
+
+
+@register_ir_core("lp_pdhg.two_sided_core_ell", dense_ref="lp_pdhg.two_sided_core",
+                  span="lp_pdhg.two_sided_core_ell")
+def _ir_two_sided_core_ell(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_to_device
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    r = Seeded(14, device)
+    T, C, kp = 128, 256, 16
+    idx, val = ell_operands(r, C, T, kp)
+    return IRCase(
+        fn=two_sided_first_block,
+        args=(r.t(idx), r.t(val)) + two_sided_lanes(r, T, C),
+        static=dict(check_every=128, graph=False, csr=csr_to_device(idx, val, T, r.device)),
+        arg_ranges=TWO_SIDED_RANGES,
+        prec_demote=(1,),  # ELL values
+        device=str(device), graph="lp_pdhg.two_sided_core_ell",
+    )

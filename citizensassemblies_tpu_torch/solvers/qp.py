@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 
 from citizensassemblies_tpu_torch.aot.store import SeededGraph, register_block
+from citizensassemblies_tpu_torch.lint.registry import IRCase, register_ir_core
 from citizensassemblies_tpu_torch.robust import inject
 from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_gather_mv, ell_scatter_mv
 from citizensassemblies_tpu_torch.utils.config import Config, default_config
@@ -114,7 +115,7 @@ def project_simplex(v: torch.Tensor) -> torch.Tensor:
     d = v.shape[0]
     u = torch.sort(v, descending=True).values
     css = _prefix_sum(u) - 1.0
-    idx = torch.arange(1, d + 1, dtype=v.dtype, device=v.device)
+    idx = torch.arange(1, d + 1, dtype=iterate_dtype(v.dtype), device=v.device)
     cond = u - css / idx > 0
     rho = cond.sum() - 1
     # an all-false mask (NaN input) indexes the last entry, as an index of
@@ -304,8 +305,9 @@ def _min_norm_dual_ascent_ell(idx, val, t, eps, lr, lam0, iters: int, csr: Optio
 def _power_norm(K: torch.Tensor, iters: int = 40) -> torch.Tensor:
     """‖K‖₂ by power iteration on KᵀK (the JAX package's
     ``lp_pdhg._power_norm``); a demoted bf16 ``K`` is widened first."""
-    K = K.to(iterate_dtype(K.dtype))
-    v = torch.ones(K.shape[1], dtype=K.dtype, device=K.device) / np.sqrt(np.float32(K.shape[1]))
+    dt = iterate_dtype(K.dtype)
+    K = K.to(dt)
+    v = torch.ones(K.shape[1], dtype=dt, device=K.device) / np.sqrt(np.float32(K.shape[1]))
     for _ in range(iters):
         w = K.t() @ (K @ v)
         v = w / (torch.linalg.norm(w) + 1e-12)
@@ -414,8 +416,9 @@ def _get_l2_fused_core(
         use_graph = P.is_cuda if graph is None else graph
         # --- stage 1: min-ε anchor on the recovery LP -----------------------
         with log.timer("l2_anchor"):
-            c = torch.zeros(C + 1, **f32)
-            c[C] = 1.0
+            # built on the device: an element store of a python number
+            # would copy it from pageable host memory, a host sync
+            c = torch.cat([torch.zeros(C, **f32), torch.ones(1, **f32)])
             G = torch.cat([-PT, -torch.ones((n, 1), **f32)], dim=1)
             A = torch.cat([torch.ones(C, **f32), torch.zeros(1, **f32)])[None, :]
             x, _lam, _mu, it_eps, _res, flags1 = _pdhg_body(
@@ -760,3 +763,168 @@ def solve_final_primal_l2(
     beta = min(max(beta, 0.0), 1.0)
     p = (1.0 - beta) * p + beta * p_lp
     return p, float(eps_star)
+
+
+# --- registered cores (lint/registry.py) ----------------------------------------
+# The ascents read nothing on the host for a fixed iteration count, so their
+# cores are the whole functions. The fused cores read the host once per stage
+# window (the anchor's blocks, the ascent's movement), so theirs stop at each
+# stage's first window. Shapes, schedules and P1 ranges are the JAX
+# registrations'.
+
+#: the JAX registrations' fused schedule: anchor iterations, check interval,
+#: ascent chunk, chunks
+_IR_SCHEDULE = (1024, 128, 256, 8)
+
+
+def _schedule_family(name: str) -> str:
+    return name + "[" + ",".join(str(v) for v in _IR_SCHEDULE + (0,)) + "]"
+
+
+def l2_fused_first_windows(P, t, p_don, eps_margin, eps_tol, ascent_tol, *, graph: bool = False):
+    """The dense fused core (:func:`_get_l2_fused_core`) with each stage cut
+    to its first window: the anchor's prelude and first PDHG block, the
+    ε-floor pick, the power norm and the first ascent chunk. Returns ``(p,
+    p_floor)``."""
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import lp_first_block
+
+    _iters, check_every, chunk, _chunks = _IR_SCHEDULE
+    family = _schedule_family("qp.l2_fused")
+    P = P.to(iterate_dtype(P.dtype))
+    C, n = P.shape
+    f32 = dict(dtype=torch.float32, device=P.device)
+    PT = P.t()
+    c = torch.cat([torch.zeros(C, **f32), torch.ones(1, **f32)])
+    G = torch.cat([-PT, -torch.ones((n, 1), **f32)], dim=1)
+    A = torch.cat([torch.ones(C, **f32), torch.zeros(1, **f32)])[None, :]
+    x = lp_first_block(
+        c, G, -t, A, torch.ones(1, **f32), torch.zeros(C + 1, **f32), torch.zeros(n, **f32),
+        torch.zeros(1, **f32), eps_tol, check_every=check_every, graph=graph,
+        family=family + "/anchor",
+    )[0]
+    p_floor, eps = _floor_pick(x[:C], lambda p: PT @ p, t, p_don, eps_margin)
+    lr = 1.0 / torch.clamp_min(_power_norm(P) ** 2 / 2.0, 1.0)
+    p_of, step = _dense_ascent(P, t, eps, lr)
+    run = _chunk_runner(step, chunk, None, graph,
+                        (family + "/ascent", "qp.ascent_dense", (P, t, eps, lr)))
+    (lam,) = run(torch.zeros(2 * n, **f32))
+    return p_of(lam), p_floor
+
+
+def l2_fused_ell_first_windows(idx, val, t, p_don, eps_margin, eps_tol, ascent_tol, *, csr,
+                               graph: bool = False):
+    """The ELL fused core (:func:`_get_l2_fused_core_ell`) with each stage
+    cut to its first window (the two-sided anchor's first block over the
+    pack, then as the dense one). Returns ``(p, p_floor)``."""
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import two_sided_first_block
+
+    _iters, check_every, chunk, _chunks = _IR_SCHEDULE
+    family = _schedule_family("qp.l2_fused_ell")
+    C = idx.shape[0]
+    n = t.shape[0]
+    f32 = dict(dtype=torch.float32, device=val.device)
+    x = two_sided_first_block(
+        idx, val, t, torch.ones((1, C), **f32), torch.zeros((1, C + 1), **f32),
+        torch.zeros((1, 2 * n), **f32), torch.zeros(1, **f32), eps_tol[None], csr=csr,
+        check_every=check_every, graph=graph, family=family + "/anchor",
+    )[0]
+    csr_ops = _csr_tensors(val, csr)
+    _gather, scatter = _ell_ops_from(idx, val, n, csr_ops)
+    p_floor, eps = _floor_pick(x[0, :C], scatter, t, p_don, eps_margin)
+    lr = 1.0 / torch.clamp_min(_ell_power_norm(idx, val, n, csr=csr) ** 2 / 2.0, 1.0)
+    p_of, step = _ell_ascent(idx, val, csr_ops, t, eps, lr)
+    run = _chunk_runner(step, chunk, None, graph,
+                        (family + "/ascent", "qp.ascent_ell", (idx, val, *csr_ops, t, eps, lr)))
+    (lam,) = run(torch.zeros(2 * n, **f32))
+    return p_of(lam), p_floor
+
+
+def _qp_operands(r, C: int, n: int, kp: Optional[int]):
+    """A seeded portfolio (dense ``P`` or its ELL pack of ``kp`` members a
+    panel) and target ``t``."""
+    from citizensassemblies_tpu_torch.lint.operands import ell_operands
+
+    idx, val = ell_operands(r, C, n, kp if kp else 8, p_zero=0.0)
+    if kp is None:
+        P = np.zeros((C, n), np.float32)
+        np.put_along_axis(P, idx.astype(np.int64), 1.0, axis=1)
+        return (r.t(P),), r.f32(n, 0.05, 0.2)
+    return (r.t(idx), r.t(np.ones_like(val))), r.f32(n, 0.05, 0.2)
+
+
+_ASCENT_RANGES = ((0.0, 1.0, False), (1e-8, 1e-2, False), (0.0, 1.0, False), (-1e4, 1e4, False))
+_FUSED_RANGES = ((0.0, 1.0, False), (0.0, 1.0, False), (1e-8, 1e-2, False), (1e-8, 1e-2, False),
+                 (1e-8, 1e-2, False))
+
+
+@register_ir_core("qp.l2_dual_ascent", span="qp.l2_dual_ascent")
+def _ir_dual_ascent(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    r = Seeded(31, device)
+    C, n = 96, 64
+    (P,), t = _qp_operands(r, C, n, None)
+    return IRCase(
+        fn=_min_norm_dual_ascent,
+        args=(P, t, r.full((), 1e-3), r.full((), 0.5), r.zeros(2 * n)),
+        static=dict(iters=2048, graph=False),
+        arg_ranges=((0.0, 256.0, True),) + _ASCENT_RANGES,
+        prec_demote=(0,),  # P
+        device=str(device), graph="qp.l2_dual_ascent",
+    )
+
+
+@register_ir_core("qp.l2_dual_ascent_ell", dense_ref="qp.l2_dual_ascent", span="qp.l2_dual_ascent_ell")
+def _ir_dual_ascent_ell(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_to_device
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    r = Seeded(32, device)
+    C, n, kp = 96, 64, 8
+    (idx, val), t = _qp_operands(r, C, n, kp)
+    csr = csr_to_device(idx.cpu().numpy(), val.cpu().numpy(), n, r.device)
+    return IRCase(
+        fn=_min_norm_dual_ascent_ell,
+        args=(idx, val, t, r.full((), 1e-3), r.full((), 0.5), r.zeros(2 * n)),
+        static=dict(iters=2048, csr=csr, graph=False),
+        arg_ranges=(None, (0.0, 256.0, True)) + _ASCENT_RANGES,
+        prec_demote=(1,),  # ELL values
+        device=str(device), graph="qp.l2_dual_ascent_ell",
+    )
+
+
+@register_ir_core("qp.l2_fused_core", span="qp.l2_fused_core")
+def _ir_l2_fused(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    r = Seeded(33, device)
+    C, n = 96, 64
+    (P,), t = _qp_operands(r, C, n, None)
+    return IRCase(
+        fn=l2_fused_first_windows,
+        args=(P, t, r.full((C,), 1.0 / C), r.full((), 1e-4), r.full((), 1e-5), r.full((), 1e-7)),
+        static=dict(graph=False),
+        arg_ranges=((0.0, 256.0, True),) + _FUSED_RANGES,
+        prec_demote=(0,),  # P
+        device=str(device), graph=_schedule_family("qp.l2_fused"),
+    )
+
+
+@register_ir_core("qp.l2_fused_core_ell", dense_ref="qp.l2_fused_core", span="qp.l2_fused_core_ell")
+def _ir_l2_fused_ell(device="cpu") -> IRCase:
+    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_to_device
+    from citizensassemblies_tpu_torch.lint.operands import Seeded
+
+    r = Seeded(34, device)
+    C, n, kp = 96, 64, 8
+    (idx, val), t = _qp_operands(r, C, n, kp)
+    csr = csr_to_device(idx.cpu().numpy(), val.cpu().numpy(), n, r.device)
+    return IRCase(
+        fn=l2_fused_ell_first_windows,
+        args=(idx, val, t, r.full((C,), 1.0 / C), r.full((), 1e-4), r.full((), 1e-5),
+              r.full((), 1e-7)),
+        static=dict(csr=csr, graph=False),
+        arg_ranges=(None, (0.0, 256.0, True)) + _FUSED_RANGES,
+        prec_demote=(1,),  # ELL values
+        device=str(device), graph=_schedule_family("qp.l2_fused_ell"),
+    )

@@ -202,12 +202,13 @@ def ell_scatter_mv(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor, minor:
     """``(Mᵀ y)[i] = Σ_{j,s: idx[j,s]=i} val[j,s]·y[j]`` via ``index_add_``.
     ``y`` is ``[major]`` or ``[B, major]``; ``val`` shared or ``[B, ...]``,
     float32 or bf16 (the products are float32 either way)."""
-    contrib = val.to(iterate_dtype(val.dtype)) * y[..., None]
+    dt = iterate_dtype(val.dtype)
+    contrib = val.to(dt) * y[..., None]
     if contrib.dim() == 2:
-        out = torch.zeros(int(minor), dtype=contrib.dtype, device=contrib.device)
+        out = torch.zeros(int(minor), dtype=dt, device=contrib.device)
         return out.index_add_(0, idx.reshape(-1), contrib.reshape(-1))
     B = contrib.shape[0]
-    out = torch.zeros((B, int(minor)), dtype=contrib.dtype, device=contrib.device)
+    out = torch.zeros((B, int(minor)), dtype=dt, device=contrib.device)
     return out.scatter_add_(1, idx.reshape(1, -1).expand(B, -1), contrib.reshape(B, -1))
 
 
@@ -215,12 +216,13 @@ def ell_row_absmax(idx: torch.Tensor, val: torch.Tensor, minor: int) -> torch.Te
     """Per-MINOR max of |values| (0 for minors no slot hits). ``val`` is
     ``[major, k_pad]`` or ``[B, major, k_pad]``; a bf16 ``val`` gives
     float32 maxima."""
-    a = val.abs().to(iterate_dtype(val.dtype))
+    dt = iterate_dtype(val.dtype)
+    a = val.abs().to(dt)
     if a.dim() == 2:
-        out = torch.zeros(int(minor), dtype=a.dtype, device=a.device)
+        out = torch.zeros(int(minor), dtype=dt, device=a.device)
         return out.scatter_reduce_(0, idx.reshape(-1), a.reshape(-1), reduce="amax")
     B = a.shape[0]
-    out = torch.zeros((B, int(minor)), dtype=a.dtype, device=a.device)
+    out = torch.zeros((B, int(minor)), dtype=dt, device=a.device)
     return out.scatter_reduce_(
         1, idx.reshape(1, -1).expand(B, -1), a.reshape(B, -1), reduce="amax"
     )

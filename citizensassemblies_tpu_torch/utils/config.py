@@ -319,6 +319,15 @@ class Config:
     #: ``None`` (kept for the JAX package's symmetry).
     aot_prewarm: Optional[bool] = None
 
+    # --- the lint package's SPMD pass (``lint/spmd.py``) -------------------------
+    #: implicit-replication threshold, bytes: a registered core argument with
+    #: no declared ``dist/partition.py`` role larger than this is flagged at
+    #: world sizes above 1 (an implicitly replicated operand costs its full
+    #: footprint on every device). Declare the argument ``"replicated"`` when
+    #: that is the intended layout; the default (1 MiB, the JAX package's)
+    #: lets scalars, quota vectors and per-feature tables through.
+    spmd_replicated_bytes_max: int = 1 << 20
+
     # --- backends -------------------------------------------------------------
     #: LP engine of the agent-space CG: "jax" solves the dual LPs by PDHG on
     #: the device (the name is the JAX package's, so configurations map field

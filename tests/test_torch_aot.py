@@ -383,13 +383,29 @@ def test_build_cli_records_and_boots_on_cpu(tmp_path, capsys):
     assert main(["build", "--out", path, "--device", "cpu"]) == 0
     report = json.loads(capsys.readouterr().out)
     assert report["entries"] > 0 and report["skipped"] == []
-    assert report["manifest_cores_recorded"] == 0 and report["manifest_unwrapped"]
+    # the manifest walk records every registered core whose block the graph
+    # store replays (12 of the 24) and lists the others
+    assert report["manifest_cores_recorded"] == 12
+    assert len(report["manifest_unwrapped"]) == 12
+    assert "kernels.pallas_ell_matvec" in report["manifest_unwrapped"]
     assert report["lattice_buckets"] == len(tbuild.COLDBOOT_LATTICE)
     assert any(f.startswith("batch_lp.vmapped[") for f in report["families"])
+    assert {"lp_pdhg.pdhg_core", "qp.l2_dual_ascent"} <= set(report["families"])
     doc = json.loads(open(path).read())
     graphs = [e for e in doc["entries"] if e["kind"] == "graph"]
     # the lattice's six distinct (m1, m2, nv) buckets at least
     assert len({tuple(e["operands"][0][1][0]) for e in graphs}) >= 6
+    # the manifest walk's entries (the distributed cores' collective blocks
+    # among them) are recorded tagged, and a boot prewarms none of them
+    manifest = [e for e in graphs if e.get("manifest")]
+    assert len(manifest) == 14
+    assert {e["factory"] for e in manifest} >= {"parallel.sharded_block_dense", "qp.ascent_ell"}
     tstore.GRAPHS.clear()
     store = aot.boot(default_config().replace(aot_cache=True, aot_cache_path=path), device="cpu")
-    assert store.prewarmed == len(graphs) and store.stale == 0
+    assert store.prewarmed == len(graphs) - len(manifest) and store.stale == 0
+    # a later recording merged into the artifact (as ``chip_smoke.py``'s
+    # serve_flagship does) keeps the manifest's entries, unchecked
+    merged = str(tmp_path / "merged.json")
+    again = tbuild.write_recorded(merged, tstore.Recorder(), device="cpu",
+                                  entries={(e["family"], e["sig"]): e for e in doc["entries"]})
+    assert again["skipped"] == [] and again["entries"] == len(doc["entries"])

@@ -45,7 +45,9 @@ def test_every_module_imports_without_jax():
         "service.session", "service.batcher", "service.server", "service.fleet", "obs",
         "obs.metrics", "obs.trace", "obs.hooks", "obs.memory", "obs.slo", "obs.catalog",
         "aot", "aot.store", "aot.build", "aot.__main__", "obs.roofline", "obs.trend",
-        "obs.__main__", "utils.profiling",
+        "obs.__main__", "utils.profiling", "lint", "lint.__main__", "lint.cli", "lint.engine",
+        "lint.config_rule", "lint.rules", "lint.registry", "lint.ir", "lint.spmd", "lint.prec",
+        "lint.operands",
     ):
         assert f"citizensassemblies_tpu_torch.{name}" in names
     code = (
