@@ -324,9 +324,10 @@ SCENARIO_DRAWS = 65_536
 #: H100 80GB HBM3 at 700 W: the first 200 edits took 220 s there; with the
 #: serving phases the whole script took 1,159 s of its 1,200 s limit at 100
 #: edits and 8 samples (26 full ladders, 190 s), 1,095 s at 50 (105 s) and
-#: 994.5 s at 30 edits and 5 samples (60.9 s); 15 edits and 3 samples make
-#: room for phase 13 (the graph store's child processes)
-CHURN_EDITS = 15
+#: 994.5 s at 30 edits and 5 samples (60.9 s); 15 edits and 3 samples made
+#: room for phase 13 (the graph store's child processes); 10 edits since the
+#: whole script read 1,077.6 s at 15 (a slower host, no phase added)
+CHURN_EDITS = 10
 CHURN_SCRATCH = 3
 CHURN_SCRATCH_PER_CLASS = 2
 
@@ -457,6 +458,14 @@ def flagship_pack(C: int = 6144, seed: int = 0):
     return EllPack.from_rows(rows.astype(np.float32), minor=red.T), rows.T, red.msize
 
 
+def gather_plan_record(plan) -> dict:
+    """The gather kernel's launch plan (``kernels/ell_matvec.launch_plan``)
+    as a phase line records it."""
+    return dict(blocks=plan.blocks * plan.B, blocks_per_sm=plan.blocks_per_sm, threads=plan.threads,
+                lanes_per_column=plan.G, ring_stages=plan.tma_warps, stage_bytes=plan.stage_bytes,
+                prefetch_bytes=plan.prefetch_bytes, smem_bytes=plan.smem_bytes)
+
+
 def gather_phase(pack, rows=6144, label="gather"):
     """The ELL gather kernel against its plain version and against one
     ``torch.sparse.mm`` over a CSR of the same matrix (a yardstick only),
@@ -485,7 +494,8 @@ def gather_phase(pack, rows=6144, label="gather"):
         float((zb - em.ell_gather_mv_plain(idx, valb, yb)).abs().max()),
     )
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    G, threads, blocks = em.launch_shape(C, kp, 1, sms)
+    plan = em.launch_plan(C, kp, T, 1, sms)
+    plan_b3 = em.launch_plan(C, kp, T, 3, sms)
     ms, call_ms = timed(lambda: em.ell_gather_mv(idx, val, y), reps=200, warmup=10)
     # the pack as a caller finds it when the L2 holds other data (the
     # timing above reads it from L2, where it stays across the 200 calls)
@@ -511,7 +521,7 @@ def gather_phase(pack, rows=6144, label="gather"):
     rec = dict(
         phase=label, name="ell_gather", replaces=REPLACES["ell_gather"],
         shape=dict(C=C, k_pad=kp, T=T, lanes=[1, 3]),
-        grid=blocks, threads=threads, lanes_per_column=G, grid_b3=em.launch_shape(C, kp, 3, sms)[2],
+        plan=gather_plan_record(plan), plan_b3=gather_plan_record(plan_b3),
         ms=ms, l2_flushed_ms=flushed_ms, b3_ms=b3_ms, plain_ms=plain_ms, library_ms=library_ms,
         library_max_abs_err=lib_err,
         call_ms=call_ms, plain_call_ms=plain_call_ms, library_call_ms=library_call_ms,
@@ -558,7 +568,7 @@ def gather_bf16_phase(pack, label="gather_xmin_bf16"):
         float((zb16 - em.ell_gather_mv_plain(idx, val16, yb)).abs().max()),
     )
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    G, threads, blocks = em.launch_shape(C, kp, 1, sms, bf16=True)
+    plan = em.launch_plan(C, kp, T, 1, sms, bf16=True)
     ms, call_ms = timed(lambda: em.ell_gather_mv(idx, val16, y), reps=200, warmup=10)
     flushed_ms = device_ms(lambda: em.ell_gather_mv(idx, val16, y), 50, "ell_gather", flush_l2=True)
     f32_ms = device_ms(lambda: em.ell_gather_mv(idx, val, y), 200, "ell_gather")
@@ -573,8 +583,9 @@ def gather_bf16_phase(pack, label="gather_xmin_bf16"):
     rec = dict(
         phase=label, name="ell_gather", entry="ell_gather_bf16_launch",
         replaces=REPLACES["ell_gather"], shape=dict(C=C, k_pad=kp, T=T, lanes=[1, 3]),
-        grid=blocks, threads=threads, lanes_per_column=G,
-        lanes_per_column_f32=em.launch_shape(C, kp, 1, sms)[0], lossless=lossless,
+        plan=gather_plan_record(plan), plan_b3=gather_plan_record(
+            em.launch_plan(C, kp, T, 3, sms, bf16=True)),
+        lanes_per_column_f32=em.lanes_per_column(kp), lossless=lossless,
         bitwise_vs_f32=bitwise, ms=ms, l2_flushed_ms=flushed_ms, f32_ms=f32_ms,
         f32_l2_flushed_ms=f32_flushed_ms, plain_ms=plain_ms, call_ms=call_ms,
         plain_call_ms=plain_call_ms, bound_ms=bound_ms, f32_bound_ms=f32_bound_ms,
@@ -2058,44 +2069,67 @@ L2_HOLD_P_TOL = 1e-5
 L2_HOLD_FLOOR_TOL = 1e-6
 
 
-def xmin_l2_hold_phase(dist, leximin):
-    """``qp._get_l2_fused_core_ell`` on the first ``L2_HOLD_ROWS`` panels of
-    the XMIN portfolio (targets: the leximin values; donor: the LEXIMIN
-    probabilities) on the card, the gather kernel and the agent-major CSR
-    transpose, against the same core on the CPU (the plain gather and
-    ``index_add_``): equal anchor iterations and ascent chunks, p within
-    ``L2_HOLD_P_TOL``, the floor vector within ``L2_HOLD_FLOOR_TOL``. On the
-    card the ascent's chunks replay as a CUDA graph; the same core with
-    every chunk launched op by op must give the same result bit for bit."""
-    import torch
-
-    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_to_device
-    from citizensassemblies_tpu_torch.solvers import qp
+def l2_hold_inputs(dist, leximin):
+    """``(P, idx, val, n, t, donor)`` of ``xmin_l2_hold``: the first
+    ``L2_HOLD_ROWS`` panels of the XMIN portfolio packed, the leximin
+    values, the LEXIMIN probabilities as the donor (float32)."""
     from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
 
     P = dist.committees[:L2_HOLD_ROWS]
-    n = P.shape[1]
     ell = EllPack.from_rows(P.astype(np.float32))
     donor = np.zeros(len(P))
     m = min(len(P), len(leximin.probabilities))
     donor[:m] = leximin.probabilities[:m]
     donor /= donor.sum()
     t = np.asarray(leximin.fixed_probabilities, np.float32)
-    outs, secs, timers = {}, {}, {}
-    for label, dev, graph in (("cuda", "cuda", True), ("cuda_eager", "cuda", False), ("cpu", "cpu", False)):
-        from citizensassemblies_tpu_torch.utils.logging import RunLog
+    return P, ell.idx, ell.val, P.shape[1], t, donor.astype(np.float32)
 
-        core = qp._get_l2_fused_core_ell(qp.ANCHOR_ITERS, 128, qp.L2_CHUNK, 40, sentinel=True, graph=graph)
-        csr = csr_to_device(ell.idx, ell.val, n, dev)
-        args = [torch.as_tensor(a, device=dev) for a in (ell.idx, ell.val, t, donor.astype(np.float32))]
-        log = RunLog(echo=False)
-        t0 = time.perf_counter()
-        out = core(*args, torch.tensor(1e-6, device=dev), qp.ANCHOR_TOL, qp.ASCENT_TOL, csr, log=log)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        secs[label] = time.perf_counter() - t0
-        timers[label] = log.timers
-        outs[label] = (out[0].cpu().numpy(), out[1].cpu().numpy(), out[2], out[3], out[4])
+
+def l2_hold_run(idx, val, n, t, donor, dev, graph):
+    """One run of ``xmin_l2_hold``'s fused core on ``dev`` (``graph``: the
+    ascent's chunks replayed as a CUDA graph): ``(outputs, seconds,
+    timers)``."""
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_to_device
+    from citizensassemblies_tpu_torch.solvers import qp
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    core = qp._get_l2_fused_core_ell(qp.ANCHOR_ITERS, 128, qp.L2_CHUNK, 40, sentinel=True, graph=graph)
+    csr = csr_to_device(idx, val, n, dev)
+    args = [torch.as_tensor(a, device=dev) for a in (idx, val, t, donor)]
+    log = RunLog(echo=False)
+    t0 = time.perf_counter()
+    out = core(*args, torch.tensor(1e-6, device=dev), qp.ANCHOR_TOL, qp.ASCENT_TOL, csr, log=log)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (out[0].cpu().numpy(), out[1].cpu().numpy(), out[2], out[3], out[4]), secs, log.timers
+
+
+def _l2_hold_cpu(idx, val, n, t, donor, conn):
+    """``xmin_l2_hold``'s CPU run in a worker process."""
+    import torch
+
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    conn.send(l2_hold_run(idx, val, n, t, donor, "cpu", False))
+
+
+def xmin_l2_hold_phase(dist, leximin, cpu_run):
+    """``qp._get_l2_fused_core_ell`` on the first ``L2_HOLD_ROWS`` panels of
+    the XMIN portfolio (targets: the leximin values; donor: the LEXIMIN
+    probabilities) on the card, the gather kernel and the agent-major CSR
+    transpose, against the same core on the CPU (the plain gather and
+    ``index_add_``; ``cpu_run``, the worker of :func:`start_l2_references`):
+    equal anchor iterations and ascent chunks, p within ``L2_HOLD_P_TOL``,
+    the floor vector within ``L2_HOLD_FLOOR_TOL``. On the card the ascent's
+    chunks replay as a CUDA graph; the same core with every chunk launched
+    op by op must give the same result bit for bit."""
+    P, idx, val, n, t, donor = l2_hold_inputs(dist, leximin)
+    outs, secs, timers = {}, {}, {}
+    for label, graph in (("cuda", True), ("cuda_eager", False)):
+        outs[label], secs[label], timers[label] = l2_hold_run(idx, val, n, t, donor, "cuda", graph)
+    outs["cpu"], secs["cpu"], timers["cpu"] = cpu_worker_result(cpu_run)
     g, e, c = outs["cuda"], outs["cuda_eager"], outs["cpu"]
     p_err = float(np.abs(g[0] - c[0]).max())
     floor_err = float(np.abs(g[1] - c[1]).max())
@@ -2103,7 +2137,7 @@ def xmin_l2_hold_phase(dist, leximin):
         np.array_equal(g[0], e[0]) and np.array_equal(g[1], e[1]) and g[2:] == e[2:]
     )
     rec = dict(
-        phase="xmin_l2_hold", rows=len(P), n=n, k_pad=ell.k_pad, seconds=secs, timers=timers,
+        phase="xmin_l2_hold", rows=len(P), n=n, k_pad=idx.shape[1], seconds=secs, timers=timers,
         anchor_iters=[g[2], c[2]], ascent_iters=[g[3], c[3]], flags=[g[4], c[4]],
         p_max_abs_err=p_err, floor_max_abs_err=floor_err, graph_bit_identical=graph_equal,
         p_tolerance=L2_HOLD_P_TOL, floor_tolerance=L2_HOLD_FLOOR_TOL,
@@ -2126,12 +2160,61 @@ L2_SERIAL_DEV_TOL = 1e-5
 L2_SERIAL_GRAPH_ITERS = 2 * 512 + 76
 
 
-def l2_serial_phase(dist, leximin, cfg):
+def l2_serial_run(P, t, donor, cfg, dev):
+    """``qp.solve_final_primal_l2`` on the serial route (``lp_batch`` off)
+    on ``dev``, targets ``t`` (the leximin values) and the donor ``donor``
+    (the LEXIMIN probabilities): ``(p, ε*, realized deviation, seconds,
+    log)`` (``log``: the run's timers and counters)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from citizensassemblies_tpu_torch.solvers import qp
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    log = RunLog(echo=False)
+    t0 = time.perf_counter()
+    p, eps = qp.solve_final_primal_l2(
+        P, t, iters=cfg.xmin_qp_iters, floor_donor=donor[: len(P)],
+        cfg=cfg.replace(lp_batch=False), log=log, device=dev,
+    )
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    real = float(np.abs(P.T.astype(np.float64) @ p - t).max())
+    return p, eps, real, secs, SimpleNamespace(timers=log.timers, counters=log.counters)
+
+
+def l2_serial_inputs(dist, leximin):
+    """``(P, t, donor)`` of ``l2_serial``: the hold's panels, the leximin
+    values and the LEXIMIN probabilities (float64)."""
+    return (dist.committees[:L2_HOLD_ROWS], np.asarray(leximin.fixed_probabilities, np.float64),
+            np.asarray(leximin.probabilities, np.float64))
+
+
+def _l2_serial_cpu(P, t, donor, cfg, conn):
+    """``l2_serial``'s CPU run in a worker process."""
+    import torch
+
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    conn.send(l2_serial_run(P, t, donor, cfg, "cpu"))
+
+
+def start_l2_references(dist, leximin, cfg):
+    """The CPU runs of ``xmin_l2_hold`` and ``l2_serial``, each started in
+    a worker process, so they run while the card runs the phases' card
+    parts. Returns ``(hold_worker, serial_worker)``."""
+    return (start_cpu_worker(_l2_hold_cpu, *l2_hold_inputs(dist, leximin)[1:]),
+            start_cpu_worker(_l2_serial_cpu, *l2_serial_inputs(dist, leximin), cfg))
+
+
+def l2_serial_phase(dist, leximin, cfg, cpu_run):
     """``qp.solve_final_primal_l2`` on the serial route (``lp_batch`` off:
     the min-ε PDHG anchor ``l2_eps_pdhg``, then ``xmin_qp_iters`` ascent
     iterations ``l2_dual_ascent`` in graph-replayed 512-iteration chunks)
     with the LEXIMIN donor: on the first ``L2_HOLD_ROWS`` panels of the
-    XMIN portfolio on the card and on the CPU, held at
+    XMIN portfolio on the card and on the CPU (``cpu_run``, the worker of
+    :func:`start_l2_references`), held at
     ``L2_SERIAL_EPS_TOL``/``L2_SERIAL_DEV_TOL``; on the card, the serial
     ELL ascent through its chunks against the same ascent op by op
     (``L2_SERIAL_GRAPH_ITERS``), bit for bit and with the same count of
@@ -2143,27 +2226,9 @@ def l2_serial_phase(dist, leximin, cfg):
     from citizensassemblies_tpu_torch.kernels.pdhg_megakernel import csr_to_device
     from citizensassemblies_tpu_torch.solvers import qp
     from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
-    from citizensassemblies_tpu_torch.utils.logging import RunLog
 
-    serial = cfg.replace(lp_batch=False)
-    t = np.asarray(leximin.fixed_probabilities, np.float64)
-    donor = np.asarray(leximin.probabilities, np.float64)
-
-    def run(P, dev):
-        log = RunLog(echo=False)
-        t0 = time.perf_counter()
-        p, eps = qp.solve_final_primal_l2(
-            P, t, iters=cfg.xmin_qp_iters, floor_donor=donor[: len(P)], cfg=serial, log=log,
-            device=dev,
-        )
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        real = float(np.abs(P.T.astype(np.float64) @ p - t).max())
-        return p, eps, real, secs, log
-
-    P = dist.committees[: L2_HOLD_ROWS]
-    hold = {dev: run(P, dev) for dev in ("cuda", "cpu")}
+    P, t, donor = l2_serial_inputs(dist, leximin)
+    hold = {"cuda": l2_serial_run(P, t, donor, cfg, "cuda"), "cpu": cpu_worker_result(cpu_run)}
     (pg, eg, rg, sg, lg), (pc, ec, rc, sc, lc) = hold["cuda"], hold["cpu"]
     # the serial ascent's chunks against the same ascent op by op
     ell = EllPack.from_rows(P.astype(np.float32))
@@ -2189,7 +2254,7 @@ def l2_serial_phase(dist, leximin, cfg):
         and np.array_equal(outs["graph"][1], outs["eager"][1])
     )
     # the serial route at the whole portfolio, on the card only
-    pf, ef, rf, sf, lf = run(dist.committees, "cuda")
+    pf, ef, rf, sf, lf = l2_serial_run(dist.committees, t, donor, cfg, "cuda")
 
     def summary(log, secs, eps, real):
         return dict(
@@ -2828,7 +2893,8 @@ def analysis_main(argv, libs, cached=False):
     """``python -m citizensassemblies_tpu_torch <argv>`` in this process,
     every launch counter zeroed just before and read just after; each
     cached pass (``run_*_or_retrieve``) and each figure writer timed, the
-    clock stopped after ``torch.cuda.synchronize()``. ``cached``: the
+    clock stopped after ``torch.cuda.synchronize()`` (where this process
+    has started CUDA). ``cached``: the
     passes' solvers raise, so every pass must come from the cache. Returns
     ``(rc, AnalysisResult, launches, seconds, pass_seconds, plot_seconds,
     figures)``."""
@@ -2841,6 +2907,8 @@ def analysis_main(argv, libs, cached=False):
 
     captured, passes, plot_s = {}, [], []
     analyze = report.analyze_instance
+    # a worker process that runs the CLI on the CPU starts no CUDA context
+    sync = torch.cuda.synchronize if torch.cuda.is_initialized() else (lambda: None)
 
     def capture(*a, **kw):
         captured["result"] = analyze(*a, **kw)
@@ -2850,7 +2918,7 @@ def analysis_main(argv, libs, cached=False):
         def run(*a, **kw):
             t = time.perf_counter()
             out = fn(*a, **kw)
-            torch.cuda.synchronize()
+            sync()
             secs = time.perf_counter() - t
             store.append([label, secs] if label else secs)
             return out
@@ -2876,7 +2944,7 @@ def analysis_main(argv, libs, cached=False):
             lib.reset_counts()
         t0 = time.perf_counter()
         rc = cli.main(argv)
-        torch.cuda.synchronize()
+        sync()
         secs = time.perf_counter() - t0
     launches = {lib.name: lib.launches for lib in libs}
     launches["ell_gather_bf16"] = bf16_gathers()
@@ -2972,25 +3040,64 @@ def analysis_cached_phase(libs, argv, first_text):
     return rec
 
 
-def analysis_example_small_phase(root, libs):
+def _analysis_argv(root, dev):
+    """The CLI's arguments for ``example_small_20 20`` under ``root`` on
+    ``dev`` (``--skiptiming`` on the CPU: its LEXIMIN times are not what is
+    compared)."""
+    data = root / "data"
+    return ["example_small", "20", "--data-dir", str(data), "--out-dir", str(root / dev),
+            "--cache-dir", str(root / f"{dev}_distributions"), "--device", dev] + (
+        ["--skiptiming"] if dev == "cpu" else [])
+
+
+def _analysis_cpu(argv, conn):
+    """The analysis CLI on the CPU in a worker process, its printout on
+    stderr (stdout carries this script's records): sends
+    ``analysis_main``'s ``(rc, result, launches, seconds, passes,
+    figures)``."""
+    import contextlib
+
+    import torch
+
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    with contextlib.redirect_stdout(sys.stderr):
+        rc, res, launches, secs, passes, _plot_s, figures = analysis_main(
+            argv, [em.KERNEL, mk.KERNEL, mk.LP_KERNEL])
+    conn.send((rc, res, launches, secs, passes, figures))
+
+
+def start_analysis_example_small(root, libs):
+    """``--generate`` into ``root``, then the CLI's CPU run of
+    ``example_small_20 20`` started in a worker process, so it runs while
+    the card runs the flagship's analysis. Returns ``(generate_rc,
+    worker)`` for :func:`analysis_example_small_phase`."""
+    rc = analysis_main(["--generate", "--data-dir", str(root / "data")], libs)[0]
+    return rc, start_cpu_worker(_analysis_cpu, _analysis_argv(root, "cpu"))
+
+
+def analysis_example_small_phase(root, libs, started):
     """``--generate``, then ``example_small_20 20`` through the CLI on the
     card with the timing harness, and the same CLI with ``--device cpu``
-    (``--skiptiming``: the CPU's LEXIMIN times are not what is compared).
+    (``--skiptiming``: the CPU's LEXIMIN times are not what is compared;
+    ``started``: :func:`start_analysis_example_small`'s).
     Held: LEXIMIN's allocation and statistics within ``EXAMPLE_SMALL_TOL`` of
     the CPU's and its least probability of ``EXAMPLE_SMALL_LEXIMIN_MIN``;
     XMIN's within ``EXAMPLE_SMALL_XMIN_TOL``; LEGACY's allocation agent by
     agent within 5 standard deviations of the difference of two estimates;
     both contracts; the kernels launched on the card's run."""
-    data = root / "data"
-    rcs = [analysis_main(["--generate", "--data-dir", str(data)], libs)[0]]
+    gen_rc, cpu_run = started
+    rcs = [gen_rc]
     runs = {}
-    for dev in ("cuda", "cpu"):
-        argv = ["example_small", "20", "--data-dir", str(data), "--out-dir", str(root / dev),
-                "--cache-dir", str(root / f"{dev}_distributions"), "--device", dev]
-        rc, res, launches, secs, passes, plot_s, figures = analysis_main(
-            argv + (["--skiptiming"] if dev == "cpu" else []), libs)
-        rcs.append(rc)
-        runs[dev] = dict(res=res, launches=launches, seconds=secs, passes=passes)
+    rc, res, launches, secs, passes, _plot_s, _figures = analysis_main(
+        _analysis_argv(root, "cuda"), libs)
+    rcs.append(rc)
+    runs["cuda"] = dict(res=res, launches=launches, seconds=secs, passes=passes)
+    rc, res, launches, secs, passes, figures = cpu_worker_result(cpu_run)
+    rcs.append(rc)
+    runs["cpu"] = dict(res=res, launches=launches, seconds=secs, passes=passes)
     g, c = runs["cuda"]["res"], runs["cpu"]["res"]
     draws = g.runs["legacy"].num_draws
 
@@ -3037,9 +3144,10 @@ def analysis_phases(libs, leximin, xmin):
 
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
+        started = start_analysis_example_small(root / "example_small", libs)
         flagship, text, argv = analysis_flagship_phase(root / "flagship", libs, leximin, xmin)
         cached = analysis_cached_phase(libs, argv, text)
-        small = analysis_example_small_phase(root / "example_small", libs)
+        small = analysis_example_small_phase(root / "example_small", libs, started)
     return dict(flagship=flagship, cached=cached, example_small=small)
 
 
@@ -3107,6 +3215,36 @@ def start_highs_reference():
     proc.start()
     send.close()
     return proc, recv, P, fixed
+
+
+#: torch threads of a worker process that computes a CPU reference while
+#: this process drives the card (this process and the HiGHS worker keep the
+#: other cores)
+CPU_WORKER_THREADS = 2
+
+
+def start_cpu_worker(fn, *args):
+    """``fn(*args, conn)`` in a spawned daemon worker process, which sends
+    its result down ``conn``: a CPU reference computed while this process
+    drives the card (a run that stops early terminates it on exit).
+    Returns ``(process, connection)`` for :func:`cpu_worker_result`."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=fn, args=args + (send,), daemon=True)
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def cpu_worker_result(worker):
+    """What a :func:`start_cpu_worker` worker sent; raises ``EOFError``
+    where the worker ended without sending."""
+    proc, recv = worker
+    out = recv.recv()
+    proc.join()
+    return out
 
 
 def dist_world1_phase():
@@ -4037,16 +4175,18 @@ SERVE_FLEET_ALL = 60
 #: ``serve_fleet_drive`` drives process 0 of the fleet bench's 4
 #: (``bench.py:3158-3240``: seed 20, 6 unique instances a tenant) over the
 #: first FLEET_DRIVE_REQUESTS of its 10,000 planned arrivals (a prefix of
-#: the same plan), to stay under 30 s
+#: the same plan), to stay under 30 s (40 until the whole script read
+#: 1,215.0 s on an NVIDIA H100 80GB HBM3 at 700 W, 31.6 s at 40; 16 to keep
+#: xmin_l2_hold at the XMIN path's caps)
 FLEET_DRIVE_PROCESSES = 4
-FLEET_DRIVE_REQUESTS = 40
+FLEET_DRIVE_REQUESTS = 16
 FLEET_DRIVE_ALL = 10_000
 FLEET_DRIVE_SEED = 20
 FLEET_DRIVE_UNIQUE = 6
 #: revise requests over the first edits of ``churn_bench``'s trail (5
 #: until phase 13 needed the room: 56.6 s at 5 on an NVIDIA H100 80GB HBM3
-#: at 700 W)
-REVISE_EDITS = 3
+#: at 700 W; 3 until the whole script read 1,077.6 s, 40.3 s at 3)
+REVISE_EDITS = 2
 REVISE_TOL = 1e-6
 #: the sojourn parts must explain the total within this share
 SOJOURN_GAP = 0.05
@@ -4822,7 +4962,7 @@ def profile_trace_phase(pack, MT, trace_doc):
 
 #: each kernel library's ``__global__`` functions, as the profiler names them
 KERNEL_FUNCTIONS = {
-    "ell_gather": ("ell_gather_kernel", "ell_gather_bf16_kernel"),
+    "ell_gather": ("ell_gather_kernel",),
     "two_sided_block": ("two_sided_solve_kernel",),
     "lp_block": ("lp_solve_kernel",),
 }
@@ -5071,8 +5211,9 @@ def main() -> int:
     xmin_pack = EllPack.from_rows(xmin_dist.committees.astype(np.float32))
     gather_xmin = gather_phase(xmin_pack, rows=len(xmin_pack), label="gather_xmin")
     gather_bf16 = gather_bf16_phase(xmin_pack)
-    xmin_hold = xmin_l2_hold_phase(xmin_dist, lex_defaults)
-    l2_serial = l2_serial_phase(xmin_dist, lex_defaults, defaults_cfg)
+    hold_cpu, serial_cpu = start_l2_references(xmin_dist, lex_defaults, defaults_cfg)
+    xmin_hold = xmin_l2_hold_phase(xmin_dist, lex_defaults, hold_cpu)
+    l2_serial = l2_serial_phase(xmin_dist, lex_defaults, defaults_cfg, serial_cpu)
     mass = mass_like_phase(defaults_cfg)
 
     legacy, legacy_alloc = legacy_phase(sf_e_skewed_instance(seed=1))

@@ -150,8 +150,8 @@ def test_gather_plain_bf16_equals_float32():
         assert got.dtype == torch.float32
         assert torch.equal(got, want)
     for kp, g32 in ((112, 4), (16, 4), (64, 8), (8, 2)):
-        assert tem.launch_shape(5000, kp, 1, 132)[0] == g32
-        assert tem.launch_shape(5000, kp, 1, 132, bf16=True)[0] == g32 // 2
+        assert tem.launch_plan(5000, kp, 90, 1, 132).G == g32
+        assert tem.launch_plan(5000, kp, 90, 1, 132, bf16=True).G == g32 // 2
 
 
 def test_gather_wrapper_takes_float32_or_bf16_only():

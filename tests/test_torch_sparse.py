@@ -159,8 +159,8 @@ def test_batched_plain_gather_matches_pallas_interpret():
     ``[3, C, k_pad]`` value pack with ``y [3, T]``, through the kernel's
     plain version, against the Pallas kernel (which takes one lane) run in
     interpret mode lane by lane, within 1e-6 of the lane's largest entry.
-    The kernel's launch shape at the path's shapes covers every SM with
-    16-byte loads and no idle lane."""
+    The kernel's plan at the path's shapes gives every lane one block per
+    SM, within the thread cap."""
     C, minor, B = 6144 // 8, 814, 3
     M = _rows(17, C, minor, 0.03)
     idx, val, _ = jso.ell_pack_rows(M)
@@ -174,12 +174,166 @@ def test_batched_plain_gather_matches_pallas_interpret():
         np.testing.assert_allclose(got[b], want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
     # the wrapper takes the plain version for CPU tensors, bit for bit
     np.testing.assert_array_equal(tem.ell_gather_mv(_t(idx), _t(vb), _t(Y)).numpy(), got)
-    for cols, lanes in ((6144, 1), (4096, 1), (6144, 3)):
+    for cols, T, lanes in ((6144, 814, 1), (4096, 1727, 1), (6144, 814, 3)):
         for sms in (132, 114):
-            G, threads, blocks = tem.launch_shape(cols, 112, lanes, sms)
-            assert G == 4 and (112 // 4) % G == 0
-            assert threads % 32 == 0 and threads <= 32 * tem.MAX_WARPS
-            assert blocks >= sms and blocks * threads >= cols * G * lanes
+            plan = tem.launch_plan(cols, 112, T, lanes, sms)
+            assert plan.G == 4 and (112 // 4) % plan.G == 0
+            assert plan.threads % 32 == 0 and plan.threads <= tem.MAX_THREADS
+            # every lane has one block per SM at these shapes: a whole
+            # number of blocks for every SM, each within the thread cap
+            assert plan.blocks == sms and plan.blocks_per_sm == lanes
+            assert plan.threads >= -(-cols // plan.blocks) * plan.G
+
+
+#: (C, k_pad, T) of the gather's path shapes (the flagship master, XMIN's
+#: portfolio, the flagship and sf_b dual LPs), the lint registration's,
+#: packs with fewer columns than SMs, and ranges of 9 and 8 columns (at
+#: G = 4 a block of 8 leaves its last warp without a column)
+PLAN_SHAPES = [
+    (6144, 112, 814), (15313, 112, 1727), (4096, 112, 1728), (1024, 24, 251),
+    (256, 16, 128), (100, 16, 128), (7, 8, 50), (132 * 8 + 50, 16, 128),
+]
+
+
+def _stages_of(plan, block):
+    """``[(c0, n), ...]``: the columns of each ring stage of a lane's block
+    ``block``: the kernel's last ``tma_warps`` warps, ``32 / G`` columns
+    each, none past the range."""
+    c0, n = plan.range_of(block)
+    sc = 32 // plan.G
+    first = plan.threads // 32 - plan.tma_warps
+    return [(c0 + w * sc, min(sc, n - w * sc)) for w in range(first, plan.threads // 32)
+            if w * sc < n]
+
+
+def _lane_rule(kp, bf16):
+    G = next(g for g in (8, 4, 2, 1) if (kp // 4) % g == 0)
+    return max(G // 2, 1) if bf16 else G
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_gather_launch_plan_owns_every_pair_once(shape, sms, bf16, lanes):
+    """The gather kernel's plan: every (lane, column) pair in exactly one
+    block, no block empty, a lane's column ranges within one column of each
+    other, a whole number of blocks for every SM (fewer only where a lane
+    has fewer columns); the ring's stages the block's last warps' columns,
+    each span of indices and of values (shared or per lane) starting on a
+    16-byte boundary and a multiple of 16 bytes long; the mbarriers, the
+    ring and ``y`` within 227 KB and within a block's share of the SM;
+    ``G`` by the lane rule (halved for bf16); threads for the longest
+    range, ``G`` a column."""
+    C, kp, T = shape
+    lane_values = lanes > 1
+    plan = tem.launch_plan(C, kp, T, lanes, sms, bf16=bf16)
+    assert plan.G == _lane_rule(kp, bf16)
+    assert plan.threads % 32 == 0 and plan.threads <= tem.MAX_THREADS
+    if plan.blocks < C:
+        assert 0 <= plan.blocks * lanes - plan.blocks_per_sm * sms < lanes
+    else:
+        assert plan.blocks == C
+    es = 2 if bf16 else 4
+    sc = 32 // plan.G  # a warp's columns
+    warps = plan.threads // 32
+    assert 1 <= plan.tma_warps <= min(warps, tem.TMA_WARPS)
+    assert plan.stage_bytes == sc * kp * (4 + es)
+    assert plan.smem_bytes == tem.smem_bytes(T, kp, plan.G, bf16, plan.tma_warps) <= tem.BLOCK_SMEM
+    per_sm = -(-plan.blocks * lanes // sms)
+    room = tem.SM_SMEM // per_sm - tem.BLOCK_RESERVED_SMEM
+    if plan.tma_warps < min(warps, tem.TMA_WARPS):  # cut to fit the SM's share
+        assert tem.smem_bytes(T, kp, plan.G, bf16, plan.tma_warps + 1) > room
+    if plan.tma_warps > 1:
+        assert plan.smem_bytes <= room
+    owned = np.zeros((lanes, C), np.int64)
+    staged = np.zeros(C, np.int64)
+    sizes = []
+    for blk in range(plan.blocks):
+        c0, n = plan.range_of(blk)
+        assert n >= 1 and n * plan.G <= plan.threads
+        sizes.append(n)
+        owned[:, c0:c0 + n] += 1
+        stages = _stages_of(plan, blk)
+        assert len(stages) <= plan.tma_warps
+        # the stages are the last warps' columns: the range's tail, in order
+        # (a range one column short may leave the last warp without one)
+        assert not stages or stages[-1][0] + stages[-1][1] == c0 + n
+        for (s0, m), nxt in zip(stages, stages[1:] + [(c0 + n, 0)]):
+            assert 1 <= m <= sc and s0 + m == nxt[0] and (s0 - c0) % sc == 0
+            staged[s0:s0 + m] += 1
+            assert (s0 * kp * 4) % 16 == 0 and (m * kp * 4) % 16 == 0
+            assert m * kp * (4 + es) <= plan.stage_bytes
+            for b in range(lanes):
+                assert (((b * C if lane_values else 0) + s0) * kp * es) % 16 == 0
+                assert (m * kp * es) % 16 == 0
+    np.testing.assert_array_equal(owned, 1)
+    assert staged.max() <= 1
+    assert max(sizes) - min(sizes) <= 1
+    vec = 8 if bf16 else 4  # slots of a 16-byte vector
+    vecs = tem.PREFETCH_BYTES // (vec * (4 + es))
+    assert vecs == (4 if bf16 else 6)
+    load_cols = max(0, min(max(sizes), (warps - plan.tma_warps) * sc))
+    assert plan.prefetch_bytes == load_cols * min(vecs * plan.G * vec, kp) * (4 + es)
+
+
+@pytest.mark.parametrize("warps,tma", [(1, 1), (2, 2), (3, 3), (4, 3), (5, 3), (6, 3), (8, 3)])
+def test_gather_tma_warp_rule(warps, tma):
+    """Three of a block's warps take their spans by TMA, all of a smaller
+    block: blocks of ``warps`` warps (8 columns a warp at k_pad 16)."""
+    plan = tem.launch_plan(132 * 8 * warps, 16, 128, 1, 132)
+    assert plan.threads == 32 * warps and plan.tma_warps == tma
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_plan_walk_matches_plain_gather_bit_for_bit(lanes, bf16):
+    """A plain walk of the plan, lane by lane, block by block and, in each
+    block, warp by warp (the load warps' columns, then each ring stage's),
+    with the plain version, equals the unchunked plain version bit for
+    bit: the plan drops and repeats no column. 301 columns on four SMs make
+    uneven ranges, and a ring of two stages the last of which is short."""
+    C, T = 301, 90
+    M = _rows(19, C, T, 0.1)
+    idx, val, _ = jso.ell_pack_rows(M, k_pad=24)
+    r = np.random.default_rng(20)
+    Y = torch.as_tensor(r.normal(size=(lanes, T)).astype(np.float32))
+    vals = torch.as_tensor((val[None] * r.random((lanes, 1, 1))).astype(np.float32))
+    if bf16:
+        vals = vals.to(torch.bfloat16)
+    lane_values = lanes > 1
+    V = vals if lane_values else vals[0]
+    want = tem.ell_gather_mv_plain(_t(idx), V, Y)
+    plan = tem.launch_plan(C, 24, T, lanes, 4, bf16=bf16)
+    assert len({plan.range_of(blk)[1] for blk in range(plan.blocks)}) == 2
+    assert any(len(_stages_of(plan, blk)) >= 2 for blk in range(plan.blocks))
+    got = torch.full((lanes, C), float("nan"))
+    I = _t(idx)
+    for b in range(lanes):
+        for blk in range(plan.blocks):
+            c0, n = plan.range_of(blk)
+            stages = _stages_of(plan, blk)
+            for s0, m in [(c0, stages[0][0] - c0)] + stages:
+                v = V[b, s0:s0 + m] if lane_values else V[s0:s0 + m]
+                got[b, s0:s0 + m] = tem.ell_gather_mv_plain(I[s0:s0 + m], v, Y[b])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_gather_plan_raises_where_y_does_not_fit():
+    """A ``y`` too long to fit a block's shared memory beside one ring
+    stage, blocks per SM that leave a block more threads than the kernel
+    takes, or more TMA warps than a block has raise before any launch."""
+    with pytest.raises(ValueError, match="cannot hold y"):
+        tem.launch_plan(64, 16, 60_000, 1, 132)
+    # y alone fits at 58,000 floats, but not beside a stage of 8 columns
+    assert tem.smem_bytes(58_000) <= tem.BLOCK_SMEM
+    with pytest.raises(ValueError, match="cannot hold y"):
+        tem.launch_plan(64, 16, 58_000, 1, 132)
+    assert tem.launch_plan(64, 16, 57_500, 1, 132).tma_warps == 1
+    with pytest.raises(ValueError, match="blocks an SM"):
+        tem.launch_plan(15313, 112, 1727, 1, 132, blocks_per_sm=1)
+    with pytest.raises(ValueError, match="TMA"):
+        tem.launch_plan(6144, 112, 814, 1, 132, tma_warps=7)
 
 
 def test_padding_slots_carry_nan_from_row_zero():
