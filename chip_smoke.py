@@ -187,7 +187,22 @@ Phases, each fatal on failure:
    ``torch.cuda.set_sync_debug_mode`` sees), each replay bit for bit its op
    by op result, and each kernel core launching its own kernel, by the name
    the profiler prints, as many times as its library's
-   ``entry_launches`` count, and no cuBLAS or cuSPARSE kernel in its launch.
+   ``entry_launches`` count, and no cuBLAS or cuSPARSE kernel in its launch;
+15. the leximin profile certificate (``highs_backend.audit_leximin_profile``)
+   of every finished LEXIMIN path: the defaults flagship, the mass_like and
+   example_small_like pools, the agent-space run on the n=120 pool, the
+   stage-CG run that prices on the n=80 pool, each on its pool's instance,
+   and the n=400 and n=1200 household runs on their quotient's augmented
+   instance, each on the run's certified profile. Each audit is host work:
+   it starts in a worker process as soon as its path returns, while the
+   card goes on, and is collected before the summary. Where the audit
+   leaves a level above its bar (its witness comes from the marginal
+   relaxation, which has an integrality gap on small pools: 0.01 at level 2
+   of the n=80 pool), an exact bound by column generation in agent space
+   with the exact MILP joins that level's two bounds. A path fails unless
+   every level is then within ``PROFILE_GAP`` (the exact-MILP bounds alone
+   within ``PROFILE_GAP_MILP``) and no level's bound lies under what it
+   achieved; an audit that raises fails its path.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
 line, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -1126,6 +1141,195 @@ def leximin_run(inst, device, cfg, households=None, initial_panels=None):
     return dist, log, secs, linf
 
 
+#: the profile certificate's bars (tests/test_certification.py:277-310): the
+#: certified gap (the smaller of the level's two upper bounds) within the
+#: contract at every level; the exact-MILP bound alone, which carries an
+#: integrality duality gap deep in the profile, within 5e-3
+PROFILE_GAP = 1e-3
+PROFILE_GAP_MILP = 5e-3
+#: the exact level bound (:func:`exact_level_bound`), taken where the audit
+#: leaves a level above its bar: at most this many pricing rounds, stopping
+#: once the bound is within LEVEL_CG_TOL of the restricted master's value
+LEVEL_CG_ROUNDS = 300
+LEVEL_CG_TOL = 1e-7
+#: how far that bound, rounded to 1e-6 as the audit rounds, may lie under
+#: the level it bounds: one rounding unit (HiGHS solves the master and the
+#: MILP to a feasibility tolerance of 1e-7)
+LEVEL_CG_SLACK = 1e-6
+
+
+def exact_level_bound(dense, fixed, floored, remaining):
+    """An upper bound on ``min_{i ∈ remaining} a_i`` over every distribution
+    of feasible committees whose marginals meet ``a_i ≥ fixed_i − 1e-9`` on
+    ``floored`` (agent masks), by column generation in agent space with the
+    exact HiGHS MILP as its oracle. For any ``w ≥ 0`` on ``remaining``
+    summing to 1 and any ``λ ≥ 0`` on ``floored``, every such distribution
+    has ``min_remaining a ≤ Σ w·a ≤ max_x (w + λ)·x − Σ λ_i·floor_i``: the
+    audit's Lagrangian bound, with ``(w, λ)`` the restricted master's duals
+    (its floors priced at 1e3 a unit of slack, so it is feasible from the
+    first column) instead of the marginal relaxation's, re-optimized over
+    the whole committee polytope. Returns ``(bound, master value, rounds)``:
+    the least bound of the rounds, which meets the master's value once
+    pricing finds no improving committee; the MILP's proven dual bound
+    keeps it valid at any round."""
+    from scipy.optimize import linprog
+
+    from citizensassemblies_tpu_torch.solvers.highs_backend import HighsCommitteeOracle
+
+    oracle = HighsCommitteeOracle(dense)
+    n = dense.n
+    R, Fx = np.nonzero(remaining)[0], np.nonzero(floored)[0]
+    floor = np.maximum(np.asarray(fixed, dtype=np.float64)[Fx] - 1e-9, 0.0)
+    w = np.zeros(n)
+    w[R] = 1.0 / len(R)
+    lam = np.zeros(n)
+    cols, bound, master = [], np.inf, -np.inf
+    for rounds in range(1, LEVEL_CG_ROUNDS + 1):
+        panel, _value, raw = oracle._milp_maximize_with_bound(w + lam)
+        bound = min(bound, float(raw) - float(lam[Fx] @ floor))
+        if bound - master <= LEVEL_CG_TOL:
+            break
+        x = np.zeros(n)
+        x[list(panel)] = 1.0
+        cols.append(x)
+        X = np.array(cols).T
+        C = X.shape[1]
+        # variables [p (C), z, slack (|Fx|)]: max z − 1e3·Σ slack
+        res = linprog(
+            np.concatenate([np.zeros(C), [-1.0], np.full(len(Fx), 1e3)]),
+            A_ub=np.vstack([
+                np.hstack([-X[R], np.ones((len(R), 1)), np.zeros((len(R), len(Fx)))]),
+                np.hstack([-X[Fx], np.zeros((len(Fx), 1)), -np.eye(len(Fx))]),
+            ]),
+            b_ub=np.concatenate([np.zeros(len(R)), -floor]),
+            A_eq=np.concatenate([np.ones(C), [0.0], np.zeros(len(Fx))])[None, :], b_eq=[1.0],
+            bounds=[(0, None)] * C + [(None, None)] + [(0, None)] * len(Fx), method="highs",
+        )
+        if res.status != 0:
+            raise RuntimeError(f"exact level bound: master LP failed ({res.message})")
+        master = -float(res.fun)
+        duals = np.maximum(-np.asarray(res.ineqlin.marginals), 0.0)
+        w = np.zeros(n)
+        w[R] = duals[: len(R)]
+        w = w / w.sum() if w.sum() > 0 else np.where(remaining, 1.0 / len(R), 0.0)
+        lam = np.zeros(n)
+        lam[Fx] = duals[len(R):]
+    return bound, master, rounds
+
+
+def profile_audit(dense, fixed, covered) -> dict:
+    """``audit_leximin_profile`` on a certified profile, folded into
+    bench.py's fields (``bench.py:76-100``) with its host seconds, and held.
+    Where a level's gap is above ``PROFILE_GAP`` or its MILP gap above
+    ``PROFILE_GAP_MILP``, that level's :func:`exact_level_bound` (under the
+    audit's own floors) joins its two bounds, as a third valid one, and is
+    listed under ``tightened``; ``certified_worst_gap[_milp]`` are the
+    worst gaps after that. ``ok`` unless every level is then within the
+    bars and no bound lies under what its level achieved (the audit's by
+    more than 1e-9, the exact bound's by more than ``LEVEL_CG_SLACK``)."""
+    from citizensassemblies_tpu_torch.solvers.highs_backend import audit_leximin_profile
+    from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
+
+    t = time.perf_counter()
+    prof = audit_leximin_profile(dense, fixed, covered)
+    secs = time.perf_counter() - t
+    levels = prof["levels"]
+    margin = min(min(lv["certified_upper"], lv["milp_upper"]) - lv["achieved"] for lv in levels)
+    rec = dict(
+        profile_levels=prof["n_levels"], profile_worst_gap=prof["worst_gap"],
+        profile_worst_gap_milp=prof["worst_gap_milp"],
+        profile_all_within_tol=prof["all_within_tol"],
+        level2_gap=levels[1]["gap"] if len(levels) >= 2 else None, audit_s=secs,
+        upper_margin=margin, audited_types=prof["audited_types"],
+    )
+    gaps = [(lv["gap"], lv["gap_milp"]) for lv in levels]
+    tightened, exact_ok = [], True
+    if any(g > PROFILE_GAP or gm > PROFILE_GAP_MILP for g, gm in gaps):
+        # the audit's level sets and floors: types by their least covered
+        # value, each level the remaining types within 1e-3 (the audit's
+        # level_tol) of its least
+        t_exact = time.perf_counter()
+        red = TypeReduction(dense)
+        covered = np.asarray(covered, dtype=bool)
+        v_t = np.full(red.T, np.inf)
+        np.minimum.at(v_t, red.type_id, np.where(covered, fixed, np.inf))
+        remaining = np.zeros(red.T, dtype=bool)
+        np.logical_or.at(remaining, red.type_id, covered)
+        done = np.zeros(red.T, dtype=bool)
+        for j, lv in enumerate(levels):
+            S = remaining & (v_t <= v_t[remaining].min() + 1e-3)
+            if gaps[j][0] > PROFILE_GAP or gaps[j][1] > PROFILE_GAP_MILP:
+                bound, master, rounds = exact_level_bound(
+                    dense, fixed, covered & done[red.type_id], covered & remaining[red.type_id]
+                )
+                exact = round(bound, 6)
+                gaps[j] = (min(lv["certified_upper"], exact) - lv["achieved"],
+                           min(lv["milp_upper"], exact) - lv["achieved"])
+                exact_ok = exact_ok and exact >= lv["achieved"] - LEVEL_CG_SLACK
+                tightened.append(dict(level=j + 1, achieved=lv["achieved"],
+                                      certified_upper=lv["certified_upper"],
+                                      milp_upper=lv["milp_upper"], exact_upper=exact,
+                                      master=master, rounds=rounds))
+            done |= S
+            remaining &= ~S
+        rec["tighten_s"] = time.perf_counter() - t_exact
+    rec.update(
+        tightened=tightened,
+        certified_worst_gap=round(max(g for g, _ in gaps), 6),
+        certified_worst_gap_milp=round(max(gm for _, gm in gaps), 6),
+    )
+    rec["ok"] = bool(
+        rec["certified_worst_gap"] <= PROFILE_GAP
+        and rec["certified_worst_gap_milp"] <= PROFILE_GAP_MILP
+        and margin >= -1e-9 and exact_ok
+    )
+    return rec
+
+
+def _profile_audit_cpu(A, qmin, qmax, cat_of_feature, k, n_categories, fixed, covered, conn):
+    """:func:`profile_audit` in a worker process, on the instance rebuilt on
+    the CPU from the host arrays the card's run read; an audit that raises
+    sends its error as a failed record."""
+    import torch
+
+    from citizensassemblies_tpu_torch.core.instance import dense_instance
+
+    torch.set_num_threads(1)
+    try:
+        dense = dense_instance(A, qmin, qmax, cat_of_feature, k, n_categories, device="cpu")
+        conn.send(profile_audit(dense, fixed, covered))
+    except Exception as exc:
+        conn.send(dict(ok=False, error=f"{type(exc).__name__}: {exc}"))
+
+
+def start_profile_audit(audits, label, dense, dist):
+    """Start :func:`profile_audit` of ``dist``'s certified profile on
+    ``dense`` (which may live on the card: only its host arrays go to the
+    worker) under ``label`` in ``audits``, for :func:`profile_audit_phase`."""
+    audits[label] = start_cpu_worker(
+        _profile_audit_cpu, dense.A_np, dense.qmin_np, dense.qmax_np, dense.cat_of_feature_np,
+        dense.k, dense.n_categories, dist.fixed_probabilities, dist.covered,
+    )
+
+
+def profile_audit_phase(audits, records):
+    """Collect every started audit, print it on a line of its path and fold
+    it into the path's record (``records[phase]``; a label
+    ``phase:pool`` goes under that pool's key): a failed or lost audit
+    fails its path."""
+    for label, worker in audits.items():
+        try:
+            cert = cpu_worker_result(worker)
+        except EOFError:
+            cert = dict(ok=False, error="the audit's worker ended without a result")
+        phase, _, pool = label.partition(":")
+        print(json.dumps(dict(phase=phase, pool=pool or None, profile_certificate=cert)),
+              flush=True)
+        rec = records[phase]
+        (rec[pool] if pool else rec)["profile_certificate"] = cert
+        rec["ok"] = bool(rec["ok"] and cert["ok"])
+
+
 def reference_phase(slice_cfg):
     """LEXIMIN on a small pool on the GPU, every master forced onto the
     device route, against the same solve on the CPU (host masters)."""
@@ -1155,7 +1359,7 @@ def reference_phase(slice_cfg):
     return rec
 
 
-def agent_space_phase(inst, slice_cfg, label):
+def agent_space_phase(inst, slice_cfg, label, audits):
     """The agent-space LEXIMIN column generation on the card with device
     dual LPs (``backend="jax"``: the LP block kernel), with every launch
     counter zeroed just before it and read just after; then the same run
@@ -1163,9 +1367,11 @@ def agent_space_phase(inst, slice_cfg, label):
     allocation (no step of the path sums with atomics); then the type-space
     path on the same pool, whose sorted allocation profile it must match.
     Each device dual solve's rows, PDHG iterations and seconds (prelude,
-    kernel and readback) are recorded by wrapping ``lp_pdhg.solve_lp_ell``."""
+    kernel and readback) are recorded by wrapping ``lp_pdhg.solve_lp_ell``.
+    The first run's profile certificate starts in ``audits``."""
     from unittest import mock
 
+    from citizensassemblies_tpu_torch.core.instance import featurize
     from citizensassemblies_tpu_torch.kernels import ell_matvec as em
     from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
     from citizensassemblies_tpu_torch.solvers import lp_pdhg
@@ -1186,6 +1392,7 @@ def agent_space_phase(inst, slice_cfg, label):
         dist, alog, secs, linf = leximin_run(inst, "cuda", cfg)
     launches = {"lp_block": mk.LP_KERNEL.launches, "ell_gather": em.KERNEL.launches,
                 "two_sided_block": mk.KERNEL.launches}
+    start_profile_audit(audits, label, featurize(inst, device="cpu")[0], dist)
     again, alog2, secs2, _ = leximin_run(inst, "cuda", cfg)
     # demotion on: the dual LPs' 0/1 operands go up as bf16, the LP
     # kernel's prelude widens them: bit for bit the run with it off
@@ -1674,7 +1881,7 @@ def polish_screen_phase(MT):
     return rec
 
 
-def defaults_flagship_phase(inst, cfg, libs):
+def defaults_flagship_phase(inst, cfg, libs, audits):
     """The flagship at the package's defaults (``default_config()``):
     device anchor pricing, the fused move screen, the batched polish screen
     and bf16 operand demotion engage. Every launch counter is zeroed just
@@ -1688,9 +1895,11 @@ def defaults_flagship_phase(inst, cfg, libs):
     solve missed the kernel's fit rule, device pricing served anchors, the
     steady rounds kept to one synchronisation each
     (``decomp_host_syncs − decomp_polish_syncs ≤ decomp_rounds``) and
-    nothing was quarantined."""
+    nothing was quarantined. The first run's profile certificate starts in
+    ``audits``."""
     from unittest import mock
 
+    from citizensassemblies_tpu_torch.core.instance import featurize
     from citizensassemblies_tpu_torch.kernels import ell_matvec as em
     from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
     from citizensassemblies_tpu_torch.solvers import batch_lp, face_decompose, lp_pdhg
@@ -1722,6 +1931,7 @@ def defaults_flagship_phase(inst, cfg, libs):
     dist, dlog, secs, linf, solves = run()
     launches = {"ell_gather": em.KERNEL.launches, "two_sided_block": mk.KERNEL.launches,
                 "ell_gather_bf16": bf16_gathers()}
+    start_profile_audit(audits, "leximin_sf_e_defaults", featurize(inst, device="cpu")[0], dist)
     again, alog, secs2, _, solves2 = run()
     off, olog, secs_off, _, solves_off = run(cfg.replace(mixed_precision=False))
     c, tm = dlog.counters, dlog.timers
@@ -1774,24 +1984,28 @@ def defaults_flagship_phase(inst, cfg, libs):
     return rec, launches, dist, profiles[0]
 
 
-def mass_like_phase(cfg):
+def mass_like_phase(cfg, audits):
     """LEXIMIN at the defaults on ``mass_like_instance(seed=3)`` against the
     same run with the batched engine off: both meet the contract and the
     fixed probabilities agree within 1e-6. The pool has T=28 types, over
     ``enum_max_types``, so it takes the column-generation path in both
     packages; the enumerated path, where the probe prescreen runs, is
     driven the same way on ``example_small_like_instance()`` (4 types),
-    whose prescreen must run."""
+    whose prescreen must run. Each pool's profile certificate (of the run
+    with the engine on) starts in ``audits``."""
     from citizensassemblies_tpu_torch.core.generator import (
         example_small_like_instance,
         mass_like_instance,
     )
+    from citizensassemblies_tpu_torch.core.instance import featurize
 
     rec = dict(phase="leximin_mass_like_defaults")
     ok = True
     for key, inst in (("mass_like", mass_like_instance(seed=3)),
                       ("example_small_like", example_small_like_instance())):
         on, log_on, s_on, l_on = leximin_run(inst, "cuda", cfg)
+        start_profile_audit(audits, f"leximin_mass_like_defaults:{key}",
+                            featurize(inst, device="cpu")[0], on)
         off, log_off, s_off, l_off = leximin_run(inst, "cuda", cfg.replace(lp_batch=False))
         gap = float(np.max(np.abs(on.fixed_probabilities - off.fixed_probabilities)))
         c = log_on.counters
@@ -1871,7 +2085,7 @@ class _StageCGBudgetSpent(Exception):
     pass
 
 
-def stage_cg_phase(inst, cfg, label, accept, rounds=None, reference=False):
+def stage_cg_phase(inst, cfg, label, accept, audits, rounds=None, reference=False):
     """The type-space path on ``inst`` with the face loop made to stall
     (``decomp_accept = decomp_accept_stalled = accept``, at most ``rounds``
     rounds when given), so the stage-CG fallback carries it, under
@@ -1886,7 +2100,8 @@ def stage_cg_phase(inst, cfg, label, accept, rounds=None, reference=False):
     must finish, price (stochastic
     draws on the card's generator and the exact MILP) at least once, and
     match the same run on the CPU (host stage LPs): the same stage count and
-    the fixed probabilities within ``STAGE_CG_FIXED_TOL``."""
+    the fixed probabilities within ``STAGE_CG_FIXED_TOL``. A finished run's
+    profile certificate starts in ``audits``."""
     from unittest import mock
 
     from citizensassemblies_tpu_torch.core.instance import featurize
@@ -1925,6 +2140,8 @@ def stage_cg_phase(inst, cfg, label, accept, rounds=None, reference=False):
         except _StageCGBudgetSpent:
             pass
     secs = time.perf_counter() - t0
+    if dist is not None:
+        start_profile_audit(audits, label, dense, dist)
     c, tm = slog.counters, slog.timers
     stages_done = stages(slog)
     rec = dict(
@@ -2386,7 +2603,7 @@ def households_hold_phase(cfg, libs):
     return rec
 
 
-def households_leximin_phase(n, cfg, libs, repeat=False):
+def households_leximin_phase(n, cfg, libs, audits, repeat=False):
     """LEXIMIN with households on the bench pool of ``n`` couples at the
     package's defaults, every launch counter zeroed just before it and read
     just after. A pool whose household rows make the quotas infeasible
@@ -2396,7 +2613,8 @@ def households_leximin_phase(n, cfg, libs, repeat=False):
     them). Held: the contract, every panel household-disjoint and meeting
     the quotas, ``audit_maximin`` on the quotient's augmented instance
     within ``HH_MAXIMIN_GAP``; with ``repeat`` a second run, bit for bit.
-    Returns ``(rec, dist, dense, space, households)``."""
+    The profile certificate on the quotient's augmented instance starts in
+    ``audits``. Returns ``(rec, dist, dense, space, households)``."""
     import dataclasses
     from unittest import mock
 
@@ -2451,6 +2669,7 @@ def households_leximin_phase(n, cfg, libs, repeat=False):
     t = time.perf_counter()
     audit = audit_maximin(quotient.dense_aug, dist.allocation, dist.covered)
     audit_s = time.perf_counter() - t
+    start_profile_audit(audits, f"households_n{n}", quotient.dense_aug, dist)
     quotas_ok, disjoint = households_check(dense, dist.committees, hh)
     c, tm = hlog.counters, hlog.timers
     keys = ("decomp_rounds", "decomp_host_syncs", "decomp_polish_syncs",
@@ -3675,11 +3894,13 @@ def distribution_phases(libs, leximin, pack, MT, highs_ref):
     return out
 
 
-def households_phases(cfg, libs):
+def households_phases(cfg, libs, audits):
     """Every household phase, in order; returns their records by name."""
     hold = households_hold_phase(cfg, libs)
-    n400, dist400, dense400, space400, hh400 = households_leximin_phase(400, cfg, libs, repeat=True)
-    n1200 = households_leximin_phase(1200, cfg, libs)[0]
+    n400, dist400, dense400, space400, hh400 = households_leximin_phase(
+        400, cfg, libs, audits, repeat=True
+    )
+    n1200 = households_leximin_phase(1200, cfg, libs, audits)[0]
     agent = households_agent_space_phase(cfg, libs)
     xmin = households_xmin_phase(dense400, space400, cfg, hh400, dist400, n400["seconds"], libs)
     return dict(hold=hold, n400=n400, n1200=n1200, agent=agent, xmin=xmin)
@@ -5198,8 +5419,11 @@ def main() -> int:
     # the main path: the flagship at the package's defaults (bf16 operand
     # demotion on, as on any CUDA run)
     defaults_cfg = default_config()
+    # every finished LEXIMIN path's profile certificate: host work in
+    # worker processes, each started as its path returns
+    audits = {}
     e2e_defaults, launches, lex_defaults, face_defaults = defaults_flagship_phase(
-        sf_e_skewed_instance(seed=1), defaults_cfg, libs
+        sf_e_skewed_instance(seed=1), defaults_cfg, libs, audits
     )
     # XMIN on the same pool, seeded with that LEXIMIN distribution; its
     # gather launches count with the main path's
@@ -5214,26 +5438,27 @@ def main() -> int:
     hold_cpu, serial_cpu = start_l2_references(xmin_dist, lex_defaults, defaults_cfg)
     xmin_hold = xmin_l2_hold_phase(xmin_dist, lex_defaults, hold_cpu)
     l2_serial = l2_serial_phase(xmin_dist, lex_defaults, defaults_cfg, serial_cpu)
-    mass = mass_like_phase(defaults_cfg)
+    mass = mass_like_phase(defaults_cfg, audits)
 
     legacy, legacy_alloc = legacy_phase(sf_e_skewed_instance(seed=1))
     agent, agent_dist, agent_cfg = agent_space_phase(
-        skewed_instance(n=120, k=12, n_categories=3, seed=1), slice_cfg, "agent_space_skewed_120"
+        skewed_instance(n=120, k=12, n_categories=3, seed=1), slice_cfg, "agent_space_skewed_120",
+        audits,
     )
     launches["lp_block"] = agent["launches"]["lp_block"]
     agent_sf_b = agent_space_budget_phase(sf_b_skewed_instance(seed=1), slice_cfg, "agent_space_sf_b")
     dense_graph = dense_graph_phase(sf_b_skewed_instance(seed=1))
     stage_cg = stage_cg_phase(sf_b_skewed_instance(seed=1), defaults_cfg, "stage_cg_sf_b",
-                              STAGE_CG_ACCEPT, rounds=STAGE_CG_ROUNDS)
+                              STAGE_CG_ACCEPT, audits, rounds=STAGE_CG_ROUNDS)
     stage_cg_pricing = stage_cg_phase(
         skewed_instance(n=80, k=8, n_categories=3, seed=3), defaults_cfg, "stage_cg_pricing_skewed_80",
-        STAGE_CG_PRICING_ACCEPT, reference=True,
+        STAGE_CG_PRICING_ACCEPT, audits, reference=True,
     )
     # households (queue A item 2): the quotient's masters on the two-sided
     # kernel and the gather, the agent-space route's dual LPs on the LP
     # kernel, XMIN's min-L2 stage on the gather; their launches count with
     # the main path's
-    households = households_phases(defaults_cfg, libs)
+    households = households_phases(defaults_cfg, libs, audits)
     for rec in households.values():
         for name, count in rec.get("launches", {}).items():
             launches[name] += count
@@ -5294,6 +5519,10 @@ def main() -> int:
     # phase 14: the lint package on the port's sources, every registered
     # core on the card under the profiler
     store_phases["lint_card"] = lint_card_phase(libs)
+    # phase 15: the profile certificates, collected
+    profile_audit_phase(audits, {rec["phase"]: rec for rec in (
+        e2e_defaults, mass, agent, stage_cg, stage_cg_pricing, households["n400"],
+        households["n1200"])})
 
     def summary(name, rec, phase_recs, holds):
         return dict(

@@ -12,7 +12,9 @@
 * the dual leximin LP (``leximin.py:300-328``) and the final primal LP
   (``leximin.py:453-464``), the latter also with its duals;
 * :func:`audit_maximin`, the solver-independent certificate of an
-  allocation's least probability.
+  allocation's least probability, and :func:`audit_leximin_profile` (with
+  its level-2 view :func:`audit_second_level`), the same certificate level
+  by level for a whole leximin profile.
 """
 
 from __future__ import annotations
@@ -524,4 +526,233 @@ def audit_maximin(
         "achieved_min": round(z_min, 6),
         "certified_maximin_upper": round(float(upper), 6),
         "maximin_gap": round(float(upper) - z_min, 6),
+    }
+
+
+def audit_leximin_profile(
+    dense: DenseInstance,
+    allocation: np.ndarray,
+    covered: Optional[np.ndarray] = None,
+    level_tol: float = 1e-3,
+    max_levels: Optional[int] = None,
+) -> dict:
+    """Solver-independent certificate of a whole leximin profile, level by
+    level.
+
+    :func:`audit_maximin` iterated: at level ``j`` the types of earlier
+    levels are floored at their *achieved* values (``allocation`` meets
+    those floors, so the relaxed level-``j`` problem contains it and the
+    bound never undercuts what was achieved), a witness LP over the
+    marginal polytope maximizes the least value of the remaining types, and
+    its floor duals enter the exact agent-space HiGHS MILP as Lagrange
+    multipliers:
+
+        level_j ≤ Σ w·a ≤ max_{feasible x} (w + λ)·x − Σ_t λ_t·floor_t·cnt_t
+
+    for any feasible distribution meeting the earlier floors, any
+    probability vector ``w`` over the remaining covered agents and any
+    λ ≥ 0 on the floored types. This certifies what the reference's
+    per-stage dual gap certifies (``leximin.py:429-431``): each level is
+    optimal given the prefix already fixed. Each level reports two valid
+    upper bounds: ``milp_upper``, the Lagrangian bound of the exact
+    agent-space MILP, outside the type-space machinery but carrying an
+    integrality duality gap deep in the profile, and ``marginal_upper``,
+    the witness LP's own optimum, tight everywhere but sharing the
+    marginal-relaxation view with the solver. ``gap`` uses the smaller;
+    ``gap_milp`` and ``worst_gap_milp`` record how far the independent
+    bound alone reaches. One witness LP and one to nine MILPs per level.
+
+    Pass the CERTIFIED profile (``Distribution.fixed_probabilities``) as
+    ``allocation``, not the realized one: flooring the prefix at realized
+    values leaks the realization ε across every fixed type, which the
+    polytope concentrates onto later singleton types as spurious headroom.
+    The realized-vs-certified gap, ``max|allocation − fixed_probabilities|``,
+    is a separate, directly measured number; the two together certify the
+    shipped allocation end to end.
+
+    Host code on numpy, scipy and HiGHS: ``dense`` may live on the card,
+    and is read only through its host mirrors (:class:`TypeReduction`, the
+    oracle's constraint rows).
+
+    Returns ``{"levels", "n_levels", "worst_gap", "worst_gap_milp",
+    "all_within_tol", "audited_types"}`` (rounded to 1e-6), each level
+    ``{"achieved", "certified_upper", "milp_upper", "marginal_upper",
+    "gap", "gap_milp", "types"}``.
+    """
+    from citizensassemblies_tpu_torch.solvers.lp_util import robust_linprog
+    from citizensassemblies_tpu_torch.solvers.native_oracle import TypeReduction
+
+    red = TypeReduction(dense)
+    T, F = red.T, red.F
+    alloc = np.asarray(allocation, dtype=np.float64)
+    if covered is None:
+        covered = np.ones(dense.n, dtype=bool)
+    covered = np.asarray(covered, dtype=bool)
+    cov_t = np.zeros(T, dtype=bool)
+    np.logical_or.at(cov_t, red.type_id, covered)
+    # per-type achieved values: allocations are type-constant up to the
+    # realization tolerance; the min, so floors never overstate
+    v_t = np.full(T, np.inf)
+    np.minimum.at(v_t, red.type_id, np.where(covered, alloc, np.inf))
+    v_t = np.where(cov_t, v_t, 0.0)
+    # per-type covered member counts: uncovered agents sit at a structural
+    # 0 and carry no level guarantee, so floors and the Lagrangian
+    # subtraction scale with the covered count, not the type size
+    cnt_t = np.zeros(T)
+    np.add.at(cnt_t, red.type_id, covered.astype(np.float64))
+    tf = np.zeros((T, F))
+    for t in range(T):
+        tf[t, red.type_feature[t]] = 1.0
+
+    oracle = HighsCommitteeOracle(dense)
+    fixed_floor = np.zeros(T)
+    fixed_mask = np.zeros(T, dtype=bool)
+    remaining = cov_t.copy()
+    levels: list = []
+    worst_gap = 0.0
+    worst_gap_milp = 0.0
+    while remaining.any() and (max_levels is None or len(levels) < max_levels):
+        lvl = float(v_t[remaining].min())
+        S = remaining & (v_t <= lvl + level_tol)
+        nr = int(remaining.sum())
+        idxr = np.nonzero(remaining)[0]
+        c = np.zeros(T + 1)
+        c[T] = -1.0
+        A_ub = np.zeros((2 * F + nr, T + 1))
+        A_ub[:F, :T] = -tf.T
+        A_ub[F : 2 * F, :T] = tf.T
+        A_ub[2 * F + np.arange(nr), idxr] = -1.0
+        A_ub[2 * F :, T] = cnt_t[idxr]
+        b_ub = np.concatenate([-red.qmin.astype(float), red.qmax.astype(float), np.zeros(nr)])
+        lo = np.where(fixed_mask, np.clip(fixed_floor * cnt_t, 0.0, cnt_t), 0.0)
+        # upper bounds at the covered member counts: no feasible committee
+        # holds an uncovered agent, and a free uncoverable type lets the LP
+        # park quota pressure there and inflate the bound
+        res = robust_linprog(
+            c, A_ub=A_ub, b_ub=b_ub,
+            A_eq=np.concatenate([np.ones(T), [0.0]])[None, :],
+            b_eq=[float(red.k)],
+            bounds=[(lo[t], cnt_t[t]) for t in range(T)] + [(0, None)],
+        )
+        if res.status != 0:
+            raise SelectionError(f"level-{len(levels) + 1} witness LP failed: {res.message}")
+        y = np.maximum(-np.asarray(res.ineqlin.marginals)[2 * F :], 0.0)
+        w_t = np.zeros(T)
+        w_t[idxr] = y
+        # per-agent weights, y_t per covered remaining member (the stage
+        # dual makes Σ y_t·cnt_t ≈ 1: the z column's coefficients are the
+        # covered counts)
+        w = np.where(covered, w_t[red.type_id], 0.0)
+        lam_t = np.zeros(T)
+        if res.lower is not None and res.lower.marginals is not None:
+            lam_t = np.maximum(np.asarray(res.lower.marginals)[:T], 0.0)
+        lam_t = np.where(fixed_mask, lam_t, 0.0)
+        total = w.sum()
+        if total <= 0:
+            w = np.where(covered & remaining[red.type_id], 1.0, 0.0)
+            total = w.sum()
+            lam_t[:] = 0.0
+        w = w / total
+        lam_t = lam_t / total
+        # the fractional stage optimum is itself a valid upper bound: any
+        # feasible distribution's marginal lies in the floored polytope
+        marginal_upper = float(res.x[T])
+
+        # the Lagrangian MILP bound, tightened by a few projected
+        # subgradient steps on λ (one exact MILP each): the LP-dual λ is
+        # optimal for the fractional problem, not for the Lagrangian dual
+        # of the integer one
+        def milp_bound(lam):
+            u = w + np.where(covered, lam[red.type_id], 0.0)
+            panel, _value, raw = oracle._milp_maximize_with_bound(u)
+            return float(raw) - float(np.sum(lam * fixed_floor * cnt_t)), panel
+
+        upper_milp, panel = milp_bound(lam_t)
+        if fixed_mask.any() and upper_milp > lvl + level_tol:
+            # backtracking: step from the best λ so far; a worsening step
+            # reverts λ and its argmax panel (which seeds the next
+            # subgradient) and halves the step
+            lam_best, panel_best = lam_t.copy(), panel
+            lam = lam_t.copy()
+            step = 1.0
+            for _ in range(8):
+                # the subgradient at λ: the floor slack of the argmax panel
+                x_cnt = np.bincount(
+                    red.type_id[np.asarray(panel, dtype=int)], minlength=T
+                ).astype(np.float64)
+                g = np.where(fixed_mask, x_cnt - fixed_floor * cnt_t, 0.0)
+                if not np.any(g):
+                    break
+                lam = np.maximum(lam - step * g / max(np.abs(g).max(), 1.0) * 0.1, 0.0)
+                val, panel = milp_bound(lam)
+                if val < upper_milp - 1e-12:
+                    upper_milp, lam_best, panel_best = val, lam.copy(), panel
+                else:
+                    lam, panel = lam_best.copy(), panel_best
+                    step *= 0.5
+                    if step < 0.05:
+                        break
+
+        upper = min(upper_milp, marginal_upper)
+        gap = upper - lvl
+        gap_milp = upper_milp - lvl
+        worst_gap = max(worst_gap, gap)
+        worst_gap_milp = max(worst_gap_milp, gap_milp)
+        levels.append(
+            {
+                "achieved": round(lvl, 6),
+                "certified_upper": round(upper, 6),
+                "milp_upper": round(upper_milp, 6),
+                "marginal_upper": round(marginal_upper, 6),
+                "gap": round(gap, 6),
+                "gap_milp": round(gap_milp, 6),
+                "types": int(S.sum()),
+            }
+        )
+        fixed_mask |= S
+        # each fixed type floored at its own achieved value, not the level's
+        # least: a prefix floored even 1e-3 low frees aggregate mass that
+        # the polytope concentrates onto later singleton types. The
+        # allocation meets these floors, so each level is certified given
+        # the achieved earlier values, the semantics of the reference's
+        # per-stage certificate
+        fixed_floor = np.where(S, np.maximum(v_t - 1e-9, 0.0), fixed_floor)
+        remaining &= ~S
+    return {
+        "levels": levels,
+        "n_levels": len(levels),
+        "worst_gap": round(worst_gap, 6),
+        "worst_gap_milp": round(worst_gap_milp, 6),
+        "all_within_tol": bool(worst_gap <= level_tol),
+        "audited_types": int(fixed_mask.sum()),
+    }
+
+
+def audit_second_level(
+    dense: DenseInstance,
+    allocation: np.ndarray,
+    covered: Optional[np.ndarray] = None,
+    level_tol: float = 1e-3,
+) -> dict:
+    """The level-2 view of :func:`audit_leximin_profile`: the level-1 set
+    floored at its certified value, the second level bounded by the
+    Lagrangian-tightened exact MILP witness. Pass the certified profile, as
+    there. Returns ``{"achieved_level2", "certified_level2_upper",
+    "level2_gap", "level1_set_types"}``; the first three are None for a
+    profile of one level, which has no second level to certify (0.0 would
+    read as a perfect certificate)."""
+    prof = audit_leximin_profile(
+        dense, allocation, covered=covered, level_tol=level_tol, max_levels=2
+    )
+    if prof["n_levels"] < 2:
+        return {
+            "achieved_level2": None, "certified_level2_upper": None, "level2_gap": None,
+            "level1_set_types": prof["levels"][0]["types"] if prof["levels"] else 0,
+        }
+    l2 = prof["levels"][1]
+    return {
+        "achieved_level2": l2["achieved"],
+        "certified_level2_upper": l2["certified_upper"],
+        "level2_gap": l2["gap"],
+        "level1_set_types": prof["levels"][0]["types"],
     }
