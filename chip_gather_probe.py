@@ -142,50 +142,17 @@ def parent_gather(lib, sms, idx, val, Y):
     return out
 
 
-def planned_gather(plan, idx, val, Y):
-    """The current kernel at ``plan`` (a launch the wrapper's counters do
-    not see); ``[B, C]``."""
-    import torch
-
-    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
-    from citizensassemblies_tpu_torch.kernels.cuda_lib import ptr, stream_of
-
-    C, kp = idx.shape
-    B, T = Y.shape
-    out = torch.empty((B, C), dtype=torch.float32, device=Y.device)
-    em.KERNEL.run(
-        "ell_gather_bf16_launch" if plan.bf16 else "ell_gather_launch",
-        ptr(idx), ptr(val), ctypes.c_longlong(C * kp if val.dim() == 3 else 0), ptr(Y), ptr(out),
-        B, T, C, kp, plan.G, plan.threads, plan.blocks, plan.tma_warps, stream_of(Y),
-    )
-    return out
-
-
-def bits_equal(a, b) -> bool:
-    import torch
-
-    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
-
-
 def cases(pack):
-    """``{name: (idx, val, Y)}`` on the card: float32 and bf16 values, one
-    lane, three lanes with shared values, three with per-lane values."""
+    """``{name: (idx, val, Y)}`` on the card (``chip_smoke.gather_cases``):
+    float32 and bf16 values, one lane, three lanes with shared values, three
+    with per-lane values."""
     import torch
 
     dev = torch.device("cuda")
     idx_np, val_np = pack.padded(len(pack))
     idx = torch.as_tensor(idx_np, device=dev)
     val = torch.as_tensor(val_np, device=dev)
-    g = torch.Generator(device="cpu").manual_seed(3)
-    y1 = torch.randn((1, pack.minor), generator=g).to(dev)
-    y3 = torch.randn((3, pack.minor), generator=g).to(dev)
-    lane = (val[None] * torch.rand((3, 1, 1), generator=g).to(dev)).contiguous()
-    out = {}
-    for tag, v, vl in (("f32", val, lane), ("bf16", val.to(torch.bfloat16), lane.to(torch.bfloat16))):
-        out[f"{tag}_b1"] = (idx, v, y1)
-        out[f"{tag}_b3"] = (idx, v, y3)
-        out[f"{tag}_b3_lane"] = (idx, vl, y3)
-    return out
+    return {case: (idx, v, Y) for case, (v, Y) in cs.gather_cases(idx, val, pack.minor, 3).items()}
 
 
 def check(name, pack, parent, sms):
@@ -208,13 +175,13 @@ def check(name, pack, parent, sms):
                    max_abs_err=err, tolerance=cs.GATHER_TOL, ok=err <= cs.GATHER_TOL)
         i32, v32, y32 = runs[case.replace("bf16", "f32")]
         if val.dtype == torch.bfloat16 and torch.equal(val.float(), v32):
-            rec["bitwise_vs_f32"] = bits_equal(z, em.ell_gather_mv(i32, v32, y32))
+            rec["bitwise_vs_f32"] = cs.bits_equal(z, em.ell_gather_mv(i32, v32, y32))
             rec["ok"] = rec["ok"] and rec["bitwise_vs_f32"]
         if parent is not None:
-            rec["bitwise_vs_parent"] = bits_equal(z, parent_gather(parent, sms, idx, val, Y))
+            rec["bitwise_vs_parent"] = cs.bits_equal(z, parent_gather(parent, sms, idx, val, Y))
             ynan = Y.clone()
             ynan[:, 0] = float("nan")
-            rec["bitwise_vs_parent_nan_y0"] = bits_equal(
+            rec["bitwise_vs_parent_nan_y0"] = cs.bits_equal(
                 em.ell_gather_mv(idx, val, ynan), parent_gather(parent, sms, idx, val, ynan))
             rec["ok"] = rec["ok"] and rec["bitwise_vs_parent"] and rec["bitwise_vs_parent_nan_y0"]
         print(json.dumps(rec), flush=True)
@@ -292,9 +259,9 @@ def sweep(name, case, inputs, sms, reps):
         plan = em.launch_plan(C, kp, T, B, sms, bf16=bf16, blocks_per_sm=bps, tma_warps=tw)
         if plan.smem_bytes > em.BLOCK_SMEM:
             continue
-        same = bits_equal(planned_gather(plan, idx, val, Y), want)
+        same = cs.bits_equal(cs.planned_gather(plan, idx, val, Y), want)
         ok = ok and same
-        hot, flushed = times(lambda: planned_gather(plan, idx, val, Y), reps)
+        hot, flushed = times(lambda: cs.planned_gather(plan, idx, val, Y), reps)
         row.append(dict(blocks_per_sm=bps, blocks=plan.blocks * plan.B, threads=plan.threads,
                         tma_warps=plan.tma_warps, hot_ms=hot, flushed_ms=flushed, bitwise=same))
     print(json.dumps(dict(probe="sweep", shape=name, case=case, bound_ms=bound_ms(idx, val, Y),

@@ -202,7 +202,23 @@ Phases, each fatal on failure:
    with the exact MILP joins that level's two bounds. A path fails unless
    every level is then within ``PROFILE_GAP`` (the exact-MILP bounds alone
    within ``PROFILE_GAP_MILP``) and no level's bound lies under what it
-   achieved; an audit that raises fails its path.
+   achieved; an audit that raises fails its path;
+16. the nationwide dual LP (:func:`nationwide_dual_problem`: 2,048
+   feasible panels of a nationwide registry of n = 100,000, k = 316, every
+   agent unfixed, as the JAX package's ``dist`` bench family builds it; y
+   of T = 100,001, more than a block's shared memory holds, so the gather
+   reads it from the L2): ``gather_nationwide`` holds the gather kernel
+   against its plain version on that LP's pack (k_pad 320; float32 and
+   bf16 values, one lane, three with shared and with per-lane values, a
+   NaN at ``y[0]``), holds the L2 route forced at the flagship and XMIN
+   packs bit for bit the staged route, and times both routes hot and
+   L2-flushed beside the bound and ``torch.sparse.mm``;
+   ``dual_lp_nationwide`` solves the LP by the row-sharded PDHG on the
+   one-rank mesh (ELL route) and by ``solve_dual_lp_pdhg`` (the LP
+   kernel's fit misses at 100,001 variables, so the chained route), each
+   converged, within ``SHARDED_DUAL_TOL`` of HiGHS (in a worker process)
+   and of the LP's feasible set, with its gathers on the L2 route only and
+   no quarantine.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
 line, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -277,9 +293,11 @@ PROFILE_TOL = 1e-3
 #: (tests/test_torch_sf_dual.py), so it runs under a budget per stage and in
 #: all, short enough to keep the whole run well inside its time limit (the
 #: first stage ends within none of 20, 30, 45 and 90 s; 20 s since the
-#: checkpoint and fault phases came in)
-STAGE_BUDGET_S = 20.0
-AGENT_BUDGET_S = 27.0
+#: checkpoint and fault phases came in, 12 since the nationwide phases did:
+#: the whole script read 1,221.0 s with them on an NVIDIA H100 80GB HBM3 at
+#: 700 W whose host was slow)
+STAGE_BUDGET_S = 12.0
+AGENT_BUDGET_S = 19.0
 #: the polish screen's lanes at the flagship: nested prefixes of a
 #: 2048-column support (face_decompose.polish_support), each to a quarter of
 #: the master tolerance within 24,576 iterations, warm from a master solve;
@@ -341,9 +359,11 @@ SCENARIO_DRAWS = 65_536
 #: edits and 8 samples (26 full ladders, 190 s), 1,095 s at 50 (105 s) and
 #: 994.5 s at 30 edits and 5 samples (60.9 s); 15 edits and 3 samples made
 #: room for phase 13 (the graph store's child processes); 10 edits since the
-#: whole script read 1,077.6 s at 15 (a slower host, no phase added)
+#: whole script read 1,077.6 s at 15 (a slower host, no phase added); 2
+#: samples since it read 1,221.0 s with phase 16 (the nationwide dual LP;
+#: the same card and host)
 CHURN_EDITS = 10
-CHURN_SCRATCH = 3
+CHURN_SCRATCH = 2
 CHURN_SCRATCH_PER_CLASS = 2
 
 
@@ -392,10 +412,21 @@ def face_profiles(store: list):
 
 
 def bf16_gathers() -> int:
-    """The gather's bf16-value launches since its counters were zeroed."""
+    """The gather's bf16-value launches since its counters were zeroed,
+    on both of ``y``'s routes."""
     from citizensassemblies_tpu_torch.kernels import ell_matvec as em
 
-    return em.KERNEL.entry_launches.get("ell_gather_bf16_launch", 0)
+    return sum(c for key, c in em.KERNEL.entry_launches.items()
+               if key.startswith("ell_gather_bf16_launch"))
+
+
+def l2_gathers() -> int:
+    """The gather's launches on the L2 route (``y`` not staged) since its
+    counters were zeroed, float32 and bf16 values."""
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+
+    return sum(c for key, c in em.KERNEL.entry_launches.items()
+               if key.endswith("." + em.L2_ROUTE))
 
 
 def cuda_ms(fn, reps: int = 1, warmup: int = 1) -> float:
@@ -572,11 +603,11 @@ def gather_bf16_phase(pack, label="gather_xmin_bf16"):
     g = torch.Generator(device="cpu").manual_seed(1)
     y = torch.randn(T, generator=g).to(dev)
     yb = torch.randn((3, T), generator=g).to(dev)
-    entry0 = em.KERNEL.entry_launches.get("ell_gather_bf16_launch", 0)
+    entry0 = bf16_gathers()
     z16, z32 = em.ell_gather_mv(idx, val16, y), em.ell_gather_mv(idx, val, y)
     zb16, zb32 = em.ell_gather_mv(idx, val16, yb), em.ell_gather_mv(idx, val, yb)
     torch.cuda.synchronize()
-    bf16_launched = em.KERNEL.entry_launches.get("ell_gather_bf16_launch", 0) - entry0
+    bf16_launched = bf16_gathers() - entry0
     bitwise = bool(torch.equal(z16, z32) and torch.equal(zb16, zb32))
     err = max(
         float((z16 - em.ell_gather_mv_plain(idx, val16, y)).abs().max()),
@@ -612,6 +643,200 @@ def gather_bf16_phase(pack, label="gather_xmin_bf16"):
     print(json.dumps(rec), flush=True)
     if not rec["ok"]:
         raise SystemExit(f"the gather's bf16 path disagrees: bitwise {bitwise}, err {err}")
+    return rec
+
+
+def bits_equal(a, b) -> bool:
+    """Same float32 bits (NaNs included)."""
+    import torch
+
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def planned_gather(plan, idx, val, Y):
+    """The gather kernel launched at ``plan`` (a :func:`~citizensassemblies_tpu_torch.
+    kernels.ell_matvec.launch_plan`, its route forced or not) on ``Y [B,
+    T]``: a launch the wrapper's counters do not see; ``[B, C]``."""
+    import ctypes
+
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.kernels.cuda_lib import ptr, stream_of
+
+    C, kp = idx.shape
+    B, T = Y.shape
+    dev = Y.device.index if Y.device.index is not None else torch.cuda.current_device()
+    if dev not in em._READY:
+        em._setup(dev)
+    out = torch.empty((B, C), dtype=torch.float32, device=Y.device)
+    em.KERNEL.run(
+        "ell_gather_bf16_launch" if plan.bf16 else "ell_gather_launch",
+        ptr(idx), ptr(val), ctypes.c_longlong(C * kp if val.dim() == 3 else 0), ptr(Y), ptr(out),
+        B, T, C, kp, plan.G, plan.threads, plan.blocks, plan.tma_warps, int(plan.stage_y),
+        stream_of(Y),
+    )
+    return out
+
+
+def gather_cases(idx, val, T, seed):
+    """``{case: (val, Y)}`` on the card for a pack ``idx``/``val`` over a
+    ``y`` of ``T``: float32 and bf16 values (the pack's values rounded to
+    bf16), one lane, three lanes with shared values and three with per-lane
+    values, drawn from ``seed``."""
+    import torch
+
+    dev = idx.device
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    y1 = torch.randn((1, T), generator=g).to(dev)
+    y3 = torch.randn((3, T), generator=g).to(dev)
+    lane = (val[None] * torch.rand((3, 1, 1), generator=g).to(dev)).contiguous()
+    out = {}
+    for tag, v, vl in (("f32", val, lane), ("bf16", val.to(torch.bfloat16),
+                                            lane.to(torch.bfloat16))):
+        out[f"{tag}_b1"] = (v, y1)
+        out[f"{tag}_b3"] = (v, y3)
+        out[f"{tag}_b3_lane"] = (vl, y3)
+    return out
+
+
+def nationwide_pack(panels, n):
+    """The nationwide dual LP's ``G = [P, −1]`` (``P`` the panels'
+    incidence over ``n`` agents) packed as the sharded ELL route packs it
+    (``sparse_ops.ell_pack_rows`` of the dense rows): each panel's sorted
+    members at 1, then the ŷ column at −1, then empty slots. Built from the
+    member lists; the first row is checked against ``ell_pack_rows``.
+    Returns ``(idx, val)`` numpy arrays."""
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_pack_rows
+
+    m1, k = panels.shape
+    row = np.zeros((1, n + 1), np.float32)
+    row[0, panels[0]] = 1.0
+    row[0, n] = -1.0
+    idx0, val0, _nnz = ell_pack_rows(row)
+    idx = np.zeros((m1, idx0.shape[1]), np.int32)
+    val = np.zeros(idx.shape, np.float32)
+    idx[:, :k], val[:, :k] = np.sort(panels, axis=1), 1.0
+    idx[:, k], val[:, k] = n, -1.0
+    assert np.array_equal(idx[:1], idx0) and np.array_equal(val[:1], val0)
+    return idx, val
+
+
+def gather_nationwide_phase(panels, n, flagship, xmin, label="gather_nationwide"):
+    """The gather at the nationwide dual LP's pack (:func:`nationwide_pack`
+    of :func:`nationwide_dual_problem`'s panels over ``n`` agents; y of
+    n + 1 = 100,001, beyond a block's shared memory, so the plan takes the
+    L2 route): every case of :func:`gather_cases` and a NaN at ``y[0]``
+    against the plain version at ``GATHER_TOL``; the L2 route forced
+    (``stage_y=False``, launched by :func:`planned_gather`) at the
+    flagship's and XMIN's packs (EllPacks ``flagship`` and ``xmin``), bit
+    for bit the staged route in every case there; device times hot and
+    with the L2 flushed on both routes, the bytes bound
+    (``obs/roofline.gather_cost``) and one ``torch.sparse.mm`` over a CSR
+    of the same matrix (a yardstick only)."""
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.obs import roofline
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    idx_np, val_np = nationwide_pack(panels, n)
+    C, kp = idx_np.shape
+    T = n + 1
+    idx = torch.as_tensor(idx_np, device=dev)
+    val = torch.as_tensor(val_np, device=dev)
+    plans = {b: em.launch_plan(C, kp, T, b, sms) for b in (1, 3)}
+    l2_0 = l2_gathers()
+    errs, nan_ok = {}, True
+    for case, (v, Y) in gather_cases(idx, val, T, seed=4).items():
+        z = em.ell_gather_mv(idx, v, Y)
+        torch.cuda.synchronize()
+        errs[case] = float((z - em.ell_gather_mv_plain(idx, v, Y)).abs().max())
+        ynan = Y.clone()
+        ynan[:, 0] = float("nan")
+        zn = em.ell_gather_mv(idx, v, ynan)
+        nan_ok = nan_ok and bool(torch.equal(torch.isnan(zn),
+                                             torch.isnan(em.ell_gather_mv_plain(idx, v, ynan))))
+    torch.cuda.synchronize()
+    l2_launched = l2_gathers() - l2_0
+    err = max(errs.values())
+    y = torch.randn(T, generator=torch.Generator(device="cpu").manual_seed(5)).to(dev)
+    val16 = val.to(torch.bfloat16)
+    # two turns of hot and flushed windows each (a single flushed window
+    # now and then reads far below its neighbours); the means are reported
+    times = {}
+    for tag, v in (("f32", val), ("bf16", val16)):
+        turns = [(device_ms(lambda: em.ell_gather_mv(idx, v, y), 200, "ell_gather"),
+                  device_ms(lambda: em.ell_gather_mv(idx, v, y), 50, "ell_gather", flush_l2=True))
+                 for _ in range(2)]
+        times[tag] = dict(
+            ms=float(np.mean([t[0] for t in turns])),
+            l2_flushed_ms=float(np.mean([t[1] for t in turns])), turns_ms=turns,
+            bound_ms=roofline.bound(roofline.gather_cost(C, kp, T, value_bytes=v.element_size()))[0],
+        )
+    plain_ms, _ = timed(lambda: em.ell_gather_mv_plain(idx, val, y), reps=50, warmup=5)
+    keep = val.reshape(-1) != 0
+    rows = torch.arange(C, device=dev).repeat_interleave(kp)
+    csr = torch.sparse_coo_tensor(
+        torch.stack([rows[keep], idx.reshape(-1)[keep].long()]), val.reshape(-1)[keep], (C, T)
+    ).coalesce().to_sparse_csr()
+    ycol = y[:, None].contiguous()
+    lib_err = float((torch.sparse.mm(csr, ycol)[:, 0] - em.ell_gather_mv(idx, val, y)).abs().max())
+    library_ms, _ = timed(lambda: torch.sparse.mm(csr, ycol), reps=200, warmup=10)
+    # the L2 route forced where y fits: bit for bit the staged route, and
+    # what it costs there
+    forced = {}
+    bitwise = True
+    for name, pack in (("flagship", flagship), ("xmin", xmin)):
+        fi_np, fv_np = pack.padded(len(pack))
+        fi = torch.as_tensor(fi_np, device=dev)
+        fv = torch.as_tensor(fv_np, device=dev)
+        Cf, kpf = fi.shape
+        same = {}
+        for case, (v, Y) in gather_cases(fi, fv, pack.minor, seed=6).items():
+            route = {sy: em.launch_plan(Cf, kpf, pack.minor, Y.shape[0], sms,
+                                        bf16=v.dtype == torch.bfloat16, stage_y=sy)
+                     for sy in (True, False)}
+            staged = planned_gather(route[True], fi, v, Y)
+            l2 = planned_gather(route[False], fi, v, Y)
+            torch.cuda.synchronize()
+            same[case] = bits_equal(staged, l2)
+        bitwise = bitwise and all(same.values())
+        yf = torch.randn((1, pack.minor),
+                         generator=torch.Generator(device="cpu").manual_seed(7)).to(dev)
+        route = {sy: em.launch_plan(Cf, kpf, pack.minor, 1, sms, stage_y=sy) for sy in (True, False)}
+        forced[name] = dict(
+            C=int(Cf), k_pad=int(kpf), T=int(pack.minor), bitwise=same,
+            plan_l2=gather_plan_record(route[False]),
+            bound_ms=roofline.bound(roofline.gather_cost(Cf, kpf, pack.minor))[0],
+        )
+        for tag, sy in (("staged", True), ("l2", False), ("l2_again", False),
+                        ("staged_again", True)):
+            forced[name][f"{tag}_ms"] = device_ms(
+                lambda: planned_gather(route[sy], fi, fv, yf), 200, "ell_gather")
+            forced[name][f"{tag}_l2_flushed_ms"] = device_ms(
+                lambda: planned_gather(route[sy], fi, fv, yf), 50, "ell_gather", flush_l2=True)
+    rec = dict(
+        phase=label, name="ell_gather", replaces=REPLACES["ell_gather"],
+        shape=dict(C=int(C), k_pad=int(kp), T=int(T), lanes=[1, 3]),
+        plan=gather_plan_record(plans[1]), plan_b3=gather_plan_record(plans[3]),
+        stage_y=plans[1].stage_y, ms=times["f32"]["ms"],
+        l2_flushed_ms=times["f32"]["l2_flushed_ms"], turns_ms=times["f32"]["turns_ms"],
+        bound_ms=times["f32"]["bound_ms"],
+        bound_by="bytes", bound_pairs_with="l2_flushed_ms", bf16=times["bf16"],
+        plain_ms=plain_ms, library_ms=library_ms, library_max_abs_err=lib_err,
+        max_abs_err=err, case_errors=errs, nan_at_y0=nan_ok, tolerance=GATHER_TOL,
+        l2_launches=l2_launched, forced_l2=forced, forced_l2_bitwise=bitwise,
+        seconds=time.perf_counter() - t0,
+    )
+    rec["ok"] = bool(err <= GATHER_TOL and nan_ok and bitwise and not plans[1].stage_y
+                     and not plans[3].stage_y and l2_launched == 2 * len(errs))
+    print(json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        raise SystemExit(f"the gather's L2 route disagrees: err {err}, NaN {nan_ok}, "
+                         f"bitwise {bitwise}, L2 launches {l2_launched}")
     return rec
 
 
@@ -851,6 +1076,33 @@ def dual_lp_problem(m1: int = 4096, seed: int = 0, pool=None):
     chosen = rng.choice(n, size=n // 10, replace=False)
     fixed[chosen] = rng.uniform(0.02, 0.08, size=chosen.size)
     return P, fixed
+
+
+#: the nationwide dual LP (phases ``gather_nationwide`` and
+#: ``dual_lp_nationwide``): panels of a nationwide registry of n agents (the
+#: registry's default n; the JAX package's ``dist`` bench family runs the
+#: same construction at n = 2,000 with 768 panels, ``bench.py:2716-2771``)
+NATIONWIDE_N = 100_000
+NATIONWIDE_PANELS = 2048
+
+
+def nationwide_dual_problem(m1: int = NATIONWIDE_PANELS, n: int = NATIONWIDE_N,
+                            device="cuda"):
+    """The dual leximin LP over ``nationwide_registry(n, seed=0)`` (k = 316
+    at n = 100,000) as the JAX package's ``dist`` bench family builds it:
+    ``m1`` feasible panels from the LEGACY sampler
+    (``models/legacy.sample_feasible_panels``, seed 2, on ``device``), every
+    agent unfixed. Returns ``(panels int32 [m1, k], P bool [m1, n],
+    fixed)``."""
+    from citizensassemblies_tpu_torch.data.registry import nationwide_registry
+    from citizensassemblies_tpu_torch.models.legacy import sample_feasible_panels
+
+    reg = nationwide_registry(n=n, seed=0)
+    dense, _space = reg.to_dense(device=device)
+    panels, _draws = sample_feasible_panels(dense, m1, seed=2, distribute=False)
+    P = np.zeros((m1, n), dtype=bool)
+    P[np.repeat(np.arange(m1), reg.k), panels.ravel()] = True
+    return panels, P, np.full(n, -1.0)
 
 
 def lp_inputs(ops, blocks=None):
@@ -3397,9 +3649,10 @@ SWEEP_CHAINS = 2048
 
 def _highs_dual(P, fixed, conn):
     """HiGHS (interior point, then crossover) on the dual leximin LP of
-    ``P``/``fixed``, sent down ``conn`` as ``(seconds, status, objective,
-    ŷ)``. (The simplex takes minutes on the flagship-shaped LP.) Pinned to
-    one CPU core, so the card's phases keep the others."""
+    ``P`` (a sparse 0/1 panel matrix) and ``fixed``, sent down ``conn`` as
+    ``(seconds, status, objective, ŷ)``. (The simplex takes minutes on the
+    flagship-shaped LP.) Pinned to one CPU core, so the card's phases keep
+    the others."""
     import scipy.sparse as sp
     from scipy.optimize import linprog
 
@@ -3411,7 +3664,7 @@ def _highs_dual(P, fixed, conn):
     unfixed = fixed < 0
     res = linprog(
         np.concatenate([-np.where(unfixed, 0.0, fixed), [1.0]]),
-        A_ub=sp.csr_matrix(np.hstack([P.astype(np.float64), -np.ones((C, 1))])),
+        A_ub=sp.hstack([P.astype(np.float64), -np.ones((C, 1))], format="csr"),
         b_ub=np.zeros(C), A_eq=np.concatenate([unfixed.astype(np.float64), [0.0]])[None, :],
         b_eq=np.array([1.0]), bounds=(0, None), method="highs-ipm",
     )
@@ -3420,17 +3673,21 @@ def _highs_dual(P, fixed, conn):
     conn.close()
 
 
-def start_highs_reference():
-    """The sharded dual phase's HiGHS reference, started in a daemon worker
-    process at the beginning of the run (it takes minutes on a CPU core; a
-    run that stops early terminates it on exit). Returns ``(process,
-    connection, P, fixed)``."""
+def start_highs_reference(problem=None):
+    """A HiGHS reference of a dual LP phase, started in a daemon worker
+    process well before the phase reads it (the flagship dual's takes
+    minutes on a CPU core; a run that stops early terminates it on exit):
+    ``problem`` ``(P, fixed)``, by default :func:`dual_lp_problem`'s, the
+    sharded dual phase's. Returns ``(process, connection, P, fixed)``."""
     import multiprocessing
 
-    P, fixed = dual_lp_problem()
+    import scipy.sparse as sp
+
+    P, fixed = dual_lp_problem() if problem is None else problem
     ctx = multiprocessing.get_context("spawn")
     recv, send = ctx.Pipe(duplex=False)
-    proc = ctx.Process(target=_highs_dual, args=(P.astype(bool), fixed, send), daemon=True)
+    proc = ctx.Process(target=_highs_dual, args=(sp.csr_matrix(P.astype(bool)), fixed, send),
+                       daemon=True)
     proc.start()
     send.close()
     return proc, recv, P, fixed
@@ -3748,6 +4005,122 @@ def sharded_dual_phase(mesh, highs_ref, libs):
     return rec
 
 
+def dual_lp_checks(P, fixed, y, yhat):
+    """How far ``(y, ŷ)`` lies outside the dual leximin LP's feasible set
+    over the bool panel matrix ``P``: the worst panel row over ŷ, the
+    unfixed agents' sum off 1, the most negative ``y``."""
+    import scipy.sparse as sp
+
+    rows = sp.csr_matrix(P, dtype=np.float64) @ y
+    return dict(row_excess=float(max(rows.max() - yhat, 0.0)),
+                sum_error=float(abs(y[fixed < 0].sum() - 1.0)),
+                negative=float(max(0.0, -y.min(), -yhat)))
+
+
+def dual_lp_kkt(P, fixed, x, lam, mu):
+    """The KKT residual of the dual leximin LP (``lp_pdhg.dual_lp_operands``:
+    ``G = [P, −1]`` with rows padded by ``[0, −1]``, ``h = 0``, one
+    equality) at a PDHG triple ``(x, λ, μ)``, formed as the PDHG's own check
+    forms it but in the LP's units: primal violation plus dual violation
+    (2-norms) plus the relative gap."""
+    import scipy.sparse as sp
+
+    Ps = sp.csr_matrix(P, dtype=np.float64)
+    C = Ps.shape[0]
+    unfixed = fixed < 0
+    c = np.append(-np.where(unfixed, 0.0, fixed), 1.0)
+    a = np.append(unfixed.astype(np.float64), 0.0)
+    y, yhat = x[:-1], x[-1]
+    Gx = np.concatenate([Ps @ y - yhat, np.full(lam.size - C, -yhat)])
+    Gt_lam = np.append(Ps.T @ lam[:C], -lam.sum())
+    pri = np.sqrt(np.sum(np.maximum(Gx, 0.0) ** 2) + (a @ x - 1.0) ** 2)
+    dua = np.linalg.norm(np.minimum(c + Gt_lam + a * mu[0], 0.0))
+    pobj, dobj = c @ x, -mu[0]
+    return float(pri + dua + abs(pobj - dobj) / (1.0 + abs(pobj) + abs(dobj)))
+
+
+def dual_lp_nationwide_phase(mesh, highs_ref, libs):
+    """The nationwide dual LP (:func:`nationwide_dual_problem`, y of
+    100,001) on the card by the row-sharded PDHG over the one-rank mesh
+    (ELL route: its local product the gather) and by ``solve_dual_lp_pdhg``
+    at the defaults (the LP kernel's fit misses at 100,001 variables, so
+    the chained ELL route, its products the gather). Each must converge
+    (``ok``: the PDHG's own KKT residual within 4× its 1e-6 tolerance; the
+    sharded solve's ``kkt`` recorded, and the chained solve's recomputed
+    from its ``(x, λ, μ)`` in the LP's units by :func:`dual_lp_kkt`), lie
+    within ``SHARDED_DUAL_TOL`` of HiGHS (``highs_ref``, started in a
+    worker process before the phase) in objective and ŷ and of the LP's
+    feasible set (:func:`dual_lp_checks`), launch its gathers on the L2
+    route only (every kernel's launches counted from zero just before the
+    solve), with no quarantine and no host re-solve."""
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.parallel.solver import solve_dual_lp_pdhg_sharded
+    from citizensassemblies_tpu_torch.solvers.lp_pdhg import solve_dual_lp_pdhg
+    from citizensassemblies_tpu_torch.utils.config import default_config
+    from citizensassemblies_tpu_torch.utils.logging import RunLog
+
+    t_phase = time.perf_counter()
+    proc, recv, P, fixed = highs_ref
+    solves = {}
+    for name in ("sharded_ell", "chained"):
+        for lib in libs:
+            lib.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "sharded_ell":
+            st = {}
+            sol = solve_dual_lp_pdhg_sharded(P, fixed, mesh, cfg=default_config(), stats=st)
+            extra = dict(route=st["route"], iterations=st["iters"], kkt=st["res"], graph=st["graph"])
+            counters = {}
+        else:
+            rlog = RunLog(echo=False)
+            sol, (x, lam, mu) = solve_dual_lp_pdhg(P, fixed, cfg=default_config(), device="cuda",
+                                                   log=rlog)
+            counters = dict(rlog.counters)
+            extra = dict(megakernel_fit_miss=int(counters.get("megakernel_fit_miss", 0)),
+                         kkt_lp_units=dual_lp_kkt(P, fixed, x, lam, mu),
+                         faults=fault_counts(counters), mp=mp_counts(counters))
+        torch.cuda.synchronize()
+        solves[name] = dict(
+            converged=sol.ok, seconds=time.perf_counter() - t0, objective=sol.objective,
+            yhat=sol.yhat, feasibility=dual_lp_checks(P, fixed, sol.y, sol.yhat),
+            launches=dict(_launches(libs), ell_gather_l2=l2_gathers()),
+            entry_launches=dict(em.KERNEL.entry_launches), clean=clean(counters), **extra,
+        )
+    t0 = time.perf_counter()
+    highs_s, status, h_obj, h_yhat = recv.recv()
+    proc.join()
+    highs_wait = time.perf_counter() - t0
+    for r in solves.values():
+        r["highs_obj_err"] = abs(r["objective"] - h_obj)
+        r["highs_yhat_err"] = abs(r["yhat"] - h_yhat)
+    launches = {k: sum(r["launches"][k] for r in solves.values())
+                for k in ("ell_gather", "ell_gather_bf16", "ell_gather_l2", "two_sided_block",
+                          "lp_block")}
+    rec = dict(
+        phase="dual_lp_nationwide", rows=int(P.shape[0]), n=int(P.shape[1]),
+        unfixed=int((fixed < 0).sum()), uncovered=int((P.sum(axis=0) == 0).sum()),
+        solves=solves, highs_seconds=highs_s,
+        highs_status=status, highs_objective=h_obj, highs_yhat=h_yhat,
+        highs_wait_seconds=highs_wait, launches=launches,
+        seconds=time.perf_counter() - t_phase,
+    )
+    rec["ok"] = bool(
+        status == 0 and solves["sharded_ell"]["route"] == "ell"
+        and solves["chained"]["megakernel_fit_miss"] >= 1
+        and all(r["converged"] and r["clean"] and r["highs_obj_err"] <= SHARDED_DUAL_TOL
+                and r["highs_yhat_err"] <= SHARDED_DUAL_TOL
+                and max(r["feasibility"].values()) <= SHARDED_DUAL_TOL
+                and r["launches"]["ell_gather_l2"] > 0
+                and r["launches"]["ell_gather_l2"] == r["launches"]["ell_gather"]
+                and r["launches"]["lp_block"] == 0 for r in solves.values())
+    )
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 def master_dual_bound(MT, v, w):
     """The lower bound on the two-sided ε-LP's optimum that aiming duals
     ``w = y_lo − y_up`` certify: ``(vᵀw − max_c (Mᵀw)_c) / max(1, ‖w‖₁)``
@@ -3864,11 +4237,12 @@ def sweep_phase():
     return rec
 
 
-def distribution_phases(libs, leximin, pack, MT, highs_ref):
+def distribution_phases(libs, leximin, pack, MT, highs_ref, nationwide_ref):
     """The distribution layer on the card: the one-rank NCCL world, then
     the chain-parallel Monte-Carlo, the dropout realization, the sharded
-    dual LP and face master over one more one-rank world (torn down after),
-    and the instance sweep."""
+    dual LP and face master and the nationwide dual LP (``nationwide_ref``,
+    :func:`dual_lp_nationwide_phase`) over one more one-rank world (torn
+    down after), and the instance sweep."""
     import torch
     import torch.distributed as dist
 
@@ -3888,6 +4262,7 @@ def distribution_phases(libs, leximin, pack, MT, highs_ref):
         out["dropout"] = dropout_mc_phase(mesh, leximin)
         out["dual"] = sharded_dual_phase(mesh, highs_ref, libs)
         out["master"] = sharded_master_phase(mesh, pack, MT)
+        out["dual_nationwide"] = dual_lp_nationwide_phase(mesh, nationwide_ref, libs)
     finally:
         runtime.shutdown()
     out["sweep"] = sweep_phase()
@@ -4406,7 +4781,9 @@ FLEET_DRIVE_SEED = 20
 FLEET_DRIVE_UNIQUE = 6
 #: revise requests over the first edits of ``churn_bench``'s trail (5
 #: until phase 13 needed the room: 56.6 s at 5 on an NVIDIA H100 80GB HBM3
-#: at 700 W; 3 until the whole script read 1,077.6 s, 40.3 s at 3)
+#: at 700 W; 3 until the whole script read 1,077.6 s, 40.3 s at 3; the
+#: first is the base's fallback, so 2 is the least that holds a revise
+#: against direct re-certification)
 REVISE_EDITS = 2
 REVISE_TOL = 1e-6
 #: the sojourn parts must explain the total within this share
@@ -5478,10 +5855,18 @@ def main() -> int:
     for rec in (analysis["flagship"], analysis["example_small"]):
         for name, count in rec["launches"].items():
             launches[name] += count
+    # phase 16, the nationwide dual LP: its HiGHS reference in a worker
+    # process while the card works; the gather at its pack (the L2 route)
+    panels, P_nat, fixed_nat = nationwide_dual_problem()
+    nationwide_ref = start_highs_reference((P_nat, fixed_nat))
+    gather_nationwide = gather_nationwide_phase(panels, NATIONWIDE_N, pack, xmin_pack)
     # distribution (queue A item 7): the sharded ELL dual LP's local
-    # products are gather launches of the main path's
-    distribution = distribution_phases(libs, lex_defaults, pack, MT, highs_ref)
+    # products are gather launches of the main path's, the nationwide dual
+    # LPs' (both solves) too, and theirs are the L2 route's launches
+    distribution = distribution_phases(libs, lex_defaults, pack, MT, highs_ref, nationwide_ref)
     launches["ell_gather"] += distribution["dual"]["launches"]["ell_gather"]
+    launches["ell_gather"] += distribution["dual_nationwide"]["launches"]["ell_gather"]
+    launches["ell_gather_l2"] = distribution["dual_nationwide"]["launches"]["ell_gather_l2"]
     # the request context, the scenario models and churn (queue A items 1-2):
     # the dropout model's flagship fallback and the deadline run are the
     # main path's LEXIMIN; every phase's launches count with the main path's
@@ -5534,14 +5919,26 @@ def main() -> int:
             passed=all(r["ok"] for r in phase_recs) and all(r["ok"] for r in holds),
         )
 
-    gather_row = summary("ell_gather", gather, [gather, gather_dual, gather_xmin, gather_bf16],
+    gather_row = summary("ell_gather", gather,
+                         [gather, gather_dual, gather_xmin, gather_bf16, gather_nationwide],
                          [households["n1200"], households["xmin"], analysis["flagship"],
-                          distribution["dual"], scenarios["dropout_flagship"], serving["flagship"]])
+                          distribution["dual"], distribution["dual_nationwide"],
+                          scenarios["dropout_flagship"], serving["flagship"]])
     # the bf16-value path of the same kernel, at XMIN's demoted pack
     gather_row.update(
         bf16_launches=launches["ell_gather_bf16"], bf16_ms=gather_bf16["ms"],
         bf16_l2_flushed_ms=gather_bf16["l2_flushed_ms"], bf16_plain_ms=gather_bf16["plain_ms"],
         bf16_bound_ms=gather_bf16["bound_ms"], bf16_bitwise_vs_f32=gather_bf16["bitwise_vs_f32"],
+    )
+    # the L2 route (y beyond a block's shared memory), at the nationwide
+    # dual LP's pack
+    gather_row.update(
+        l2_launches=launches["ell_gather_l2"], l2_ms=gather_nationwide["ms"],
+        l2_l2_flushed_ms=gather_nationwide["l2_flushed_ms"],
+        l2_bound_ms=gather_nationwide["bound_ms"], l2_plain_ms=gather_nationwide["plain_ms"],
+        l2_library_ms=gather_nationwide["library_ms"],
+        l2_max_abs_err=gather_nationwide["max_abs_err"],
+        l2_shape=gather_nationwide["shape"],
     )
     kernels = [
         gather_row,

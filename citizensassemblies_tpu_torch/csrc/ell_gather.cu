@@ -38,6 +38,20 @@
 // for the grid-per-column kernel it replaced and a 1.652 us bound
 // (chip_gather_probe.py --parent; PERF.md has every shape).
 //
+// Two routes for y (the plan's stage_y). Where y's row and one ring stage
+// fit a block's shared memory, the block stages y there, as above. Where
+// they do not (T above about 55,000 floats: a dual LP over a nationwide
+// registry's n = 100,000 agents), the block leaves y in global memory and
+// each lane reads y[b, idx] through the read-only path (__ldg), from the
+// L2, which holds a 400 KB row many times over; the block then has no y to
+// wait on, so its warps meet only for their mbarriers (__syncwarp), and
+// the whole of its shared memory is ring. The ranges, the lanes, the ring,
+// the register prefetch, the butterfly and the order of every sum are the
+// same on both routes, so at a shape both can run they give the same
+// output bit for bit. The L2 route's reads are random 4-byte reads, a
+// 32-byte sector each: it is slower than the staged route where both run
+// (chip_smoke.py phase gather_nationwide times both).
+//
 // The sums are the earlier kernel's, bit for bit. A column is read by a group
 // of G consecutive lanes (the largest of 8, 4, 2, 1 that divides kp / 4);
 // lane g sums 16-byte vectors g, g + G, ... of its row (4 indices, 4 values)
@@ -132,26 +146,37 @@ __device__ __forceinline__ void issue_stage(uint32_t bar, uint32_t dst_idx, cons
 __device__ __forceinline__ float bf16_lo(unsigned int w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(unsigned int w) { return __uint_as_float(w & 0xffff0000u); }
 
+// y[b, i]: from y's row staged in shared memory (YS), or from its row in
+// global memory through the read-only path (the L2 route)
+template <bool YS>
+__device__ __forceinline__ float yat(const float* __restrict__ yr, int i) {
+  if constexpr (YS) {
+    return yr[i];
+  } else {
+    return __ldg(yr + i);
+  }
+}
+
 // Multiply-add one 16-byte vector of slots into the lane's sum(s), in the
 // slots' order: float32 (4 indices in ia, 4 values in w) or bf16 (8 indices
 // in ia and ib, 8 values in w; the float32 path's lanes 2g and 2g + 1)
-template <bool BF16>
+template <bool BF16, bool YS>
 __device__ __forceinline__ void madd(float& acc0, float& acc1, const int4 ia, const int4 ib,
                                      const uint4 w, const float* __restrict__ yr) {
   if constexpr (!BF16) {
-    acc0 += __uint_as_float(w.x) * yr[ia.x];
-    acc0 += __uint_as_float(w.y) * yr[ia.y];
-    acc0 += __uint_as_float(w.z) * yr[ia.z];
-    acc0 += __uint_as_float(w.w) * yr[ia.w];
+    acc0 += __uint_as_float(w.x) * yat<YS>(yr, ia.x);
+    acc0 += __uint_as_float(w.y) * yat<YS>(yr, ia.y);
+    acc0 += __uint_as_float(w.z) * yat<YS>(yr, ia.z);
+    acc0 += __uint_as_float(w.w) * yat<YS>(yr, ia.w);
   } else {
-    acc0 += bf16_lo(w.x) * yr[ia.x];
-    acc0 += bf16_hi(w.x) * yr[ia.y];
-    acc0 += bf16_lo(w.y) * yr[ia.z];
-    acc0 += bf16_hi(w.y) * yr[ia.w];
-    acc1 += bf16_lo(w.z) * yr[ib.x];
-    acc1 += bf16_hi(w.z) * yr[ib.y];
-    acc1 += bf16_lo(w.w) * yr[ib.z];
-    acc1 += bf16_hi(w.w) * yr[ib.w];
+    acc0 += bf16_lo(w.x) * yat<YS>(yr, ia.x);
+    acc0 += bf16_hi(w.x) * yat<YS>(yr, ia.y);
+    acc0 += bf16_lo(w.y) * yat<YS>(yr, ia.z);
+    acc0 += bf16_hi(w.y) * yat<YS>(yr, ia.w);
+    acc1 += bf16_lo(w.z) * yat<YS>(yr, ib.x);
+    acc1 += bf16_hi(w.z) * yat<YS>(yr, ib.y);
+    acc1 += bf16_lo(w.w) * yat<YS>(yr, ib.z);
+    acc1 += bf16_hi(w.w) * yat<YS>(yr, ib.w);
   }
 }
 
@@ -202,24 +227,26 @@ struct YStage {
 
 // A block's shared memory: tma_warps mbarriers (8 bytes each, padded to 16),
 // the ring of tma_warps stages (a stage: the warp's 32 / G index rows, then
-// its value rows), then y's row (T rounded up to 4 floats, and 4 more so the
-// row can sit at its own 16-byte phase). launch_plan sizes it the same way.
+// its value rows), then, on the staged route only, y's row (T rounded up to
+// 4 floats, and 4 more so the row can sit at its own 16-byte phase); the L2
+// route has no y region. launch_plan (smem_bytes) sizes it the same way.
 struct Layout {
   size_t ring, stage, idx, ys, total;
-  __host__ __device__ Layout(int T, int kp, int es, int sc, int tma_warps) {
+  __host__ __device__ Layout(int T, int kp, int es, int sc, int tma_warps, bool stage_y) {
     ring = ((size_t)tma_warps * 8 + 15) & ~(size_t)15;
     idx = (size_t)sc * kp * 4;
     stage = idx + (size_t)sc * kp * es;
     ys = ring + (size_t)tma_warps * stage;
-    total = ys + (size_t)(((T + 3) & ~3) + 4) * sizeof(float);
+    total = ys + (stage_y ? (size_t)(((T + 3) & ~3) + 4) * sizeof(float) : 0);
   }
 };
 
 // Block (i, b) sums columns [ca, ca + n) of lane b: ranges of per columns,
 // one more for the first rem blocks of a lane. G lanes a column; warp w owns
 // columns [w * 32 / G, (w + 1) * 32 / G) of the range; the last tma_warps
-// warps take their spans by TMA.
-template <int G, bool BF16>
+// warps take their spans by TMA. YS: y's row staged in shared memory, else
+// read from the L2.
+template <int G, bool BF16, bool YS>
 __global__ void __launch_bounds__(kMaxThreads)
 ell_gather_kernel(const int* __restrict__ idx, const void* __restrict__ val,
                   long long val_bstride, const float* __restrict__ y, float* __restrict__ out,
@@ -227,8 +254,7 @@ ell_gather_kernel(const int* __restrict__ idx, const void* __restrict__ val,
   constexpr int ES = BF16 ? 2 : 4;
   constexpr int SC = 32 / G;  // a warp's columns
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L(T, kp, ES, SC, tma_warps);
-  float* ys = reinterpret_cast<float*>(smem + L.ys);
+  const Layout L(T, kp, ES, SC, tma_warps, YS);
   const int b = blockIdx.y;
   const int ca = (int)blockIdx.x * per + min((int)blockIdx.x, rem);
   const int n = per + ((int)blockIdx.x < rem ? 1 : 0);
@@ -245,9 +271,10 @@ ell_gather_kernel(const int* __restrict__ idx, const void* __restrict__ val,
   const unsigned char* vbase =
       static_cast<const unsigned char*>(val) + (long long)b * val_bstride * ES;
   const int nvec = BF16 ? (kp >> 3) : (kp >> 2);
-  // 1. y's first words: loads only
-  YStage yst(y + (long long)b * T, T);
-  yst.start();
+  // 1. y's first words (staged route): loads only
+  const float* yrow = y + (long long)b * T;
+  YStage yst(yrow, T);
+  if constexpr (YS) yst.start();
   // 2. the pack in flight before y is waited on: a TMA warp's span by bulk
   // copies, a load warp's first kPrefetch vectors a lane into registers (a
   // vector past the row is clamped to its last one and not summed)
@@ -276,10 +303,17 @@ ell_gather_kernel(const int* __restrict__ idx, const void* __restrict__ val,
       w[i] = __ldg(v4 + v);
     }
   }
-  // 3. y into shared memory
-  yst.finish(ys);
-  __syncthreads();
-  const float* yr = ys + yst.m;
+  // 3. y into shared memory (staged route); on the L2 route only a TMA
+  // warp's lanes wait, for lane 0's mbarrier init
+  const float* yr = yrow;
+  if constexpr (YS) {
+    float* ys = reinterpret_cast<float*>(smem + L.ys);
+    yst.finish(ys);
+    __syncthreads();
+    yr = ys + yst.m;
+  } else {
+    __syncwarp();
+  }
   // 4. the sums: lane g takes vectors g, g + G, ... in order, then the xor
   // butterfly adds the column's G lanes
   float acc0 = 0.f, acc1 = 0.f;
@@ -292,17 +326,17 @@ ell_gather_kernel(const int* __restrict__ idx, const void* __restrict__ val,
 #pragma unroll 4
       for (int v = g; v < nvec; v += G) {
         if constexpr (BF16) {
-          madd<BF16>(acc0, acc1, si[2 * v], si[2 * v + 1], sv[v], yr);
+          madd<BF16, YS>(acc0, acc1, si[2 * v], si[2 * v + 1], sv[v], yr);
         } else {
           const int4 a = si[v];
-          madd<BF16>(acc0, acc1, a, a, sv[v], yr);
+          madd<BF16, YS>(acc0, acc1, a, a, sv[v], yr);
         }
       }
     }
   } else if (live) {
 #pragma unroll
     for (int i = 0; i < kPrefetch; ++i) {
-      if (g + i * G < nvec) madd<BF16>(acc0, acc1, ia[i], ib[i], w[i], yr);
+      if (g + i * G < nvec) madd<BF16, YS>(acc0, acc1, ia[i], ib[i], w[i], yr);
     }
 #pragma unroll 4
     for (int v = g + kPrefetch * G; v < nvec; v += G) {
@@ -314,7 +348,7 @@ ell_gather_kernel(const int* __restrict__ idx, const void* __restrict__ val,
         a = __ldg(i4 + v);
         bb = a;
       }
-      madd<BF16>(acc0, acc1, a, bb, __ldg(v4 + v), yr);
+      madd<BF16, YS>(acc0, acc1, a, bb, __ldg(v4 + v), yr);
     }
   }
   // every lane of the warp takes part (a column past the range adds 0)
@@ -326,7 +360,7 @@ ell_gather_kernel(const int* __restrict__ idx, const void* __restrict__ val,
   if (g == 0 && live) out[(long long)b * C + c] = BF16 ? acc0 + acc1 : acc0;
 }
 
-template <int G, bool BF16>
+template <int G, bool BF16, bool YS>
 cudaError_t launch(const int* idx, const void* val, long long val_bstride, const float* y,
                    float* out, int B, int T, int C, int kp, int threads, int blocks,
                    int tma_warps, cudaStream_t stream) {
@@ -339,26 +373,44 @@ cudaError_t launch(const int* idx, const void* val, long long val_bstride, const
   const int per = C / blocks;
   const int rem = C % blocks;
   if ((per + (rem > 0 ? 1 : 0)) * G > threads) return cudaErrorInvalidValue;
-  const Layout L(T, kp, BF16 ? 2 : 4, 32 / G, tma_warps);
+  const Layout L(T, kp, BF16 ? 2 : 4, 32 / G, tma_warps, YS);
   if (L.total > (size_t)kBlockSmem) return cudaErrorInvalidValue;
   dim3 grid((unsigned)blocks, (unsigned)B);
-  ell_gather_kernel<G, BF16><<<grid, threads, L.total, stream>>>(idx, val, val_bstride, y, out, T,
-                                                                 C, kp, per, rem, tma_warps);
+  ell_gather_kernel<G, BF16, YS><<<grid, threads, L.total, stream>>>(
+      idx, val, val_bstride, y, out, T, C, kp, per, rem, tma_warps);
   return cudaGetLastError();
+}
+
+// the launch on y's route: staged in shared memory (stage_y != 0) or read
+// from the L2
+template <int G, bool BF16>
+cudaError_t launch_route(int stage_y, const int* idx, const void* val, long long val_bstride,
+                         const float* y, float* out, int B, int T, int C, int kp, int threads,
+                         int blocks, int tma_warps, cudaStream_t stream) {
+  if (stage_y != 0) {
+    return launch<G, BF16, true>(idx, val, val_bstride, y, out, B, T, C, kp, threads, blocks,
+                                 tma_warps, stream);
+  }
+  return launch<G, BF16, false>(idx, val, val_bstride, y, out, B, T, C, kp, threads, blocks,
+                                tma_warps, stream);
 }
 
 template <int G, bool BF16>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(ell_gather_kernel<G, BF16>,
+  cudaError_t e = cudaFuncSetAttribute(ell_gather_kernel<G, BF16, true>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, kBlockSmem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(ell_gather_kernel<G, BF16, false>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, kBlockSmem);
 }
 
 }  // namespace
 
-// Let every instance of the kernel take up to 227 KB of dynamic shared
-// memory on the current device. The wrapper calls it once per device before
-// its first launch there, so no launch (which may be under graph capture)
-// sets an attribute. Returns the first cudaError_t (0 on success).
+// Let every instance of the kernel (both routes of each) take up to 227 KB
+// of dynamic shared memory on the current device. The wrapper calls it once
+// per device before its first launch there, so no launch (which may be under
+// graph capture) sets an attribute. Returns the first cudaError_t (0 on
+// success).
 extern "C" int ell_gather_setup() {
   const cudaError_t errs[] = {
       allow_smem<8, false>(), allow_smem<4, false>(), allow_smem<2, false>(),
@@ -375,12 +427,14 @@ extern "C" int ell_gather_setup() {
 // cudaStream_t. idx and val start on 16-byte boundaries, kp is a multiple of
 // 4, G (lanes per column: 1, 2, 4 or 8) divides kp / 4; threads (a block),
 // blocks (a lane's) and tma_warps (a block's warps that take their spans by
-// TMA) are the plan of kernels/ell_matvec.launch_plan. A plan the kernel
+// TMA) and stage_y (1: y's row staged in shared memory, 0: read from the
+// L2) are the plan of kernels/ell_matvec.launch_plan. A plan the kernel
 // cannot run returns cudaErrorInvalidValue; otherwise the launch's
 // cudaError_t (0 on success).
 extern "C" int ell_gather_launch(const void* idx, const void* val, long long val_bstride,
                                  const void* y, void* out, int B, int T, int C, int kp, int G,
-                                 int threads, int blocks, int tma_warps, void* stream) {
+                                 int threads, int blocks, int tma_warps, int stage_y,
+                                 void* stream) {
   if (B <= 0 || C <= 0) return 0;
   if (kp <= 0 || (kp & 3) != 0 || (val_bstride & 3) != 0 ||
       ((reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(val)) & 15) != 0 ||
@@ -392,10 +446,10 @@ extern "C" int ell_gather_launch(const void* idx, const void* val, long long val
   float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (G) {
-    case 8: return (int)launch<8, false>(i, val, val_bstride, yy, o, B, T, C, kp, threads, blocks, tma_warps, s);
-    case 4: return (int)launch<4, false>(i, val, val_bstride, yy, o, B, T, C, kp, threads, blocks, tma_warps, s);
-    case 2: return (int)launch<2, false>(i, val, val_bstride, yy, o, B, T, C, kp, threads, blocks, tma_warps, s);
-    case 1: return (int)launch<1, false>(i, val, val_bstride, yy, o, B, T, C, kp, threads, blocks, tma_warps, s);
+    case 8: return (int)launch_route<8, false>(stage_y, i, val, val_bstride, yy, o, B, T, C, kp, threads, blocks, tma_warps, s);
+    case 4: return (int)launch_route<4, false>(stage_y, i, val, val_bstride, yy, o, B, T, C, kp, threads, blocks, tma_warps, s);
+    case 2: return (int)launch_route<2, false>(stage_y, i, val, val_bstride, yy, o, B, T, C, kp, threads, blocks, tma_warps, s);
+    case 1: return (int)launch_route<1, false>(stage_y, i, val, val_bstride, yy, o, B, T, C, kp, threads, blocks, tma_warps, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -403,11 +457,12 @@ extern "C" int ell_gather_launch(const void* idx, const void* val, long long val
 // The bf16-value entry point: val holds bf16 values (raw 16-bit words), kp is
 // a multiple of 8, val_bstride a multiple of 8, idx and val start on 16-byte
 // boundaries, and G (lanes per column: 1, 2 or 4, half the float32 path's)
-// divides kp / 8; the plan is launch_plan's with bf16=True. Returns the
-// launch's cudaError_t.
+// divides kp / 8; the plan, stage_y included, is launch_plan's with
+// bf16=True. Returns the launch's cudaError_t.
 extern "C" int ell_gather_bf16_launch(const void* idx, const void* val, long long val_bstride,
                                       const void* y, void* out, int B, int T, int C, int kp,
-                                      int G, int threads, int blocks, int tma_warps, void* stream) {
+                                      int G, int threads, int blocks, int tma_warps, int stage_y,
+                                      void* stream) {
   if (B <= 0 || C <= 0) return 0;
   if (kp <= 0 || (kp & 7) != 0 || (val_bstride & 7) != 0 ||
       ((reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(val)) & 15) != 0 ||
@@ -419,9 +474,9 @@ extern "C" int ell_gather_bf16_launch(const void* idx, const void* val, long lon
   float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (G) {
-    case 4: return (int)launch<4, true>(i, val, val_bstride, yy, o, B, T, C, kp, threads, blocks, tma_warps, s);
-    case 2: return (int)launch<2, true>(i, val, val_bstride, yy, o, B, T, C, kp, threads, blocks, tma_warps, s);
-    case 1: return (int)launch<1, true>(i, val, val_bstride, yy, o, B, T, C, kp, threads, blocks, tma_warps, s);
+    case 4: return (int)launch_route<4, true>(stage_y, i, val, val_bstride, yy, o, B, T, C, kp, threads, blocks, tma_warps, s);
+    case 2: return (int)launch_route<2, true>(stage_y, i, val, val_bstride, yy, o, B, T, C, kp, threads, blocks, tma_warps, s);
+    case 1: return (int)launch_route<1, true>(stage_y, i, val, val_bstride, yy, o, B, T, C, kp, threads, blocks, tma_warps, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -19,7 +19,9 @@ capture's own tally instead of the counters (another thread's launches in
 the meantime are counted as launches), and :func:`count_replay` adds the
 tally at every replay. Each library counts its launches in all
 (``launches``) and per C entry point (``entry_launches``: the gather's
-float32 and bf16-value paths apart), under one lock: concurrent requests
+float32 and bf16-value paths apart, and a launch the wrapper marks with a
+``variant``, such as the gather's L2 route, under ``entry.variant``),
+under one lock: concurrent requests
 launch from their own threads. A library build counts as one-time work for
 the calling thread's ``utils/guards.CompilationGuard``.
 """
@@ -32,7 +34,7 @@ import shutil
 import threading
 import time
 from contextlib import contextmanager
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from citizensassemblies_tpu_torch.utils import native_build
 from citizensassemblies_tpu_torch.utils.guards import note_compile
@@ -82,7 +84,8 @@ class CudaLibrary:
         #: kernel launches since the last reset (``chip_smoke.py`` zeroes it
         #: before driving the main path and reads it after)
         self.launches = 0
-        #: the same launches per C entry point
+        #: the same launches per C entry point (``entry.variant`` for a
+        #: launch marked with a variant)
         self.entry_launches: Dict[str, int] = {}
         #: ptxas resource report of the build in this process, if it built
         self.build_log = ""
@@ -125,18 +128,20 @@ class CudaLibrary:
                 note_compile("cuda_library_builds")
             return self._lib
 
-    def call(self, fname: str, *args) -> int:
-        """Launch through C entry point ``fname`` and count the launch;
-        raises on a nonzero CUDA error code."""
+    def call(self, fname: str, *args, variant: Optional[str] = None) -> int:
+        """Launch through C entry point ``fname`` and count the launch (as
+        ``fname.variant`` with a ``variant``); raises on a nonzero CUDA
+        error code."""
         rc = self.run(fname, *args)
+        key = fname if variant is None else f"{fname}.{variant}"
         tally = getattr(_CAPTURE, "tally", None)
         if tally is not None:
             entries = tally.setdefault(self.name, {})
-            entries[fname] = entries.get(fname, 0) + 1
+            entries[key] = entries.get(key, 0) + 1
             return rc
         with _COUNT_LOCK:
             self.launches += 1
-            self.entry_launches[fname] = self.entry_launches.get(fname, 0) + 1
+            self.entry_launches[key] = self.entry_launches.get(key, 0) + 1
         return rc
 
     def run(self, fname: str, *args) -> int:

@@ -12,7 +12,11 @@ path's). On a CUDA tensor :func:`ell_gather_mv` launches
 ``csrc/ell_gather.cu`` (replacing the JAX package's
 ``kernels/ell_matvec.py:_ell_gather_kernel``), its float32 or its
 bf16-value entry point, or raises; on a CPU tensor it runs
-:func:`ell_gather_mv_plain`.
+:func:`ell_gather_mv_plain`. The kernel stages ``y``'s row in shared
+memory where it fits beside one ring stage and reads it from the L2
+otherwise (:func:`launch_plan`, ``stage_y``): the two routes give the same
+output bit for bit, so a gather over a nationwide registry's 100,001
+minors runs where the JAX package's does.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ KERNEL = CudaLibrary(
     ["ell_gather.cuh"],
     dict(
         {
-            name: (ctypes.c_int, [_P, _P, ctypes.c_longlong, _P, _P] + [_I] * 8 + [_P])
+            name: (ctypes.c_int, [_P, _P, ctypes.c_longlong, _P, _P] + [_I] * 9 + [_P])
             for name in ("ell_gather_launch", "ell_gather_bf16_launch")
         },
         ell_gather_setup=(ctypes.c_int, []),
@@ -55,6 +59,9 @@ BLOCK_SMEM = 232448
 #: shared memory of one SM (228 KB), of which the card keeps 1 KB a block
 SM_SMEM = 233472
 BLOCK_RESERVED_SMEM = 1024
+#: the counting suffix of a launch on the L2 route (``KERNEL.entry_launches``
+#: keys ``ell_gather_launch.l2`` and ``ell_gather_bf16_launch.l2``)
+L2_ROUTE = "l2"
 #: blocks per SM the plan starts from
 BLOCKS_PER_SM = 1
 #: warps of a block that take their spans by TMA, or all of a smaller
@@ -75,9 +82,11 @@ class GatherPlan:
     warps of a block are the ring's stages: each pulls its span of the
     pack (``stage_bytes`` at most) into shared memory by TMA bulk copies;
     each lane of the other warps loads the first :data:`PREFETCH_BYTES` of
-    its row into registers (``prefetch_bytes`` a block). Then the block
-    stages ``y``'s row; ``smem_bytes`` is the block's shared memory, the
-    mbarriers, the ring and ``y``."""
+    its row into registers (``prefetch_bytes`` a block). Then, with
+    ``stage_y``, the block stages ``y``'s row in shared memory; without it
+    every lane reads ``y`` from the L2 (global memory, the read-only path).
+    ``smem_bytes`` is the block's shared memory: the mbarriers, the ring
+    and, with ``stage_y``, ``y``."""
 
     C: int
     kp: int
@@ -89,6 +98,7 @@ class GatherPlan:
     blocks: int
     blocks_per_sm: int
     tma_warps: int
+    stage_y: bool
     stage_bytes: int
     prefetch_bytes: int
     smem_bytes: int
@@ -112,19 +122,23 @@ def lanes_per_column(kp: int, bf16: bool = False) -> int:
     return max(G // 2, 1) if bf16 else G
 
 
-def smem_bytes(T: int, kp: int = 4, G: int = 1, bf16: bool = False, tma_warps: int = 0) -> int:
+def smem_bytes(T: int, kp: int = 4, G: int = 1, bf16: bool = False, tma_warps: int = 0,
+               stage_y: bool = True) -> int:
     """A block's shared memory (``Layout`` in the source): ``tma_warps``
     mbarriers of 8 bytes, padded to 16; as many ring stages, each a warp's
-    ``32 / G`` index rows and value rows; ``y``'s row, ``T`` rounded up to
-    4 floats and 4 more (the row sits at its own 16-byte phase)."""
+    ``32 / G`` index rows and value rows; with ``stage_y``, ``y``'s row,
+    ``T`` rounded up to 4 floats and 4 more (the row sits at its own
+    16-byte phase). Without it nothing depends on ``T``."""
     ring = (int(tma_warps) * 8 + 15) // 16 * 16
     stage = (32 // int(G)) * int(kp) * (4 + (2 if bf16 else 4))
-    return ring + int(tma_warps) * stage + ((int(T) + 3) // 4 * 4 + 4) * 4
+    ys = ((int(T) + 3) // 4 * 4 + 4) * 4 if stage_y else 0
+    return ring + int(tma_warps) * stage + ys
 
 
 @functools.lru_cache(maxsize=4096)
 def launch_plan(C: int, kp: int, T: int, B: int, sms: int, bf16: bool = False,
-                blocks_per_sm: Optional[int] = None, tma_warps: Optional[int] = None) -> GatherPlan:
+                blocks_per_sm: Optional[int] = None, tma_warps: Optional[int] = None,
+                stage_y: Optional[bool] = None) -> GatherPlan:
     """The kernel's balanced plan for ``B`` lanes of ``C`` columns of ``kp``
     slots over a ``y`` of ``T`` on a card of ``sms`` SMs.
 
@@ -133,18 +147,26 @@ def launch_plan(C: int, kp: int, T: int, B: int, sms: int, bf16: bool = False,
     (``blocks_per_sm``, the least from :data:`BLOCKS_PER_SM` up that keeps a
     block within :data:`MAX_THREADS` threads, or the given one), and no
     more than ``C`` a lane, so no block is empty. A block has the threads
-    its longest range needs, ``G`` a column. :data:`TMA_WARPS` of its warps
-    (or the given ``tma_warps``) take their spans by TMA, fewer where the
-    ring and ``y`` would not fit a block's share of the SM's shared memory,
-    and at least one. Raises ``ValueError`` where ``y`` and one stage do
-    not fit a block's shared memory, a given ``blocks_per_sm`` leaves a
-    block too many columns or a given ``tma_warps`` is not a count of the
-    block's warps."""
+    its longest range needs, ``G`` a column. ``y``'s route: ``stage_y``
+    None stages ``y`` in shared memory where ``y`` and one ring stage fit a
+    block's, and reads it from the L2 otherwise, so ``T`` alone never makes
+    the plan raise; True forces the staged route, False the L2 route.
+    :data:`TMA_WARPS` of its warps (or the given ``tma_warps``) take their
+    spans by TMA, fewer where the ring (and a staged ``y``) would not fit a
+    block's share of the SM's shared memory, and at least one. Raises
+    ``ValueError`` where a forced staged ``y`` and one stage do not fit a
+    block's shared memory, one stage alone does not, a given
+    ``blocks_per_sm`` leaves a block too many columns or a given
+    ``tma_warps`` is not a count of the block's warps."""
     C, kp, T, B, sms = int(C), int(kp), int(T), int(B), int(sms)
     G = lanes_per_column(kp, bf16)
-    if smem_bytes(T, kp, G, bf16, 1) > BLOCK_SMEM:
+    fits = smem_bytes(T, kp, G, bf16, 1) <= BLOCK_SMEM
+    if stage_y and not fits:
         raise ValueError(f"the gather kernel cannot hold y ({T} floats) and one stage of "
                          f"{32 // G} columns of {kp} slots in {BLOCK_SMEM} bytes")
+    sy = fits if stage_y is None else bool(stage_y)
+    if smem_bytes(T, kp, G, bf16, 1, sy) > BLOCK_SMEM:
+        raise ValueError(f"one stage of {32 // G} columns of {kp} slots exceeds {BLOCK_SMEM} bytes")
     need = -(-C * G // MAX_THREADS)  # blocks a lane needs at least
     if blocks_per_sm is None:
         bps = BLOCKS_PER_SM
@@ -162,7 +184,7 @@ def launch_plan(C: int, kp: int, T: int, B: int, sms: int, bf16: bool = False,
     room = min(BLOCK_SMEM, SM_SMEM // -(-blocks * B // sms) - BLOCK_RESERVED_SMEM)
     if tma_warps is None:
         tw = min(warps, TMA_WARPS)
-        while tw > 1 and smem_bytes(T, kp, G, bf16, tw) > room:
+        while tw > 1 and smem_bytes(T, kp, G, bf16, tw, sy) > room:
             tw -= 1
     else:
         tw = int(tma_warps)
@@ -175,8 +197,8 @@ def launch_plan(C: int, kp: int, T: int, B: int, sms: int, bf16: bool = False,
     load_cols = max(0, min(longest, (warps - tw) * (32 // G)))
     return GatherPlan(
         C=C, kp=kp, T=T, B=B, bf16=bool(bf16), G=G, threads=threads, blocks=blocks,
-        blocks_per_sm=bps, tma_warps=tw, stage_bytes=(32 // G) * kp * (4 + es),
-        prefetch_bytes=load_cols * rows * (4 + es), smem_bytes=smem_bytes(T, kp, G, bf16, tw),
+        blocks_per_sm=bps, tma_warps=tw, stage_y=sy, stage_bytes=(32 // G) * kp * (4 + es),
+        prefetch_bytes=load_cols * rows * (4 + es), smem_bytes=smem_bytes(T, kp, G, bf16, tw, sy),
     )
 
 
@@ -215,12 +237,15 @@ def ell_gather_mv(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor) -> torc
         if y.device.type != "cuda":
             ds.out = out = ell_gather_mv_plain(idx, val, y)
         else:
-            ds.out = out = ell_gather_mv_cuda(idx, val, y)
+            ds.out = out = ell_gather_mv_cuda(idx, val, y, scope=ds)
     return out
 
 
-def ell_gather_mv_cuda(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel; raises on inputs it does not take."""
+def ell_gather_mv_cuda(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor,
+                       scope=None) -> torch.Tensor:
+    """Launch the CUDA kernel on :func:`launch_plan`'s route; raises on
+    inputs it does not take. ``scope``, a dispatch span's, records the
+    route taken."""
     C, kp = idx.shape
     batched = y.dim() == 2
     Y = y if batched else y[None, :]
@@ -247,13 +272,15 @@ def ell_gather_mv_cuda(idx: torch.Tensor, val: torch.Tensor, y: torch.Tensor) ->
         return out if batched else out[0]
     dev = Y.device.index if Y.device.index is not None else torch.cuda.current_device()
     plan = launch_plan(C, kp, T, B, _sm_count(dev), bf16=bf16)
+    if scope is not None:
+        scope.note(stage_y=plan.stage_y)
     if dev not in _READY:
         _setup(dev)
     KERNEL.call(
         "ell_gather_bf16_launch" if bf16 else "ell_gather_launch",
         ptr(idx), ptr(val), ctypes.c_longlong(C * kp if val.dim() == 3 else 0),
         ptr(Y), ptr(out), B, T, C, kp, plan.G, plan.threads, plan.blocks, plan.tma_warps,
-        stream_of(Y),
+        int(plan.stage_y), stream_of(Y), variant=None if plan.stage_y else L2_ROUTE,
     )
     return out if batched else out[0]
 

@@ -306,11 +306,63 @@ def test_dropout_on_the_flagship_pool_against_jax(flagship_dropout, policy):
         assert got.fill_rate == want.fill_rate == 1.0
 
 
-@pytest.mark.parametrize("route,knob", [("ell", None), ("dense", False)])
-def test_sharded_dual_lp_matches_highs_and_jax(request, td, portfolio, mesh1, route, knob):
-    P, _ = portfolio
-    fixed = np.full(td.n, -1.0)
+#: the nationwide case of the sharded dual LP: a registry of 60,000 agents
+#: (y of 60,001, above every staged limit of the gather kernel, so on the
+#: card its products read y from the L2) and its panels, few enough that
+#: the JAX package's solves stay within a minute each
+NATIONWIDE_N = 60_000
+NATIONWIDE_PANELS = 96
+
+
+@pytest.fixture(scope="module")
+def nationwide():
+    """The dual LP as the JAX package's ``dist`` bench family builds it,
+    over ``nationwide_registry(n=60_000, seed=0)``: feasible panels, every
+    agent unfixed. The panels are uniform k-subsets kept where every quota
+    holds (uniform over the feasible panels), which a CPU draws in a
+    fraction of the LEGACY sampler's time at this n."""
+    from citizensassemblies_tpu_torch.data.registry import nationwide_registry
+
+    reg = nationwide_registry(n=NATIONWIDE_N, seed=0)
+    inc = reg.incidence()
+    rng = np.random.default_rng(2)
+    P = np.zeros((NATIONWIDE_PANELS, reg.n), dtype=bool)
+    r = 0
+    while r < NATIONWIDE_PANELS:
+        panel = rng.choice(reg.n, size=reg.k, replace=False)
+        counts = inc[panel].sum(axis=0)
+        if np.all((counts >= reg.qmin) & (counts <= reg.qmax)):
+            P[r, panel] = True
+            r += 1
+    return P, np.full(reg.n, -1.0)
+
+
+@pytest.mark.parametrize("route,knob,pool", [
+    pytest.param("ell", None, "flagship", id="ell-None"),
+    pytest.param("dense", False, "flagship", id="dense-False"),
+    pytest.param("ell", None, "nationwide", id="ell-None-nationwide"),
+    pytest.param("dense", False, "nationwide", id="dense-False-nationwide"),
+])
+def test_sharded_dual_lp_matches_highs_and_jax(request, td, portfolio, mesh1, route, knob, pool):
+    """The row-sharded dual LP on each route against HiGHS and the JAX
+    package's, on one rank and (on the flagship pool's portfolio) on worlds
+    of 2 and 4 ranks. The nationwide case (feasible panels of a
+    nationwide registry, every agent unfixed) runs at a ``y`` the gather
+    kernel reads from the L2."""
+    if pool == "nationwide":
+        from citizensassemblies_tpu_torch.kernels import ell_matvec as tem
+        from citizensassemblies_tpu_torch.solvers.sparse_ops import ell_pack_rows
+
+        P, fixed = request.getfixturevalue("nationwide")
+        assert P.shape == (NATIONWIDE_PANELS, NATIONWIDE_N)
+        G = np.hstack([P, -np.ones((NATIONWIDE_PANELS, 1))]).astype(np.float32)
+        kp = ell_pack_rows(G)[0].shape[1]
+        assert not tem.launch_plan(NATIONWIDE_PANELS, kp, NATIONWIDE_N + 1, 1, 132).stage_y
+    else:
+        P, _ = portfolio
+        fixed = np.full(td.n, -1.0)
     exact = solve_dual_lp(P, fixed)
+    assert exact.ok
     jgot = jsolver.solve_dual_lp_pdhg_sharded(
         P, fixed, j_make_mesh(8, agents_axis=2), cfg=j_default_config().replace(sparse_ops=knob)
     )
@@ -320,8 +372,9 @@ def test_sharded_dual_lp_matches_highs_and_jax(request, td, portfolio, mesh1, ro
     )
     assert st["route"] == route and st["iters"] == 512 * st["blocks"]
     sols = [(one.ok, one.objective, one.yhat, one.y)]
-    worlds = request.getfixturevalue(f"dual_{route}_worlds")
-    sols += [res[:4] for _name, res in _ranks(worlds)]
+    if pool == "flagship":
+        worlds = request.getfixturevalue(f"dual_{route}_worlds")
+        sols += [res[:4] for _name, res in _ranks(worlds)]
     for ok, obj, yhat, y in sols:
         assert ok
         assert abs(obj - exact.objective) < 1e-4 and abs(yhat - exact.yhat) < 1e-4

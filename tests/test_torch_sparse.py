@@ -154,6 +154,38 @@ def test_plain_gather_matches_pallas_interpret(shape):
     assert tem.KERNEL.launches == before
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+def test_plain_gather_matches_pallas_interpret_at_a_nationwide_minor(bf16):
+    """A pack of the nationwide dual LP's width (256 rows of 320 slots, up
+    to 317 of them live) over a ``y`` of 100,001 minors, which the kernel
+    reads from the L2: the kernel's plain version against the Pallas
+    kernel it replaces (interpret mode) and the JAX package's XLA gather,
+    with float32 values and with values bf16 holds (the JAX side takes
+    them widened to float32). The values are scaled so a row's sum spreads
+    as :func:`_rows`' rows of a few dozen entries do (about 0.5), which
+    keeps float32 summation noise under the 1e-6 bar."""
+    C, kp, T = 256, 320, 100_001
+    r = np.random.default_rng(22)
+    idx = np.zeros((C, kp), np.int32)
+    val = np.zeros((C, kp), np.float32)
+    for c in range(C):
+        live = int(r.integers(kp - 40, kp - 2))
+        idx[c, :live] = np.sort(r.choice(T, size=live, replace=False))
+        val[c, :live] = 0.03 * r.normal(size=live)
+    y = r.normal(size=T).astype(np.float32)
+    vt = _t(val)
+    if bf16:
+        vt = vt.to(torch.bfloat16)
+        val = vt.float().numpy()
+    assert not tem.launch_plan(C, kp, T, 1, 132, bf16=bf16).stage_y
+    got = tem.ell_gather_mv_plain(_t(idx), vt, _t(y)).numpy()
+    want = np.asarray(ell_gather_mv_pallas(idx, val, y, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    want = np.asarray(jso.ell_gather_mv(jnp.asarray(idx), jnp.asarray(val), jnp.asarray(y)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(tem.ell_gather_mv(_t(idx), vt, _t(y)).numpy(), got)
+
+
 def test_batched_plain_gather_matches_pallas_interpret():
     """The batched shape the two-sided prelude gathers at: a per-lane
     ``[3, C, k_pad]`` value pack with ``y [3, T]``, through the kernel's
@@ -187,11 +219,12 @@ def test_batched_plain_gather_matches_pallas_interpret():
 
 #: (C, k_pad, T) of the gather's path shapes (the flagship master, XMIN's
 #: portfolio, the flagship and sf_b dual LPs), the lint registration's,
-#: packs with fewer columns than SMs, and ranges of 9 and 8 columns (at
-#: G = 4 a block of 8 leaves its last warp without a column)
+#: packs with fewer columns than SMs, ranges of 9 and 8 columns (at G = 4 a
+#: block of 8 leaves its last warp without a column), and the nationwide
+#: dual LP's, whose y takes the L2 route
 PLAN_SHAPES = [
     (6144, 112, 814), (15313, 112, 1727), (4096, 112, 1728), (1024, 24, 251),
-    (256, 16, 128), (100, 16, 128), (7, 8, 50), (132 * 8 + 50, 16, 128),
+    (256, 16, 128), (100, 16, 128), (7, 8, 50), (132 * 8 + 50, 16, 128), (2048, 320, 100_001),
 ]
 
 
@@ -222,7 +255,8 @@ def test_gather_launch_plan_owns_every_pair_once(shape, sms, bf16, lanes):
     has fewer columns); the ring's stages the block's last warps' columns,
     each span of indices and of values (shared or per lane) starting on a
     16-byte boundary and a multiple of 16 bytes long; the mbarriers, the
-    ring and ``y`` within 227 KB and within a block's share of the SM;
+    ring and a staged ``y`` (where it fits beside one stage) within 227 KB
+    and within a block's share of the SM;
     ``G`` by the lane rule (halved for bf16); threads for the longest
     range, ``G`` a column."""
     C, kp, T = shape
@@ -239,11 +273,13 @@ def test_gather_launch_plan_owns_every_pair_once(shape, sms, bf16, lanes):
     warps = plan.threads // 32
     assert 1 <= plan.tma_warps <= min(warps, tem.TMA_WARPS)
     assert plan.stage_bytes == sc * kp * (4 + es)
-    assert plan.smem_bytes == tem.smem_bytes(T, kp, plan.G, bf16, plan.tma_warps) <= tem.BLOCK_SMEM
+    assert plan.stage_y == (tem.smem_bytes(T, kp, plan.G, bf16, 1) <= tem.BLOCK_SMEM)
+    assert plan.smem_bytes == tem.smem_bytes(
+        T, kp, plan.G, bf16, plan.tma_warps, plan.stage_y) <= tem.BLOCK_SMEM
     per_sm = -(-plan.blocks * lanes // sms)
     room = tem.SM_SMEM // per_sm - tem.BLOCK_RESERVED_SMEM
     if plan.tma_warps < min(warps, tem.TMA_WARPS):  # cut to fit the SM's share
-        assert tem.smem_bytes(T, kp, plan.G, bf16, plan.tma_warps + 1) > room
+        assert tem.smem_bytes(T, kp, plan.G, bf16, plan.tma_warps + 1, plan.stage_y) > room
     if plan.tma_warps > 1:
         assert plan.smem_bytes <= room
     owned = np.zeros((lanes, C), np.int64)
@@ -292,48 +328,104 @@ def test_plan_walk_matches_plain_gather_bit_for_bit(lanes, bf16):
     block, warp by warp (the load warps' columns, then each ring stage's),
     with the plain version, equals the unchunked plain version bit for
     bit: the plan drops and repeats no column. 301 columns on four SMs make
-    uneven ranges, and a ring of two stages the last of which is short."""
-    C, T = 301, 90
-    M = _rows(19, C, T, 0.1)
-    idx, val, _ = jso.ell_pack_rows(M, k_pad=24)
+    uneven ranges, and a ring of two stages the last of which is short.
+    The same holds on the L2 route, over a ``y`` of 60,000 minors (above
+    every staged limit at k_pad 24), whose plan keeps the staged plan's
+    ranges and stages."""
+    C = 301
     r = np.random.default_rng(20)
-    Y = torch.as_tensor(r.normal(size=(lanes, T)).astype(np.float32))
-    vals = torch.as_tensor((val[None] * r.random((lanes, 1, 1))).astype(np.float32))
-    if bf16:
-        vals = vals.to(torch.bfloat16)
-    lane_values = lanes > 1
-    V = vals if lane_values else vals[0]
-    want = tem.ell_gather_mv_plain(_t(idx), V, Y)
-    plan = tem.launch_plan(C, 24, T, lanes, 4, bf16=bf16)
-    assert len({plan.range_of(blk)[1] for blk in range(plan.blocks)}) == 2
-    assert any(len(_stages_of(plan, blk)) >= 2 for blk in range(plan.blocks))
-    got = torch.full((lanes, C), float("nan"))
-    I = _t(idx)
-    for b in range(lanes):
-        for blk in range(plan.blocks):
-            c0, n = plan.range_of(blk)
-            stages = _stages_of(plan, blk)
-            for s0, m in [(c0, stages[0][0] - c0)] + stages:
-                v = V[b, s0:s0 + m] if lane_values else V[s0:s0 + m]
-                got[b, s0:s0 + m] = tem.ell_gather_mv_plain(I[s0:s0 + m], v, Y[b])
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    staged = None
+    for T, p in ((90, 0.1), (60_000, 10 / 60_000)):
+        M = _rows(19, C, T, p)
+        idx, val, _ = jso.ell_pack_rows(M, k_pad=24)
+        Y = torch.as_tensor(r.normal(size=(lanes, T)).astype(np.float32))
+        vals = torch.as_tensor((val[None] * r.random((lanes, 1, 1))).astype(np.float32))
+        if bf16:
+            vals = vals.to(torch.bfloat16)
+        lane_values = lanes > 1
+        V = vals if lane_values else vals[0]
+        want = tem.ell_gather_mv_plain(_t(idx), V, Y)
+        plan = tem.launch_plan(C, 24, T, lanes, 4, bf16=bf16)
+        assert plan.stage_y == (T == 90)
+        if staged is None:
+            staged = plan
+        assert [_stages_of(plan, blk) for blk in range(plan.blocks)] == [
+            _stages_of(staged, blk) for blk in range(staged.blocks)]
+        assert len({plan.range_of(blk)[1] for blk in range(plan.blocks)}) == 2
+        assert any(len(_stages_of(plan, blk)) >= 2 for blk in range(plan.blocks))
+        got = torch.full((lanes, C), float("nan"))
+        I = _t(idx)
+        for b in range(lanes):
+            for blk in range(plan.blocks):
+                c0, n = plan.range_of(blk)
+                stages = _stages_of(plan, blk)
+                for s0, m in [(c0, stages[0][0] - c0)] + stages:
+                    v = V[b, s0:s0 + m] if lane_values else V[s0:s0 + m]
+                    got[b, s0:s0 + m] = tem.ell_gather_mv_plain(I[s0:s0 + m], v, Y[b])
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_gather_plan_raises_where_y_does_not_fit():
     """A ``y`` too long to fit a block's shared memory beside one ring
-    stage, blocks per SM that leave a block more threads than the kernel
-    takes, or more TMA warps than a block has raise before any launch."""
-    with pytest.raises(ValueError, match="cannot hold y"):
-        tem.launch_plan(64, 16, 60_000, 1, 132)
+    stage takes the L2 route (``stage_y`` False, no ``y`` in shared memory)
+    and raises only where the staged route is forced; blocks per SM that
+    leave a block more threads than the kernel takes, or more TMA warps
+    than a block has, raise before any launch."""
+    for T in (60_000, 58_000):
+        plan = tem.launch_plan(64, 16, T, 1, 132)
+        assert not plan.stage_y and plan.tma_warps >= 1
+        assert plan.smem_bytes == tem.smem_bytes(T, 16, plan.G, False, plan.tma_warps, False)
+        assert plan.smem_bytes == tem.smem_bytes(128, 16, plan.G, False, plan.tma_warps, False)
+        with pytest.raises(ValueError, match="cannot hold y"):
+            tem.launch_plan(64, 16, T, 1, 132, stage_y=True)
     # y alone fits at 58,000 floats, but not beside a stage of 8 columns
     assert tem.smem_bytes(58_000) <= tem.BLOCK_SMEM
-    with pytest.raises(ValueError, match="cannot hold y"):
-        tem.launch_plan(64, 16, 58_000, 1, 132)
-    assert tem.launch_plan(64, 16, 57_500, 1, 132).tma_warps == 1
+    staged = tem.launch_plan(64, 16, 57_500, 1, 132)
+    assert staged.stage_y and staged.tma_warps == 1
+    # the L2 route, forced where y fits, frees y's room for the ring
+    l2 = tem.launch_plan(64, 16, 57_500, 1, 132, stage_y=False)
+    assert not l2.stage_y and l2.tma_warps == min(l2.threads // 32, tem.TMA_WARPS)
+    assert (l2.blocks, l2.threads, l2.G) == (staged.blocks, staged.threads, staged.G)
     with pytest.raises(ValueError, match="blocks an SM"):
         tem.launch_plan(15313, 112, 1727, 1, 132, blocks_per_sm=1)
     with pytest.raises(ValueError, match="TMA"):
         tem.launch_plan(6144, 112, 814, 1, 132, tma_warps=7)
+
+
+#: (k_pad, bf16) → the largest ``T`` whose ``y`` the kernel stages beside one
+#: ring stage at C=4,096, one lane, 132 SMs
+STAGED_LIMIT = {
+    (24, False): 57_336, (24, True): 56_952, (112, False): 56_312, (112, True): 55_416,
+    (320, False): 55_544, (320, True): 54_264,
+}
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kp", [24, 112, 320])
+def test_gather_plan_routes_y_through_l2_above_the_staged_limit(kp, bf16):
+    """The plan stages ``y`` exactly where ``y`` and one ring stage fit a
+    block's shared memory and takes the L2 route one float above; at a
+    nationwide registry's 100,001 minors and at 1,000,001 it plans the L2
+    route with shared memory that does not depend on ``T``; the staged
+    route forced above the limit raises; the L2 route keeps the staged
+    plan's ranges, threads and lanes a column."""
+    limit = STAGED_LIMIT[(kp, bf16)]
+    C, sms = 4096, 132
+    below = tem.launch_plan(C, kp, limit, 1, sms, bf16=bf16)
+    assert below.stage_y and below.smem_bytes <= tem.BLOCK_SMEM
+    assert tem.smem_bytes(limit + 1, kp, below.G, bf16, 1) > tem.BLOCK_SMEM
+    above = tem.launch_plan(C, kp, limit + 1, 1, sms, bf16=bf16)
+    assert not above.stage_y
+    far = [tem.launch_plan(C, kp, T, 1, sms, bf16=bf16) for T in (100_001, 1_000_001)]
+    for plan in [above] + far:
+        assert not plan.stage_y
+        assert plan.smem_bytes == above.smem_bytes <= tem.BLOCK_SMEM
+        assert plan.smem_bytes == tem.smem_bytes(1, kp, plan.G, bf16, plan.tma_warps, False)
+        assert (plan.blocks, plan.threads, plan.G) == (below.blocks, below.threads, below.G)
+        assert plan.tma_warps == min(plan.threads // 32, tem.TMA_WARPS)
+    for T in (limit + 1, 100_001):
+        with pytest.raises(ValueError, match="cannot hold y"):
+            tem.launch_plan(C, kp, T, 1, sms, bf16=bf16, stage_y=True)
 
 
 def test_padding_slots_carry_nan_from_row_zero():
@@ -348,3 +440,38 @@ def test_padding_slots_carry_nan_from_row_zero():
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
     padded = nnz < idx.shape[1]
     assert padded.any() and np.isnan(got[padded]).all()
+
+
+def test_wrapper_passes_the_route_and_counts_l2_launches_apart(monkeypatch):
+    """The wrapper hands the kernel its plan's route (``stage_y``, the
+    argument before the stream) and counts an L2-route launch under its
+    entry point's ``.l2`` key, float32 and bf16 alike, and in all. Run on
+    CPU tensors with the C call, the SM count and the stream stood in
+    for, so the launch arguments are what the card would get."""
+    calls = []
+    monkeypatch.setattr(tem.CudaLibrary, "run", lambda self, fname, *a: calls.append((fname, a)) or 0)
+    monkeypatch.setattr(tem, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(tem, "_READY", {0})
+    monkeypatch.setattr(tem, "stream_of", lambda t: None)
+    monkeypatch.setattr(tem.KERNEL, "launches", 0)
+    monkeypatch.setattr(tem.KERNEL, "entry_launches", {})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    r = np.random.default_rng(23)
+    C, kp = 64, 320
+    idx = _t(np.sort(r.integers(0, 814, size=(C, kp)), axis=1).astype(np.int32))
+    val = _t(r.random((C, kp)).astype(np.float32))
+    for T in (814, 100_001, 60_000):
+        for v in (val, val.to(torch.bfloat16)):
+            y = torch.zeros(T)
+            tem.ell_gather_mv_cuda(idx, v, y)
+            plan = tem.launch_plan(C, kp, T, 1, 132, bf16=v.dtype == torch.bfloat16)
+            fname, args = calls[-1]
+            assert fname == ("ell_gather_bf16_launch" if plan.bf16 else "ell_gather_launch")
+            assert args[5:14] == (1, T, C, kp, plan.G, plan.threads, plan.blocks, plan.tma_warps,
+                                  int(plan.stage_y))
+            assert plan.stage_y == (T == 814)
+    assert tem.KERNEL.launches == 6
+    assert tem.KERNEL.entry_launches == {
+        "ell_gather_launch": 1, "ell_gather_bf16_launch": 1,
+        "ell_gather_launch.l2": 2, "ell_gather_bf16_launch.l2": 2,
+    }
