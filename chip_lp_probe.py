@@ -2,7 +2,7 @@
 """Measure the generic-LP kernel on one NVIDIA GPU: against an earlier
 version of it, and across block counts.
 
-    python3 chip_lp_probe.py [--parent DIR] [--sweep] [--iters N]
+    python3 chip_lp_probe.py [--parent DIR [--quads Q]] [--sweep] [--iters N]
 
 Builds the kernels from ``citizensassemblies_tpu_torch/csrc`` and, for the
 dual leximin LPs of three pools as the agent-space path builds them
@@ -15,11 +15,17 @@ dual leximin LPs of three pools as the agent-space path builds them
   iterations) and a second kernel solve from a fresh prelude against the
   first, bit for bit;
 * with ``--parent DIR``, a directory holding an earlier ``lp_block.cu``
-  with the one-block interface (``lp_solve_launch`` over a slot-major pack,
-  as the kernel had before it spanned the card) and its headers: builds
-  it, and times it and the
-  current kernel for ``--iters`` iterations at tolerance 0 on the same
-  prelude output, in turns (earlier, current, current, earlier);
+  with the cooperative interface the kernel had before x̄ got its global
+  route (``lp_solve_launch`` and ``lp_occupancy`` without the route
+  argument) and its headers: builds it, and runs it and the current
+  kernel through the same wrapper, plan and prelude output (the staged
+  route) at the path's tolerance and cap, in turns (earlier, current,
+  current, earlier; ``--quads`` such rounds); the two must give x, λ, μ,
+  iterations, residual and flags bit for bit. It also compares the two
+  libraries' SASS (``cuobjdump -sass``) for the staged instances, the
+  earlier ``lp_solve_kernel<resident>`` against the current
+  ``lp_solve_kernel<resident, true>``: instruction counts and the lines
+  that differ, encodings and addresses left out;
 * with ``--sweep``: the current kernel's µs per iteration at each block
   count from 1 to the co-resident count, for ``--iters`` iterations.
 
@@ -31,8 +37,11 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import difflib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -82,51 +91,84 @@ def check(name, ops):
 
 
 def build_parent(src_dir):
+    """The earlier kernel's library, behind the current entry points'
+    arguments (:class:`ParentLibrary`)."""
     from citizensassemblies_tpu_torch.kernels.cuda_lib import NVCC_FLAGS, nvcc
 
     out = os.path.join(src_dir, "libparent_lp.so")
-    subprocess.run([nvcc()] + NVCC_FLAGS + [f"-I{src_dir}", "-o", out,
-                    os.path.join(src_dir, "lp_block.cu")], check=True, capture_output=True)
-    lib = ctypes.CDLL(out)
+    done = subprocess.run([nvcc()] + NVCC_FLAGS + [f"-I{src_dir}", "-o", out,
+                           os.path.join(src_dir, "lp_block.cu")], check=True, capture_output=True,
+                          text=True)
+    cs.log(f"--- ptxas report, earlier lp_block ---\n{done.stderr.strip()}")
+    lib = ctypes.CDLL(os.path.abspath(out))
     lib.lp_solve_launch.restype = ctypes.c_int
-    lib.lp_solve_launch.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    return lib
+    lib.lp_solve_launch.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.lp_occupancy.restype = ctypes.c_int
+    lib.lp_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return ParentLibrary(lib, out)
 
 
-def parent_solve(lib, inputs, iters):
-    """The earlier one-block kernel on the same prelude output, for
-    ``iters`` iterations at tolerance 0; returns the iterations run."""
-    import torch
+class ParentLibrary:
+    """The earlier library under the current entry points: the x̄ route
+    argument dropped (the earlier kernel always stages x̄)."""
 
+    def __init__(self, lib, path):
+        self.lib = lib
+        self.path = path
+
+    def lp_solve_launch(self, *args):
+        *head, _stage_x, stream = args
+        return self.lib.lp_solve_launch(*head, stream)
+
+    def lp_occupancy(self, smem, resident, _stage_x, out):
+        return self.lib.lp_occupancy(smem, resident, out)
+
+
+def parent_solve(parent, inputs):
+    """:func:`chip_smoke.lp_path_solve` with the earlier kernel behind the
+    wrapper: ``(ms, iterations, kkt, raw output)``."""
     from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
-    from citizensassemblies_tpu_torch.kernels.cuda_lib import ptr, stream_of
 
-    csr, _, idx, pre, state = inputs
-    x, lam, mu, norm, scale = state
-    nv, m1, m2 = x.shape[0], lam.shape[0], mu.shape[0]
-    kp = idx.shape[1]
-    perm, rowptr, rowT = csr
-    idxS = idx.t().contiguous()
-    vsS = pre.vals_s.t().contiguous()
-    vsT = pre.vals_s.reshape(-1)[perm].contiguous()
-    xk, lamk, muk = x.clone(), lam.clone(), mu.clone()
-    xav, lav, mav = xk.clone(), lamk.clone(), muk.clone()
-    L = mk.LP_LAYOUT
-    scal = torch.zeros(L["L_N"], dtype=torch.float32, device=x.device)
-    for slot, val in (("L_RES", float("inf")), ("L_OMEGA", 1.0), ("L_BEST", float("inf")),
-                      ("L_NORM", norm), ("L_SCALE", scale), ("L_TOL", 0.0)):
-        scal[L[slot]] = val
-    it = torch.zeros(1, dtype=torch.int32, device=x.device)
-    scratch = torch.empty((3, m1), dtype=torch.float32, device=x.device)
-    rc = lib.lp_solve_launch(
-        ptr(idxS), ptr(vsS), ptr(rowptr), ptr(rowT), ptr(vsT), ptr(pre.As.contiguous()),
-        ptr(pre.cs.contiguous()), ptr(pre.hs.contiguous()), ptr(pre.bs.contiguous()), ptr(xk),
-        ptr(xav), ptr(lamk), ptr(lav), ptr(muk), ptr(mav), ptr(scal), ptr(it), ptr(scratch[0]),
-        ptr(scratch[1]), ptr(scratch[2]), nv, m1, m2, kp, 128, int(iters), 1, stream_of(xk),
-    )
-    if rc != 0:
-        raise RuntimeError(f"earlier LP kernel failed with cudaError_t {rc}")
-    return it
+    current = mk.LP_KERNEL.lib()
+    mk.LP_KERNEL._lib = parent
+    try:
+        return cs.lp_path_solve(inputs)
+    finally:
+        mk.LP_KERNEL._lib = current
+
+
+def sass_functions(path):
+    """Each kernel's SASS in a library (``cuobjdump -sass``), encodings
+    and addresses left out: ``{mangled name: [instruction, ...]}``."""
+    from citizensassemblies_tpu_torch.kernels.cuda_lib import nvcc
+
+    tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", path], check=True, capture_output=True, text=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            cur = funcs.setdefault(head[1], [])
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if cur is not None and ins:
+            cur.append(ins[1])
+    return funcs
+
+
+def sass_compare(parent_path, current_path):
+    """The staged instances' SASS, earlier against current: one record
+    for each of the resident and the streaming instance."""
+    old, new = sass_functions(parent_path), sass_functions(current_path)
+    out = []
+    for r in ("0", "1"):
+        a = next(v for k, v in old.items() if k.endswith(f"lp_solve_kernelILb{r}EEEvNS_6ParamsE"))
+        b = next(v for k, v in new.items() if k.endswith(f"lp_solve_kernelILb{r}ELb1EEEvNS_6ParamsE"))
+        ops = difflib.SequenceMatcher(None, a, b, autojunk=False).get_opcodes()
+        changed = sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2 in ops if tag != "equal")
+        out.append(dict(probe="sass", resident=r == "1", parent_instructions=len(a),
+                        current_instructions=len(b), identical=a == b, differing_lines=changed))
+    return out
 
 
 def current_solve(inputs, iters):
@@ -142,6 +184,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", default=None)
+    ap.add_argument("--quads", type=int, default=1)
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--iters", type=int, default=4096)
     args = ap.parse_args()
@@ -161,24 +204,28 @@ def main() -> int:
     for lib in libs:
         cs.log(f"--- ptxas report, {lib.name} ---\n{lib.build_log.strip()}")
     parent = build_parent(args.parent) if args.parent else None
+    if parent is not None:
+        for rec in sass_compare(parent.path, mk.LP_KERNEL.library_path()):
+            print(json.dumps(rec), flush=True)
     ok = True
     for name, ops in shapes().items():
         ok = check(name, ops) and ok
         inputs = cs.lp_inputs(ops)
         if parent is not None:
-            times = []
-            for who in ("parent", "current", "current", "parent"):
-                run = (lambda: parent_solve(parent, inputs, args.iters)) if who == "parent" else (
-                    lambda: current_solve(inputs, args.iters))
-                box = {}
-                ms = cs.cuda_ms(lambda: box.update(it=run()), reps=1, warmup=0)
-                times.append(dict(who=who, ms=ms, iters=int(box["it"])))
+            times, outs = [], {}
+            for who in ("parent", "current", "current", "parent") * args.quads:
+                run = parent_solve(parent, inputs) if who == "parent" else cs.lp_path_solve(inputs)
+                times.append(dict(who=who, ms=run[0], iters=run[1], kkt=run[2]))
+                outs.setdefault(who, run[3])
             per = {w: [1e3 * t["ms"] / t["iters"] for t in times if t["who"] == w]
                    for w in ("parent", "current")}
+            same = all(torch.equal(a, b) for a, b in zip(outs["parent"], outs["current"]))
+            ok = same and ok
             print(json.dumps(dict(
-                probe="parent_vs_current", shape=name, grid=inputs[1].grid, runs=times,
+                probe="parent_vs_current", shape=name, plan=cs.plan_record(inputs[1]), runs=times,
                 parent_us_per_iter=per["parent"], current_us_per_iter=per["current"],
                 ratio=float(np.mean(per["current"]) / np.mean(per["parent"])),
+                bit_identical=bool(same),
             )), flush=True)
         if args.sweep:
             c, ell = ops[0], ops[1]

@@ -5,10 +5,11 @@
 
 Phases, each fatal on failure:
 
-1. the card: ``nvidia-smi`` name and power limit;
-2. build: the three hand-written CUDA kernels from
-   ``citizensassemblies_tpu_torch/csrc`` (one ``nvcc`` per source, started
-   together);
+1. build: the three hand-written CUDA kernels from
+   ``citizensassemblies_tpu_torch/csrc`` (one ``nvcc`` per source, the LP
+   kernel's two, all started together), while this process starts CUDA,
+   reads the card and builds the first phases' operands on the host;
+2. the card: ``nvidia-smi`` name and power limit;
 3. kernels, each held against its plain PyTorch version on the card:
    the ELL gather at the flagship master's shape (T=814 types of
    ``sf_e_skewed_instance(seed=1)``, a 6144-column pack) and at the
@@ -19,7 +20,8 @@ Phases, each fatal on failure:
    second time from a fresh prelude, both held bit for bit; then a bare
    loop of the kernels' grid barrier at the grid it launched); the
    generic-LP PDHG solve on the flagship dual LP to a tolerance (a second
-   time from a fresh prelude, held bit for bit), for a fixed 65,536
+   time from a fresh prelude, held bit for bit; forced onto its global-x̄
+   route, held bit for bit), for a fixed 65,536
    iterations, and with a NaN warm start, then the barrier loop at its
    grid; and on a dual LP of ``sf_b_skewed_instance(seed=1)``'s shape
    (1024 panel rows over n+1 = 251 variables); the two-sided solve at the
@@ -214,11 +216,14 @@ Phases, each fatal on failure:
    packs bit for bit the staged route, and times both routes hot and
    L2-flushed beside the bound and ``torch.sparse.mm``;
    ``dual_lp_nationwide`` solves the LP by the row-sharded PDHG on the
-   one-rank mesh (ELL route) and by ``solve_dual_lp_pdhg`` (the LP
-   kernel's fit misses at 100,001 variables, so the chained route), each
-   converged, within ``SHARDED_DUAL_TOL`` of HiGHS (in a worker process)
-   and of the LP's feasible set, with its gathers on the L2 route only and
-   no quarantine.
+   one-rank mesh (ELL route), by ``solve_dual_lp_pdhg`` at the defaults
+   (the LP kernel in one launch on its global-x̄ route: x̄'s 100,001 floats
+   do not fit a block's shared memory) and by the same forced chained,
+   each converged, within ``SHARDED_DUAL_TOL`` of HiGHS (in a worker
+   process) and of the LP's feasible set, with its gathers on the L2 route
+   only and no quarantine, the kernel's answer within the same of the
+   chained one's; then holds two blocks of the LP kernel against its plain
+   version on that LP and times the kernel's own solve.
 
 Prints one JSON line per phase, the ``{"kernels": [...]}`` summary, the card
 line, and as its last line ``{"ok": true, "device": {...}}``. It exits
@@ -275,13 +280,25 @@ LP_OBJ_TOL = 1e-7
 #: current iterate, whichever has the smaller residual, and where the two
 #: nearly tie, sums in another order pick the other; the runs then go on
 #: from points a residual apart, on a degenerate LP whose optimal y is not
-#: unique. On the card both reached KKT near 5.5e-6 there, 2.4e-6 apart on x
-#: and 2.5e-6 on λ, 1.1e-8 on the objective.
+#: unique. On the card both reached KKT near 6e-6 there (6.5e-6 and 5.8e-6
+#: on an NVIDIA H100 80GB HBM3 at 700 W), 8.1e-6 apart on x and 7.3e-6 on
+#: λ, 4.5e-9 on the objective.
 LP_TOL = 1e-6
 LP_MAX_ITERS = 100_000
 LP_CHECK_TOL = 1e-3
 LP_FIXED_ITERS = 65_536
 LP_FIXED_X_TOL = 1e-5
+#: the one-block LP solves held route against route at the sf_b dual
+LP_ONE_BLOCK_ITERS = 4096
+#: blocks of the LP kernel held against its plain version at the
+#: nationwide dual LP (check_every iterations each), and the bar there: x,
+#: λ and μ each within NATIONWIDE_CHECK_REL_TOL of its own largest entry.
+#: y sums to 1 over 100,000 agents, so its typical entry is about 1e-5 and
+#: its largest 8e-4 after two blocks: LP_X_TOL would be an eighth of that.
+#: Float32 sums in another order leave 2.5e-6 of it on ŷ (an NVIDIA H100
+#: 80GB HBM3 at 700 W; the record's rel_err_by).
+NATIONWIDE_CHECK_BLOCKS = 2
+NATIONWIDE_CHECK_REL_TOL = 1e-5
 #: agent-space vs type-space sorted allocation profile
 #: (tests/test_certification.py's bar)
 PROFILE_TOL = 1e-3
@@ -418,6 +435,15 @@ def bf16_gathers() -> int:
 
     return sum(c for key, c in em.KERNEL.entry_launches.items()
                if key.startswith("ell_gather_bf16_launch"))
+
+
+def global_x_lps() -> int:
+    """The LP kernel's launches on the global-x̄ route since its counters
+    were zeroed."""
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    return sum(c for key, c in mk.LP_KERNEL.entry_launches.items()
+               if key.endswith("." + mk.GLOBAL_X_ROUTE))
 
 
 def l2_gathers() -> int:
@@ -1105,11 +1131,29 @@ def nationwide_dual_problem(m1: int = NATIONWIDE_PANELS, n: int = NATIONWIDE_N,
     return panels, P, np.full(n, -1.0)
 
 
-def lp_inputs(ops, blocks=None):
+def nationwide_ops(panels, n):
+    """The nationwide dual LP's ``(c, EllPack of G, h, A, b)`` as
+    ``lp_pdhg.dual_lp_operands`` builds them with every agent unfixed (2,048
+    panel rows need no bucket pad), ``G`` packed by :func:`nationwide_pack`
+    from the member lists instead of a dense 2,048 × 100,001 matrix."""
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack
+
+    m1 = len(panels)
+    assert m1 % 256 == 0
+    idx, val = nationwide_pack(panels, n)
+    fixed = np.full(n, -1.0)
+    unfixed = fixed < 0
+    c = np.concatenate([-np.where(unfixed, 0.0, fixed), [1.0]])
+    A = np.concatenate([unfixed.astype(np.float64), [0.0]])[None, :]
+    return c, EllPack(minor=n + 1, idx=idx, val=val), np.zeros(m1), A, np.array([1.0])
+
+
+def lp_inputs(ops, blocks=None, stage_x=None):
     """Everything an LP kernel solve of ``ops`` (:func:`dual_lp_operands`)
     takes on the card, from scratch: the CSR and the launch plan (``blocks``
-    overrides the plan's block count), the pack, the prelude and the scaled
-    warm start (zeros). Returns ``(csr, plan, idx, pre, state)``."""
+    overrides the plan's block count, ``stage_x`` forces x̄'s route), the
+    pack, the prelude and the scaled warm start (zeros). Returns ``(csr,
+    plan, idx, pre, state)``."""
     import torch
 
     from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
@@ -1118,7 +1162,7 @@ def lp_inputs(ops, blocks=None):
     c, ell, h, A, b = ops
     nv, m1 = len(c), len(ell)
     f32 = dict(dtype=torch.float32, device=dev)
-    csr, plan = mk.lp_launch_inputs(ell.idx, ell.val, nv, 1, dev, blocks)
+    csr, plan = mk.lp_launch_inputs(ell.idx, ell.val, nv, 1, dev, blocks, stage_x)
     t = [torch.as_tensor(np.asarray(a, np.float32), **f32) for a in (c, ell.val, h, A, b)]
     idx = torch.as_tensor(ell.idx, device=dev)
     zeros = (torch.zeros(nv, **f32), torch.zeros(m1, **f32), torch.zeros(1, **f32))
@@ -1128,8 +1172,9 @@ def lp_inputs(ops, blocks=None):
 
 def lp_compare(inputs, c64, tol, max_iters, profile=False):
     """The LP kernel and its plain version on the same prelude output: times,
-    the errors of x, λ and the objective, iteration counts, flags, and the
-    kernel's raw output (``out_k``)."""
+    the errors of x, λ, μ and the objective, the plain version's largest
+    entry of each vector, iteration counts, flags, and the kernel's raw
+    output (``out_k``)."""
     from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
 
     csr, plan, idx, pre, state = inputs
@@ -1148,15 +1193,16 @@ def lp_compare(inputs, c64, tol, max_iters, profile=False):
     plain_ms = cuda_ms(lambda: out_p.update(v=mk.lp_blocks_plain(csr, idx, pre, state, tol, **kw)),
                        reps=1, warmup=0)
     k_out, p_out = out_k["v"], out_p["v"]
-    xk, lk, _ = (a.cpu().numpy() for a in pre.unscale(*k_out[:3]))
-    xp, lp, _ = (a.cpu().numpy() for a in pre.unscale(*p_out[:3]))
+    xk, lk, mk_ = (a.cpu().numpy() for a in pre.unscale(*k_out[:3]))
+    xp, lp, mp = (a.cpu().numpy() for a in pre.unscale(*p_out[:3]))
     return dict(
         ms=ms, profiler_ms=profiler_ms, plain_ms=plain_ms,
         it_k=int(k_out[3]), it_p=int(p_out[3]), res_k=float(k_out[4]), res_p=float(p_out[4]),
         flags_k=int(k_out[5]), flags_p=int(p_out[5]),
         err_x=float(np.abs(xk - xp).max()), err_lam=float(np.abs(lk - lp).max()),
+        err_mu=float(np.abs(mk_ - mp).max()),
         err_obj=abs(float(c64 @ xk) - float(c64 @ xp)), max_abs_x=float(np.abs(xp).max()),
-        out_k=k_out,
+        max_abs_lam=float(np.abs(lp).max()), max_abs_mu=float(np.abs(mp).max()), out_k=k_out,
     )
 
 
@@ -1175,18 +1221,57 @@ def lp_bound(m1, kp, nv, nnz, iters):
     return roofline.bound(cost) + (roofline.stream_ms(cost),)
 
 
-def lp_path_solve(inputs):
-    """One kernel solve at the path's own tolerance and cap, timed by CUDA
-    events: ``(ms, iterations, kkt)``."""
+def lp_path_solve(inputs, tol=LP_TOL, max_iters=LP_MAX_ITERS):
+    """One kernel solve, at the path's own tolerance and cap by default,
+    timed by CUDA events: ``(ms, iterations, kkt, raw output)``."""
     from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
 
     csr, plan, idx, pre, state = inputs
     out = {}
     ms = cuda_ms(lambda: out.update(v=mk.lp_blocks_cuda(
-        csr, plan, idx, pre, state, LP_TOL, max_iters=LP_MAX_ITERS, check_every=128,
+        csr, plan, idx, pre, state, tol, max_iters=max_iters, check_every=128,
         sentinel=True,
     )), reps=1, warmup=0)
-    return ms, int(out["v"][3]), float(out["v"][4])
+    return ms, int(out["v"][3]), float(out["v"][4]), out["v"]
+
+
+def plan_record(plan) -> dict:
+    """An LP kernel plan's blocks, x̄ route and residency."""
+    return dict(grid=plan.grid, stage_x=plan.stage_x, resident=plan.tile_floats > 0,
+                resident_tile_floats=plan.tile_floats,
+                largest_var_tile=int(np.diff(plan.type_bounds).max()))
+
+
+def lp_route_hold(ops, staged, tol, max_iters, blocks=None):
+    """The LP kernel forced onto the global-x̄ route (``stage_x=False``)
+    against ``staged``, :func:`lp_path_solve`'s ``(ms, iters, kkt, out)``
+    on the staged route at the same ``tol``, ``max_iters`` and ``blocks``
+    (a fresh prelude is bit for bit the same): the same iterations,
+    residual, flags and x, λ, μ bit for bit, the same tiles, and both
+    routes' times."""
+    import torch
+
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
+
+    c, ell = ops[0], ops[1]
+    s_plan = mk.lp_launch_inputs(ell.idx, ell.val, len(c), 1, "cuda", blocks)[1]
+    g_in = lp_inputs(ops, blocks, stage_x=False)
+    g_plan = g_in[1]
+    g1 = lp_path_solve(g_in, tol, max_iters)
+    # x, λ, μ, iterations, residual, flags
+    same = all(torch.equal(a, b) for a, b in zip(staged[3], g1[3]))
+    tiles = bool(
+        np.array_equal(s_plan.col_bounds, g_plan.col_bounds)
+        and np.array_equal(s_plan.type_bounds, g_plan.type_bounds)
+        and (s_plan.tile_floats > 0) == (g_plan.tile_floats > 0)
+    )
+    rec = dict(
+        staged=plan_record(s_plan), global_x=plan_record(g_plan), tol=tol, max_iters=max_iters,
+        iters=g1[1], kkt=g1[2], bit_identical=bool(same), same_tiles=tiles,
+        staged_ms=staged[0], global_x_ms=g1[0],
+    )
+    rec["ok"] = bool(same and tiles and s_plan.stage_x and not g_plan.stage_x)
+    return rec
 
 
 def lp_phase(ops, host_ops):
@@ -1216,9 +1301,12 @@ def lp_phase(ops, host_ops):
     inputs = lp_inputs(ops)
     csr, plan, idx, pre, state = inputs
     c64 = np.asarray(c, np.float64)
-    path_ms, path_iters, path_kkt = lp_path_solve(inputs)
+    path = lp_path_solve(inputs)
+    path_ms, path_iters, path_kkt = path[:3]
     met = path_iters < LP_MAX_ITERS and path_kkt <= LP_TOL
     tol = LP_TOL if met else LP_CHECK_TOL
+    # the global-x̄ route forced at the same solve: bit for bit the staged one
+    route = lp_route_hold(ops, path, LP_TOL, LP_MAX_ITERS)
 
     cmp = lp_compare(inputs, c64, tol, LP_MAX_ITERS, profile=True)
     ms, profiler_ms, plain_ms = cmp["ms"], cmp["profiler_ms"], cmp["plain_ms"]
@@ -1256,7 +1344,7 @@ def lp_phase(ops, host_ops):
     host_ok = host.iters == -1 and host.ok and bool(np.isfinite(host.x).all())
     ok = (
         lp_close(cmp) and converged and same_iters and repeat_same and fixed_ok and quarantined
-        and host_ok and plan.grid > 1
+        and host_ok and plan.grid > 1 and route["ok"]
     )
     nnz = int(csr[0].shape[0])
     bound_ms, bound_by, iter_bytes_ms = lp_bound(m1, kp, nv, nnz, it_k)
@@ -1281,7 +1369,7 @@ def lp_phase(ops, host_ops):
                                   "flags_p", "err_x", "err_lam", "err_obj")
         }),
         nan_quarantined=quarantined, nan_host_resolve_ok=host_ok, nan_host_seconds=host_s,
-        nan_host_m1=len(hell),
+        nan_host_m1=len(hell), global_x_route=route,
         tolerance=dict(x=LP_X_TOL, lam=LP_LAM_TOL, obj=LP_OBJ_TOL, iters=0), ok=bool(ok),
     )
     print(json.dumps(rec), flush=True)
@@ -1305,9 +1393,16 @@ def lp_sf_b_phase(ops):
     nv, (m1, kp) = len(c), ell.idx.shape
     inputs = lp_inputs(ops)
     plan = inputs[1]
-    path_ms, path_iters, path_kkt = lp_path_solve(inputs)
+    path = lp_path_solve(inputs)
+    path_ms, path_iters, path_kkt = path[:3]
     met = path_iters < LP_MAX_ITERS and path_kkt <= LP_TOL
     tol = LP_TOL if met else LP_CHECK_TOL
+    # the global-x̄ route forced at the same solve, and on one block for a
+    # fixed LP_ONE_BLOCK_ITERS iterations (x̄ through global memory there
+    # too): bit for bit the staged route
+    route = lp_route_hold(ops, path, LP_TOL, LP_MAX_ITERS)
+    one_staged = lp_path_solve(lp_inputs(ops, blocks=1), 0.0, LP_ONE_BLOCK_ITERS)
+    route_one = lp_route_hold(ops, one_staged, 0.0, LP_ONE_BLOCK_ITERS, blocks=1)
     cmp = lp_compare(inputs, np.asarray(c, np.float64), tol, LP_MAX_ITERS)
     same_iters = cmp["it_k"] == cmp["it_p"]
     converged = bool(cmp["res_k"] <= tol and cmp["it_k"] < LP_MAX_ITERS)
@@ -1324,8 +1419,12 @@ def lp_sf_b_phase(ops):
         max_abs_err_x=cmp["err_x"], max_abs_err_lam=cmp["err_lam"], obj_err=cmp["err_obj"],
         same_iters=same_iters, converged=converged, launches=mk.LP_KERNEL.launches - launches0,
         tolerance=dict(x=LP_X_TOL, lam=LP_LAM_TOL, obj=LP_OBJ_TOL, iters=0),
+        global_x_route=route, global_x_one_block=route_one,
     )
-    rec["ok"] = bool(lp_close(cmp) and same_iters and converged)
+    rec["ok"] = bool(
+        lp_close(cmp) and same_iters and converged and route["ok"] and route_one["ok"]
+        and route_one["staged"]["grid"] == 1 and route_one["iters"] == LP_ONE_BLOCK_ITERS
+    )
     print(json.dumps(rec), flush=True)
     if not rec["ok"]:
         raise SystemExit("LP block kernel sf_b phase failed")
@@ -2584,20 +2683,30 @@ def _l2_hold_cpu(idx, val, n, t, donor, conn):
     conn.send(l2_hold_run(idx, val, n, t, donor, "cpu", False))
 
 
-def xmin_l2_hold_phase(dist, leximin, cpu_run):
-    """``qp._get_l2_fused_core_ell`` on the first ``L2_HOLD_ROWS`` panels of
-    the XMIN portfolio (targets: the leximin values; donor: the LEXIMIN
-    probabilities) on the card, the gather kernel and the agent-major CSR
-    transpose, against the same core on the CPU (the plain gather and
-    ``index_add_``; ``cpu_run``, the worker of :func:`start_l2_references`):
-    equal anchor iterations and ascent chunks, p within ``L2_HOLD_P_TOL``,
-    the floor vector within ``L2_HOLD_FLOOR_TOL``. On the card the ascent's
-    chunks replay as a CUDA graph; the same core with every chunk launched
-    op by op must give the same result bit for bit."""
+def xmin_l2_hold_card(dist, leximin):
+    """The card half of :func:`xmin_l2_hold_phase`: the core with the
+    ascent's chunks replayed as a CUDA graph, and op by op. Returns ``(rows,
+    k_pad, n, outputs, seconds, timers)``."""
     P, idx, val, n, t, donor = l2_hold_inputs(dist, leximin)
     outs, secs, timers = {}, {}, {}
     for label, graph in (("cuda", True), ("cuda_eager", False)):
         outs[label], secs[label], timers[label] = l2_hold_run(idx, val, n, t, donor, "cuda", graph)
+    return len(P), idx.shape[1], n, outs, secs, timers
+
+
+def xmin_l2_hold_phase(card, cpu_run):
+    """``qp._get_l2_fused_core_ell`` on the first ``L2_HOLD_ROWS`` panels of
+    the XMIN portfolio (targets: the leximin values; donor: the LEXIMIN
+    probabilities) on the card, the gather kernel and the agent-major CSR
+    transpose (``card``, :func:`xmin_l2_hold_card`), against the same core
+    on the CPU (the plain gather and ``index_add_``; ``cpu_run``, the worker
+    of :func:`start_l2_references`): equal anchor iterations and ascent
+    chunks, p within ``L2_HOLD_P_TOL``, the floor vector within
+    ``L2_HOLD_FLOOR_TOL``. On the card the ascent's chunks replay as a CUDA
+    graph; the same core with every chunk launched op by op must give the
+    same result bit for bit. ``main`` judges it some phases after the card
+    half, when the CPU run (about a minute) has had its time."""
+    rows, k_pad, n, outs, secs, timers = card
     outs["cpu"], secs["cpu"], timers["cpu"] = cpu_worker_result(cpu_run)
     g, e, c = outs["cuda"], outs["cuda_eager"], outs["cpu"]
     p_err = float(np.abs(g[0] - c[0]).max())
@@ -2606,7 +2715,7 @@ def xmin_l2_hold_phase(dist, leximin, cpu_run):
         np.array_equal(g[0], e[0]) and np.array_equal(g[1], e[1]) and g[2:] == e[2:]
     )
     rec = dict(
-        phase="xmin_l2_hold", rows=len(P), n=n, k_pad=idx.shape[1], seconds=secs, timers=timers,
+        phase="xmin_l2_hold", rows=rows, n=n, k_pad=k_pad, seconds=secs, timers=timers,
         anchor_iters=[g[2], c[2]], ascent_iters=[g[3], c[3]], flags=[g[4], c[4]],
         p_max_abs_err=p_err, floor_max_abs_err=floor_err, graph_bit_identical=graph_equal,
         p_tolerance=L2_HOLD_P_TOL, floor_tolerance=L2_HOLD_FLOOR_TOL,
@@ -4041,21 +4150,32 @@ def dual_lp_kkt(P, fixed, x, lam, mu):
 
 def dual_lp_nationwide_phase(mesh, highs_ref, libs):
     """The nationwide dual LP (:func:`nationwide_dual_problem`, y of
-    100,001) on the card by the row-sharded PDHG over the one-rank mesh
-    (ELL route: its local product the gather) and by ``solve_dual_lp_pdhg``
-    at the defaults (the LP kernel's fit misses at 100,001 variables, so
-    the chained ELL route, its products the gather). Each must converge
+    100,001) on the card three ways: by the row-sharded PDHG over the
+    one-rank mesh (ELL route: its local product the gather), by
+    ``solve_dual_lp_pdhg`` at the defaults (the LP kernel, on its global-x̄
+    route: x̄'s 100,001 floats do not fit a block's shared memory) and by
+    the same forced chained (``pdhg_megakernel=False``: the route the JAX
+    package takes there, its products the gather). Each must converge
     (``ok``: the PDHG's own KKT residual within 4× its 1e-6 tolerance; the
-    sharded solve's ``kkt`` recorded, and the chained solve's recomputed
-    from its ``(x, λ, μ)`` in the LP's units by :func:`dual_lp_kkt`), lie
-    within ``SHARDED_DUAL_TOL`` of HiGHS (``highs_ref``, started in a
-    worker process before the phase) in objective and ŷ and of the LP's
-    feasible set (:func:`dual_lp_checks`), launch its gathers on the L2
-    route only (every kernel's launches counted from zero just before the
-    solve), with no quarantine and no host re-solve."""
+    sharded solve's ``kkt`` recorded, and the others' recomputed from their
+    ``(x, λ, μ)`` in the LP's units by :func:`dual_lp_kkt`), lie within
+    ``SHARDED_DUAL_TOL`` of HiGHS (``highs_ref``, started in a worker
+    process before the phase) in objective and ŷ and of the LP's feasible
+    set (:func:`dual_lp_checks`), launch its gathers on the L2 route only
+    (every kernel's launches counted from zero just before the solve), with
+    no quarantine and no host re-solve. The kernel solve makes one LP
+    kernel launch, on the global-x̄ route, with no fit miss, and lies within
+    ``SHARDED_DUAL_TOL`` of the chained solve's objective and ŷ. Then, on
+    the LP built from the same panels (:func:`nationwide_ops`) and outside
+    the counted windows: the kernel's own solve at the path's tolerance,
+    timed by CUDA events, and the kernel against its plain version on one
+    prelude output for ``NATIONWIDE_CHECK_BLOCKS`` blocks (the same
+    iterations; x, λ, μ each within ``NATIONWIDE_CHECK_REL_TOL`` of its
+    largest entry, which the record gives)."""
     import torch
 
     from citizensassemblies_tpu_torch.kernels import ell_matvec as em
+    from citizensassemblies_tpu_torch.kernels import pdhg_megakernel as mk
     from citizensassemblies_tpu_torch.parallel.solver import solve_dual_lp_pdhg_sharded
     from citizensassemblies_tpu_torch.solvers.lp_pdhg import solve_dual_lp_pdhg
     from citizensassemblies_tpu_torch.utils.config import default_config
@@ -4063,8 +4183,8 @@ def dual_lp_nationwide_phase(mesh, highs_ref, libs):
 
     t_phase = time.perf_counter()
     proc, recv, P, fixed = highs_ref
-    solves = {}
-    for name in ("sharded_ell", "chained"):
+    solves, ys = {}, {}
+    for name in ("sharded_ell", "kernel", "chained"):
         for lib in libs:
             lib.reset_counts()
         torch.cuda.synchronize()
@@ -4076,19 +4196,65 @@ def dual_lp_nationwide_phase(mesh, highs_ref, libs):
             counters = {}
         else:
             rlog = RunLog(echo=False)
-            sol, (x, lam, mu) = solve_dual_lp_pdhg(P, fixed, cfg=default_config(), device="cuda",
-                                                   log=rlog)
+            cfg = default_config()
+            if name == "chained":
+                cfg = cfg.replace(pdhg_megakernel=False)
+            sol, (x, lam, mu) = solve_dual_lp_pdhg(P, fixed, cfg=cfg, device="cuda", log=rlog)
             counters = dict(rlog.counters)
             extra = dict(megakernel_fit_miss=int(counters.get("megakernel_fit_miss", 0)),
+                         megakernel_dispatches=int(counters.get("megakernel_dispatches", 0)),
                          kkt_lp_units=dual_lp_kkt(P, fixed, x, lam, mu),
                          faults=fault_counts(counters), mp=mp_counts(counters))
+            ys[name] = sol.y
         torch.cuda.synchronize()
         solves[name] = dict(
             converged=sol.ok, seconds=time.perf_counter() - t0, objective=sol.objective,
             yhat=sol.yhat, feasibility=dual_lp_checks(P, fixed, sol.y, sol.yhat),
-            launches=dict(_launches(libs), ell_gather_l2=l2_gathers()),
-            entry_launches=dict(em.KERNEL.entry_launches), clean=clean(counters), **extra,
+            launches=dict(_launches(libs), ell_gather_l2=l2_gathers(),
+                          lp_block_global_x=global_x_lps()),
+            entry_launches=dict(em.KERNEL.entry_launches, **mk.LP_KERNEL.entry_launches),
+            clean=clean(counters), **extra,
         )
+    k_sol, c_sol = solves["kernel"], solves["chained"]
+    kernel_vs_chained = dict(objective=abs(k_sol["objective"] - c_sol["objective"]),
+                             yhat=abs(k_sol["yhat"] - c_sol["yhat"]))
+
+    # the kernel on its own, outside the counted windows
+    m1, n = P.shape
+    ops = nationwide_ops(np.nonzero(P)[1].reshape(m1, -1), n)
+    c = ops[0]
+    inputs = lp_inputs(ops)
+    plan = inputs[1]
+    nv, kp = len(c), ops[1].k_pad
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cores = mk.lp_coresident_blocks(nv, m1, dev, plan.tile_floats, plan.stage_x)
+    path_ms, path_iters, path_kkt, _ = lp_path_solve(inputs)
+    iters = NATIONWIDE_CHECK_BLOCKS * 128
+    cmp = lp_compare(inputs, np.asarray(c, np.float64), 0.0, iters)
+    nnz = int(inputs[0][0].shape[0])
+    bound_ms, bound_by, iter_bytes_ms = lp_bound(m1, kp, nv, nnz, path_iters)
+    errs = dict(x=cmp["err_x"], lam=cmp["err_lam"], mu=cmp["err_mu"])
+    scales = dict(x=cmp["max_abs_x"], lam=cmp["max_abs_lam"], mu=cmp["max_abs_mu"])
+    check = dict(
+        shape=dict(m1=m1, k_pad=kp, nv=nv, m2=1, nnz=nnz), plan=plan_record(plan),
+        blocks_per_sm=cores / sms, sms=sms,
+        path_tol=LP_TOL, path_ms=path_ms, path_iters=path_iters, path_kkt=path_kkt,
+        path_us_per_iter=1e3 * path_ms / path_iters if path_iters else None,
+        bound_ms=bound_ms, bound_by=bound_by, iter_bytes_ms=iter_bytes_ms,
+        check_iters=iters, ms=cmp["ms"], plain_ms=cmp["plain_ms"],
+        check_bound_ms=lp_bound(m1, kp, nv, nnz, iters)[0],
+        iters_kernel=cmp["it_k"], iters_plain=cmp["it_p"], max_abs_err=max(errs.values()),
+        max_abs_err_by=errs, max_abs_by=scales,
+        rel_err_by={k: errs[k] / scales[k] if scales[k] > 0 else None for k in errs},
+        obj_err=cmp["err_obj"], library_ms=None,
+        tolerance=dict(rel=NATIONWIDE_CHECK_REL_TOL, iters=0),
+    )
+    check["ok"] = bool(
+        not plan.stage_x and cmp["it_k"] == cmp["it_p"] == iters
+        and all(errs[k] <= NATIONWIDE_CHECK_REL_TOL * scales[k] for k in errs)
+    )
+
     t0 = time.perf_counter()
     highs_s, status, h_obj, h_yhat = recv.recv()
     proc.join()
@@ -4098,24 +4264,30 @@ def dual_lp_nationwide_phase(mesh, highs_ref, libs):
         r["highs_yhat_err"] = abs(r["yhat"] - h_yhat)
     launches = {k: sum(r["launches"][k] for r in solves.values())
                 for k in ("ell_gather", "ell_gather_bf16", "ell_gather_l2", "two_sided_block",
-                          "lp_block")}
+                          "lp_block", "lp_block_global_x")}
     rec = dict(
-        phase="dual_lp_nationwide", rows=int(P.shape[0]), n=int(P.shape[1]),
+        phase="dual_lp_nationwide", rows=int(m1), n=int(n),
         unfixed=int((fixed < 0).sum()), uncovered=int((P.sum(axis=0) == 0).sum()),
-        solves=solves, highs_seconds=highs_s,
+        solves=solves, kernel_vs_chained=dict(
+            kernel_vs_chained, y=float(np.abs(ys["kernel"] - ys["chained"]).max())),
+        kernel_check=check, highs_seconds=highs_s,
         highs_status=status, highs_objective=h_obj, highs_yhat=h_yhat,
         highs_wait_seconds=highs_wait, launches=launches,
         seconds=time.perf_counter() - t_phase,
     )
     rec["ok"] = bool(
         status == 0 and solves["sharded_ell"]["route"] == "ell"
-        and solves["chained"]["megakernel_fit_miss"] >= 1
+        and k_sol["megakernel_fit_miss"] == 0 and k_sol["megakernel_dispatches"] == 1
+        and k_sol["launches"]["lp_block"] == 1 and k_sol["launches"]["lp_block_global_x"] == 1
+        and c_sol["megakernel_fit_miss"] == 0 and c_sol["launches"]["lp_block"] == 0
+        and solves["sharded_ell"]["launches"]["lp_block"] == 0
+        and max(kernel_vs_chained.values()) <= SHARDED_DUAL_TOL and check["ok"]
         and all(r["converged"] and r["clean"] and r["highs_obj_err"] <= SHARDED_DUAL_TOL
                 and r["highs_yhat_err"] <= SHARDED_DUAL_TOL
                 and max(r["feasibility"].values()) <= SHARDED_DUAL_TOL
                 and r["launches"]["ell_gather_l2"] > 0
                 and r["launches"]["ell_gather_l2"] == r["launches"]["ell_gather"]
-                and r["launches"]["lp_block"] == 0 for r in solves.values())
+                for r in solves.values())
     )
     print(json.dumps(rec), flush=True)
     return rec
@@ -5756,23 +5928,28 @@ def main() -> int:
     except ImportError as exc:
         log(f"chip_smoke: the port is not importable here ({exc})")
         return 2
+    t0 = time.perf_counter()
+    libs = [em.KERNEL, mk.KERNEL, mk.LP_KERNEL]
+    # every nvcc starts now and compiles while this process starts CUDA and
+    # builds the first phases' operands on the host
+    building = cuda_lib.start_builds(libs)
     resolve_device("cuda")  # full float32: TF32 off for matmul and cuDNN
     card = card_line()
     log(f"card: {card}")
-
-    t0 = time.perf_counter()
-    libs = [em.KERNEL, mk.KERNEL, mk.LP_KERNEL]
-    build_s = cuda_lib.build_all(libs)
-    print(json.dumps(dict(phase="build", seconds=build_s, kernels=[lib.name for lib in libs])), flush=True)
-    for lib in libs:
-        log(f"--- ptxas report, {lib.name} ---\n{lib.build_log.strip()}")
     # the sharded dual phase's HiGHS reference takes minutes on one CPU
     # core: it runs in a worker process while the card works
     highs_ref = start_highs_reference()
-
     pack, MT, _ = flagship_pack()
-    gather = gather_phase(pack)
     dual_ops = dual_lp_operands()
+    host_s = time.perf_counter() - t0
+    cuda_lib.finish_builds(building)
+    build_s = time.perf_counter() - t0
+    print(json.dumps(dict(phase="build", seconds=build_s, host_work_meanwhile_s=host_s,
+                          kernels=[lib.name for lib in libs])), flush=True)
+    for lib in libs:
+        log(f"--- ptxas report, {lib.name} ---\n{lib.build_log.strip()}")
+
+    gather = gather_phase(pack)
     gather_dual = gather_phase(dual_ops[1], rows=len(dual_ops[1]), label="gather_dual_lp")
     b1, _ = solve_phase(pack, MT, [6144], "two_sided_b1", repeat=True)
     barrier_phase(b1, 5)
@@ -5813,8 +5990,9 @@ def main() -> int:
     gather_xmin = gather_phase(xmin_pack, rows=len(xmin_pack), label="gather_xmin")
     gather_bf16 = gather_bf16_phase(xmin_pack)
     hold_cpu, serial_cpu = start_l2_references(xmin_dist, lex_defaults, defaults_cfg)
-    xmin_hold = xmin_l2_hold_phase(xmin_dist, lex_defaults, hold_cpu)
-    l2_serial = l2_serial_phase(xmin_dist, lex_defaults, defaults_cfg, serial_cpu)
+    hold_card = xmin_l2_hold_card(xmin_dist, lex_defaults)
+    # the min-L2 phases' CPU runs take about a minute in their workers: the
+    # next phases run meanwhile, and the two L2 phases read them after
     mass = mass_like_phase(defaults_cfg, audits)
 
     legacy, legacy_alloc = legacy_phase(sf_e_skewed_instance(seed=1))
@@ -5823,6 +6001,8 @@ def main() -> int:
         audits,
     )
     launches["lp_block"] = agent["launches"]["lp_block"]
+    l2_serial = l2_serial_phase(xmin_dist, lex_defaults, defaults_cfg, serial_cpu)
+    xmin_hold = xmin_l2_hold_phase(hold_card, hold_cpu)
     agent_sf_b = agent_space_budget_phase(sf_b_skewed_instance(seed=1), slice_cfg, "agent_space_sf_b")
     dense_graph = dense_graph_phase(sf_b_skewed_instance(seed=1))
     stage_cg = stage_cg_phase(sf_b_skewed_instance(seed=1), defaults_cfg, "stage_cg_sf_b",
@@ -5867,6 +6047,9 @@ def main() -> int:
     launches["ell_gather"] += distribution["dual"]["launches"]["ell_gather"]
     launches["ell_gather"] += distribution["dual_nationwide"]["launches"]["ell_gather"]
     launches["ell_gather_l2"] = distribution["dual_nationwide"]["launches"]["ell_gather_l2"]
+    # the nationwide kernel solve: one LP kernel launch on the global-x̄ route
+    launches["lp_block"] += distribution["dual_nationwide"]["launches"]["lp_block"]
+    launches["lp_block_global_x"] = distribution["dual_nationwide"]["launches"]["lp_block_global_x"]
     # the request context, the scenario models and churn (queue A items 1-2):
     # the dropout model's flagship fallback and the deadline run are the
     # main path's LEXIMIN; every phase's launches count with the main path's
@@ -5940,12 +6123,26 @@ def main() -> int:
         l2_max_abs_err=gather_nationwide["max_abs_err"],
         l2_shape=gather_nationwide["shape"],
     )
+    # the LP kernel, its global-x̄ route at the nationwide dual LP
+    nat = distribution["dual_nationwide"]["kernel_check"]
+    lp_row = summary("lp_block", lp, [lp, lp_sf_b, nat],
+                     [households["agent"], distribution["dual_nationwide"]])
+    lp_row.update(
+        global_x_launches=launches["lp_block_global_x"], global_x_ms=nat["path_ms"],
+        global_x_iters=nat["path_iters"], global_x_bound_ms=nat["bound_ms"],
+        global_x_bound_by=nat["bound_by"], global_x_check_iters=nat["check_iters"],
+        global_x_check_ms=nat["ms"], global_x_plain_ms=nat["plain_ms"],
+        global_x_check_bound_ms=nat["check_bound_ms"], global_x_library_ms=None,
+        global_x_max_abs_err=nat["max_abs_err"], global_x_rel_err_by=nat["rel_err_by"],
+        global_x_shape=nat["shape"],
+        global_x_plan=nat["plan"],
+    )
     kernels = [
         gather_row,
         summary("two_sided_block", b1, [b1, b3, bnan, screen],
                 [households["hold"], households["n1200"], analysis["flagship"],
                  scenarios["dropout_flagship"], scenarios["deadline"], serving["flagship"]]),
-        summary("lp_block", lp, [lp, lp_sf_b], [households["agent"]]),
+        lp_row,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(f"total seconds: {time.perf_counter() - t0:.1f}")

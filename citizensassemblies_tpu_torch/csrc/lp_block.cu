@@ -55,13 +55,25 @@
 //    variables' run of the CSR) and its state resident in shared memory
 //    for the whole solve when the plan says it fits, else it streams that
 //    share from L2 and keeps its state in global memory;
+//  * x-bar takes one of two routes, a template flag the plan sets
+//    (stage_x): where all of it fits a block's shared memory beside the
+//    staged lambda, every block stages it there after each barrier, as
+//    below; past that (the nationwide dual LP's 100,001 variables) a block
+//    keeps neither x-bar nor a CSR row pointer in shared memory: it reads
+//    its variables' row pointer from the read-only global one, and its
+//    rows read x-bar from the global vector the variable owners publish,
+//    through the L2 (ld.global.cg, never the read-only path: x-bar is
+//    written inside the launch), at the pack's indices only. Every sum
+//    keeps its order, so the two routes agree bit for bit wherever both
+//    run;
 //  * an iteration: variable owners take the primal step from the staged
 //    lambda and publish their x-bar tile and their partial A x-bar; group
 //    barrier; every block sums the partials in block order and steps mu
 //    while staging x-bar; row owners take the dual step and publish their
 //    lambda tile; group barrier; every block stages lambda. A solve on one
-//    block publishes straight into its staged vectors, with a
-//    __syncthreads for each barrier;
+//    block publishes straight into its staged vectors (x-bar into its
+//    global vector on the global route), with a __syncthreads for each
+//    barrier;
 //  * scalar sums (A x-bar, the KKT terms, the movement norms) are warp sums
 //    added in warp order into a [slots, blocks] scratch and, after the
 //    barrier, summed by every block in block order (grid_sync.cuh): every
@@ -141,18 +153,20 @@ __host__ __device__ __forceinline__ int resident_floats(int nr, int nvt, int ne,
 struct Ctx {
   const int* tidx;
   const float* tval;
-  const int* trp;  // [nvt + 1] the block's CSR row pointer, less e0
+  // [nvt + 1] the block's CSR row pointer: staged less e0, or the global
+  // one from the block's first variable on (row_start)
+  const int* trp;
   const int* tcol;
   const float* tvs;
   const float* h;  // [nr]
   const float* c;  // [nvt]
   const float* A;
   int astride, rstride, sstride;
-  float* XK;    // the KKT's published x (global, all nv; xbs on one block)
+  float* XK;    // the KKT's published x (global, all nv; xbs on one staged block)
   float* LK;    // the KKT's published lambda (global, all m1; lams on one block)
   float* part;  // [kLpSlots, nb]
   float* lams;  // shared [m1]: staged lambda
-  float* xbs;   // shared [nv]: staged x-bar
+  float* xbs;   // shared [nv]: staged x-bar (null on the global route)
   float* red;   // shared [kLpRedFloats]
   const float* bs;  // shared [kLpMaxM2]
   const int* heavy;  // shared: count, then local indices
@@ -167,10 +181,28 @@ __device__ __forceinline__ float at_dot(const Ctx& X, int vl, const float* mu) {
   return a;
 }
 
+// ell_dot with y read through the L2 (__ldcg): y is an x-bar that blocks of
+// this launch publish, so it must not come through the non-coherent
+// read-only path, which ell_dot's restrict-qualified y may take. The same
+// slots in the same order, so the same sum bit for bit.
+__device__ __forceinline__ float ell_dot_cg(const int* __restrict__ idx,
+                                            const float* __restrict__ val,
+                                            int begin, int step, int kp,
+                                            long long stride, const float* y) {
+  float acc = 0.f;
+#pragma unroll 4
+  for (int s = begin; s < kp; s += step) {
+    const long long o = (long long)s * stride;
+    acc += val[o] * __ldcg(y + idx[o]);
+  }
+  return acc;
+}
+
 // f(rl, u) with u = (G y)[r0 + rl] over the row-major pack for each of the
 // block's rows, on one thread: a row takes a group of X.rg lanes and the
-// group's lane sums are added by the xor butterfly
-template <class F>
+// group's lane sums are added by the xor butterfly. y is the staged x-bar
+// in shared memory (kStageX) or the published one in global memory.
+template <bool kStageX, class F>
 __device__ __forceinline__ void rows_apply(const Ctx& X, const float* y, F f) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rg = X.rg, per_warp = 32 / rg;
@@ -180,10 +212,25 @@ __device__ __forceinline__ void rows_apply(const Ctx& X, const float* y, F f) {
     float u = 0.f;
     if (rl < X.nr) {
       const long long o = (long long)rl * X.rstride;
-      u = ell_dot(X.tidx + o, X.tval + o, sl, rg, X.kp, X.sstride, y);
+      if constexpr (kStageX) {
+        u = ell_dot(X.tidx + o, X.tval + o, sl, rg, X.kp, X.sstride, y);
+      } else {
+        u = ell_dot_cg(X.tidx + o, X.tval + o, sl, rg, X.kp, X.sstride, y);
+      }
     }
     for (int off = rg >> 1; off > 0; off >>= 1) u += __shfl_xor_sync(0xffffffffu, u, off);
     if (sl == 0 && rl < X.nr) f(rl, u);
+  }
+}
+
+// the block's first CSR entry of local variable vl, less e0: from the
+// staged row pointer, or from the global one on the global-x-bar route
+template <bool kStageX>
+__device__ __forceinline__ int row_start(const Ctx& X, int vl) {
+  if constexpr (kStageX) {
+    return X.trp[vl];
+  } else {
+    return __ldg(X.trp + vl) - X.e0;
   }
 }
 
@@ -197,7 +244,7 @@ __device__ __forceinline__ void rows_apply(const Ctx& X, const float* y, F f) {
 // the agents of a small LP on one block) are left out of that pass and
 // take one pass each over all the block's threads afterwards, summed by
 // the xor butterfly in each warp and the warps' sums in warp order.
-template <class F>
+template <bool kStageX, class F>
 __device__ __forceinline__ void gt_apply(const Ctx& X, const float* y, F f) {
   const int nt = X.nvt;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -214,9 +261,11 @@ __device__ __forceinline__ void gt_apply(const Ctx& X, const float* y, F f) {
     for (int h = 0; h < nheavy; ++h) mine = mine && X.heavy[1 + h] != vl;
     float g = 0.f;
     if (mine) {
-      const int e1 = X.trp[vl + 1];
+      const int e1 = row_start<kStageX>(X, vl + 1);
 #pragma unroll 4
-      for (int e = X.trp[vl] + q * vg + sl; e < e1; e += parts * vg) g += X.tvs[e] * y[X.tcol[e]];
+      for (int e = row_start<kStageX>(X, vl) + q * vg + sl; e < e1; e += parts * vg) {
+        g += X.tvs[e] * y[X.tcol[e]];
+      }
     }
     for (int off = vg >> 1; off > 0; off >>= 1) g += __shfl_xor_sync(0xffffffffu, g, off);
     if (sl == 0 && mine) {
@@ -238,10 +287,12 @@ __device__ __forceinline__ void gt_apply(const Ctx& X, const float* y, F f) {
   }
   for (int h = 0; h < nheavy; ++h) {
     const int vl = X.heavy[1 + h];
-    const int e1 = X.trp[vl + 1];
+    const int e1 = row_start<kStageX>(X, vl + 1);
     float g = 0.f;
 #pragma unroll 4
-    for (int e = X.trp[vl] + (int)threadIdx.x; e < e1; e += kLpThreads) g += X.tvs[e] * y[X.tcol[e]];
+    for (int e = row_start<kStageX>(X, vl) + (int)threadIdx.x; e < e1; e += kLpThreads) {
+      g += X.tvs[e] * y[X.tcol[e]];
+    }
     g = warp_sum(g);
     if (lane == 0) tpart[warp] = g;
     __syncthreads();
@@ -291,7 +342,9 @@ __device__ __forceinline__ void solve_sum(Ctx& X, float (&v)[N], int slot, int r
 }
 
 // combined relative KKT residual at (x, lam, mu): x over the block's
-// variables, lam over its rows (local views), mu in shared memory
+// variables, lam over its rows (local views), mu in shared memory; the
+// rows read the published x staged (kStageX) or where it was published
+template <bool kStageX>
 __device__ float kkt(Ctx& X, const float* x, const float* lam, const float* mu, float scale) {
   const int tid = threadIdx.x;
   const int m2 = X.m2;
@@ -315,16 +368,16 @@ __device__ float kkt(Ctx& X, const float* x, const float* lam, const float* mu, 
   }
   group_sync(X.bar);
   if (X.nb > 1) {
-    stage_floats(X.xbs, X.XK, round_up(X.nv, kLpAlignFloats), 0, kLpThreads);
+    if (kStageX) stage_floats(X.xbs, X.XK, round_up(X.nv, kLpAlignFloats), 0, kLpThreads);
     stage_floats(X.lams, X.LK, round_up(X.m1, kLpAlignFloats), 0, kLpThreads);
     __syncthreads();
   }
   // G x over the block's rows, G^T lam over its variables
-  rows_apply(X, X.xbs, [&](int rl, float u) {
+  rows_apply<kStageX>(X, kStageX ? X.xbs : X.XK, [&](int rl, float u) {
     const float r = max0(u - X.h[rl]);
     k[0] += r * r;
   });
-  gt_apply(X, X.lams, [&](int vl, float g) {
+  gt_apply<kStageX>(X, X.lams, [&](int vl, float g) {
     const float m = min0((X.c[vl] + g) + at_dot(X, vl, mu));
     k[2] += m * m;
   });
@@ -346,7 +399,7 @@ __device__ float kkt(Ctx& X, const float* x, const float* lam, const float* mu, 
   return (pri + dua) / scale + gap / (1.f + fabsf(pobj) + fabsf(dobj));
 }
 
-template <bool kResident>
+template <bool kResident, bool kStageX>
 __global__ void __launch_bounds__(kLpThreads) lp_solve_kernel(Params prm) {
   extern __shared__ __align__(16) float sm[];
   const int nv = prm.nv, m1 = prm.m1, m2 = prm.m2, kp = prm.kp, nb = prm.nb;
@@ -364,12 +417,21 @@ __global__ void __launch_bounds__(kLpThreads) lp_solve_kernel(Params prm) {
   const int r0 = X.r0, nr = X.nr, v0 = X.v0, nvt = X.nvt;
   const int ne = prm.rowptr[v0 + nvt] - X.e0;
   X.lams = sm;
-  X.xbs = sm + m14;
-  // the block's CSR row pointer, relative to its first entry
-  int* trp = reinterpret_cast<int*>(X.xbs + nvp);
-  for (int i = tid; i <= nvt; i += kLpThreads) trp[i] = prm.rowptr[v0 + i] - X.e0;
+  // the block's CSR row pointer, relative to its first entry, after the
+  // staged x-bar; on the global route neither is in shared memory
+  const int* trp;
+  if (kStageX) {
+    X.xbs = sm + m14;
+    int* srp = reinterpret_cast<int*>(X.xbs + nvp);
+    for (int i = tid; i <= nvt; i += kLpThreads) srp[i] = prm.rowptr[v0 + i] - X.e0;
+    trp = srp;
+    X.red = reinterpret_cast<float*>(srp + nvp);
+  } else {
+    X.xbs = nullptr;
+    trp = prm.rowptr + v0;
+    X.red = sm + m14;
+  }
   X.trp = trp;
-  X.red = reinterpret_cast<float*>(trp + nvp);
   // mu and its companions, the same bits in every block
   float* mu = X.red + kLpRedFloats;
   float* mu0 = mu + kLpMaxM2;
@@ -394,7 +456,7 @@ __global__ void __launch_bounds__(kLpThreads) lp_solve_kernel(Params prm) {
   X.vg = vg;
   // the heavy variables (gt_apply)
   int* heavy = reinterpret_cast<int*>(X.red + kHeavyRed);
-  __syncthreads();  // trp is written
+  __syncthreads();  // the staged row pointer is written
   if (tid == 0) {
     int n = 0;
     for (int vl = 0; vl < nvt && nvt > 1 && n < kMaxHeavy; ++vl) {
@@ -405,15 +467,16 @@ __global__ void __launch_bounds__(kLpThreads) lp_solve_kernel(Params prm) {
   X.heavy = heavy;
   // global scratch: the published vectors, a streaming block's state, the
   // partials. A solve of one block publishes straight into its staged
-  // vectors: nothing has to go through global memory.
+  // vectors: nothing has to go through global memory but, on the global
+  // route, x-bar (its rows read it after a __syncthreads).
   float* gXB = prm.scratch;
   float* gXK = gXB + nv4;
   float* gLB = gXK + 4 * nv4;
   float* gLK = gLB + m14;
   X.part = gLK + 4 * m14;
-  float* XB = nb == 1 ? X.xbs : gXB;
+  float* XB = nb == 1 && kStageX ? X.xbs : gXB;
   float* LB = nb == 1 ? X.lams : gLB;
-  X.XK = nb == 1 ? X.xbs : gXK;
+  X.XK = nb == 1 && kStageX ? X.xbs : gXK;
   X.LK = nb == 1 ? X.lams : gLK;
   // the block's own slices of the inputs and of the state
   float* gx = prm.x + v0;
@@ -552,7 +615,7 @@ __global__ void __launch_bounds__(kLpThreads) lp_solve_kernel(Params prm) {
       float ax[kLpMaxM2];
 #pragma unroll
       for (int r = 0; r < kLpMaxM2; ++r) ax[r] = 0.f;
-      gt_apply(X, X.lams, [&](int vl, float g) {
+      gt_apply<kStageX>(X, X.lams, [&](int vl, float g) {
         const float grad = (c[vl] + g) + at_dot(X, vl, mu);
         const float xo = x[vl];
         const float xn = max0(xo - tau * grad);
@@ -565,7 +628,11 @@ __global__ void __launch_bounds__(kLpThreads) lp_solve_kernel(Params prm) {
           if (r < m2) ax[r] += X.A[r * X.astride + vl] * xb;
         }
       });
-      solve_sum(X, ax, P_AX, m2, X.xbs, XB, nv4);
+      if (kStageX) {
+        solve_sum(X, ax, P_AX, m2, X.xbs, XB, nv4);
+      } else {
+        solve_sum(X, ax, P_AX, m2);
+      }
       // the mu step, the same in every block (mu is next read after the
       // barrier that closes this iteration)
       if (tid == 0) {
@@ -575,8 +642,9 @@ __global__ void __launch_bounds__(kLpThreads) lp_solve_kernel(Params prm) {
           ms[r] += mn;
         }
       }
-      // dual step over the block's rows from the staged x-bar
-      rows_apply(X, X.xbs, [&](int rl, float u) {
+      // dual step over the block's rows from the staged x-bar, or from the
+      // published one
+      rows_apply<kStageX>(X, kStageX ? X.xbs : XB, [&](int rl, float u) {
         const float ln = max0(lam[rl] + sigma * (u - h[rl]));
         lam[rl] = ln;
         ls[rl] += ln;
@@ -596,8 +664,8 @@ __global__ void __launch_bounds__(kLpThreads) lp_solve_kernel(Params prm) {
       for (int r = 0; r < m2; ++r) ma[r] = (mav[r] + ms[r] * inv) * 0.5f;
     }
     __syncthreads();
-    const float r_cur = kkt(X, x, lam, mu, scale);
-    const float r_avg = kkt(X, xa, la, ma, scale);
+    const float r_cur = kkt<kStageX>(X, x, lam, mu, scale);
+    const float r_avg = kkt<kStageX>(X, xa, la, ma, scale);
     const bool restart = r_avg < r_cur;
     const float res_new = nan_min(r_cur, r_avg);
     // sentinel: a non-finite residual reverts the whole carry to the block
@@ -697,17 +765,42 @@ __global__ void __launch_bounds__(kLpThreads) lp_solve_kernel(Params prm) {
 }
 
 // Shared memory one block needs at (nv, m1) with `tile_floats` of resident
-// pack and state (0 when it streams): the fit rule of lp_layout.cuh, which
-// the Python gate reads as well.
-long long lp_smem_bytes(int nv, int m1, int tile_floats) {
-  return ((long long)kLpM1Vectors * round_up(m1, kLpAlignFloats) +
-          (long long)kLpNvVectors * round_up(nv + 1, kLpAlignFloats) + kLpRedFloats +
+// pack and state (0 when it streams) on x-bar's route: the fit rule of
+// lp_layout.cuh, which the Python gate reads as well.
+long long lp_smem_bytes(int nv, int m1, int tile_floats, bool stage_x) {
+  const long long xv = stage_x ? (long long)kLpNvVectors * round_up(nv + 1, kLpAlignFloats) : 0;
+  return ((long long)kLpM1Vectors * round_up(m1, kLpAlignFloats) + xv + kLpRedFloats +
           kLpM2Vectors * kLpMaxM2 + tile_floats) *
          (long long)sizeof(float);
 }
 
-template <class K>
-cudaError_t occupancy_of(K kernel, int smem, int* per_sm, int* sms) {
+}  // namespace
+
+#ifdef LP_BLOCK_GLOBAL_X_UNIT
+
+// lp_block_global_x.cu compiles this file a second time for the solve
+// kernel's global-x-bar instances alone, so that they build in a process
+// of their own beside the staged ones; the launch code below reaches them
+// through this function
+extern "C" const void* lp_global_x_kernel(int resident) {
+  return resident ? (const void*)lp_solve_kernel<true, false>
+                  : (const void*)lp_solve_kernel<false, false>;
+}
+
+#else
+
+extern "C" const void* lp_global_x_kernel(int resident);
+
+namespace {
+
+// the solve kernel of a resident share or not, on x-bar's route
+const void* solve_kernel(bool resident, bool stage_x) {
+  if (!stage_x) return lp_global_x_kernel(resident ? 1 : 0);
+  return resident ? (const void*)lp_solve_kernel<true, true>
+                  : (const void*)lp_solve_kernel<false, true>;
+}
+
+cudaError_t occupancy_of(const void* kernel, int smem, int* per_sm, int* sms) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   int dev = 0, coop = 0;
@@ -722,12 +815,11 @@ cudaError_t occupancy_of(K kernel, int smem, int* per_sm, int* sms) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kLpThreads, (size_t)smem);
 }
 
-// blocks of the solve kernel (resident or streaming) one SM holds with
-// `smem` bytes of shared memory, and the SM count
-cudaError_t occupancy(int smem, bool resident, int* per_sm, int* sms) {
+// blocks of the solve kernel (resident or streaming, on x-bar's route) one
+// SM holds with `smem` bytes of shared memory, and the SM count
+cudaError_t occupancy(int smem, bool resident, bool stage_x, int* per_sm, int* sms) {
   if (smem <= 0 || smem > kLpMaxSmem) return cudaErrorInvalidValue;
-  return resident ? occupancy_of(lp_solve_kernel<true>, smem, per_sm, sms)
-                  : occupancy_of(lp_solve_kernel<false>, smem, per_sm, sms);
+  return occupancy_of(solve_kernel(resident, stage_x), smem, per_sm, sms);
 }
 
 }  // namespace
@@ -737,11 +829,14 @@ cudaError_t occupancy(int smem, bool resident, int* per_sm, int* sms) {
 // success).
 
 // out (host int[2]): blocks per SM with `smem` bytes (resident share or
-// not), SM count
-extern "C" int lp_occupancy(int smem, int resident, void* out) {
+// not; x-bar staged or global), SM count
+extern "C" int lp_occupancy(int smem, int resident, int stage_x, void* out) {
   int* o = (int*)out;
-  return (int)occupancy(smem, resident != 0, o, o + 1);
+  return (int)occupancy(smem, resident != 0, stage_x != 0, o, o + 1);
 }
+
+// stage_x: 1 stages x-bar in every block's shared memory, 0 has rows read
+// it from global memory
 
 extern "C" int lp_solve_launch(
     const void* idx, const void* vals, const void* rowptr, const void* rowT,
@@ -749,15 +844,15 @@ extern "C" int lp_solve_launch(
     const void* bs, void* x, void* xav, void* lam, void* lav, void* mu,
     void* mav, void* scal, void* iters, void* scratch, void* bar, const void* plan,
     int nv, int m1, int m2, int kp, int nb, int tile_floats, int check_every, int max_iters,
-    int sentinel, void* stream) {
+    int sentinel, int stage_x, void* stream) {
   if (nb <= 0 || check_every <= 0 || tile_floats < 0 || nv <= 0 || m1 < 0 || m2 < 0 ||
       m2 > kLpMaxM2 || kp <= 0)
     return (int)cudaErrorInvalidValue;
-  const long long smem = lp_smem_bytes(nv, m1, tile_floats);
+  const long long smem = lp_smem_bytes(nv, m1, tile_floats, stage_x != 0);
   if (smem > kLpMaxSmem) return (int)cudaErrorInvalidValue;
   const bool resident = tile_floats > 0;
   int per_sm = 0, sms = 0;
-  cudaError_t e = occupancy((int)smem, resident, &per_sm, &sms);
+  cudaError_t e = occupancy((int)smem, resident, stage_x != 0, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   // every block must be resident at once, or a barrier waits for a block
   // that never runs
@@ -793,10 +888,10 @@ extern "C" int lp_solve_launch(
   prm.max_iters = max_iters;
   prm.sentinel = sentinel;
   void* args[] = {&prm};
-  const void* fn = resident ? (const void*)lp_solve_kernel<true>
-                            : (const void*)lp_solve_kernel<false>;
-  e = cudaLaunchCooperativeKernel(fn, dim3(nb), dim3(kLpThreads), args, (size_t)smem,
-                                  (cudaStream_t)stream);
+  e = cudaLaunchCooperativeKernel(solve_kernel(resident, stage_x != 0), dim3(nb),
+                                  dim3(kLpThreads), args, (size_t)smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
+
+#endif  // LP_BLOCK_GLOBAL_X_UNIT

@@ -8,15 +8,20 @@
 //
 // Shared memory one block needs at (nv variables, m1 inequality rows), in
 // bytes, with m1 and nv + 1 each rounded up to a multiple of kLpAlignFloats
-// (16-byte vector loads):
+// (16-byte vector loads), on each route of x-bar:
+//   staged (stage_x: every block copies all of x-bar into shared memory)
 //     (kLpM1Vectors * m1 + kLpNvVectors * (nv + 1) + kLpRedFloats
 //      + kLpM2Vectors * kLpMaxM2 + tile) * 4
+//   global (rows read x-bar where the variable owners publish it, and the
+//   block reads its CSR row pointer from global memory)
+//     (kLpM1Vectors * m1 + kLpRedFloats + kLpM2Vectors * kLpMaxM2 + tile) * 4
 // where tile is 0 when the block streams its share of the pack from L2 and
 // keeps its state in global memory and, when it keeps both resident, the
 // largest block's 2 * kp * rows + 2 * CSR entries (indices and values of
 // both layouts) + kLpOwnRowVectors * rows + (kLpOwnVarVectors + m2) * vars.
-// The rule is that it fits kLpMaxSmem, that m2 <= kLpMaxM2, and that the
-// plan's blocks are co-resident on the card.
+// The rule is the staged route where it fits kLpMaxSmem, else the global
+// route where that fits; m2 <= kLpMaxM2; and the plan's blocks are
+// co-resident on the card.
 #pragma once
 
 // shared memory one thread block may use on the H100 (bytes)
@@ -27,8 +32,8 @@ constexpr int kLpThreads = 512;
 constexpr int kLpAlignFloats = 4;
 // m1-length float vectors a block stages in shared memory (lambda)
 constexpr int kLpM1Vectors = 1;
-// (nv + 1)-length vectors a block keeps in shared memory: the staged x-bar,
-// and its own variables' CSR row pointer
+// (nv + 1)-length vectors a block keeps in shared memory on the staged
+// route: the staged x-bar, and its own variables' CSR row pointer
 constexpr int kLpNvVectors = 2;
 // equality rows the kernel takes at most
 constexpr int kLpMaxM2 = 8;

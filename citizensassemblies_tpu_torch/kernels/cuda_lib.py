@@ -5,8 +5,9 @@ into a shared library with a plain C interface and loaded with ctypes
 (no PyTorch headers, so a build takes seconds). A library is built at its
 first use, from the sources in the repository only, into the package's
 ``_build/`` directory; :func:`build_all` starts every build at once, one
-``nvcc`` per source. Nothing here runs at import time, so importing the
-package needs neither ``nvcc`` nor a card.
+``nvcc`` per source (a library of several translation units compiles each
+in a process of its own and links their objects). Nothing here runs at
+import time, so importing the package needs neither ``nvcc`` nor a card.
 
 A launch failure is an error: :meth:`CudaLibrary.call` (and
 :meth:`CudaLibrary.run`, which counts no launch) raises when the C entry
@@ -31,6 +32,8 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import subprocess
+import tempfile
 import threading
 import time
 from contextlib import contextmanager
@@ -69,16 +72,58 @@ _COUNT_LOCK = threading.Lock()
 _CAPTURE = threading.local()
 
 
+class _UnitsBuild:
+    """The build of a library of several translation units, as
+    :func:`native_build.finish_build` waits for one process: an ``nvcc -c``
+    per unit, all started at once, then one link of their objects into
+    ``tmp_path``."""
+
+    def __init__(self, cmd: List[str], sources: List[str], tmp_path: str):
+        self.tmp_path = tmp_path
+        self.returncode: Optional[int] = None
+        self._link = list(cmd)
+        self._objects = [f"{tmp_path}.{i}.o" for i in range(len(sources))]
+        compile_cmd = [a for a in cmd if a != "-shared"] + ["-c"]
+        self._procs = [
+            subprocess.Popen(compile_cmd + ["-o", obj, src], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE)
+            for obj, src in zip(self._objects, sources)
+        ]
+
+    def communicate(self):
+        out, err = b"", b""
+        try:
+            for proc in self._procs:
+                o, e = proc.communicate()
+                out, err = out + o, err + e
+                if proc.returncode != 0 and self.returncode is None:
+                    self.returncode = proc.returncode
+            if self.returncode is None:
+                link = subprocess.run(self._link + ["-o", self.tmp_path] + self._objects,
+                                      capture_output=True)
+                out, err = out + link.stdout, err + link.stderr
+                self.returncode = link.returncode
+        finally:
+            for obj in self._objects:
+                if os.path.exists(obj):
+                    os.unlink(obj)
+        return out, err
+
+
 class CudaLibrary:
     """One kernel source, its shared library and its launch counter.
 
     ``functions`` maps each C entry point to ``(restype, argtypes)``;
-    every pointer and the stream are ``ctypes.c_void_p``.
+    every pointer and the stream are ``ctypes.c_void_p``. ``units`` are
+    further sources of the library, each compiled in a process of its own
+    beside ``source``.
     """
 
-    def __init__(self, name: str, source: str, headers: Sequence[str], functions: Dict):
+    def __init__(self, name: str, source: str, headers: Sequence[str], functions: Dict,
+                 units: Sequence[str] = ()):
         self.name = name
         self.source = os.path.join(CSRC, source)
+        self.units = [os.path.join(CSRC, u) for u in units]
         self.headers = [os.path.join(CSRC, h) for h in headers]
         self.functions = functions
         #: kernel launches since the last reset (``chip_smoke.py`` zeroes it
@@ -103,12 +148,23 @@ class CudaLibrary:
         return [nvcc()] + NVCC_FLAGS + [f"-I{CSRC}"]
 
     def start_build(self):
-        return native_build.start_build(self.name, [self.source], self._cmd(), self.headers)
+        if not self.units:
+            return native_build.start_build(self.name, [self.source], self._cmd(), self.headers)
+        path = self.library_path()
+        if os.path.exists(path):
+            return path, None
+        os.makedirs(native_build.BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(prefix=f".lib{self.name}-", suffix=".so",
+                                   dir=native_build.BUILD_DIR)
+        os.close(fd)
+        return path, _UnitsBuild(self._cmd(), [self.source] + self.units, tmp)
 
     def library_path(self) -> str:
         """The content-hashed file this checkout's build of the library has
         (raises without ``nvcc``)."""
-        return native_build.library_path(self.name, [self.source] + self.headers, self._cmd())
+        return native_build.library_path(
+            self.name, [self.source] + self.units + self.headers, self._cmd()
+        )
 
     def _load(self, path: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
@@ -177,20 +233,29 @@ def count_replay(captured: Dict[str, Dict[str, int]]) -> None:
                 lib.launches += c
 
 
-def build_all(libs: List[CudaLibrary]) -> float:
-    """Build every library not yet built, all ``nvcc`` processes at once;
-    returns the wall seconds. Raises on the first failed build."""
-    t0 = time.perf_counter()
-    pending = []
-    for lib in libs:
-        if lib._lib is None:
-            pending.append((lib, lib.start_build()))
+def start_builds(libs: List[CudaLibrary]) -> list:
+    """Start building every library not yet built, all ``nvcc`` processes
+    at once; returns the pending builds for :func:`finish_builds`, so the
+    caller can do other work while they compile."""
+    return [(lib, lib.start_build()) for lib in libs if lib._lib is None]
+
+
+def finish_builds(pending: list) -> None:
+    """Wait for :func:`start_builds`' builds and load each library. Raises
+    on the first failed build."""
     for lib, (path, proc) in pending:
         path, log = native_build.finish_build(path, proc)
         with lib._lock:
             lib.build_log = log
             lib._lib = lib._load(path)
         note_compile("cuda_library_builds")
+
+
+def build_all(libs: List[CudaLibrary]) -> float:
+    """Build every library not yet built, all ``nvcc`` processes at once;
+    returns the wall seconds. Raises on the first failed build."""
+    t0 = time.perf_counter()
+    finish_builds(start_builds(libs))
     return time.perf_counter() - t0
 
 

@@ -44,7 +44,14 @@ The kernel takes the pack row-major (its ``G x``, one warp per row) and as
 a variable-major CSR transpose built on the host (its ``Gᵀλ``, one or more
 warps per variable). The torch ops take ``Gᵀλ`` over the same CSR
 (:func:`lp_operators`), so no step of an LP solve sums with atomics and two
-runs on the same inputs take the same iterations.
+runs on the same inputs take the same iterations. x̄ takes one of two
+routes (:func:`lp_stage_x`, the plan's ``stage_x``): every block stages
+all of it in shared memory where it fits there beside λ; past that (the
+nationwide dual LP's 100,001 variables) the rows read it where the
+variable owners publish it in global memory, and a block reads its CSR
+row pointer there too. The two routes give the same iterates
+bit for bit, and a launch on the global route counts under
+``lp_solve_launch.global_x``.
 
 Gate (``Config.pdhg_megakernel``), for both kernels: ``None`` — the kernel
 on CUDA when the solve fits (:func:`two_sided_fits`, :func:`lp_fits`);
@@ -96,9 +103,10 @@ LP_KERNEL = CudaLibrary(
     "lp_block.cu",
     ["ell_gather.cuh", "grid_sync.cuh", "lp_layout.cuh"],
     {
-        "lp_solve_launch": (ctypes.c_int, [_P] * 20 + [_I] * 9 + [_P]),
-        "lp_occupancy": (ctypes.c_int, [_I, _I, _P]),
+        "lp_solve_launch": (ctypes.c_int, [_P] * 20 + [_I] * 10 + [_P]),
+        "lp_occupancy": (ctypes.c_int, [_I, _I, _I, _P]),
     },
+    units=["lp_block_global_x.cu"],
 )
 
 
@@ -112,6 +120,10 @@ def _read_layout(header: str) -> Dict[str, int]:
 
 LAYOUT = _read_layout("two_sided_layout.cuh")
 LP_LAYOUT = _read_layout("lp_layout.cuh")
+
+#: the counting suffix of an LP kernel launch on the global-x̄ route
+#: (``LP_KERNEL.entry_launches`` key ``lp_solve_launch.global_x``)
+GLOBAL_X_ROUTE = "global_x"
 
 #: SM count of the H100 SXM: the card the gate assumes where it cannot ask
 #: one (a CPU device), at one block per SM
@@ -149,17 +161,19 @@ _OCCUPANCY = {"two_sided": (KERNEL, "two_sided_occupancy"), "lp": (LP_KERNEL, "l
 
 
 @functools.lru_cache(maxsize=None)
-def _card_occupancy(kernel: str, device_index: int, smem: int, resident: bool):
+def _card_occupancy(kernel: str, device_index: int, smem: int, *flags: bool):
     """``(blocks per SM, SM count)`` of a solve kernel (``"two_sided"`` or
-    ``"lp"``) with ``smem`` bytes of shared memory on a card."""
+    ``"lp"``) with ``smem`` bytes of shared memory on a card; ``flags``
+    pick its instance (resident or not and, for the LP kernel, x̄'s
+    route)."""
     lib, entry = _OCCUPANCY[kernel]
     out = (ctypes.c_int * 2)()
     with torch.cuda.device(device_index):
-        lib.run(entry, int(smem), int(resident), ctypes.cast(out, ctypes.c_void_p))
+        lib.run(entry, int(smem), *(int(f) for f in flags), ctypes.cast(out, ctypes.c_void_p))
     return int(out[0]), int(out[1])
 
 
-def _coresident(kernel: str, smem: int, resident: bool, device) -> int:
+def _coresident(kernel: str, smem: int, device, *flags) -> int:
     """Blocks of a solve kernel resident at once with ``smem`` bytes each:
     the occupancy the C side reports times the SM count on a CUDA device;
     the H100's SM count at one block each elsewhere."""
@@ -168,7 +182,7 @@ def _coresident(kernel: str, smem: int, resident: bool, device) -> int:
         return H100_SMS
     per_sm, sms = _card_occupancy(
         kernel, dev.index if dev.index is not None else torch.cuda.current_device(),
-        int(smem), bool(resident),
+        int(smem), *(bool(f) for f in flags),
     )
     return per_sm * sms
 
@@ -176,7 +190,7 @@ def _coresident(kernel: str, smem: int, resident: bool, device) -> int:
 def coresident_blocks(T: int, Cp: int, device, tile_floats: int = 0) -> int:
     """Blocks of the two-sided solve kernel that are resident at once at
     (T, Cp) with ``tile_floats`` of resident pack (:func:`_coresident`)."""
-    return _coresident("two_sided", two_sided_smem_bytes(T, Cp, tile_floats), tile_floats, device)
+    return _coresident("two_sided", two_sided_smem_bytes(T, Cp, tile_floats), device, tile_floats)
 
 
 def two_sided_fits(T: int, Cp: int, lanes: int = 1, coresident: Optional[int] = None) -> bool:
@@ -202,6 +216,9 @@ class LaunchPlan:
     col_bounds: np.ndarray
     type_bounds: np.ndarray
     tile_floats: int = 0
+    #: the LP kernel's x̄ route: staged in every block's shared memory, or
+    #: (False) read where it is published (:func:`lp_stage_x`)
+    stage_x: bool = True
     #: the bounds as one int32 device vector, once :meth:`upload` ran
     bounds: Optional[torch.Tensor] = None
 
@@ -220,8 +237,8 @@ class LaunchPlan:
 class TileRule:
     """What a block of a solve kernel keeps beside its share of the pack
     when it keeps that share resident: ``col_floats`` of state per owned
-    column (LP: row), ``type_floats`` per owned type (LP: variable); and
-    the shared memory a block takes with ``tile`` resident floats
+    column (LP: row), ``type_floats`` per owned type (LP: variable); the
+    shared memory a block takes with ``tile`` resident floats
     (``smem_bytes``) against the most it may take (``max_smem``)."""
 
     col_floats: int
@@ -373,15 +390,17 @@ LP_ONE_BLOCK_ENTRIES = 16384
 LP_ENTRIES_PER_BLOCK = 2048
 
 
-def lp_smem_bytes(nv: int, m1: int, tile_floats: int = 0) -> int:
-    """Shared memory one block of the LP kernel needs: the staged λ and
-    x̄, its CSR row pointer, the reduction scratch, μ and its companions,
-    and ``tile_floats`` of resident pack and state (0 when the block
-    streams them)."""
+def lp_smem_bytes(nv: int, m1: int, tile_floats: int = 0, stage_x: bool = True) -> int:
+    """Shared memory one block of the LP kernel needs: the staged λ; with
+    ``stage_x`` the staged x̄ and a CSR row pointer over all nv variables
+    (without, the block reads both from global memory); the reduction
+    scratch, μ and its companions, and ``tile_floats`` of resident pack and
+    state (0 when the block streams them)."""
     L = LP_LAYOUT
+    xv = L["kLpNvVectors"] * _round4(int(nv) + 1) if stage_x else 0
     return (
-        L["kLpM1Vectors"] * _round4(m1) + L["kLpNvVectors"] * _round4(int(nv) + 1)
-        + L["kLpRedFloats"] + L["kLpM2Vectors"] * L["kLpMaxM2"] + int(tile_floats)
+        L["kLpM1Vectors"] * _round4(m1) + xv + L["kLpRedFloats"]
+        + L["kLpM2Vectors"] * L["kLpMaxM2"] + int(tile_floats)
     ) * 4
 
 
@@ -395,20 +414,39 @@ def lp_scratch_floats(nv: int, m1: int, blocks: int) -> int:
     )
 
 
+def lp_stage_x(nv: int, m1: int, stage_x: Optional[bool] = None) -> bool:
+    """x̄'s route in the LP kernel at (nv, m1): ``stage_x`` None stages it
+    in every block's shared memory where it fits there beside λ (True) and
+    has the rows read it from global memory otherwise (False); True forces
+    the staged route and raises ``ValueError`` where it does not fit, False
+    forces the global one."""
+    fits = lp_smem_bytes(nv, m1) <= LP_LAYOUT["kLpMaxSmem"]
+    if stage_x and not fits:
+        raise ValueError(
+            f"the LP kernel cannot stage x-bar ({int(nv) + 1} floats) beside lambda ({m1}) "
+            f"in {LP_LAYOUT['kLpMaxSmem']} bytes"
+        )
+    return fits if stage_x is None else bool(stage_x)
+
+
 def lp_fits(nv: int, m1: int, m2: int) -> bool:
-    """The LP kernel's fit rule: at most ``kLpMaxM2`` equality rows, and a
-    block's staged λ and x̄ fit its shared memory (one block, which the
-    card always holds, is a legal plan)."""
+    """The LP kernel's fit rule: at most ``kLpMaxM2`` equality rows, and
+    a block's staged λ fits its shared memory, beside the staged x̄ or, on
+    the global-x̄ route, alone (one block, which the card always holds, is
+    a legal plan on either route)."""
     return (
         0 <= int(m2) <= LP_LAYOUT["kLpMaxM2"]
-        and lp_smem_bytes(nv, m1) <= LP_LAYOUT["kLpMaxSmem"]
+        and lp_smem_bytes(nv, m1, stage_x=False) <= LP_LAYOUT["kLpMaxSmem"]
     )
 
 
-def lp_coresident_blocks(nv: int, m1: int, device, tile_floats: int = 0) -> int:
+def lp_coresident_blocks(nv: int, m1: int, device, tile_floats: int = 0,
+                         stage_x: bool = True) -> int:
     """Blocks of the LP solve kernel that are resident at once at (nv, m1)
-    with ``tile_floats`` of resident pack (:func:`_coresident`)."""
-    return _coresident("lp", lp_smem_bytes(nv, m1, tile_floats), tile_floats, device)
+    with ``tile_floats`` of resident pack on x̄'s route (:func:`_coresident`)."""
+    return _coresident(
+        "lp", lp_smem_bytes(nv, m1, tile_floats, stage_x), device, tile_floats, stage_x
+    )
 
 
 def lp_block_count(m1: int, kp: int, nnz: int, coresident: int) -> int:
@@ -423,26 +461,31 @@ def lp_block_count(m1: int, kp: int, nnz: int, coresident: int) -> int:
 
 
 def lp_launch_plan(nv: int, m1: int, m2: int, kp: int, rowptr, coresident,
-                   blocks: Optional[int] = None) -> LaunchPlan:
-    """:func:`launch_plan` for one LP solve: ``m1`` rows split evenly, the
-    ``nv`` variables balanced by their CSR entries (``rowptr``), over
-    ``blocks`` blocks (:func:`lp_block_count` when not given) of the
-    ``coresident`` the card holds (a number or a function of the resident
-    tile's floats, as :func:`lp_coresident_blocks`)."""
+                   blocks: Optional[int] = None, stage_x: Optional[bool] = None) -> LaunchPlan:
+    """:func:`launch_plan` for one LP solve on x̄'s route (:func:`lp_stage_x`;
+    the plan's ``stage_x``): ``m1`` rows split evenly, the ``nv`` variables
+    balanced by their CSR entries (``rowptr``), over ``blocks`` blocks
+    (:func:`lp_block_count` when not given) of the ``coresident`` the card
+    holds on that route (a number or a function of the resident tile's
+    floats, as :func:`lp_coresident_blocks`). Raises ``ValueError`` where a
+    forced staged x̄ does not fit."""
+    sx = lp_stage_x(nv, m1, stage_x)
     cores = coresident if callable(coresident) else (lambda tile: int(coresident))
     if blocks is None:
         nnz = int(np.asarray(rowptr)[-1])
         blocks = lp_block_count(m1, kp, nnz, cores(0))
     rule = TileRule(
         LP_LAYOUT["kLpOwnRowVectors"], LP_LAYOUT["kLpOwnVarVectors"] + int(m2),
-        lambda tile: lp_smem_bytes(nv, m1, tile), LP_LAYOUT["kLpMaxSmem"],
+        lambda tile: lp_smem_bytes(nv, m1, tile, sx), LP_LAYOUT["kLpMaxSmem"],
     )
-    return launch_plan(1, nv, m1, cores, rowptr, kp, rule=rule, blocks=blocks)
+    return dataclasses.replace(
+        launch_plan(1, nv, m1, cores, rowptr, kp, rule=rule, blocks=blocks), stage_x=sx
+    )
 
 
 def lp_megakernel_mode(cfg: Optional[Config], nv: int, m1: int, m2: int, device, log=None) -> str:
     """:func:`megakernel_mode` for a generic LP of nv variables, m1
-    inequality and m2 equality rows."""
+    inequality and m2 equality rows (:func:`lp_fits`, on either x̄ route)."""
     return _gate(cfg, lambda: lp_fits(nv, m1, m2), device, log)
 
 
@@ -839,19 +882,21 @@ def lp_blocks_plain(csr, idx, pre, state, tol, *, max_iters, check_every, sentin
 
 
 def lp_launch_inputs(idx_np: np.ndarray, val_np, nv: int, m2: int, device,
-                     blocks: Optional[int] = None):
+                     blocks: Optional[int] = None, stage_x: Optional[bool] = None):
     """``(csr, plan)``: the pack's variable-major :func:`csr_transpose` and,
     on a CUDA device, its :class:`LaunchPlan` (:func:`lp_launch_plan`;
-    ``blocks`` overrides the block count, for measurements), both uploaded
-    (before the solve's other device work, as :func:`csr_to_device` says).
-    ``plan`` is None off CUDA."""
+    ``blocks`` overrides the block count and ``stage_x`` forces x̄'s
+    route, for measurements), both uploaded (before the solve's other
+    device work, as :func:`csr_to_device` says). ``plan`` is None off CUDA."""
     dev = torch.device(device)
+    m1, kp = idx_np.shape
+    sx = lp_stage_x(nv, m1, stage_x)
     perm, rowptr, rowT = csr_transpose(idx_np, val_np, nv)
     plan = None
     if dev.type == "cuda":
-        m1, kp = idx_np.shape
         plan = lp_launch_plan(
-            nv, m1, m2, kp, rowptr, lambda tile: lp_coresident_blocks(nv, m1, dev, tile), blocks
+            nv, m1, m2, kp, rowptr, lambda tile: lp_coresident_blocks(nv, m1, dev, tile, sx),
+            blocks, stage_x=sx,
         ).upload(dev)
     return tuple(torch.as_tensor(a, device=dev) for a in (perm, rowptr, rowT)), plan
 
@@ -869,25 +914,33 @@ def fill_slots(scal: torch.Tensor, layout: Dict[str, int], values) -> None:
             cell.fill_(float(val))
 
 
+def _require_cuda(dev, *tensors) -> None:
+    """Raise unless ``dev`` is a CUDA device that holds every tensor."""
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("the LP kernel takes CUDA tensors on one device")
+
+
 def lp_blocks_cuda(csr, plan: LaunchPlan, idx, pre, state, tol, *, max_iters, check_every,
                    sentinel):
     """Launch the LP block kernel on the prelude's output; ``csr`` and
     ``plan`` are :func:`lp_launch_inputs` of the same pack over the nv
-    variables. Returns the scaled ``(x, lam, mu, it, res, flags)`` like the
-    plain version, with ``it``/``res``/``flags`` as 0-d device tensors."""
+    variables. Launches on the plan's x̄ route, a launch on the global
+    route counted under ``lp_solve_launch.global_x``. Returns the scaled
+    ``(x, lam, mu, it, res, flags)`` like the plain version, with
+    ``it``/``res``/``flags`` as 0-d device tensors."""
     x, lam, mu, norm, scale = state
     nv, m1, m2 = x.shape[0], lam.shape[0], mu.shape[0]
     kp = idx.shape[1]
     dev = x.device
     vals = pre.vals_s
-    if dev.type != "cuda" or idx.device != dev or vals.device != dev:
-        raise ValueError("the LP kernel takes CUDA tensors on one device")
+    _require_cuda(dev, idx, vals)
     if idx.dtype != torch.int32 or vals.dtype != torch.float32 or tuple(vals.shape) != (m1, kp):
         raise ValueError("the LP kernel takes int32 idx and float32 vals, both [m1, k_pad]")
     if not lp_fits(nv, m1, m2):
         raise ValueError(f"an LP at nv={nv}, m1={m1}, m2={m2} does not fit the block kernel")
     if plan is None or plan.lanes != 1 or plan.bounds is None:
         raise ValueError("the launch plan is not one lane's, or is not uploaded")
+    lp_stage_x(nv, m1, plan.stage_x)
     perm, rowptr, rowT = csr
     nb = plan.blocks_per_lane
     vals = vals.contiguous()
@@ -911,8 +964,8 @@ def lp_blocks_cuda(csr, plan: LaunchPlan, idx, pre, state, tol, *, max_iters, ch
             ptr(hs), ptr(bs), ptr(xk), ptr(xav), ptr(lamk), ptr(lav), ptr(muk), ptr(mav),
             ptr(scal), ptr(iters), ptr(scratch), ptr(bar), ptr(plan.bounds),
             nv, m1, m2, kp, nb, plan.tile_floats, int(check_every), int(max_iters),
-            int(bool(sentinel)),
-            stream_of(xk),
+            int(bool(sentinel)), int(plan.stage_x),
+            stream_of(xk), variant=None if plan.stage_x else GLOBAL_X_ROUTE,
         )
     flags = (scal[LP_LAYOUT["L_POIS"]] > 0).to(torch.int32) + 2 * (
         scal[LP_LAYOUT["L_STALL"]] > 0
@@ -949,6 +1002,7 @@ def dispatch_lp(
         check_every=int(check_every),
     ) as ds, no_implicit_transfers(cfg):
         if plan is not None:
+            ds.note(stage_x=plan.stage_x)
             out = lp_blocks_cuda(csr, plan, idx, pre, state, tol, **kw)
         else:
             out = lp_blocks_plain(csr, idx, pre, state, tol, **kw)

@@ -970,7 +970,22 @@ def solve_lp_ell(c, ell, h, A, b, cfg: Optional[Config] = None, warm=None, tol: 
     return _finish_lp(c, lambda: ell_unpack_rows(ell.idx, ell.val, nv), h, A, b, out, tol, log)
 
 
-def dual_lp_operands(P: np.ndarray, fixed: np.ndarray, bucket: int = 256):
+#: the dual leximin LP's committee rows pad to a multiple of this
+_DUAL_LP_BUCKET = 256
+
+
+def _dual_lp_vectors(fixed: np.ndarray, C: int, bucket: int):
+    """``(Cp, c, h, A, b)`` of :func:`dual_lp_operands` for ``C`` committee
+    rows: the padded row count and everything but ``G``."""
+    fixed = np.asarray(fixed, dtype=np.float64)
+    unfixed = fixed < 0
+    Cp = ((C + bucket - 1) // bucket) * bucket
+    c = np.concatenate([-np.where(unfixed, 0.0, fixed), [1.0]])
+    A = np.concatenate([unfixed.astype(np.float64), [0.0]])[None, :]
+    return Cp, c, np.zeros(Cp), A, np.array([1.0])
+
+
+def dual_lp_operands(P: np.ndarray, fixed: np.ndarray, bucket: int = _DUAL_LP_BUCKET):
     """The dual leximin LP's ``(c, G, h, A, b)`` (dense float64) for the
     portfolio ``P [C, n]`` and the fixed probabilities (``< 0``: unfixed):
     variables ``z = [y (n), ŷ]``, ``min ŷ − Σ fixedᵢ yᵢ`` s.t. ``P y − ŷ·1
@@ -979,15 +994,37 @@ def dual_lp_operands(P: np.ndarray, fixed: np.ndarray, bucket: int = 256):
     implied by ŷ ≥ 0, so the solution is unchanged."""
     P = np.asarray(P, dtype=np.float64)
     C, n = P.shape
-    fixed = np.asarray(fixed, dtype=np.float64)
-    unfixed = fixed < 0
-    Cp = ((C + bucket - 1) // bucket) * bucket
+    Cp, c, h, A, b = _dual_lp_vectors(fixed, C, bucket)
     Ppad = np.zeros((Cp, n))
     Ppad[:C] = P
-    c = np.concatenate([-np.where(unfixed, 0.0, fixed), [1.0]])
     G = np.hstack([Ppad, -np.ones((Cp, 1))])
-    A = np.concatenate([unfixed.astype(np.float64), [0.0]])[None, :]
-    return c, G, np.zeros(Cp), A, np.array([1.0])
+    return c, G, h, A, b
+
+
+def _dual_lp_pack(P: np.ndarray, Cp: int):
+    """``EllPack.from_rows`` of :func:`dual_lp_operands`' ``G`` (``[P, −1]``,
+    rows past ``P`` ``[0, −1]``) built from ``P``'s nonzeros: the same
+    arrays, without the dense ``Cp × (n + 1)`` float64 matrix (1.6 GB at a
+    nationwide registry's 100,000 agents and 2,048 panels)."""
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack, _round_slots
+
+    C, n = P.shape
+    rows, cols = np.nonzero(P)
+    counts = np.bincount(rows, minlength=Cp)
+    kp = _round_slots(int(counts.max(initial=0)) + 1)
+    idx = np.zeros((Cp, kp), np.int32)
+    val = np.zeros((Cp, kp), np.float32)
+    starts = np.cumsum(counts) - counts
+    slot = np.arange(rows.size) - starts[rows]
+    idx[rows, slot] = cols
+    val[rows, slot] = np.asarray(P[rows, cols], dtype=np.float64)
+    every = np.arange(Cp)
+    idx[every, counts] = n
+    val[every, counts] = -1.0
+    pack = EllPack(minor=n + 1, idx=idx, val=val)
+    pack.nnz_total = int(counts.sum()) + Cp
+    pack.pack_rows = Cp
+    return pack
 
 
 def solve_dual_lp_pdhg(P: np.ndarray, fixed: np.ndarray, cfg: Optional[Config] = None, warm=None,
@@ -996,25 +1033,25 @@ def solve_dual_lp_pdhg(P: np.ndarray, fixed: np.ndarray, cfg: Optional[Config] =
     :func:`dual_lp_operands`) by PDHG on ``device``. Returns the
     ``DualSolution`` and the raw ``(x, λ, μ)`` triple for warm starts."""
     from citizensassemblies_tpu_torch.solvers.highs_backend import DualSolution
-    from citizensassemblies_tpu_torch.solvers.sparse_ops import EllPack, sparse_enabled
+    from citizensassemblies_tpu_torch.solvers.sparse_ops import sparse_enabled
 
     cfg = cfg or default_config()
-    P = np.asarray(P, dtype=np.float64)
+    P = np.asarray(P)
     C, n = P.shape
-    c, G, h, A, b = dual_lp_operands(P, fixed)
-    Cp = G.shape[0]
+    Cp, c, h, A, b = _dual_lp_vectors(fixed, C, _DUAL_LP_BUCKET)
     if warm is not None and warm[1].shape[0] != Cp:
         lam_w = np.zeros(Cp)
         lam_w[: min(Cp, warm[1].shape[0])] = warm[1][:Cp]
         warm = (warm[0], lam_w, warm[2])
     # panel rows hold k + 1 nonzeros of n + 1 columns: the ELL routes carry
-    # the solve whenever the fill clears the cutoff
+    # the solve whenever the fill clears the cutoff, packed from P's
+    # nonzeros
     fill = (float(np.count_nonzero(P)) + C) / max(Cp * (n + 1), 1)
     kw = dict(cfg=cfg, warm=warm, device=device, log=log)
     if sparse_enabled(cfg, fill):
-        sol = solve_lp_ell(c, EllPack.from_rows(G), h, A, b, **kw)
+        sol = solve_lp_ell(c, _dual_lp_pack(P, Cp), h, A, b, **kw)
     else:
-        sol = solve_lp(c, G, h, A, b, **kw)
+        sol = solve_lp(c, dual_lp_operands(P, fixed)[1], h, A, b, **kw)
     return (
         DualSolution(ok=sol.ok, y=sol.x[:n], yhat=float(sol.x[n]), objective=sol.objective),
         (sol.x, sol.lam, sol.mu),
